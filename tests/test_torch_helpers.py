@@ -1,0 +1,97 @@
+"""Shared helpers for the PyTorch port's parity tests (no tests here).
+
+Inputs are made with numpy from a seed and handed to both the JAX package
+(on the CPU) and the port (``device="cpu"``), as numpy arrays. JAX is
+imported only inside the helpers that need it, so the card-only tests
+(``test_torch_cuda.py``) run where JAX is not installed.
+"""
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+
+def t(x):
+    """numpy / JAX array -> fp32 CPU torch tensor."""
+    return torch.tensor(np.asarray(x, np.float32))
+
+
+def j(x):
+    """numpy / torch tensor -> fp32 JAX array."""
+    import jax.numpy as jnp
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return jnp.asarray(np.asarray(x, np.float32))
+
+
+def n(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def cosine(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-30))
+
+
+def policy_params_np(rng, do, da, hidden=(64, 64), logstd=-0.5,
+                     out_scale=0.3):
+    """Policy params as numpy, with a non-trivial final layer so the mean
+    is not ~0."""
+    sizes = [do] + list(hidden) + [da]
+    p = {}
+    for i in range(len(sizes) - 1):
+        s = 1.0 / np.sqrt(sizes[i])
+        if i == len(sizes) - 2:
+            s *= out_scale
+        p[f"W{i}"] = (s * rng.standard_normal((sizes[i], sizes[i + 1]))) \
+            .astype(np.float32)
+        p[f"b{i}"] = (0.1 * rng.standard_normal(sizes[i + 1])) \
+            .astype(np.float32)
+    p["logstd"] = np.full(da, logstd, np.float32) \
+        + (0.05 * rng.standard_normal(da)).astype(np.float32)
+    return p
+
+
+def env_inputs_np(cfg, N, seed):
+    """Initial states, targets and action noise for a rollout, drawn with
+    numpy from the reference's distributions."""
+    rng = np.random.RandomState(seed)
+    spec = cfg.arm
+    n = spec.n_joints
+    q0 = spec.q0_noise * rng.uniform(-1, 1, (N, n))
+    qd0 = spec.qd0_noise * rng.uniform(-1, 1, (N, n))
+    r = rng.uniform(spec.target_rmin_frac, spec.target_rmax_frac, N) \
+        * spec.reach
+    th = rng.uniform(0, 2 * np.pi, N)
+    tgt = np.stack([r * np.cos(th), r * np.sin(th), np.zeros(N)], -1)
+    eps = rng.standard_normal((cfg.horizon, N, n))
+    return tuple(x.astype(np.float32) for x in (q0, qd0, tgt, eps))
+
+
+def jax_batch(cfg, params_np, q0, qd0, tgt, eps):
+    """The JAX reference batch: the fused Pallas rollout in interpret mode
+    with caller noise, so it carries obs_ff/actions_ff/rewards_ff."""
+    from trpo_robot_control_tpu.ops.pallas.rollout_kernel import \
+        pallas_rollout
+    N = q0.shape[0]
+    params = {k: j(v) for k, v in params_np.items()}
+    return pallas_rollout(cfg, params, 0, n_envs=N, eps=j(eps),
+                          block_b=min(N, 128), interpret=True, q0=j(q0),
+                          qd0=j(qd0), tgt=j(tgt))
+
+
+def torch_batch_from_jax(batch):
+    from trpo_robot_control_tpu_torch.envs.arm import batch_from_ff
+    return batch_from_ff(t(batch["obs_ff"]), t(batch["actions_ff"]),
+                         t(batch["rewards_ff"]))
+
+
+def jit_jax_update(cfg):
+    import jax
+
+    from trpo_robot_control_tpu.trpo.update import trpo_update
+    return jax.jit(lambda p, w, b: trpo_update(cfg, p, w, b,
+                                               return_directions=True))

@@ -1,0 +1,112 @@
+"""The port's three kernels against the JAX package: on the CPU each
+wrapper runs its plain PyTorch version, which is held against the Pallas
+kernel in interpret mode and against its JAX twin on the same numpy
+inputs. ``test_torch_cuda.py`` holds each CUDA kernel against its plain
+version on the card."""
+import numpy as np
+import pytest
+import torch
+
+from jax.flatten_util import ravel_pytree
+
+from test_torch_helpers import (env_inputs_np, j, jax_batch, n,
+                                policy_params_np, t)
+from trpo_robot_control_tpu.configs import C1_REACHER2, C2_REACHER3
+from trpo_robot_control_tpu.models import baseline as jbase
+from trpo_robot_control_tpu.ops.fvp import make_gn_fvp as j_make_gn_fvp
+from trpo_robot_control_tpu.ops.pallas.fvp_kernel import make_pallas_gn_fvp
+from trpo_robot_control_tpu.ops.pallas.moments_kernel import \
+    pallas_baseline_moments
+from trpo_robot_control_tpu.ops.pallas.rollout_kernel import \
+    rollout_reference
+from trpo_robot_control_tpu_torch import configs as pconfigs
+from trpo_robot_control_tpu_torch.ops import cuda as kernels
+from trpo_robot_control_tpu_torch.ops.cuda import (moments_kernel,
+                                                   rollout_kernel)
+from trpo_robot_control_tpu_torch.ops.fvp import make_gn_fvp as p_make_gn_fvp
+
+
+@pytest.mark.parametrize("name", ["c1_reacher2", "c2_reacher3"])
+def test_rollout_plain_matches_pallas_and_reference(name):
+    jcfg = {"c1_reacher2": C1_REACHER2, "c2_reacher3": C2_REACHER3}[name] \
+        .replace(horizon=10)
+    pcfg = pconfigs.CONFIGS[name].replace(horizon=10)
+    N = 128
+    pn = policy_params_np(np.random.RandomState(0), jcfg.obs_dim,
+                          jcfg.arm.n_joints)
+    q0, qd0, tgt, eps = env_inputs_np(jcfg, N, seed=1)
+    pal = jax_batch(jcfg, pn, q0, qd0, tgt, eps)
+    ref = rollout_reference(jcfg, {k: j(v) for k, v in pn.items()}, j(q0),
+                            j(qd0), j(tgt), j(eps))
+    obs_ff, act_ff, rew_ff = rollout_kernel.rollout(
+        pcfg, {k: t(v) for k, v in pn.items()}, t(q0), t(qd0), t(tgt),
+        eps=t(eps))
+    assert obs_ff.shape == (10, jcfg.obs_dim, N)
+    # same tolerance as the Pallas kernel against its JAX twin
+    for key, mine in (("obs_ff", obs_ff), ("actions_ff", act_ff),
+                      ("rewards_ff", rew_ff)):
+        np.testing.assert_allclose(n(mine), np.asarray(pal[key]), atol=1e-5,
+                                   err_msg=key)
+    np.testing.assert_allclose(n(obs_ff.permute(2, 0, 1)),
+                               np.asarray(ref["obs"]), atol=1e-5)
+    np.testing.assert_allclose(n(act_ff.permute(2, 0, 1)),
+                               np.asarray(ref["actions"]), atol=1e-5)
+    np.testing.assert_allclose(n(rew_ff.T), np.asarray(ref["rewards"]),
+                               atol=1e-5)
+
+
+def test_moments_plain_matches_pallas_and_twin():
+    rng = np.random.RandomState(2)
+    T, do, N = 16, 12, 256
+    obs = rng.standard_normal((T, do, N)).astype(np.float32)
+    y = (5.0 * rng.standard_normal((T, N))).astype(np.float32)
+    A_p, b_p = pallas_baseline_moments(j(obs), j(y), horizon=T,
+                                       interpret=True)
+    A_j, b_j = jbase.normal_eq_ff(j(obs), j(y), horizon=T)
+    A_t, b_t = moments_kernel.baseline_moments(t(obs), t(y), T)
+    for A_ref, b_ref in ((A_p, b_p), (A_j, b_j)):
+        np.testing.assert_allclose(n(A_t), np.asarray(A_ref), rtol=2e-5,
+                                   atol=2e-3)
+        np.testing.assert_allclose(n(b_t), np.asarray(b_ref), rtol=2e-5,
+                                   atol=2e-3)
+    # the A_tt block is the same exact fp32 N tau^T tau
+    np.testing.assert_allclose(n(A_t)[2 * do:, 2 * do:],
+                               np.asarray(A_j)[2 * do:, 2 * do:], rtol=1e-6)
+
+
+@pytest.mark.parametrize("B", [300, 512])
+def test_fvp_plain_matches_pallas_and_twin(B):
+    rng = np.random.RandomState(3)
+    pn = policy_params_np(rng, 12, 3)
+    pj = {k: j(v) for k, v in pn.items()}
+    obs = rng.standard_normal((B, 12)).astype(np.float32)
+    theta, unravel = ravel_pytree(pj)
+    f_pal = make_pallas_gn_fvp(pj, unravel, j(obs), damping=0.1,
+                               block_b=128, interpret=True)
+    f_ref = j_make_gn_fvp(pj, unravel, j(obs), damping=0.1)
+    f_t = p_make_gn_fvp({k: t(v) for k, v in pn.items()}, t(obs), 0.1)
+    for s in range(2):
+        v = rng.standard_normal(theta.shape[0]).astype(np.float32)
+        mine = n(f_t(t(v)))
+        np.testing.assert_allclose(mine, np.asarray(f_pal(j(v))), rtol=2e-4,
+                                   atol=2e-6)
+        np.testing.assert_allclose(mine, np.asarray(f_ref(j(v))), rtol=2e-4,
+                                   atol=2e-6)
+
+
+def test_wrappers_take_the_plain_version_on_cpu():
+    kernels.reset_counts()
+    cfg = pconfigs.C1_REACHER2.replace(horizon=4)
+    pn = policy_params_np(np.random.RandomState(4), cfg.obs_dim, 2)
+    pt = {k: t(v) for k, v in pn.items()}
+    q0, qd0, tgt, eps = env_inputs_np(cfg, 8, seed=5)
+    with pytest.raises(ValueError, match="Philox"):
+        rollout_kernel.rollout(cfg, pt, t(q0), t(qd0), t(tgt),
+                               seed=torch.zeros(2, dtype=torch.int64))
+    obs_ff, _, rew_ff = rollout_kernel.rollout(cfg, pt, t(q0), t(qd0),
+                                               t(tgt), eps=t(eps))
+    moments_kernel.baseline_moments(obs_ff, rew_ff, 4)
+    p_make_gn_fvp(pt, obs_ff.permute(0, 2, 1).reshape(-1, cfg.obs_dim),
+                  0.1)(torch.ones(sum(v.numel() for v in pt.values())))
+    assert kernels.launch_counts() == {"rollout": 0, "moments": 0, "fvp": 0}
+    assert kernels.plain_calls() == {"rollout": 1, "moments": 1, "fvp": 1}

@@ -1,0 +1,123 @@
+"""The PyTorch port's ground rules: it imports nothing of JAX or of the
+JAX package, its entry points run on CUDA unless asked for the CPU, its
+configs equal the reference's, and what it does not port yet raises."""
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import test_torch_helpers  # noqa: F401  (pins torch threads)
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "trpo_robot_control_tpu_torch"
+
+
+def test_port_and_cli_import_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import trpo_robot_control_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import trpo_robot_control_tpu_torch.cli.train\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m.startswith('jaxlib') or m == 'trpo_robot_control_tpu'\n"
+        "       or m.startswith('trpo_robot_control_tpu.')]\n"
+        "print(len([m for m in sys.modules\n"
+        "           if m.startswith('trpo_robot_control_tpu_torch')]))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20      # the walk really imported
+
+
+_IMPORT = re.compile(
+    r"^\s*(?:import|from)\s+(jax|jaxlib|trpo_robot_control_tpu)(?![\w])",
+    re.MULTILINE)
+
+
+def test_source_scan_no_jax_imports():
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    for f in files:
+        hits = _IMPORT.findall(f.read_text())
+        assert not hits, f"{f}: imports {hits}"
+
+
+def test_entry_points_need_cuda_unless_cpu(monkeypatch):
+    from trpo_robot_control_tpu_torch.configs import C1_REACHER2
+    from trpo_robot_control_tpu_torch.device import resolve
+    from trpo_robot_control_tpu_torch.trpo.train import init_state, train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve(None)
+    with pytest.raises(RuntimeError):
+        init_state(C1_REACHER2)
+    with pytest.raises(RuntimeError):
+        train(C1_REACHER2.replace(n_envs=8, horizon=5), n_iters=1)
+    assert resolve("cpu").type == "cpu"
+    st = init_state(C1_REACHER2, device="cpu")
+    assert st.w.device.type == "cpu" and st.gen.device.type == "cpu"
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+@pytest.mark.parametrize("name", ["c1_reacher2", "c2_reacher3", "c3_franka7",
+                                  "c4_franka7_obstacle", "c5_multitask"])
+def test_configs_equal_jax(name):
+    from trpo_robot_control_tpu.configs import CONFIGS as J
+    from trpo_robot_control_tpu_torch.configs import CONFIGS as P
+    assert set(P) == set(J)
+    assert dataclasses.asdict(P[name]) == dataclasses.asdict(J[name])
+    assert P[name].obs_dim == J[name].obs_dim
+    assert P[name].arm.reach == J[name].arm.reach
+
+
+def test_cli_trains_on_cpu(capsys):
+    from trpo_robot_control_tpu_torch.cli.train import main
+    main(["--config", "c1_reacher2", "--iters", "2", "--n-envs", "16",
+          "--horizon", "10", "--device", "cpu", "--seed", "3"])
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("iter")]
+    assert len(lines) == 2 and "return" in lines[0]
+
+
+def test_cli_has_no_unported_flags():
+    from trpo_robot_control_tpu_torch.cli.train import main
+    for flag in ("--sharded", "--n-model", "--baseline", "--done-dist",
+                 "--ckpt-dir", "--resume"):
+        with pytest.raises(SystemExit):
+            main(["--iters", "1", "--device", "cpu", flag, "1"])
+
+
+def test_unported_paths_raise():
+    from trpo_robot_control_tpu_torch.configs import (C1_REACHER2,
+                                                      C3_FRANKA7)
+    from trpo_robot_control_tpu_torch.envs.arm import make_rollout_fn
+    from trpo_robot_control_tpu_torch.trpo.train import init_state
+    from trpo_robot_control_tpu_torch.trpo.update import trpo_update
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        make_rollout_fn(C3_FRANKA7)
+    with pytest.raises(NotImplementedError, match="termination"):
+        make_rollout_fn(C1_REACHER2.replace(done_dist=0.05))
+    with pytest.raises(NotImplementedError, match="MLP baseline"):
+        init_state(C1_REACHER2.replace(trpo=dataclasses.replace(
+            C1_REACHER2.trpo, baseline="mlp")), device="cpu")
+    st = init_state(C1_REACHER2, device="cpu")
+    batch = {"obs": torch.zeros(4, 5, 9)}
+    for over in (dict(ls_subsample=2), dict(fvp_env_subsample=2),
+                 dict(ff_store_dtype="bf16")):
+        cfg = C1_REACHER2.replace(trpo=dataclasses.replace(C1_REACHER2.trpo,
+                                                           **over))
+        with pytest.raises(NotImplementedError):
+            trpo_update(cfg, st.params, st.w, batch)
+    with pytest.raises(NotImplementedError, match="batch-major"):
+        trpo_update(C1_REACHER2, st.params, st.w, batch)
+    with pytest.raises(NotImplementedError, match="data parallelism"):
+        trpo_update(C1_REACHER2, st.params, st.w, batch, axis_name="data")

@@ -1,0 +1,80 @@
+"""K2: baseline normal-equation moments (``csrc/moments.cu``).
+
+Replaces ``pallas_baseline_moments`` in
+``trpo_robot_control_tpu/ops/pallas/moments_kernel.py``: one read of
+obs_ff (T, do, N) and the targets (T, N) gives the extended Gram of
+v_ext = [obs; obs^2; y; tau_t] (2do+5 rows), whose blocks are every moment
+of the ridge fit. (A, b) is assembled outside with the exact fp32
+A_tt = N tau^T tau, as the TPU wrapper does.
+
+``extended_gram`` is the wrapper: the CUDA kernel on CUDA tensors (or it
+raises), ``extended_gram_plain`` on CPU tensors. ``baseline_moments`` is
+the drop-in for ``models/baseline.normal_eq_ff``, the reference it is
+held against.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from ...models.baseline import _time_features, assemble
+
+TILE = 128          # envs of one step per tile (csrc/moments.cu: S)
+MAX_BLOCKS = 256    # fixed, so the reduction order does not depend on the card
+MAX_OBS_DIM = 32
+
+_SIG = {"trpo_moments_launch": [ctypes.c_void_p] * 5
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
+
+
+def extended_gram_plain(obs_ff, y, tau):
+    """obs_ff (T, do, N), y (T, N), tau (T, 4) -> (2do+5, 2do+5) Gram."""
+    extended_gram_plain.calls += 1
+    T, do, N = obs_ff.shape
+    v = torch.cat([obs_ff, obs_ff * obs_ff, y[:, None, :],
+                   tau[:, :, None].expand(T, 4, N)], dim=1)
+    return torch.einsum("tan,tbn->ab", v, v)
+
+
+extended_gram_plain.calls = 0
+
+
+def extended_gram(obs_ff, y, tau):
+    if not obs_ff.is_cuda:
+        return extended_gram_plain(obs_ff, y, tau)
+    T, do, N = obs_ff.shape
+    if do > MAX_OBS_DIM:
+        raise NotImplementedError(f"moments kernel takes obs_dim <= {MAX_OBS_DIM}")
+    for name, x, shape in (("obs_ff", obs_ff, (T, do, N)), ("y", y, (T, N)),
+                           ("tau", tau, (T, 4))):
+        if (x.dtype != torch.float32 or x.device != obs_ff.device
+                or tuple(x.shape) != shape or not x.is_contiguous()):
+            raise ValueError(f"{name}: need a contiguous fp32 {shape} tensor "
+                             f"on {obs_ff.device}")
+    R = 2 * do + 5
+    E = R * (R + 1) // 2
+    n_blocks = min(T * -(-N // TILE), MAX_BLOCKS)
+    partial = torch.empty(n_blocks * E, device=obs_ff.device)
+    gram = torch.empty(R, R, device=obs_ff.device)
+    lib = build.library("moments", _SIG)
+    err = lib.trpo_moments_launch(
+        build.ptr(obs_ff), build.ptr(y), build.ptr(tau), build.ptr(partial),
+        build.ptr(gram), T, do, N, n_blocks,
+        build.stream_handle(obs_ff.device))
+    build.check(err, "moments kernel")
+    extended_gram.launches += 1
+    return gram
+
+
+extended_gram.launches = 0
+
+
+def baseline_moments(obs_ff, targets_tn, horizon: int):
+    """(A (F, F), b (F,)) for the ridge fit, in the features() order."""
+    T, do, N = obs_ff.shape
+    tau = _time_features(T, horizon, obs_ff.device)
+    gram = extended_gram(obs_ff, targets_tn.contiguous(), tau)
+    F2 = 2 * do + 1
+    return assemble(gram[:F2, :F2], gram[:F2, F2:], tau, N, do)

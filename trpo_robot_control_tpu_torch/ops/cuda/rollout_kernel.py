@@ -1,0 +1,299 @@
+"""K1: fused planar-arm rollout (``csrc/rollout.cu``).
+
+Replaces ``pallas_rollout`` in
+``trpo_robot_control_tpu/ops/pallas/rollout_kernel.py``: the whole horizon
+of a planar single-task arm in one launch (FK, closed-form mass matrix and
+centripetal bias, unrolled Cholesky, semi-implicit Euler, tanh-MLP policy,
+Gaussian action, torque clip, reward). One thread per env; see the source
+for what bounds it on the card and what its design does about that.
+
+``rollout`` is the wrapper: on CUDA tensors it launches the kernel (or
+raises), on CPU tensors it runs ``rollout_plain``, the same feature-first
+math in plain PyTorch. Outputs keep the kernel's (T, d, N) layout, which
+is what the update consumes.
+
+Noise: ``eps`` (T, N, n) from the caller gives an exact comparison with
+the plain version and with the JAX reference; without it the kernel draws
+Philox4x32-10 normals keyed by ``seed`` (an int64 pair on the device,
+drawn by the caller from its ``torch.Generator``). Philox mode exists only
+on the card: the caller draws ``eps`` on the CPU.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from . import build
+
+HIDDEN = 64
+
+_SIG = {"trpo_rollout_launch":
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 15 + [ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p]}
+
+
+class PlanarConsts(NamedTuple):
+    n: int
+    l: tuple        # link lengths (joint offsets along the parent x)
+    lc: tuple       # COM offsets along the link x
+    m: tuple
+    iz: tuple       # inertia about z at the COM
+    damping: float
+    dt: float
+    n_substeps: int
+    torque_limit: float
+    qd_limit: float
+    qd_obs_scale: float
+    ctrl_weight: float
+    chol_reg: float
+
+
+def planar_consts(cfg, chol_reg: float = 1e-6) -> PlanarConsts:
+    """Constants of a planar, gravity-free, single-task reach arm; raises
+    NotImplementedError for what this kernel does not cover."""
+    spec = cfg.arm
+    planar = all(abs(v) < 1e-12 for j in spec.joints for v in j.rpy)
+    if not planar or abs(spec.gravity) > 1e-12:
+        raise NotImplementedError(
+            "non-planar arms (world-frame RNEA, the 7-DoF rollout kernel) "
+            "come with slice 2 of the port")
+    if cfg.n_tasks != 1 or cfg.cost.obstacle_weight != 0.0:
+        raise NotImplementedError(
+            "multi-task and obstacle costs come with slice 3 of the port")
+    if cfg.done_dist > 0.0:
+        raise NotImplementedError(
+            "early termination (done_dist > 0) comes with slice 3 of the port")
+    n = spec.n_joints
+    l = tuple(float(spec.joints[i + 1].pos[0]) for i in range(n - 1)) \
+        + (float(spec.ee_offset[0]),)
+    return PlanarConsts(
+        n=n, l=l,
+        lc=tuple(float(lk.com[0]) for lk in spec.links),
+        m=tuple(float(lk.mass) for lk in spec.links),
+        iz=tuple(float(lk.inertia_diag[2]) for lk in spec.links),
+        damping=float(spec.joint_damping), dt=float(spec.dt),
+        n_substeps=int(spec.n_substeps),
+        torque_limit=float(spec.torque_limit),
+        qd_limit=float(spec.qd_limit),
+        qd_obs_scale=float(spec.qd_obs_scale),
+        ctrl_weight=float(cfg.cost.ctrl_weight), chol_reg=chol_reg)
+
+
+# ------------------------------------------------------- plain version
+# Lists of (N,) tensors, feature-first, in the op order of the kernel.
+
+def _fk(c: PlanarConsts, q):
+    th, acc = [], None
+    for i in range(c.n):
+        acc = q[i] if acc is None else acc + q[i]
+        th.append(acc)
+    cth = [torch.cos(t) for t in th]
+    sth = [torch.sin(t) for t in th]
+    px, py = [], []
+    x = torch.zeros_like(q[0])
+    y = torch.zeros_like(q[0])
+    for i in range(c.n):
+        px.append(x)
+        py.append(y)
+        x = x + c.l[i] * cth[i]
+        y = y + c.l[i] * sth[i]
+    cx = [px[i] + c.lc[i] * cth[i] for i in range(c.n)]
+    cy = [py[i] + c.lc[i] * sth[i] for i in range(c.n)]
+    return px, py, cx, cy, x, y
+
+
+def _mass(c: PlanarConsts, px, py, cx, cy):
+    M = {}
+    for i in range(c.n):
+        for j in range(i, c.n):
+            acc = None
+            for k in range(j, c.n):
+                dot = ((cy[k] - py[i]) * (cy[k] - py[j])
+                       + (cx[k] - px[i]) * (cx[k] - px[j]))
+                term = c.m[k] * dot + c.iz[k]
+                acc = term if acc is None else acc + term
+            M[(i, j)] = acc
+    return M
+
+
+def _bias(c: PlanarConsts, qd, px, py, cx, cy):
+    n = c.n
+    w, acc = [], None
+    for i in range(n):
+        acc = qd[i] if acc is None else acc + qd[i]
+        w.append(acc)
+    ax, ay = torch.zeros_like(qd[0]), torch.zeros_like(qd[0])
+    acx, acy = [], []
+    for i in range(n):
+        w2 = w[i] * w[i]
+        acx.append(ax - w2 * (cx[i] - px[i]))
+        acy.append(ay - w2 * (cy[i] - py[i]))
+        if i + 1 < n:
+            ax = ax - w2 * (px[i + 1] - px[i])
+            ay = ay - w2 * (py[i + 1] - py[i])
+    tau = [None] * n
+    fx, fy, nz = (torch.zeros_like(qd[0]) for _ in range(3))
+    p_cx, p_cy = torch.zeros_like(qd[0]), torch.zeros_like(qd[0])
+    for i in range(n - 1, -1, -1):
+        Fx = c.m[i] * acx[i]
+        Fy = c.m[i] * acy[i]
+        nz = (nz + (cx[i] - px[i]) * Fy - (cy[i] - py[i]) * Fx
+              + (p_cx - px[i]) * fy - (p_cy - py[i]) * fx)
+        tau[i] = nz
+        fx = Fx + fx
+        fy = Fy + fy
+        p_cx, p_cy = px[i], py[i]
+    return tau
+
+
+def _chol_solve(c: PlanarConsts, M, rhs):
+    n = c.n
+    L, inv_d = {}, [None] * n
+    for j in range(n):
+        s = M[(j, j)] + c.chol_reg
+        for k in range(j):
+            s = s - L[(j, k)] * L[(j, k)]
+        inv = torch.rsqrt(s)
+        inv_d[j] = inv
+        L[(j, j)] = s * inv
+        for i in range(j + 1, n):
+            t = M[(j, i)]
+            for k in range(j):
+                t = t - L[(i, k)] * L[(j, k)]
+            L[(i, j)] = t * inv
+    y = [None] * n
+    for i in range(n):
+        s = rhs[i]
+        for k in range(i):
+            s = s - L[(i, k)] * y[k]
+        y[i] = s * inv_d[i]
+    x = [None] * n
+    for i in range(n - 1, -1, -1):
+        s = y[i]
+        for k in range(i + 1, n):
+            s = s - L[(k, i)] * x[k]
+        x[i] = s * inv_d[i]
+    return x
+
+
+def _policy_mean(params, obs):
+    """obs (do, N) -> mu (da, N)."""
+    L = sum(1 for k in params if k.startswith("W"))
+    h = obs
+    for i in range(L - 1):
+        h = torch.tanh(params[f"W{i}"].T @ h + params[f"b{i}"][:, None])
+    return params[f"W{L - 1}"].T @ h + params[f"b{L - 1}"][:, None]
+
+
+def rollout_plain(cfg, params, q0, qd0, tgt, eps):
+    """q0/qd0 (N, n), tgt (N, 3), eps (T, N, n) -> obs_ff (T, do, N),
+    act_ff (T, n, N), rew_ff (T, N)."""
+    rollout_plain.calls += 1
+    c = planar_consts(cfg)
+    n = c.n
+    sigma = torch.exp(params["logstd"])[:, None]
+    q = list(q0.T)
+    qd = list(qd0.T)
+    tgtx, tgty = tgt[:, 0], tgt[:, 1]
+    h = c.dt / c.n_substeps
+    obs_t, act_t, rew_t = [], [], []
+    for t in range(eps.shape[0]):
+        px, py, cx, cy, eex, eey = _fk(c, q)
+        qs = torch.stack(q)
+        obs = torch.cat([torch.cos(qs), torch.sin(qs),
+                         c.qd_obs_scale * torch.stack(qd),
+                         torch.stack([tgtx - eex, tgty - eey,
+                                      torch.zeros_like(eex)])])
+        act = _policy_mean(params, obs) + sigma * eps[t].T
+        tau = list(torch.clamp(act, -c.torque_limit, c.torque_limit))
+        for s in range(c.n_substeps):
+            if s > 0:
+                px, py, cx, cy, eex, eey = _fk(c, q)
+            M = _mass(c, px, py, cx, cy)
+            bias = _bias(c, qd, px, py, cx, cy)
+            rhs = [tau[i] - bias[i] - c.damping * qd[i] for i in range(n)]
+            qdd = _chol_solve(c, M, rhs)
+            qd = [torch.clamp(qd[i] + h * qdd[i], -c.qd_limit, c.qd_limit)
+                  for i in range(n)]
+            q = [q[i] + h * qd[i] for i in range(n)]
+        _, _, _, _, eex, eey = _fk(c, q)
+        dx, dy = eex - tgtx, eey - tgty
+        ctrl = None
+        for i in range(n):
+            t2 = tau[i] * tau[i]
+            ctrl = t2 if ctrl is None else ctrl + t2
+        obs_t.append(obs)
+        act_t.append(act)
+        rew_t.append(-((dx * dx + dy * dy) + c.ctrl_weight * ctrl))
+    return torch.stack(obs_t), torch.stack(act_t), torch.stack(rew_t)
+
+
+rollout_plain.calls = 0
+
+
+# ------------------------------------------------------------- wrapper
+
+def rollout(cfg, params, q0, qd0, tgt, eps=None, seed=None):
+    """Fused rollout: q0/qd0 (N, n), tgt (N, 3), and either eps (T, N, n)
+    or seed (int64 (2,) on the device) -> obs_ff (T, do, N),
+    act_ff (T, n, N), rew_ff (T, N), all fp32."""
+    c = planar_consts(cfg)
+    if not q0.is_cuda:
+        if eps is None:
+            raise ValueError("Philox noise runs only in the CUDA kernel; "
+                             "pass eps on the CPU")
+        return rollout_plain(cfg, params, q0, qd0, tgt, eps)
+    N, n = q0.shape
+    T = cfg.horizon
+    do = 3 * n + 3
+    dev = q0.device
+    L = sum(1 for k in params if k.startswith("W"))
+    if L != 3 or any(params[f"W{i}"].shape[1] != HIDDEN for i in range(2)):
+        raise NotImplementedError(
+            "the rollout kernel takes a (64, 64) tanh policy")
+    if n not in (2, 3):
+        raise NotImplementedError(
+            f"the planar rollout kernel is built for 2 and 3 joints, not {n}")
+    if (eps is None) == (seed is None):
+        raise ValueError("pass exactly one of eps and seed")
+    ins = dict(q0=q0.T, qd0=qd0.T, tgt=tgt[:, :2].T,
+               **{k: params[k] for k in ("W0", "b0", "W1", "b1", "W2", "b2",
+                                         "logstd")})
+    ins = {k: v.to(torch.float32).contiguous() for k, v in ins.items()}
+    for k, v in ins.items():
+        if v.device != dev:
+            raise ValueError(f"{k} is on {v.device}, the batch on {dev}")
+    if eps is not None:
+        if eps.shape != (T, N, n) or eps.device != dev:
+            raise ValueError(f"eps must be ({T}, {N}, {n}) on {dev}")
+        eps_ff = eps.to(torch.float32).permute(0, 2, 1).contiguous()
+        seed_p = ctypes.c_void_p(None)
+    else:
+        if seed.dtype != torch.int64 or seed.numel() != 2 or seed.device != dev:
+            raise ValueError("seed must be an int64 (2,) tensor on the device")
+        eps_ff = None
+        seed_p = build.ptr(seed)
+    obs = torch.empty(T, do, N, device=dev)
+    act = torch.empty(T, n, N, device=dev)
+    rew = torch.empty(T, N, device=dev)
+    consts = list(c.l) + list(c.lc) + list(c.m) + list(c.iz) + [
+        c.damping, c.dt / c.n_substeps, c.torque_limit, c.qd_limit,
+        c.qd_obs_scale, c.ctrl_weight, c.chol_reg]
+    consts_arr = (ctypes.c_float * len(consts))(*consts)
+    lib = build.library("rollout", _SIG)
+    err = lib.trpo_rollout_launch(
+        consts_arr, c.n_substeps, n,
+        *(build.ptr(ins[k]) for k in ("q0", "qd0", "tgt", "W0", "b0", "W1",
+                                      "b1", "W2", "b2", "logstd")),
+        build.ptr(eps_ff) if eps_ff is not None else ctypes.c_void_p(None),
+        seed_p, build.ptr(obs), build.ptr(act), build.ptr(rew), N, T,
+        build.stream_handle(dev))
+    build.check(err, "rollout kernel")
+    rollout.launches += 1
+    return obs, act, rew
+
+
+rollout.launches = 0
