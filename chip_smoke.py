@@ -5,18 +5,31 @@
 Needs one CUDA card; exits non-zero, and prints no result, without one.
 Drives the port (``trpo_robot_control_tpu_torch``) only:
 
-1. names the card and builds the CUDA kernels from ``ops/cuda/csrc``;
-2. K1 rollout kernel against its plain version at c2 width (eps mode:
-   tight over 10 steps, looser over the full horizon), then the Philox
-   mode's noise statistics and seed determinism;
-3. K2 moments kernel against ``normal_eq_ff`` on that rollout's batch;
-4. K3 FVP kernel against the plain ``make_gn_fvp`` on c2's Fisher
-   subsample, and bit-identical repeat calls;
-5. five full-width c2 training iterations through ``trpo.train.train``,
-   with the launch counters showing every kernel ran on that path and no
-   plain version did;
-6. times each kernel (CUDA events) beside its bound, its plain version
-   and, for K2, a library yardstick.
+1. names the card and builds the six CUDA kernels from ``ops/cuda/csrc``;
+2. c2 (3-link planar arm, 1024 envs x 100 steps):
+   a. K1 rollout kernel against its plain version (eps mode: tight over
+      10 steps, looser over the full horizon), then the Philox mode's
+      noise statistics and seed determinism;
+   b. K2 moments kernel against ``normal_eq_ff`` on that batch;
+   c. K3 FVP kernel against the plain ``make_gn_fvp`` on c2's Fisher
+      subsample, and bit-identical repeat calls;
+   d. five full-width c2 training iterations through ``trpo.train.train``,
+      with the launch counters showing every kernel of that path ran and
+      no plain version did;
+   e. K1-K3 times (CUDA events) beside their bounds, plain versions and,
+      for K2, a library yardstick;
+3. c3 (7-DoF arm with gravity, 4096 envs x 200 steps, bf16 storage):
+   a. K4 3-D rollout kernel against ``rollout3d_plain`` (eps mode, fp32 and
+      bf16 stores: tight over 8 steps, looser over the full horizon), the
+      Philox mode's noise statistics and seed determinism;
+   b. K2 in bf16 mode against ``normal_eq_ff`` on that batch;
+   c. K5 surrogate-gradient kernel against ``surrogate_grad_plain``;
+   d. K6 feature-first FVP kernel against its plain version on
+      ``obs_ff[::8]``, and bit-identical repeat calls;
+   e. five full-width c3 training iterations through ``trpo.train.train``
+      (K4, K2, K5 once and K6 ten times per update, no K1/K3, no plain
+      version);
+   f. K4, K2-bf16, K5 and K6 times beside their bounds.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -37,6 +50,9 @@ REPLACES = {
     "rollout": "trpo_robot_control_tpu/ops/pallas/rollout_kernel.py:594",
     "moments": "trpo_robot_control_tpu/ops/pallas/moments_kernel.py:143",
     "fvp": "trpo_robot_control_tpu/ops/pallas/fvp_kernel.py:294",
+    "rollout3d": "trpo_robot_control_tpu/ops/pallas/rollout3d_kernel.py:895",
+    "pg": "trpo_robot_control_tpu/ops/pallas/pg_kernel.py:312",
+    "fvp_ff": "trpo_robot_control_tpu/ops/pallas/fvp_ff_kernel.py:188",
 }
 SOURCE = "trpo_robot_control_tpu_torch/ops/cuda/csrc/{}.cu"
 K1_TIGHT_STEPS, K1_TIGHT_ATOL = 10, 1e-5
@@ -46,6 +62,17 @@ K1_TIGHT_STEPS, K1_TIGHT_ATOL = 10, 1e-5
 K1_FULL_ATOL = 1e-2
 K2_REL = 1e-5
 K3_REL = 1e-5
+K4_TIGHT_STEPS, K4_TIGHT_ATOL = 8, 1e-5
+# 200 dependent steps of a 7-DoF arm under gravity amplify any fp32
+# rounding difference between the kernel's fmaf MLP sums and cuBLAS's in
+# the plain version, so the full-horizon bound is looser, as K1's is.
+K4_FULL_ATOL = 1e-2
+# (act - mu) / sigma over all Philox draws: mean within +-0.01, std within
+# 1 +- 0.01. The tolerance covers the bf16 rounding of act (relative
+# 2^-9) and of obs (mu is recomputed from the stored bf16 obs).
+K4_Z_TOL = 0.01
+K5_REL, K5_MU_ATOL, K5_LOGP_REL = 1e-4, 1e-4, 1e-3
+K6_REL = 1e-5
 
 
 def require(ok: bool, what) -> None:
@@ -82,33 +109,80 @@ def bound_ms(flops: float, nbytes: float):
                                        else "bytes")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
+
+
+def elementwise_flops(fn) -> int:
+    """Floating-point operations that ``fn`` runs through PyTorch: one per
+    output element of each arithmetic or transcendental op, 2 m k n per
+    matrix product (a TorchFunctionMode counter; views, copies and
+    comparisons are free)."""
+    from torch.overrides import TorchFunctionMode
+    arith = {"add", "__add__", "__radd__", "sub", "__sub__", "__rsub__",
+             "mul", "__mul__", "__rmul__", "div", "__truediv__",
+             "__rtruediv__", "neg", "__neg__", "sqrt", "rsqrt", "cos", "sin",
+             "clamp", "tanh", "exp"}
+    count = [0]
+
+    class Counter(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = getattr(func, "__name__", "")
+            if name in ("matmul", "__matmul__"):
+                a, b = args[0], args[1]
+                count[0] += 2 * a.shape[-2] * a.shape[-1] * b.shape[-1]
+            elif name in arith and isinstance(out, torch.Tensor):
+                count[0] += out.numel()
+            return out
+
+    with Counter():
+        fn()
+    return count[0]
+
+
+def bf16_ulp(x):
+    """One bf16 unit in the last place of each element of x (fp32)."""
+    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+    return torch.pow(2.0, e - 7)
+
+
+def train_checked(cfg, n_iters, kernels, expect, train):
+    """Train ``n_iters`` full-width iterations with the counts set to 0
+    just before; checks the launches, the plain calls and the stats and
+    returns (launches, ms per update over iterations 2..n)."""
+    def log(st):
+        print("iter " + json.dumps({k: (round(v, 6) if isinstance(v, float)
+                                        else v) for k, v in st.items()}))
+
+    kernels.reset_counts()
+    _, hist = train(cfg, n_iters=n_iters, seed=0, log_fn=log)
+    launches = kernels.launch_counts()
+    plain = kernels.plain_calls()
+    print(f"{cfg.name} main path: launches {launches}, plain calls {plain}")
+    require(launches == expect, f"{cfg.name} main-path launches {launches}")
+    require(all(c == 0 for c in plain.values()), f"plain calls {plain}")
+    for st in hist:
+        require(all(math.isfinite(v) for v in st.values()),
+                f"non-finite stats {st}")
+        require(st["accepted"] < 0 or st["kl"] <= cfg.trpo.delta,
+                f"accepted step outside the trust region {st}")
+    ms_upd = 1e3 * sum(st["wall_s"] for st in hist[1:]) / (n_iters - 1)
+    print(f"{cfg.name} update (host clock, iterations 2-{n_iters}): "
+          f"{ms_upd:.3f} ms, {1e3 / ms_upd:.2f} updates/s")
+    return launches, ms_upd
+
+
+def c2_phases(dev):
+    """K1-K3 at c2 and c2 training; returns {kernel: record}."""
     from trpo_robot_control_tpu_torch.configs import C2_REACHER3
-    from trpo_robot_control_tpu_torch.device import resolve
     from trpo_robot_control_tpu_torch.envs import arm
     from trpo_robot_control_tpu_torch.models import baseline, policy
     from trpo_robot_control_tpu_torch.ops import cuda as kernels
-    from trpo_robot_control_tpu_torch.ops.cuda import (build, fvp_kernel,
-                                                       moments_kernel,
-                                                       rollout_kernel)
+    from trpo_robot_control_tpu_torch.ops.cuda import (fvp_kernel as fk,
+                                                       moments_kernel as mk,
+                                                       rollout_kernel as rk)
     from trpo_robot_control_tpu_torch.ops.fvp import make_gn_fvp
     from trpo_robot_control_tpu_torch.ops.gae import gae
     from trpo_robot_control_tpu_torch.trpo.train import train
-
-    dev = resolve(None)
-    t_start = time.perf_counter()
-
-    # ---- 1) the card and the build
-    card = card_line()
-    print(f"card: {card}")
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    print(f"build: {build.build_all():.1f} s")
-    print(build.ptxas_report())
-
     cfg = C2_REACHER3
     T, N, n = cfg.horizon, cfg.n_envs, cfg.arm.n_joints
     do, da = cfg.obs_dim, n
@@ -118,13 +192,12 @@ def main() -> int:
     params = policy.init_params(gen, do, da, cfg.trpo.hidden,
                                 cfg.trpo.logstd_init)
     s0 = arm.reset(cfg, gen, N)
-    record = {}
+    rec = {}
 
-    # ---- 2) K1 rollout vs its plain version
+    # ---- K1 rollout vs its plain version
     eps = torch.randn(T, N, n, generator=gen, device=dev)
-    k_out = rollout_kernel.rollout(cfg, params, s0.q, s0.qd, s0.tgt, eps=eps)
-    p_out = rollout_kernel.rollout_plain(cfg, params, s0.q, s0.qd, s0.tgt,
-                                         eps)
+    k_out = rk.rollout(cfg, params, s0.q, s0.qd, s0.tgt, eps=eps)
+    p_out = rk.rollout_plain(cfg, params, s0.q, s0.qd, s0.tgt, eps)
     torch.cuda.synchronize()
     errs10 = [float((k[:K1_TIGHT_STEPS] - p[:K1_TIGHT_STEPS]).abs().max())
               for k, p in zip(k_out, p_out)]
@@ -137,12 +210,11 @@ def main() -> int:
     require(err_full <= K1_FULL_ATOL, f"K1 full-horizon error {err_full}")
     seed_a = torch.tensor([12345, 678], dtype=torch.int64, device=dev)
     seed_b = torch.tensor([12346, 678], dtype=torch.int64, device=dev)
-    obs_a, act_a, rew_a = rollout_kernel.rollout(cfg, params, s0.q, s0.qd,
-                                                 s0.tgt, seed=seed_a)
-    obs_a2, act_a2, _ = rollout_kernel.rollout(cfg, params, s0.q, s0.qd,
-                                               s0.tgt, seed=seed_a)
-    _, act_b, _ = rollout_kernel.rollout(cfg, params, s0.q, s0.qd, s0.tgt,
-                                         seed=seed_b)
+    obs_a, act_a, rew_a = rk.rollout(cfg, params, s0.q, s0.qd, s0.tgt,
+                                     seed=seed_a)
+    obs_a2, act_a2, _ = rk.rollout(cfg, params, s0.q, s0.qd, s0.tgt,
+                                   seed=seed_a)
+    _, act_b, _ = rk.rollout(cfg, params, s0.q, s0.qd, s0.tgt, seed=seed_b)
     mu = policy.mean_net(params, obs_a.permute(0, 2, 1)).permute(0, 2, 1)
     z = (act_a - mu) / torch.exp(params["logstd"])[None, :, None]
     z_mean, z_std = float(z.mean()), float(z.std())
@@ -156,17 +228,17 @@ def main() -> int:
             "K1: a different seed gave the same batch")
     require(all(bool(torch.isfinite(x).all()) for x in (obs_a, act_a, rew_a)),
             "K1: non-finite output")
-    record["rollout"] = dict(max_abs_err=err10)
+    rec["rollout"] = dict(max_abs_err=err10)
 
-    # ---- 3) K2 moments vs normal_eq_ff on that rollout's batch
+    # ---- K2 moments vs normal_eq_ff on that rollout's batch
     obs_ff, _, rew_ff = k_out
     targets = gae(rew_ff, torch.zeros_like(rew_ff), cfg.trpo.gamma,
                   cfg.trpo.lam, time_axis=0)
-    A_k, b_k = moments_kernel.baseline_moments(obs_ff, targets, cfg.horizon)
+    A_k, b_k = mk.baseline_moments(obs_ff, targets, cfg.horizon)
     A_r, b_r = baseline.normal_eq_ff(obs_ff, targets, cfg.horizon)
     tau = baseline._time_features(T, cfg.horizon, dev)
-    gram_k = moments_kernel.extended_gram(obs_ff, targets, tau)
-    gram_p = moments_kernel.extended_gram_plain(obs_ff, targets, tau)
+    gram_k = mk.extended_gram(obs_ff, targets, tau)
+    gram_p = mk.extended_gram_plain(obs_ff, targets, tau)
     rel_A = float((A_k - A_r).abs().max() / A_r.abs().max())
     rel_b = float((b_k - b_r).abs().max() / b_r.abs().max())
     err_gram = float((gram_k - gram_p).abs().max())
@@ -174,13 +246,13 @@ def main() -> int:
           f"(bound {K2_REL}); max |kernel - plain| Gram {err_gram:.3e} "
           f"(max |Gram| {float(gram_p.abs().max()):.3e})")
     require(rel_A <= K2_REL and rel_b <= K2_REL, f"K2 error {rel_A}, {rel_b}")
-    record["moments"] = dict(max_abs_err=err_gram)
+    rec["moments"] = dict(max_abs_err=err_gram)
 
-    # ---- 4) K3 FVP vs the plain make_gn_fvp on c2's Fisher subsample
+    # ---- K3 FVP vs the plain make_gn_fvp on c2's Fisher subsample
     k = cfg.trpo.fvp_subsample
     obs_fvp = obs_ff[::k].permute(0, 2, 1).reshape(-1, do)
     B_sub = obs_fvp.shape[0]
-    hs = fvp_kernel.activations(params, obs_fvp)
+    hs = fk.activations(params, obs_fvp)
     scale = torch.exp(-2.0 * params["logstd"]) / B_sub
     P = policy.flatten(params).numel()
     fvp = make_gn_fvp(params, obs_fvp, cfg.trpo.cg_damping)
@@ -188,8 +260,8 @@ def main() -> int:
     for _ in range(10):
         v = torch.randn(P, generator=gen, device=dev)
         fk_ = fvp(v)
-        fp_ = fvp_kernel.gn_fvp_plain(params, obs_fvp, hs, scale, v,
-                                      cfg.trpo.cg_damping)
+        fp_ = fk.gn_fvp_plain(params, obs_fvp, hs, scale, v,
+                              cfg.trpo.cg_damping)
         worst_rel = max(worst_rel, float(torch.linalg.norm(fk_ - fp_)
                                          / torch.linalg.norm(fp_)))
         worst_abs = max(worst_abs, float((fk_ - fp_).abs().max()))
@@ -197,47 +269,28 @@ def main() -> int:
     print(f"K3: B' = {B_sub}, worst relative L2 err {worst_rel:.3e} over 10 v "
           f"(bound {K3_REL}); repeat calls bit-identical")
     require(worst_rel <= K3_REL, f"K3 error {worst_rel}")
-    record["fvp"] = dict(max_abs_err=worst_abs)
+    rec["fvp"] = dict(max_abs_err=worst_abs)
 
-    # ---- 5) five full-width c2 iterations through the trainer
+    # ---- five full-width c2 iterations through the trainer
     n_iters = 5
-    kernels.reset_counts()
+    launches, _ = train_checked(
+        cfg, n_iters, kernels,
+        {"rollout": n_iters, "moments": n_iters,
+         "fvp": n_iters * cfg.trpo.cg_iters, "rollout3d": 0, "pg": 0,
+         "fvp_ff": 0}, train)
 
-    def log(st):
-        print("iter " + json.dumps({k_: (round(v_, 6) if isinstance(v_, float)
-                                         else v_) for k_, v_ in st.items()}))
-
-    _, hist = train(cfg, n_iters=n_iters, seed=0, log_fn=log)
-    launches = kernels.launch_counts()
-    plain = kernels.plain_calls()
-    print(f"main path: launches {launches}, plain calls {plain}")
-    require(launches == {"rollout": n_iters, "moments": n_iters,
-                         "fvp": n_iters * cfg.trpo.cg_iters},
-            f"main-path launches {launches}")
-    require(all(c == 0 for c in plain.values()), f"plain calls {plain}")
-    for st in hist:
-        require(all(math.isfinite(v_) for v_ in st.values()),
-                f"non-finite stats {st}")
-        require(st["accepted"] < 0 or st["kl"] <= cfg.trpo.delta,
-                f"accepted step outside the trust region {st}")
-    ms_upd = 1e3 * sum(st["wall_s"] for st in hist[1:]) / (n_iters - 1)
-    print(f"c2 update (host clock, iterations 2-{n_iters}): {ms_upd:.3f} ms, "
-          f"{1e3 / ms_upd:.2f} updates/s")
-
-    # ---- 6) kernel times beside bounds, plain versions and yardsticks
+    # ---- kernel times beside bounds, plain versions and yardsticks
     B = T * N
     seed_t = torch.tensor([7, 7], dtype=torch.int64, device=dev)
-    t_k1 = cuda_ms(lambda: rollout_kernel.rollout(
-        cfg, params, s0.q, s0.qd, s0.tgt, seed=seed_t), 20)
-    t_k1p = cuda_ms(lambda: rollout_kernel.rollout_plain(
-        cfg, params, s0.q, s0.qd, s0.tgt, eps), 2, warmup=1)
+    t_k1 = cuda_ms(lambda: rk.rollout(cfg, params, s0.q, s0.qd, s0.tgt,
+                                      seed=seed_t), 20)
+    t_k1p = cuda_ms(lambda: rk.rollout_plain(cfg, params, s0.q, s0.qd,
+                                             s0.tgt, eps), 2, warmup=1)
     mlp_macs = do * H + H * H + H * da
     b1 = bound_ms(2.0 * mlp_macs * B,
                   4.0 * (B * (do + da + 1) + N * (2 * n + 2) + P))
-    t_k2 = cuda_ms(lambda: moments_kernel.extended_gram(obs_ff, targets, tau),
-                   50)
-    t_k2p = cuda_ms(lambda: moments_kernel.extended_gram_plain(
-        obs_ff, targets, tau), 20)
+    t_k2 = cuda_ms(lambda: mk.extended_gram(obs_ff, targets, tau), 50)
+    t_k2p = cuda_ms(lambda: mk.extended_gram_plain(obs_ff, targets, tau), 20)
     R = 2 * do + 5
     v_ext = torch.cat([obs_ff, obs_ff * obs_ff, targets[:, None, :],
                        tau[:, :, None].expand(T, 4, N)], dim=1) \
@@ -247,26 +300,255 @@ def main() -> int:
                   4.0 * (B * (do + 1) + 4 * T + R * R))
     v = torch.randn(P, generator=gen, device=dev)
     t_k3 = cuda_ms(lambda: fvp(v), 50)
-    t_k3p = cuda_ms(lambda: fvp_kernel.gn_fvp_plain(
-        params, obs_fvp, hs, scale, v, cfg.trpo.cg_damping), 20)
+    t_k3p = cuda_ms(lambda: fk.gn_fvp_plain(params, obs_fvp, hs, scale, v,
+                                            cfg.trpo.cg_damping), 20)
     fvp_macs = 2 * do * H + 4 * H * H + 4 * H * da
     b3 = bound_ms(2.0 * fvp_macs * B_sub,
                   4.0 * (B_sub * (do + 2 * H) + 3 * P))
-    times = {"rollout": (t_k1, t_k1p, b1, None),
-             "moments": (t_k2, t_k2p, b2, t_k2lib),
-             "fvp": (t_k3, t_k3p, b3, None)}
-    out = []
-    for name in ("rollout", "moments", "fvp"):
-        ms, plain_ms, (bms, by), lib_ms = times[name]
-        out.append(dict(name=name, route="cuda", source=SOURCE.format(name),
-                        replaces=REPLACES[name], launches=launches[name],
-                        max_abs_err=record[name]["max_abs_err"], ms=ms,
-                        plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                        library_ms=lib_ms, ok=True))
-        print(f"{name}: {ms:.4f} ms/launch (bound {bms:.4f} ms by {by}), "
+    for name, ms, plain_ms, (bms, by), lib_ms in (
+            ("rollout", t_k1, t_k1p, b1, None),
+            ("moments", t_k2, t_k2p, b2, t_k2lib),
+            ("fvp", t_k3, t_k3p, b3, None)):
+        rec[name].update(launches=launches[name], ms=ms, plain_ms=plain_ms,
+                         bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        print(f"c2 {name}: {ms:.4f} ms/launch (bound {bms:.4f} ms by {by}), "
               f"plain {plain_ms:.3f} ms"
               + (f", library {lib_ms:.4f} ms" if lib_ms is not None else "")
               + f", {launches[name] // n_iters} launch(es)/update")
+    return rec
+
+
+def c3_phases(dev):
+    """K4, K2-bf16, K5, K6 at c3 and c3 training; returns {kernel:
+    record} for K4-K6 and the bf16-mode record of K2."""
+    from trpo_robot_control_tpu_torch.configs import C3_FRANKA7
+    from trpo_robot_control_tpu_torch.envs import arm
+    from trpo_robot_control_tpu_torch.models import baseline, policy
+    from trpo_robot_control_tpu_torch.ops import cuda as kernels
+    from trpo_robot_control_tpu_torch.ops.cuda import (fvp_ff_kernel as ffk,
+                                                       moments_kernel as mk,
+                                                       pg_kernel as pk,
+                                                       rollout3d_kernel as r3)
+    from trpo_robot_control_tpu_torch.ops.gae import gae
+    from trpo_robot_control_tpu_torch.trpo.train import train
+    cfg = C3_FRANKA7
+    T, N, n = cfg.horizon, cfg.n_envs, cfg.arm.n_joints
+    do, da = cfg.obs_dim, n
+    H = cfg.trpo.hidden[0]
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    params = policy.init_params(gen, do, da, cfg.trpo.hidden,
+                                cfg.trpo.logstd_init)
+    P = policy.flatten(params).numel()
+    s0 = arm.reset(cfg, gen, N)
+    rec = {}
+
+    # ---- K4 3-D rollout vs its plain version (timed once, no warm-up)
+    eps = torch.randn(T, N, n, generator=gen, device=dev)
+    k32 = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt, eps=eps)
+    k16 = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt, eps=eps,
+                       store_dtype=bf16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_out = r3.rollout3d_plain(cfg, params, s0.q, s0.qd, s0.tgt, eps)
+    torch.cuda.synchronize()
+    t_k4p = 1e3 * (time.perf_counter() - t0)
+    W = K4_TIGHT_STEPS
+    errs_w = [float((k[:W] - p[:W]).abs().max()) for k, p in zip(k32, p_out)]
+    errs = [float((k - p).abs().max()) for k, p in zip(k32, p_out)]
+    print("K4 eps mode, fp32 stores: max |kernel - plain| (obs, act, rew) "
+          f"{errs_w} over {W} steps (bound {K4_TIGHT_ATOL}), {errs} over "
+          f"{T} steps (bound {K4_FULL_ATOL})")
+    require(max(errs_w) <= K4_TIGHT_ATOL, f"K4 {W}-step error {errs_w}")
+    require(max(errs) <= K4_FULL_ATOL, f"K4 full-horizon error {errs}")
+    ulps = []
+    for k, p in zip(k16[:2], p_out[:2]):
+        pr = p[:W].to(bf16).float()
+        ulps.append(float(((k[:W].float() - pr).abs() / bf16_ulp(pr)).max()))
+    full16 = max(float((k.float() - p).abs().max())
+                 for k, p in zip(k16[:2], p_out[:2]))
+    print(f"K4 eps mode, bf16 stores: max |kernel - round(plain)| in bf16 "
+          f"ulps (obs, act) {ulps} over {W} steps (bound 1); max |kernel - "
+          f"plain| {full16:.3e} over {T} steps (bound {K4_FULL_ATOL} + the "
+          "bf16 rounding)")
+    require(max(ulps) <= 1.0, f"K4 bf16 error {ulps} ulps")
+    require(torch.equal(k16[2], k32[2]), "K4: bf16 stores changed rewards")
+    require(full16 <= K4_FULL_ATOL + 2.0 ** -8 * max(
+        float(p.abs().max()) for p in p_out[:2]), f"K4 bf16 full {full16}")
+    seed_a = torch.tensor([4242, 17], dtype=torch.int64, device=dev)
+    seed_b = torch.tensor([4243, 17], dtype=torch.int64, device=dev)
+    obs_a, act_a, rew_a = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt,
+                                       seed=seed_a, store_dtype=bf16)
+    obs_a2, act_a2, rew_a2 = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt,
+                                          seed=seed_a, store_dtype=bf16)
+    _, act_b, _ = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt,
+                               seed=seed_b, store_dtype=bf16)
+    mu = policy.mean_net(params, obs_a.float().permute(0, 2, 1)) \
+        .permute(0, 2, 1)
+    z = (act_a.float() - mu) / torch.exp(params["logstd"])[None, :, None]
+    z_mean, z_std = float(z.mean()), float(z.std())
+    print(f"K4 Philox mode: {z.numel()} draws, mean {z_mean:+.5f}, "
+          f"std {z_std:.5f} (bound {K4_Z_TOL})")
+    require(abs(z_mean) <= K4_Z_TOL and abs(z_std - 1.0) <= K4_Z_TOL,
+            f"K4 Philox noise mean {z_mean}, std {z_std}")
+    require(torch.equal(act_a, act_a2) and torch.equal(obs_a, obs_a2)
+            and torch.equal(rew_a, rew_a2),
+            "K4: the same seed gave a different batch")
+    require(not torch.equal(act_a, act_b),
+            "K4: a different seed gave the same batch")
+    require(all(bool(torch.isfinite(x.float()).all())
+                for x in (*k32, *k16, obs_a, act_a, rew_a)),
+            "K4: non-finite output")
+    rec["rollout3d"] = dict(max_abs_err=max(errs_w))
+
+    # ---- K2 bf16 mode vs normal_eq_ff on the bf16 batch
+    obs_ff, act_ff, rew_ff = k16
+    targets = gae(rew_ff, torch.zeros_like(rew_ff), cfg.trpo.gamma,
+                  cfg.trpo.lam, time_axis=0)
+    A_k, b_k = mk.baseline_moments(obs_ff, targets, cfg.horizon)
+    A_r, b_r = baseline.normal_eq_ff(obs_ff, targets, cfg.horizon)
+    tau = baseline._time_features(T, cfg.horizon, dev)
+    gram_k = mk.extended_gram(obs_ff, targets, tau)
+    gram_p = mk.extended_gram_plain(obs_ff, targets, tau)
+    rel_A = float((A_k - A_r).abs().max() / A_r.abs().max())
+    rel_b = float((b_k - b_r).abs().max() / b_r.abs().max())
+    print(f"K2 bf16: rel err A {rel_A:.3e}, b {rel_b:.3e} vs normal_eq_ff "
+          f"(bound {K2_REL})")
+    require(rel_A <= K2_REL and rel_b <= K2_REL,
+            f"K2 bf16 error {rel_A}, {rel_b}")
+    rec["moments_bf16"] = dict(
+        max_abs_err=float((gram_k - gram_p).abs().max()))
+
+    # ---- K5 surrogate gradient vs its plain version
+    adv = (targets - targets.mean()) / (targets.std() + 1e-8)
+    g_k, mu_k, lp_k = pk.surrogate_grad(params, obs_ff, act_ff, adv)
+    g_p, mu_p, lp_p = pk.surrogate_grad_plain(params, obs_ff, act_ff, adv)
+    fg_k, fg_p = policy.flatten(g_k), policy.flatten(g_p)
+    rel_g = float(torch.linalg.norm(fg_k - fg_p) / torch.linalg.norm(fg_p))
+    err_mu = float((mu_k - mu_p).abs().max())
+    rel_lp = float(((lp_k - lp_p).abs() / lp_p.abs().clamp_min(1e-6)).max())
+    print(f"K5: rel L2 err g {rel_g:.3e} (bound {K5_REL}), max |mu err| "
+          f"{err_mu:.3e} (bound {K5_MU_ATOL}), max rel logp err "
+          f"{rel_lp:.3e} (bound {K5_LOGP_REL})")
+    require(rel_g <= K5_REL and err_mu <= K5_MU_ATOL
+            and rel_lp <= K5_LOGP_REL, f"K5 error {rel_g}, {err_mu}, {rel_lp}")
+    again = pk.surrogate_grad(params, obs_ff, act_ff, adv)
+    require(torch.equal(policy.flatten(again[0]), fg_k)
+            and torch.equal(again[1], mu_k) and torch.equal(again[2], lp_k),
+            "K5 is not deterministic")
+    rec["pg"] = dict(max_abs_err=float((fg_k - fg_p).abs().max()))
+
+    # ---- K6 feature-first FVP vs its plain version on obs_ff[::8]
+    sub = obs_ff[::cfg.trpo.fvp_subsample]
+    B_sub = sub.shape[0] * N
+    fvp = ffk.make_gn_fvp_ff(params, sub, cfg.trpo.cg_damping)
+    worst_rel, worst_abs = 0.0, 0.0
+    for _ in range(10):
+        v = torch.randn(P, generator=gen, device=dev)
+        f_k = fvp(v)
+        f_p = ffk.gn_fvp_ff_plain(params, sub, v, cfg.trpo.cg_damping)
+        worst_rel = max(worst_rel, float(torch.linalg.norm(f_k - f_p)
+                                         / torch.linalg.norm(f_p)))
+        worst_abs = max(worst_abs, float((f_k - f_p).abs().max()))
+        require(torch.equal(f_k, fvp(v)), "K6 is not deterministic")
+    print(f"K6: B' = {B_sub}, worst relative L2 err {worst_rel:.3e} over 10 v "
+          f"(bound {K6_REL}); repeat calls bit-identical")
+    require(worst_rel <= K6_REL, f"K6 error {worst_rel}")
+    rec["fvp_ff"] = dict(max_abs_err=worst_abs)
+
+    # ---- five full-width c3 iterations through the trainer
+    n_iters = 5
+    launches, _ = train_checked(
+        cfg, n_iters, kernels,
+        {"rollout": 0, "moments": n_iters, "fvp": 0, "rollout3d": n_iters,
+         "pg": n_iters, "fvp_ff": n_iters * cfg.trpo.cg_iters}, train)
+
+    # ---- kernel times beside bounds and plain versions
+    B = T * N
+    one = cfg.replace(horizon=1)
+    two = cfg.replace(horizon=2)
+    per_step = (elementwise_flops(lambda: r3.rollout3d_plain(
+        two, params, s0.q[:1], s0.qd[:1], s0.tgt[:1], eps[:2, :1]))
+        - elementwise_flops(lambda: r3.rollout3d_plain(
+            one, params, s0.q[:1], s0.qd[:1], s0.tgt[:1], eps[:1, :1])))
+    print(f"K4 work per env-step, counted from the plain version: "
+          f"{per_step} FLOP (the policy MLP's "
+          f"{2 * (do * H + H * H + H * da)} included)")
+    seed_t = torch.tensor([7, 7], dtype=torch.int64, device=dev)
+    t_k4 = cuda_ms(lambda: r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt,
+                                        seed=seed_t, store_dtype=bf16),
+                   3, warmup=1)
+    b4 = bound_ms(float(per_step) * B,
+                  B * ((do + da) * 2 + 4) + 4.0 * (N * (2 * n + 3) + P))
+    R = 2 * do + 5
+    t_k2 = cuda_ms(lambda: mk.extended_gram(obs_ff, targets, tau), 20)
+    t_k2p = cuda_ms(lambda: mk.extended_gram_plain(obs_ff, targets, tau), 5)
+    v_ext = torch.cat([baseline.data_rows(obs_ff, targets),
+                       tau[:, :, None].expand(T, 4, N)], dim=1) \
+        .permute(1, 0, 2).reshape(R, B).contiguous()
+    t_k2lib = cuda_ms(lambda: torch.matmul(v_ext, v_ext.T), 20)
+    del v_ext
+    b2 = bound_ms(2.0 * (R * (R + 1) // 2) * B + B * do,
+                  B * (2 * do + 4) + 4.0 * (4 * T + R * R))
+    t_k5 = cuda_ms(lambda: pk.surrogate_grad(params, obs_ff, act_ff, adv), 10)
+    t_k5p = cuda_ms(lambda: pk.surrogate_grad_plain(params, obs_ff, act_ff,
+                                                    adv), 3, warmup=1)
+    pg_macs = 2 * do * H + 3 * H * H + 3 * H * da
+    b5 = bound_ms(2.0 * pg_macs * B, B * ((do + da) * 2 + 4 + 4 * da + 4)
+                  + 4.0 * 2 * P)
+    v = torch.randn(P, generator=gen, device=dev)
+    t_k6 = cuda_ms(lambda: fvp(v), 20)
+    t_k6p = cuda_ms(lambda: ffk.gn_fvp_ff_plain(params, sub, v,
+                                                cfg.trpo.cg_damping), 5)
+    ff_macs = 3 * do * H + 5 * H * H + 4 * H * da
+    b6 = bound_ms(2.0 * ff_macs * B_sub, 2.0 * B_sub * do + 4.0 * 3 * P)
+    for name, ms, plain_ms, (bms, by), lib_ms in (
+            ("rollout3d", t_k4, t_k4p, b4, None),
+            ("moments_bf16", t_k2, t_k2p, b2, t_k2lib),
+            ("pg", t_k5, t_k5p, b5, None),
+            ("fvp_ff", t_k6, t_k6p, b6, None)):
+        kname = "moments" if name == "moments_bf16" else name
+        rec[name].update(launches=launches[kname], ms=ms, plain_ms=plain_ms,
+                         bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        print(f"c3 {name}: {ms:.4f} ms/launch (bound {bms:.4f} ms by {by}), "
+              f"plain {plain_ms:.3f} ms"
+              + (f", library {lib_ms:.4f} ms" if lib_ms is not None else "")
+              + f", {launches[kname] // n_iters} launch(es)/update")
+    return rec
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from trpo_robot_control_tpu_torch.device import resolve
+    from trpo_robot_control_tpu_torch.ops.cuda import build
+
+    dev = resolve(None)
+    t_start = time.perf_counter()
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    print(f"build: {build.build_all():.1f} s")
+    print(build.ptxas_report())
+
+    rec = c2_phases(dev)
+    print(f"c2 phases done at {time.perf_counter() - t_start:.1f} s")
+    rec.update(c3_phases(dev))
+    out = []
+    for name in ("rollout", "moments", "fvp", "rollout3d", "pg", "fvp_ff"):
+        r = rec[name]
+        entry = dict(name=name, route="cuda", source=SOURCE.format(name),
+                     replaces=REPLACES[name], launches=r["launches"],
+                     max_abs_err=r["max_abs_err"], ms=r["ms"],
+                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                     bound_by=r["bound_by"], library_ms=r["library_ms"],
+                     ok=True)
+        if name == "moments":
+            entry["bf16_mode_c3"] = rec["moments_bf16"]
+        out.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))
     print(card)

@@ -11,8 +11,11 @@ import torch
 
 from test_torch_helpers import env_inputs_np, policy_params_np, t
 from trpo_robot_control_tpu_torch import configs as pconfigs
-from trpo_robot_control_tpu_torch.ops.cuda import (fvp_kernel,
-                                                   moments_kernel,
+from trpo_robot_control_tpu_torch.models import policy
+from trpo_robot_control_tpu_torch.ops.cuda import (fvp_ff_kernel,
+                                                   fvp_kernel,
+                                                   moments_kernel, pg_kernel,
+                                                   rollout3d_kernel,
                                                    rollout_kernel)
 
 
@@ -65,3 +68,72 @@ def test_fvp_kernel_matches_plain_on_card(cuda):
     fp = fvp_kernel.gn_fvp_plain(pc, obs, hs, scale, v, 0.1)
     assert float(torch.linalg.norm(fk - fp) / torch.linalg.norm(fp)) < 1e-5
     assert torch.equal(fk, fvp_kernel.gn_fvp(pc, obs, hs, scale, v, 0.1))
+
+
+@pytest.mark.cuda
+def test_rollout3d_kernel_matches_plain_on_card(cuda):
+    cfg = pconfigs.C3_FRANKA7.replace(horizon=8)
+    N = 300                     # not a multiple of the 32-env block
+    pn = policy_params_np(np.random.RandomState(9), cfg.obs_dim, 7)
+    pc = {k: t(v).to(cuda) for k, v in pn.items()}
+    ins = [t(x).to(cuda) for x in env_inputs_np(cfg, N, seed=10)]
+    k_out = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], eps=ins[3])
+    p_out = rollout3d_kernel.rollout3d_plain(cfg, pc, *ins[:3], ins[3])
+    for a, b in zip(k_out, p_out):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    k16 = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], eps=ins[3],
+                                     store_dtype=torch.bfloat16)
+    for a, b in zip(k16[:2], k_out[:2]):
+        assert torch.equal(a, b.to(torch.bfloat16))
+    seed = torch.tensor([3, 4], dtype=torch.int64, device=cuda)
+    a1 = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], seed=seed)
+    a2 = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], seed=seed)
+    assert all(torch.equal(x, y) for x, y in zip(a1, a2))
+
+
+@pytest.mark.cuda
+def test_moments_kernel_bf16_matches_plain_on_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    T, do, N = 20, 24, 300
+    obs = torch.randn(T, do, N, generator=g, device=cuda).to(torch.bfloat16)
+    y = 5.0 * torch.randn(T, N, generator=g, device=cuda)
+    tau = moments_kernel._time_features(T, T, cuda)
+    gk = moments_kernel.extended_gram(obs, y, tau)
+    gp = moments_kernel.extended_gram_plain(obs, y, tau)
+    assert float((gk - gp).abs().max() / gp.abs().max()) < 1e-5
+    assert torch.equal(gk, moments_kernel.extended_gram(obs, y, tau))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pg_kernel_matches_plain_on_card(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    T, do, da, N = 6, 24, 7, 200
+    pn = policy_params_np(np.random.RandomState(11), do, da)
+    pc = {k: t(v).to(cuda) for k, v in pn.items()}
+    obs = torch.randn(T, do, N, generator=g, device=cuda).to(dtype)
+    act = (0.5 * torch.randn(T, da, N, generator=g, device=cuda)).to(dtype)
+    adv = torch.randn(T, N, generator=g, device=cuda)
+    gk, muk, lpk = pg_kernel.surrogate_grad(pc, obs, act, adv)
+    gp, mup, lpp = pg_kernel.surrogate_grad_plain(pc, obs, act, adv)
+    fk, fp = policy.flatten(gk), policy.flatten(gp)
+    assert float(torch.linalg.norm(fk - fp) / torch.linalg.norm(fp)) < 1e-4
+    assert float((muk - mup).abs().max()) < 1e-4
+    assert torch.equal(fk, policy.flatten(
+        pg_kernel.surrogate_grad(pc, obs, act, adv)[0]))
+
+
+@pytest.mark.cuda
+def test_fvp_ff_kernel_matches_plain_on_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    pn = policy_params_np(np.random.RandomState(12), 24, 7)
+    pc = {k: t(v).to(cuda) for k, v in pn.items()}
+    obs = torch.randn(16, 24, 300, generator=g, device=cuda) \
+        .to(torch.bfloat16)
+    sub = obs[::8]
+    v = torch.randn(sum(x.numel() for x in pc.values()), generator=g,
+                    device=cuda)
+    fk = fvp_ff_kernel.make_gn_fvp_ff(pc, sub, 0.1)(v)
+    fp = fvp_ff_kernel.gn_fvp_ff_plain(pc, sub, v, 0.1)
+    assert float(torch.linalg.norm(fk - fp) / torch.linalg.norm(fp)) < 1e-5
+    assert torch.equal(fk, fvp_ff_kernel.make_gn_fvp_ff(pc, sub, 0.1)(v))

@@ -65,8 +65,14 @@ def env_inputs_np(cfg, N, seed):
     qd0 = spec.qd0_noise * rng.uniform(-1, 1, (N, n))
     r = rng.uniform(spec.target_rmin_frac, spec.target_rmax_frac, N) \
         * spec.reach
-    th = rng.uniform(0, 2 * np.pi, N)
-    tgt = np.stack([r * np.cos(th), r * np.sin(th), np.zeros(N)], -1)
+    if all(np.allclose(j.rpy, 0.0) for j in spec.joints):
+        th = rng.uniform(0, 2 * np.pi, N)
+        tgt = np.stack([r * np.cos(th), r * np.sin(th), np.zeros(N)], -1)
+    else:       # a normalised 3-normal on the upper hemisphere
+        u = rng.standard_normal((N, 3))
+        u = u / np.linalg.norm(u, axis=-1, keepdims=True)
+        u[:, 2] = np.abs(u[:, 2])
+        tgt = r[:, None] * u
     eps = rng.standard_normal((cfg.horizon, N, n))
     return tuple(x.astype(np.float32) for x in (q0, qd0, tgt, eps))
 
@@ -83,9 +89,38 @@ def jax_batch(cfg, params_np, q0, qd0, tgt, eps):
                           qd0=j(qd0), tgt=j(tgt))
 
 
+def jax_batch3d(cfg, params_np, q0, qd0, tgt, eps, store_bf16=True):
+    """The JAX reference batch of a 3-D arm: ``rollout3d_reference`` run
+    op by op (``jax.disable_jit``: a few seconds, where compiling its scan
+    takes a minute on the CPU), with the kernel-native ff views added and
+    obs_ff/actions_ff cast to bf16 as the c3 kernel stores them."""
+    import jax
+    import jax.numpy as jnp
+
+    from trpo_robot_control_tpu.ops.pallas.rollout3d_kernel import \
+        rollout3d_reference
+    with jax.disable_jit():
+        ref = rollout3d_reference(cfg, {k: j(v) for k, v in params_np.items()},
+                                  j(q0), j(qd0), j(tgt), j(eps))
+    ref = {k: jnp.asarray(np.asarray(v)) for k, v in ref.items()}
+    dt = jnp.bfloat16 if store_bf16 else jnp.float32
+    return dict(ref, obs_ff=jnp.transpose(ref["obs"], (1, 2, 0)).astype(dt),
+                actions_ff=jnp.transpose(ref["actions"], (1, 2, 0)).astype(dt),
+                rewards_ff=ref["rewards"].T)
+
+
+def torch_ff(x):
+    """A JAX / numpy (T, d, N) array -> torch, keeping bf16 as bf16 (the
+    values pass through fp32 exactly)."""
+    out = t(np.asarray(x, np.float32))
+    return out.to(torch.bfloat16) if str(np.asarray(x).dtype) == "bfloat16" \
+        else out
+
+
 def torch_batch_from_jax(batch):
     from trpo_robot_control_tpu_torch.envs.arm import batch_from_ff
-    return batch_from_ff(t(batch["obs_ff"]), t(batch["actions_ff"]),
+    return batch_from_ff(torch_ff(batch["obs_ff"]),
+                         torch_ff(batch["actions_ff"]),
                          t(batch["rewards_ff"]))
 
 

@@ -108,5 +108,7 @@ def test_wrappers_take_the_plain_version_on_cpu():
     moments_kernel.baseline_moments(obs_ff, rew_ff, 4)
     p_make_gn_fvp(pt, obs_ff.permute(0, 2, 1).reshape(-1, cfg.obs_dim),
                   0.1)(torch.ones(sum(v.numel() for v in pt.values())))
-    assert kernels.launch_counts() == {"rollout": 0, "moments": 0, "fvp": 0}
-    assert kernels.plain_calls() == {"rollout": 1, "moments": 1, "fvp": 1}
+    assert kernels.launch_counts() == {"rollout": 0, "moments": 0, "fvp": 0,
+                                       "rollout3d": 0, "pg": 0, "fvp_ff": 0}
+    assert kernels.plain_calls() == {"rollout": 1, "moments": 1, "fvp": 1,
+                                     "rollout3d": 0, "pg": 0, "fvp_ff": 0}

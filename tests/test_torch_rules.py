@@ -46,6 +46,10 @@ _IMPORT = re.compile(
 def test_source_scan_no_jax_imports():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    scanned = {f.relative_to(REPO).as_posix() for f in files}
+    for mod in ("envs/rigid_body.py", "ops/cuda/rollout3d_kernel.py",
+                "ops/cuda/pg_kernel.py", "ops/cuda/fvp_ff_kernel.py"):
+        assert f"trpo_robot_control_tpu_torch/{mod}" in scanned
     for f in files:
         hits = _IMPORT.findall(f.read_text())
         assert not hits, f"{f}: imports {hits}"
@@ -66,6 +70,21 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     st = init_state(C1_REACHER2, device="cpu")
     assert st.w.device.type == "cpu" and st.gen.device.type == "cpu"
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_c3_entry_point_needs_cuda_unless_cpu(monkeypatch):
+    from trpo_robot_control_tpu_torch.cli.train import main
+    from trpo_robot_control_tpu_torch.configs import C3_FRANKA7
+    from trpo_robot_control_tpu_torch.trpo.train import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = C3_FRANKA7.replace(n_envs=16, horizon=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(small, n_iters=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--config", "c3_franka7", "--iters", "1", "--n-envs", "16",
+              "--horizon", "8"])
+    _, hist = train(small, n_iters=1, device="cpu")
+    assert len(hist) == 1 and hist[0]["mean_return"] < 0.0
 
 
 @pytest.mark.parametrize("name", ["c1_reacher2", "c2_reacher3", "c3_franka7",
@@ -98,12 +117,22 @@ def test_cli_has_no_unported_flags():
 
 def test_unported_paths_raise():
     from trpo_robot_control_tpu_torch.configs import (C1_REACHER2,
-                                                      C3_FRANKA7)
+                                                      C3_FRANKA7,
+                                                      C4_FRANKA7_OBSTACLE,
+                                                      C5_MULTITASK)
     from trpo_robot_control_tpu_torch.envs.arm import make_rollout_fn
     from trpo_robot_control_tpu_torch.trpo.train import init_state
     from trpo_robot_control_tpu_torch.trpo.update import trpo_update
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        make_rollout_fn(C3_FRANKA7)
+    make_rollout_fn(C3_FRANKA7)               # ported in slice 2
+    with pytest.raises(NotImplementedError, match="obstacle.*slice 3"):
+        make_rollout_fn(C4_FRANKA7_OBSTACLE)
+    with pytest.raises(NotImplementedError, match="multi-task.*slice 3"):
+        make_rollout_fn(C5_MULTITASK)
+    with pytest.raises(NotImplementedError, match="termination"):
+        make_rollout_fn(C3_FRANKA7.replace(done_dist=0.05))
+    with pytest.raises(NotImplementedError, match="bf16"):
+        make_rollout_fn(C1_REACHER2.replace(trpo=dataclasses.replace(
+            C1_REACHER2.trpo, ff_store_dtype="bf16")))
     with pytest.raises(NotImplementedError, match="termination"):
         make_rollout_fn(C1_REACHER2.replace(done_dist=0.05))
     with pytest.raises(NotImplementedError, match="MLP baseline"):
@@ -111,12 +140,10 @@ def test_unported_paths_raise():
             C1_REACHER2.trpo, baseline="mlp")), device="cpu")
     st = init_state(C1_REACHER2, device="cpu")
     batch = {"obs": torch.zeros(4, 5, 9)}
-    for over in (dict(ls_subsample=2), dict(fvp_env_subsample=2),
-                 dict(ff_store_dtype="bf16")):
-        cfg = C1_REACHER2.replace(trpo=dataclasses.replace(C1_REACHER2.trpo,
-                                                           **over))
-        with pytest.raises(NotImplementedError):
-            trpo_update(cfg, st.params, st.w, batch)
+    cfg = C1_REACHER2.replace(trpo=dataclasses.replace(
+        C1_REACHER2.trpo, fvp_env_subsample=2))
+    with pytest.raises(NotImplementedError, match="fvp_env_subsample"):
+        trpo_update(cfg, st.params, st.w, batch)
     with pytest.raises(NotImplementedError, match="batch-major"):
         trpo_update(C1_REACHER2, st.params, st.w, batch)
     with pytest.raises(NotImplementedError, match="data parallelism"):

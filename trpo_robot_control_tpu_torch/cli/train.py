@@ -14,8 +14,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", default="c2_reacher3",
-                    help="c1_reacher2 or c2_reacher3 (the planar configs "
-                         "this slice of the port runs)")
+                    help="c1_reacher2, c2_reacher3 or c3_franka7 (the "
+                         "configs the port runs so far)")
     ap.add_argument("--iters", type=int, default=None)
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--n-envs", type=int, default=None)

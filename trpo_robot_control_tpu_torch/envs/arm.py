@@ -1,10 +1,13 @@
-"""Batched planar arm-reaching environment (port of the planar branch of
+"""Batched arm-reaching environment (port of the reach task of
 ``trpo_robot_control_tpu/envs/arm.py``).
 
 ``reset`` draws the initial states and targets from the same distributions
 as the reference, from a ``torch.Generator``; the random streams differ
 from JAX's, so the tests share batches and action noise instead.
-``make_rollout_fn`` resolves to the fused rollout kernel's wrapper.
+``make_rollout_fn`` resolves the fused rollout kernel as the reference
+does: planar, gravity-free, single-task arms take the planar kernel (K1,
+fp32 storage), every other arm the 3-D RNEA kernel (K4, fp32 or bf16
+storage).
 """
 from __future__ import annotations
 
@@ -13,7 +16,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.cuda import rollout_kernel
+from ..ops.cuda import rollout3d_kernel, rollout_kernel
+from .rigid_body import ArmConstants
 
 
 class EnvState(NamedTuple):
@@ -22,8 +26,22 @@ class EnvState(NamedTuple):
     tgt: torch.Tensor     # (N, 3) target position (world)
 
 
+def _planar_route(cfg) -> bool:
+    """The planar kernel covers the bare reach task of a planar arm
+    without gravity; everything else goes to the 3-D kernel."""
+    return (ArmConstants(cfg.arm).planar and abs(cfg.arm.gravity) < 1e-12
+            and cfg.n_tasks == 1 and cfg.cost.obstacle_weight == 0.0)
+
+
+def _check_ported(cfg) -> None:
+    if _planar_route(cfg):
+        rollout_kernel.planar_consts(cfg)
+    else:
+        rollout3d_kernel.arm3d_consts(cfg)
+
+
 def reset(cfg, gen: torch.Generator, n_envs: int) -> EnvState:
-    rollout_kernel.planar_consts(cfg)     # raises for what is not ported
+    _check_ported(cfg)
     spec = cfg.arm
     n = spec.n_joints
     dev = gen.device
@@ -35,24 +53,36 @@ def reset(cfg, gen: torch.Generator, n_envs: int) -> EnvState:
     qd = spec.qd0_noise * uniform((n_envs, n), -1.0, 1.0)
     r = uniform((n_envs,), spec.target_rmin_frac,
                 spec.target_rmax_frac) * spec.reach
-    th = uniform((n_envs,), 0.0, 2.0 * math.pi)
-    tgt = torch.stack([r * torch.cos(th), r * torch.sin(th),
-                       torch.zeros_like(r)], dim=-1)
+    if ArmConstants(spec).planar:
+        th = uniform((n_envs,), 0.0, 2.0 * math.pi)
+        tgt = torch.stack([r * torch.cos(th), r * torch.sin(th),
+                           torch.zeros_like(r)], dim=-1)
+    else:
+        # direction: a normalised 3-normal on the upper hemisphere
+        u = torch.randn(n_envs, 3, generator=gen, device=dev)
+        u = u / (torch.linalg.norm(u, dim=-1, keepdim=True) + 1e-12)
+        u = torch.cat([u[:, :2], u[:, 2:].abs()], dim=-1)
+        tgt = r[:, None] * u
     return EnvState(q=q, qd=qd, tgt=tgt)
 
 
 def make_rollout_fn(cfg):
     """Returns fn(params, gen, n_envs=None) -> batch dict with the
-    kernel-native obs_ff (T, do, N), actions_ff (T, n, N), rewards_ff
-    (T, N) and their batch-major views obs (N, T, do), actions, rewards.
+    kernel-native obs_ff (T, do, N), actions_ff (T, n, N) (in
+    ``ff_store_dtype``), rewards_ff (T, N) and their batch-major views obs
+    (N, T, do), actions, rewards.
 
     On the card the kernel draws its action noise from Philox keyed by a
     seed taken from ``gen``; on the CPU the noise is drawn here and the
     wrapper runs the plain version."""
-    rollout_kernel.planar_consts(cfg)
-    if cfg.trpo.ff_store_dtype != "f32":
+    _check_ported(cfg)
+    planar = _planar_route(cfg)
+    store = {"f32": torch.float32, "bf16": torch.bfloat16}[
+        cfg.trpo.ff_store_dtype]
+    if planar and store != torch.float32:
         raise NotImplementedError(
-            "bf16 storage (ff_store_dtype) comes with slice 2 of the port")
+            "bf16 storage in the planar rollout kernel comes with slice 3 "
+            "of the port")
 
     def fn(params, gen: torch.Generator, n_envs=None):
         N = cfg.n_envs if n_envs is None else n_envs
@@ -66,9 +96,14 @@ def make_rollout_fn(cfg):
             seed = None
             eps = torch.randn(cfg.horizon, N, cfg.arm.n_joints,
                               generator=gen, device=dev)
-        obs_ff, act_ff, rew_ff = rollout_kernel.rollout(
-            cfg, params, s.q, s.qd, s.tgt, eps=eps, seed=seed)
-        return batch_from_ff(obs_ff, act_ff, rew_ff)
+        if planar:
+            out = rollout_kernel.rollout(cfg, params, s.q, s.qd, s.tgt,
+                                         eps=eps, seed=seed)
+        else:
+            out = rollout3d_kernel.rollout3d(cfg, params, s.q, s.qd, s.tgt,
+                                             eps=eps, seed=seed,
+                                             store_dtype=store)
+        return batch_from_ff(*out)
 
     return fn
 

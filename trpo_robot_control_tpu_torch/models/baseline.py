@@ -22,12 +22,27 @@ def _time_features(T, horizon, device):
 
 def values_ff(w, obs_ff, horizon: int):
     """Baseline values without materialising phi: obs_ff (T, do, N) ->
-    (T, N). Only the obs/obs^2 contractions touch the batch."""
+    (T, N). Only the obs/obs^2 contractions touch the batch.
+
+    A bf16 obs_ff follows the JAX package's rounding points: obs^2 is
+    formed in bf16, the weights w_o/w_q are rounded to bf16, the
+    contractions accumulate fp32 and the time term stays fp32."""
     T, do, N = obs_ff.shape
+    dt = obs_ff.dtype
     w_o, w_q, w_t = w[:do], w[do:2 * do], w[2 * do:]
-    return (torch.einsum("tdn,d->tn", obs_ff, w_o)
-            + torch.einsum("tdn,d->tn", obs_ff * obs_ff, w_q)
+    return (torch.einsum("tdn,d->tn", obs_ff.float(), w_o.to(dt).float())
+            + torch.einsum("tdn,d->tn", (obs_ff * obs_ff).float(),
+                           w_q.to(dt).float())
             + (_time_features(T, horizon, obs_ff.device) @ w_t)[:, None])
+
+
+def data_rows(obs_ff, targets_tn):
+    """v = [obs; obs^2; y] (T, 2do+1, N) in fp32, with obs^2 and y rounded
+    to the storage dtype of obs_ff (bf16 or fp32) as the JAX package
+    rounds them."""
+    dt = obs_ff.dtype
+    return torch.cat([obs_ff, obs_ff * obs_ff,
+                      targets_tn[:, None, :].to(dt)], dim=1).float()
 
 
 def normal_eq_ff(obs_ff, targets_tn, horizon: int):
@@ -36,12 +51,12 @@ def normal_eq_ff(obs_ff, targets_tn, horizon: int):
 
     The data blocks come from one Gram of v = [obs, obs^2, y]; the time
     features are constant across envs, so their cross block is one (T, 4)
-    contraction and their own block the exact N * tau^T tau. This is the
-    reference form the moments kernel (``ops/cuda/moments_kernel.py``) is
-    held against."""
+    contraction and their own block the exact N * tau^T tau, both fp32.
+    This is the reference form the moments kernel
+    (``ops/cuda/moments_kernel.py``) is held against."""
     T, do, N = obs_ff.shape
     tau = _time_features(T, horizon, obs_ff.device)          # (T, 4)
-    v = torch.cat([obs_ff, obs_ff * obs_ff, targets_tn[:, None, :]], dim=1)
+    v = data_rows(obs_ff, targets_tn)
     G = torch.einsum("tfn,tgn->fg", v, v)
     C = torch.einsum("tfn,tk->fk", v, tau)
     return assemble(G, C, tau, N, do)

@@ -92,13 +92,25 @@ def entropy(logstd):
 
 # --------------------------------------------------------- feature-first
 
-def hidden_ff(params, obs_ff):
-    """obs_ff (T, do, N) -> all hidden activations [(T, h, N), ...]."""
+def store_round(x, store_dtype):
+    """Round to the storage dtype and hold the result in fp32. A bf16 x
+    bf16 -> fp32 contraction is emulated by contracting the upcast
+    operands in fp32: their products are exact there."""
+    return x if store_dtype is None else x.to(store_dtype).float()
+
+
+def hidden_ff(params, obs_ff, store_dtype=None):
+    """obs_ff (T, do, N) -> all hidden activations [(T, h, N), ...], fp32.
+
+    With ``store_dtype=torch.bfloat16`` each tanh output is rounded to
+    bf16 (the JAX package stores them so); every contraction still
+    accumulates fp32 against the fp32 weights."""
     hs = []
-    h = obs_ff
+    h = obs_ff.float()
     for i in range(n_layers(params) - 1):
-        h = torch.tanh(torch.einsum("io,tin->ton", params[f"W{i}"], h)
-                       + params[f"b{i}"][None, :, None])
+        h = store_round(torch.tanh(
+            torch.einsum("io,tin->ton", params[f"W{i}"], h)
+            + params[f"b{i}"][None, :, None]), store_dtype)
         hs.append(h)
     return hs
 
@@ -131,13 +143,20 @@ def kl_ff(mu_old_ff, logstd_old, mu_new_ff, logstd_new):
     return quad + const
 
 
-def surrogate_grad_ff(params, obs_ff, act_ff, adv_ff, hs=None):
+def surrogate_grad_ff(params, obs_ff, act_ff, adv_ff, hs=None,
+                      store_dtype=None):
     """Closed-form gradient of the surrogate at theta_old in (T, d, N)
-    layout. Returns (g_tree, mu_ff, logp_old (T, N))."""
+    layout. Returns (g_tree, mu_ff, logp_old (T, N)), all fp32.
+
+    With ``store_dtype=torch.bfloat16`` it rounds where the JAX package
+    does: the hidden activations after tanh and each back-propagated
+    cotangent after ``* (1 - h^2)``; the output cotangent u stays fp32 and
+    every contraction accumulates fp32 against fp32 weights."""
     L = n_layers(params)
     T, do, N = obs_ff.shape
     B = T * N
-    hs = hs or hidden_ff(params, obs_ff)
+    obs_ff, act_ff = obs_ff.float(), act_ff.float()
+    hs = hs or hidden_ff(params, obs_ff, store_dtype)
     mu, logstd = dist_ff(params, obs_ff, hs=hs)
     inv_var = torch.exp(-2.0 * logstd)
     z = (act_ff - mu) * torch.exp(-logstd)[None, :, None]
@@ -153,8 +172,8 @@ def surrogate_grad_ff(params, obs_ff, act_ff, adv_ff, hs=None):
         h_in = hs[l - 1]
         g[f"W{l}"] = torch.einsum("tin,ton->io", h_in, ct)
         g[f"b{l}"] = torch.sum(ct, dim=(0, 2))
-        ct = torch.einsum("io,ton->tin", params[f"W{l}"], ct) \
-            * (1.0 - h_in * h_in)
+        ct = store_round(torch.einsum("io,ton->tin", params[f"W{l}"], ct)
+                         * (1.0 - h_in * h_in), store_dtype)
     g["W0"] = torch.einsum("tin,ton->io", obs_ff, ct)
     g["b0"] = torch.sum(ct, dim=(0, 2))
     return g, mu, logp_old

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 -fPIC`` into ``build/torch_kernels/lib<name>-<hash>.so`` at the root of the
-checkout (the hash covers the source and the flags, so an edited source
-rebuilds). The first call to ``library`` builds every missing library, one
-``nvcc`` per source, all started together, and keeps each compiler's
+checkout (the hash covers the source, the headers it includes from
+``csrc/`` and the flags, so an edited source or header rebuilds). The
+first call to ``library`` builds every missing library, one ``nvcc`` per
+source, all started together, and keeps each compiler's
 ``-Xptxas -v`` report (registers, shared memory, spills) beside it.
 Nothing is built when this module is imported.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -22,13 +24,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("rollout", "moments", "fvp")
+SOURCES = ("rollout", "moments", "fvp", "rollout3d", "pg", "fvp_ff")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# The rollout's dynamics round every multiply and add as PyTorch's separate
-# elementwise ops do, so that 100 dependent steps stay close to the plain
-# version; its policy MLP still uses explicit fmaf.
-EXTRA_FLAGS = {"rollout": ("-fmad=false",)}
+# The rollouts' dynamics round every multiply and add as PyTorch's separate
+# elementwise ops do, so that the dependent steps stay close to the plain
+# versions; their policy MLPs still use explicit fmaf.
+EXTRA_FLAGS = {"rollout": ("-fmad=false",), "rollout3d": ("-fmad=false",)}
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 NVCC_TIMEOUT_S = 600
 
 _lock = threading.Lock()
@@ -50,9 +53,24 @@ def _flags(name: str) -> tuple:
     return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
+def _sources(name: str) -> bytes:
+    """The source and, recursively, every header it includes from csrc/."""
+    seen, todo, out = set(), [f"{name}.cu"], b""
+    while todo:
+        f = todo.pop(0)
+        if f in seen:
+            continue
+        seen.add(f)
+        text = (CSRC / f).read_bytes()
+        out += text
+        todo += [m.decode() for m in _INCLUDE.findall(text)
+                 if (CSRC / m.decode()).exists()]
+    return out
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
+    digest = hashlib.sha256(_sources(name)
+                            + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

@@ -43,6 +43,12 @@ def activations(params, obs):
 def gn_fvp_plain(params, obs, hs, scale, v, damping: float):
     """The kernel's math in plain PyTorch. scale = exp(-2 logstd) / B."""
     gn_fvp_plain.calls += 1
+    return gn_fvp_math(params, obs, hs, scale, v, damping)
+
+
+def gn_fvp_math(params, obs, hs, scale, v, damping: float):
+    """J^T M J v + damping v on batch-major fp32 samples (shared by the
+    plain versions of this kernel and of the feature-first one)."""
     L = len(hs)
     t = policy.unflatten(v, params)
     a = obs @ t["W0"] + t["b0"]

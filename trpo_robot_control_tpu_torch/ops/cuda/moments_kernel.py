@@ -5,7 +5,9 @@ Replaces ``pallas_baseline_moments`` in
 obs_ff (T, do, N) and the targets (T, N) gives the extended Gram of
 v_ext = [obs; obs^2; y; tau_t] (2do+5 rows), whose blocks are every moment
 of the ridge fit. (A, b) is assembled outside with the exact fp32
-A_tt = N tau^T tau, as the TPU wrapper does.
+A_tt = N tau^T tau, as the TPU wrapper does. obs_ff may be fp32 or bf16
+(c3's storage); in bf16 mode obs^2 and y are rounded to bf16 and tau
+stays fp32, as ``models/baseline.normal_eq_ff`` rounds them.
 
 ``extended_gram`` is the wrapper: the CUDA kernel on CUDA tensors (or it
 raises), ``extended_gram_plain`` on CPU tensors. ``baseline_moments`` is
@@ -19,22 +21,24 @@ import ctypes
 import torch
 
 from . import build
-from ...models.baseline import _time_features, assemble
+from ...models.baseline import _time_features, assemble, data_rows
 
 TILE = 128          # envs of one step per tile (csrc/moments.cu: S)
 MAX_BLOCKS = 256    # fixed, so the reduction order does not depend on the card
 MAX_OBS_DIM = 32
 
 _SIG = {"trpo_moments_launch": [ctypes.c_void_p] * 5
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
 
 
 def extended_gram_plain(obs_ff, y, tau):
-    """obs_ff (T, do, N), y (T, N), tau (T, 4) -> (2do+5, 2do+5) Gram."""
+    """obs_ff (T, do, N) fp32 or bf16, y (T, N), tau (T, 4) -> the
+    (2do+5, 2do+5) fp32 Gram; obs^2 and y are rounded to the storage
+    dtype of obs_ff, tau stays fp32."""
     extended_gram_plain.calls += 1
     T, do, N = obs_ff.shape
-    v = torch.cat([obs_ff, obs_ff * obs_ff, y[:, None, :],
-                   tau[:, :, None].expand(T, 4, N)], dim=1)
+    v = torch.cat([data_rows(obs_ff, y), tau[:, :, None].expand(T, 4, N)],
+                  dim=1)
     return torch.einsum("tan,tbn->ab", v, v)
 
 
@@ -47,12 +51,15 @@ def extended_gram(obs_ff, y, tau):
     T, do, N = obs_ff.shape
     if do > MAX_OBS_DIM:
         raise NotImplementedError(f"moments kernel takes obs_dim <= {MAX_OBS_DIM}")
+    if obs_ff.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("obs_ff must be fp32 or bf16")
     for name, x, shape in (("obs_ff", obs_ff, (T, do, N)), ("y", y, (T, N)),
                            ("tau", tau, (T, 4))):
-        if (x.dtype != torch.float32 or x.device != obs_ff.device
+        if (x.dtype != (obs_ff.dtype if x is obs_ff else torch.float32)
+                or x.device != obs_ff.device
                 or tuple(x.shape) != shape or not x.is_contiguous()):
-            raise ValueError(f"{name}: need a contiguous fp32 {shape} tensor "
-                             f"on {obs_ff.device}")
+            raise ValueError(f"{name}: need a contiguous {shape} tensor on "
+                             f"{obs_ff.device} (fp32, obs_ff fp32 or bf16)")
     R = 2 * do + 5
     E = R * (R + 1) // 2
     n_blocks = min(T * -(-N // TILE), MAX_BLOCKS)
@@ -62,6 +69,7 @@ def extended_gram(obs_ff, y, tau):
     err = lib.trpo_moments_launch(
         build.ptr(obs_ff), build.ptr(y), build.ptr(tau), build.ptr(partial),
         build.ptr(gram), T, do, N, n_blocks,
+        int(obs_ff.dtype == torch.bfloat16),
         build.stream_handle(obs_ff.device))
     build.check(err, "moments kernel")
     extended_gram.launches += 1

@@ -1,0 +1,93 @@
+"""K5: surrogate-gradient pass at theta_old (``csrc/pg.cu``).
+
+Replaces ``pallas_surrogate_grad_ff`` in
+``trpo_robot_control_tpu/ops/pallas/pg_kernel.py``: one pass over the
+feature-first (T, d, N) batch as the rollout stores it (bf16 or fp32 obs
+and actions, fp32 advantages) gives the closed-form gradient of the
+surrogate at theta_old, the old means mu (T, da, N) and log-likelihoods
+logp (T, N). The TPU kernel's lane-pair packing, block-diagonal weights,
+ones-row bias fold and accumulator rotation are matrix-unit tricks and are
+not carried over.
+
+``surrogate_grad`` is the wrapper: the CUDA kernel on CUDA tensors (or it
+raises), ``surrogate_grad_plain`` on CPU tensors, which is
+``models/policy.surrogate_grad_ff`` with the storage dtype's rounding.
+Both return (g_tree, mu_ff, logp_old), like the JAX kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from ...models import policy
+
+HIDDEN = 64
+MAX_BLOCKS = 256    # fixed, so the reduction order does not depend on the card
+TILE = 64           # samples per tile (csrc/pg.cu: S)
+
+_SIG = {"trpo_pg_launch": [ctypes.c_void_p] * 14
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p]}
+
+
+def surrogate_grad_plain(params, obs_ff, act_ff, adv_ff):
+    """The kernel's math in plain PyTorch: the closed-form surrogate
+    gradient with the rounding points of ``obs_ff``'s storage dtype."""
+    surrogate_grad_plain.calls += 1
+    store = torch.bfloat16 if obs_ff.dtype == torch.bfloat16 else None
+    return policy.surrogate_grad_ff(params, obs_ff, act_ff, adv_ff,
+                                    store_dtype=store)
+
+
+surrogate_grad_plain.calls = 0
+
+
+def surrogate_grad(params, obs_ff, act_ff, adv_ff):
+    """obs_ff (T, do, N), act_ff (T, da, N) (both fp32 or both bf16),
+    adv_ff (T, N) fp32 -> (g_tree, mu_ff (T, da, N), logp_old (T, N))."""
+    if not obs_ff.is_cuda:
+        return surrogate_grad_plain(params, obs_ff, act_ff, adv_ff)
+    T, do, N = obs_ff.shape
+    da = act_ff.shape[1]
+    if policy.n_layers(params) != 3 or any(
+            params[f"W{i}"].shape[1] != HIDDEN for i in range(2)):
+        raise NotImplementedError(
+            "the surrogate-gradient kernel takes a (64, 64) tanh policy")
+    if do > 32 or da > 8:
+        raise NotImplementedError("the surrogate-gradient kernel takes "
+                                  "obs_dim <= 32, act_dim <= 8")
+    dt = obs_ff.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError("obs_ff must be fp32 or bf16")
+    dev = obs_ff.device
+    checks = [("obs_ff", obs_ff, dt, (T, do, N)),
+              ("act_ff", act_ff, dt, (T, da, N)),
+              ("adv_ff", adv_ff, torch.float32, (T, N))] + [
+        (k, params[k], torch.float32, tuple(params[k].shape))
+        for k in ("W0", "b0", "W1", "b1", "W2", "b2", "logstd")]
+    for name, x, want, shape in checks:
+        if (x.dtype != want or x.device != dev or tuple(x.shape) != shape
+                or not x.is_contiguous()):
+            raise ValueError(f"{name}: need a contiguous {want} {shape} "
+                             f"tensor on {dev}")
+    P = sum(params[k].numel() for k in params)
+    n_blocks = min(T * -(-N // TILE), MAX_BLOCKS)
+    partial = torch.empty(n_blocks * P, device=dev)
+    g = torch.empty(P, device=dev)
+    mu = torch.empty(T, da, N, device=dev)
+    logp = torch.empty(T, N, device=dev)
+    lib = build.library("pg", _SIG)
+    err = lib.trpo_pg_launch(
+        *(build.ptr(x) for x in (obs_ff, act_ff, adv_ff, params["W0"],
+                                 params["b0"], params["W1"], params["b1"],
+                                 params["W2"], params["b2"], params["logstd"],
+                                 mu, logp, partial, g)),
+        T, do, da, N, n_blocks, int(dt == torch.bfloat16),
+        build.stream_handle(dev))
+    build.check(err, "surrogate-gradient kernel")
+    surrogate_grad.launches += 1
+    return policy.unflatten(g, params), mu, logp
+
+
+surrogate_grad.launches = 0

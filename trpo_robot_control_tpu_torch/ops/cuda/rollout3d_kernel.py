@@ -1,0 +1,427 @@
+"""K4: fused rollout of a spatial (7-DoF) arm (``csrc/rollout3d.cu``).
+
+Replaces ``pallas_rollout3d`` in
+``trpo_robot_control_tpu/ops/pallas/rollout3d_kernel.py`` for the reach
+task without early termination: per step FK, the observation, the
+tanh-MLP mean, a Gaussian action, the torque clip, the mass matrix and the
+gravity/Coriolis bias as one fused sweep of n + 1 world-frame RNEA passes,
+a regularised Cholesky solve and semi-implicit Euler substeps, and the
+reach reward at the post-step state. See the source for what bounds it on
+the card and how its design spreads one env over eight threads.
+
+``rollout3d`` is the wrapper: on CUDA tensors it launches the kernel (or
+raises), on CPU tensors it runs ``rollout3d_plain``, the same component
+math on lists of (N,) tensors in the kernel's op order (exact cos/sin
+every substep, as ``rollout3d_reference`` in the JAX package). Outputs
+keep the (T, d, N) layout; obs and actions are stored in ``store_dtype``
+(fp32 or bf16, rounded once at the store: the trajectory stays fp32),
+rewards in fp32. Noise: ``eps`` (T, N, n) from the caller, or Philox keyed
+by ``seed`` (an int64 pair on the device), on the card only.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from . import build
+from ...envs.rigid_body import ArmConstants
+
+HIDDEN = 64
+N_JOINTS = 7        # the kernel is instantiated for 7-DoF arms
+
+_SIG = {"trpo_rollout3d_launch":
+        [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 15
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+
+
+class Arm3DConsts(NamedTuple):
+    n: int
+    T_rot: tuple      # n x (3x3 float tuples)
+    T_pos: tuple      # n x (3 floats)
+    mass: tuple
+    com: tuple        # n x (3 floats)
+    inertia: tuple    # n x (3x3 float tuples, link frame)
+    ee_offset: tuple
+    gravity: float
+    damping: float
+    dt: float
+    n_substeps: int
+    torque_limit: float
+    qd_limit: float
+    qd_obs_scale: float
+    ctrl_weight: float
+    chol_reg: float
+
+
+def arm3d_consts(cfg, chol_reg: float = 1e-6) -> Arm3DConsts:
+    """Constants of a single-task reach arm, float32-rounded as the JAX
+    package rounds them; raises NotImplementedError for what this kernel
+    does not cover yet."""
+    if cfg.n_tasks != 1:
+        raise NotImplementedError(
+            "multi-task rollouts (task one-hot, track/push terms) come with "
+            "slice 3 of the port")
+    if cfg.cost.obstacle_weight != 0.0:
+        raise NotImplementedError(
+            "the obstacle cost comes with slice 3 of the port")
+    if cfg.done_dist > 0.0:
+        raise NotImplementedError(
+            "early termination (done_dist > 0) comes with slice 3 of the port")
+    spec = cfg.arm
+    c = ArmConstants(spec)
+    return Arm3DConsts(
+        n=c.n,
+        T_rot=tuple(tuple(map(tuple, t)) for t in c.T_rot),
+        T_pos=tuple(tuple(t) for t in c.T_pos),
+        mass=tuple(c.mass),
+        com=tuple(tuple(x) for x in c.com),
+        inertia=tuple(tuple(map(tuple, i)) for i in c.inertia),
+        ee_offset=tuple(c.ee_offset),
+        gravity=float(spec.gravity),
+        damping=float(spec.joint_damping), dt=float(spec.dt),
+        n_substeps=int(spec.n_substeps),
+        torque_limit=float(spec.torque_limit),
+        qd_limit=float(spec.qd_limit),
+        qd_obs_scale=float(spec.qd_obs_scale),
+        ctrl_weight=float(cfg.cost.ctrl_weight),
+        chol_reg=chol_reg)
+
+
+# ------------------------------------------------------- plain version
+# Every scalar channel is an (N,) tensor (or (n + 1, N) in the fused
+# RNEA sweep); vectors are 3-tuples, rotations row-major 9-tuples. Fixed
+# transforms are Python floats and their zero and unit entries fold away,
+# as in the JAX package's component math.
+
+def v_add(a, b):
+    return (a[0] + b[0], a[1] + b[1], a[2] + b[2])
+
+
+def v_sub(a, b):
+    return (a[0] - b[0], a[1] - b[1], a[2] - b[2])
+
+
+def v_scale(s, a):
+    return (s * a[0], s * a[1], s * a[2])
+
+
+def v_cross(a, b):
+    return (a[1] * b[2] - a[2] * b[1],
+            a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0])
+
+
+def v_dot(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def _fold(R, x):
+    return R if x == 1.0 else (-R if x == -1.0 else R * x)
+
+
+def m_vec_const(R, v3):
+    out = []
+    for r in range(3):
+        acc = None
+        for col in range(3):
+            x = float(v3[col])
+            if x != 0.0:
+                term = _fold(R[3 * r + col], x)
+                acc = term if acc is None else acc + term
+        out.append(acc if acc is not None else torch.zeros_like(R[0]))
+    return tuple(out)
+
+
+def m_vec(R, v):
+    return (R[0] * v[0] + R[1] * v[1] + R[2] * v[2],
+            R[3] * v[0] + R[4] * v[1] + R[5] * v[2],
+            R[6] * v[0] + R[7] * v[1] + R[8] * v[2])
+
+
+def m_mul_const(R, Tm):
+    out = []
+    for r in range(3):
+        for col in range(3):
+            acc = None
+            for k in range(3):
+                x = float(Tm[k][col])
+                if x != 0.0:
+                    term = _fold(R[3 * r + k], x)
+                    acc = term if acc is None else acc + term
+            out.append(acc if acc is not None else torch.zeros_like(R[0]))
+    return tuple(out)
+
+
+def m_rotz(A, cq, sq):
+    """A @ Rz(q): columns 0 and 1 mix by cos/sin; column 2 unchanged."""
+    return (A[0] * cq + A[1] * sq, -A[0] * sq + A[1] * cq, A[2],
+            A[3] * cq + A[4] * sq, -A[3] * sq + A[4] * cq, A[5],
+            A[6] * cq + A[7] * sq, -A[6] * sq + A[7] * cq, A[8])
+
+
+def _fk3(c: Arm3DConsts, cq, sq):
+    """FK from per-joint cos/sin lists -> (R[i] 9-tuples, p[i], axis[i],
+    ee)."""
+    zero = torch.zeros_like(cq[0])
+    one = torch.ones_like(cq[0])
+    R_par = (one, zero, zero, zero, one, zero, zero, zero, one)
+    p_par = (zero, zero, zero)
+    R, p, axis = [], [], []
+    for i in range(c.n):
+        A = m_mul_const(R_par, c.T_rot[i])
+        p_i = v_add(p_par, m_vec_const(R_par, c.T_pos[i]))
+        R_i = m_rotz(A, cq[i], sq[i])
+        axis.append((A[2], A[5], A[8]))
+        R.append(R_i)
+        p.append(p_i)
+        R_par, p_par = R_i, p_i
+    ee = v_add(p[-1], m_vec_const(R[-1], c.ee_offset))
+    return R, p, axis, ee
+
+
+def _mass_bias_fused(c: Arm3DConsts, R, p, axis, qd):
+    """All n mass-matrix columns and the bias as one RNEA sweep on
+    (n + 1, N) channels: row j < n is the zero-velocity, unit-qdd_j pass
+    (column j of M), row n the real-velocity, gravity, qdd = 0 pass (the
+    bias). Returns (M {(i, j): (N,)} for i <= j, bias list of n (N,))."""
+    n = c.n
+    ref = qd[0]
+    rows = n + 1
+    zero_r = torch.zeros((rows,) + ref.shape, dtype=ref.dtype,
+                         device=ref.device)
+    zv = (zero_r, zero_r, zero_r)
+    row_ids = torch.arange(rows, device=ref.device)[:, None]
+
+    def col_const(j):
+        return (row_ids == j).to(ref.dtype)
+
+    bias_row = col_const(n)
+    g_vec = ((zero_r, zero_r, c.gravity * bias_row + zero_r) if c.gravity
+             else zv)
+    w_par, wd_par, a_par = zv, zv, g_vec
+    p_par = (torch.zeros_like(ref),) * 3
+    ws, wds, acs, cws = [], [], [], []
+    for i in range(n):
+        qd_i = bias_row * qd[i]
+        qdd_i = col_const(i)
+        r = v_sub(p[i], p_par)
+        a_i = v_add(a_par, v_add(v_cross(wd_par, r),
+                                 v_cross(w_par, v_cross(w_par, r))))
+        s = axis[i]
+        w_i = v_add(w_par, v_scale(qd_i, s))
+        wd_i = v_add(v_add(wd_par, v_scale(qdd_i, s)),
+                     v_cross(w_par, v_scale(qd_i, s)))
+        d = m_vec_const(R[i], c.com[i])
+        ac_i = v_add(a_i, v_add(v_cross(wd_i, d),
+                                v_cross(w_i, v_cross(w_i, d))))
+        ws.append(w_i)
+        wds.append(wd_i)
+        acs.append(ac_i)
+        cws.append(v_add(p[i], d))
+        w_par, wd_par, a_par, p_par = w_i, wd_i, a_i, p[i]
+
+    taus = [None] * n
+    f_child, n_child = zv, zv
+    p_child = (torch.zeros_like(ref),) * 3
+    for i in range(n - 1, -1, -1):
+        Ri, Ic = R[i], c.inertia[i]
+
+        def inertia_vec(v, Ri=Ri, Ic=Ic):
+            tv = m_vec((Ri[0], Ri[3], Ri[6], Ri[1], Ri[4], Ri[7],
+                        Ri[2], Ri[5], Ri[8]), v)
+            iv = tuple(tv[0] * float(Ic[r][0]) + tv[1] * float(Ic[r][1])
+                       + tv[2] * float(Ic[r][2]) for r in range(3))
+            return m_vec(Ri, iv)
+
+        F = v_scale(c.mass[i], acs[i])
+        N = v_add(inertia_vec(wds[i]), v_cross(ws[i], inertia_vec(ws[i])))
+        f = v_add(F, f_child)
+        nn = v_add(v_add(N, n_child),
+                   v_add(v_cross(v_sub(cws[i], p[i]), F),
+                         v_cross(v_sub(p_child, p[i]), f_child)))
+        taus[i] = v_dot(axis[i], nn)                 # (rows, N)
+        f_child, n_child, p_child = f, nn, p[i]
+
+    M = {(i, j): taus[i][j] for i in range(n) for j in range(i, n)}
+    return M, [taus[i][n] for i in range(n)]
+
+
+def _chol_solve3(c: Arm3DConsts, M, rhs):
+    """Unrolled Cholesky of (M + reg I) with one 1/sqrt per pivot."""
+    n = c.n
+    L, inv_d = {}, [None] * n
+    for j in range(n):
+        s = M[(j, j)] + c.chol_reg
+        for k in range(j):
+            s = s - L[(j, k)] * L[(j, k)]
+        inv = 1.0 / torch.sqrt(s)
+        inv_d[j] = inv
+        L[(j, j)] = s * inv
+        for i in range(j + 1, n):
+            t = M[(j, i)]
+            for k in range(j):
+                t = t - L[(i, k)] * L[(j, k)]
+            L[(i, j)] = t * inv
+    y = [None] * n
+    for i in range(n):
+        s = rhs[i]
+        for k in range(i):
+            s = s - L[(i, k)] * y[k]
+        y[i] = s * inv_d[i]
+    x = [None] * n
+    for i in range(n - 1, -1, -1):
+        s = y[i]
+        for k in range(i + 1, n):
+            s = s - L[(k, i)] * x[k]
+        x[i] = s * inv_d[i]
+    return x
+
+
+def _policy_mean(params, obs):
+    """obs (do, N) -> mu (da, N)."""
+    L = sum(1 for k in params if k.startswith("W"))
+    h = obs
+    for i in range(L - 1):
+        h = torch.tanh(params[f"W{i}"].T @ h + params[f"b{i}"][:, None])
+    return params[f"W{L - 1}"].T @ h + params[f"b{L - 1}"][:, None]
+
+
+def _step3(c: Arm3DConsts, params, sigma, q, qd, tgt, eps_t, cq, sq, fk):
+    """One env step from (q, qd) with their cos/sin and FK -> the next
+    state, its cos/sin and FK, and this step's obs (do, N), act (n, N),
+    reward (N,)."""
+    n = c.n
+    R, p, axis, ee = fk
+    obs = torch.stack(cq + sq + [c.qd_obs_scale * x for x in qd]
+                      + [tgt[0] - ee[0], tgt[1] - ee[1], tgt[2] - ee[2]])
+    act = _policy_mean(params, obs) + sigma * eps_t
+    tau = list(torch.clamp(act, -c.torque_limit, c.torque_limit))
+    h = c.dt / c.n_substeps
+    for s in range(c.n_substeps):
+        if s > 0:
+            R, p, axis, ee = _fk3(c, cq, sq)
+        M, bias = _mass_bias_fused(c, R, p, axis, qd)
+        rhs = [tau[i] - bias[i] - c.damping * qd[i] for i in range(n)]
+        qdd = _chol_solve3(c, M, rhs)
+        qd = [torch.clamp(qd[i] + h * qdd[i], -c.qd_limit, c.qd_limit)
+              for i in range(n)]
+        q = [q[i] + h * qd[i] for i in range(n)]
+        cq = [torch.cos(x) for x in q]
+        sq = [torch.sin(x) for x in q]
+    fk = _fk3(c, cq, sq)
+    d = v_sub(fk[3], tgt)
+    ctrl = None
+    for i in range(n):
+        t2 = tau[i] * tau[i]
+        ctrl = t2 if ctrl is None else ctrl + t2
+    rew = -(v_dot(d, d) + c.ctrl_weight * ctrl)
+    return q, qd, cq, sq, fk, obs, act, rew
+
+
+def rollout3d_plain(cfg, params, q0, qd0, tgt, eps):
+    """q0/qd0 (N, n), tgt (N, 3), eps (T, N, n) -> obs_ff (T, do, N),
+    act_ff (T, n, N), rew_ff (T, N), all fp32."""
+    rollout3d_plain.calls += 1
+    c = arm3d_consts(cfg)
+    sigma = torch.exp(params["logstd"])[:, None]
+    q, qd = list(q0.T), list(qd0.T)
+    tg = (tgt[:, 0], tgt[:, 1], tgt[:, 2])
+    cq = [torch.cos(x) for x in q]
+    sq = [torch.sin(x) for x in q]
+    fk = _fk3(c, cq, sq)
+    obs_t, act_t, rew_t = [], [], []
+    for t in range(eps.shape[0]):
+        q, qd, cq, sq, fk, obs, act, rew = _step3(
+            c, params, sigma, q, qd, tg, eps[t].T, cq, sq, fk)
+        obs_t.append(obs)
+        act_t.append(act)
+        rew_t.append(rew)
+    return torch.stack(obs_t), torch.stack(act_t), torch.stack(rew_t)
+
+
+rollout3d_plain.calls = 0
+
+
+# ------------------------------------------------------------- wrapper
+
+def _consts_array(c: Arm3DConsts):
+    vals = []
+    for i in range(c.n):
+        vals += [x for row in c.T_rot[i] for x in row]
+    for i in range(c.n):
+        vals += list(c.T_pos[i])
+    vals += list(c.mass)
+    for i in range(c.n):
+        vals += list(c.com[i])
+    for i in range(c.n):
+        vals += [x for row in c.inertia[i] for x in row]
+    vals += list(c.ee_offset)
+    vals += [c.gravity, c.damping, c.dt / c.n_substeps, c.torque_limit,
+             c.qd_limit, c.qd_obs_scale, c.ctrl_weight, c.chol_reg]
+    return (ctypes.c_float * len(vals))(*vals)
+
+
+def rollout3d(cfg, params, q0, qd0, tgt, eps=None, seed=None,
+              store_dtype=torch.float32):
+    """Fused 3-D rollout: q0/qd0 (N, n), tgt (N, 3), and either eps
+    (T, N, n) or seed (int64 (2,) on the device) -> obs_ff (T, do, N) and
+    act_ff (T, n, N) in ``store_dtype``, rew_ff (T, N) fp32."""
+    c = arm3d_consts(cfg)
+    if store_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(
+            f"store_dtype must be fp32 or bf16, not {store_dtype}")
+    if not q0.is_cuda:
+        if eps is None:
+            raise ValueError("Philox noise runs only in the CUDA kernel; "
+                             "pass eps on the CPU")
+        obs, act, rew = rollout3d_plain(cfg, params, q0, qd0, tgt, eps)
+        return obs.to(store_dtype), act.to(store_dtype), rew
+    N, n = q0.shape
+    T = cfg.horizon
+    do = 3 * n + 3
+    dev = q0.device
+    L = sum(1 for k in params if k.startswith("W"))
+    if L != 3 or any(params[f"W{i}"].shape[1] != HIDDEN for i in range(2)):
+        raise NotImplementedError(
+            "the 3-D rollout kernel takes a (64, 64) tanh policy")
+    if n != N_JOINTS:
+        raise NotImplementedError(
+            f"the 3-D rollout kernel is built for {N_JOINTS} joints, not {n}")
+    if (eps is None) == (seed is None):
+        raise ValueError("pass exactly one of eps and seed")
+    ins = dict(q0=q0.T, qd0=qd0.T, tgt=tgt.T,
+               **{k: params[k] for k in ("W0", "b0", "W1", "b1", "W2", "b2",
+                                         "logstd")})
+    ins = {k: v.to(torch.float32).contiguous() for k, v in ins.items()}
+    for k, v in ins.items():
+        if v.device != dev:
+            raise ValueError(f"{k} is on {v.device}, the batch on {dev}")
+    if eps is not None:
+        if eps.shape != (T, N, n) or eps.device != dev:
+            raise ValueError(f"eps must be ({T}, {N}, {n}) on {dev}")
+        eps_ff = eps.to(torch.float32).permute(0, 2, 1).contiguous()
+        eps_p, seed_p = build.ptr(eps_ff), ctypes.c_void_p(None)
+    else:
+        if (seed.dtype != torch.int64 or seed.numel() != 2
+                or seed.device != dev):
+            raise ValueError("seed must be an int64 (2,) tensor on the device")
+        eps_p, seed_p = ctypes.c_void_p(None), build.ptr(seed)
+    obs = torch.empty(T, do, N, device=dev, dtype=store_dtype)
+    act = torch.empty(T, n, N, device=dev, dtype=store_dtype)
+    rew = torch.empty(T, N, device=dev)
+    lib = build.library("rollout3d", _SIG)
+    err = lib.trpo_rollout3d_launch(
+        _consts_array(c), n, c.n_substeps,
+        int(store_dtype == torch.bfloat16),
+        *(build.ptr(ins[k]) for k in ("q0", "qd0", "tgt", "W0", "b0", "W1",
+                                      "b1", "W2", "b2", "logstd")),
+        eps_p, seed_p, build.ptr(obs), build.ptr(act), build.ptr(rew), N, T,
+        build.stream_handle(dev))
+    build.check(err, "3-D rollout kernel")
+    rollout3d.launches += 1
+    return obs, act, rew
+
+
+rollout3d.launches = 0

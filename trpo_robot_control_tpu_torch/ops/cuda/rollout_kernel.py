@@ -58,11 +58,12 @@ def planar_consts(cfg, chol_reg: float = 1e-6) -> PlanarConsts:
     planar = all(abs(v) < 1e-12 for j in spec.joints for v in j.rpy)
     if not planar or abs(spec.gravity) > 1e-12:
         raise NotImplementedError(
-            "non-planar arms (world-frame RNEA, the 7-DoF rollout kernel) "
-            "come with slice 2 of the port")
+            "non-planar arms and gravity take the 3-D rollout kernel "
+            "(ops/cuda/rollout3d_kernel.py)")
     if cfg.n_tasks != 1 or cfg.cost.obstacle_weight != 0.0:
         raise NotImplementedError(
-            "multi-task and obstacle costs come with slice 3 of the port")
+            "multi-task and obstacle costs take the 3-D rollout kernel, "
+            "where they come with slice 3 of the port")
     if cfg.done_dist > 0.0:
         raise NotImplementedError(
             "early termination (done_dist > 0) comes with slice 3 of the port")

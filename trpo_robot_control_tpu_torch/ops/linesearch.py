@@ -25,7 +25,11 @@ def line_search(eval_fn, theta_old, full_step, surr_old, delta: float,
     any_ok = ok.any()
     first = torch.argmax(ok.to(torch.int32))
     accepted = torch.where(any_ok, first, torch.full_like(first, -1))
-    theta = torch.where(any_ok, cands[first], theta_old)
-    kl_a = torch.where(any_ok, kl[first], torch.zeros_like(kl[first]))
-    surr_a = torch.where(any_ok, surr[first], surr_old)
+    # index_select, not cands[first]: indexing with a 0-dim tensor reads
+    # it on the host (.item()), a device synchronisation
+    pick = first.reshape(1)
+    kl_f = kl.index_select(0, pick)[0]
+    theta = torch.where(any_ok, cands.index_select(0, pick)[0], theta_old)
+    kl_a = torch.where(any_ok, kl_f, torch.zeros_like(kl_f))
+    surr_a = torch.where(any_ok, surr.index_select(0, pick)[0], surr_old)
     return theta, accepted, kl_a, surr_a

@@ -1,13 +1,19 @@
 """The TRPO natural-gradient update (port of the feature-first branch of
-``trpo_robot_control_tpu/trpo/update.py``, as c1 and c2 run it).
+``trpo_robot_control_tpu/trpo/update.py``, as c1-c3 run it).
 
 values -> GAE -> whitening -> baseline moments (K2) -> ridge fit ->
-closed-form surrogate gradient -> CG on the damped GN-FVP (K3) over the
-time-strided Fisher subsample -> step size from the CG invariant ->
-KL line search over the full batch. Every step stays on the device; the
-only host synchronisation is the caller's read of the stats. Each layer
-runs under a ``record_function`` range (``trpo/...``) that
-``cli/profile.py`` reads; outside a profiler a range costs about a
+closed-form surrogate gradient (K5 at B >= 400k samples, else the plain
+form) -> CG on the damped GN-FVP over the time-strided Fisher subsample
+(K6 on the feature-first subsample at B' >= 64k samples, else K3 on its
+batch-major relayout) -> step size from the CG invariant -> KL line search
+over the full batch or an env-strided subsample of it. The kernel gates
+are the JAX package's, on the global batch, and the CPU takes the same
+route through the plain versions. With bf16 storage (c3) obs and actions
+arrive in bf16 and every consumer rounds where the JAX package does.
+Every step stays on the device; the only host synchronisation is the
+caller's read of the stats. Each layer runs under a ``record_function``
+range (``trpo/...``) that ``cli/profile.py`` reads; outside a profiler a
+range costs about a
 microsecond of host time.
 """
 from __future__ import annotations
@@ -17,6 +23,7 @@ from torch.profiler import record_function
 
 from ..models import baseline, policy
 from ..ops.cg import conjugate_gradient
+from ..ops.cuda import fvp_ff_kernel, pg_kernel
 from ..ops.cuda.moments_kernel import baseline_moments
 from ..ops.fvp import make_gn_fvp
 from ..ops.gae import gae
@@ -29,8 +36,6 @@ def _check_supported(cfg, batch, axis_name):
         (tr.baseline == "mlp", "the MLP baseline comes with slice 3"),
         (tr.fvp_env_subsample > 1,
          "fvp_env_subsample > 1 comes with slice 3 (c4/c5)"),
-        (tr.ls_subsample > 1, "ls_subsample > 1 comes with slice 2 (c3)"),
-        (tr.ff_store_dtype != "f32", "bf16 storage comes with slice 2 (c3)"),
         (axis_name is not None, "data parallelism comes with slice 4"),
         ("obs_ff" not in batch or "actions_ff" not in batch,
          "the batch-major update path comes with slice 4; pass a batch "
@@ -41,17 +46,28 @@ def _check_supported(cfg, batch, axis_name):
             raise NotImplementedError(msg)
 
 
+# The kernels' gates, on the global batch (the JAX package's measured
+# crossovers, trpo/update.py there): below them the plain forms win. The
+# config keeps the JAX package's switch values: "pallas" forces the CUDA
+# kernel, "xla" the plain form.
+SURRGRAD_MIN_B = 400_000
+FVP_FF_MIN_B = 64_000
+
+
 def _eval_candidates(params, thetas, obs_ff, act_ff, adv, mu_old, logp_old,
-                     logstd_old):
+                     logstd_old, store_dtype=None):
     """Surrogate and mean KL of K candidate parameter vectors (K, P) in
-    one batched forward pass over the (T, d, N) batch -> ((K,), (K,))."""
+    one batched forward pass over the (T, d, N) batch -> ((K,), (K,)).
+    Hidden activations round to ``store_dtype`` as ``hidden_ff`` does."""
     p = policy.unflatten(thetas, params)
     L = policy.n_layers(params)
-    h = torch.tanh(torch.einsum("kio,tin->kton", p["W0"], obs_ff)
-                   + p["b0"][:, None, :, None])
-    for i in range(1, L - 1):
-        h = torch.tanh(torch.einsum("kio,ktin->kton", p[f"W{i}"], h)
-                       + p[f"b{i}"][:, None, :, None])
+    h = obs_ff.float()
+    for i in range(L - 1):
+        eq = "kio,tin->kton" if i == 0 else "kio,ktin->kton"
+        h = policy.store_round(
+            torch.tanh(torch.einsum(eq, p[f"W{i}"], h)
+                       + p[f"b{i}"][:, None, :, None]), store_dtype)
+    act_ff = act_ff.float()
     mu = torch.einsum("kio,ktin->kton", p[f"W{L - 1}"], h) \
         + p[f"b{L - 1}"][:, None, :, None]                  # (K, T, da, N)
     logstd = p["logstd"]                                     # (K, da)
@@ -82,6 +98,7 @@ def trpo_update(cfg, params, w, batch, axis_name=None,
     obs_ff, act_ff = batch["obs_ff"], batch["actions_ff"]
     rewards_tn = batch["rewards_ff"]
     T, do, N = obs_ff.shape
+    store = torch.bfloat16 if obs_ff.dtype == torch.bfloat16 else None
 
     # ---- 1) values (old baseline) -> GAE -> whiten -> targets -> refit
     with record_function("trpo/values_gae"):
@@ -100,40 +117,66 @@ def trpo_update(cfg, params, w, batch, axis_name=None,
 
     # ---- 2) closed-form surrogate gradient at theta_old
     with record_function("trpo/surrogate_grad"):
-        g_tree, mu_old_ff, logp_old_ff = policy.surrogate_grad_ff(
-            params, obs_ff, act_ff, adv)
+        sg = tr.surrgrad_impl
+        if sg == "auto":
+            sg = "pallas" if T * N >= SURRGRAD_MIN_B else "xla"
+        if sg == "pallas":
+            g_tree, mu_old_ff, logp_old_ff = pg_kernel.surrogate_grad(
+                params, obs_ff, act_ff, adv)
+        else:
+            g_tree, mu_old_ff, logp_old_ff = policy.surrogate_grad_ff(
+                params, obs_ff, act_ff, adv, store_dtype=store)
         theta_old = policy.flatten(params)
         g = policy.flatten(g_tree)
         surr_old = torch.mean(adv)                             # ratio == 1
 
     # ---- 3) CG on the damped GN-FVP over the Fisher subsample. The time
     # stride over (T, do, N) selects the same samples as obs_f[::k] when
-    # T % k == 0; only the subsample is relaid to (B / k, do).
+    # T % k == 0. K6 reads that strided view in place; K3 takes it relaid
+    # to (B / k, do) fp32.
     k = tr.fvp_subsample
-    if k > 1:
-        if T % k:
-            raise ValueError("the feature-first fvp_subsample matches "
-                             "obs_f[::k] only when horizon % fvp_subsample "
-                             f"== 0; got T={T}, k={k}")
-        obs_fvp = obs_ff[::k].permute(0, 2, 1).reshape(-1, do)
-    else:
-        obs_fvp = batch["obs"].reshape(-1, do)
+    if k > 1 and T % k:
+        raise ValueError("the feature-first fvp_subsample matches "
+                         "obs_f[::k] only when horizon % fvp_subsample "
+                         f"== 0; got T={T}, k={k}")
+    sub = obs_ff[::k]
+    ff_fvp = k > 1 and tr.fvp_impl not in ("xla", "pallas_bm") and (
+        tr.fvp_impl == "pallas" or sub.shape[0] * N >= FVP_FF_MIN_B)
     with record_function("trpo/cg_fvp"):
-        fvp = make_gn_fvp(params, obs_fvp, tr.cg_damping)
+        if ff_fvp:
+            fvp = fvp_ff_kernel.make_gn_fvp_ff(params, sub, tr.cg_damping)
+        else:
+            obs_fvp = (sub.permute(0, 2, 1) if k > 1
+                       else batch["obs"]).reshape(-1, do).float()
+            fvp = make_gn_fvp(params, obs_fvp, tr.cg_damping)
         x, r_final, cg_residual = conjugate_gradient(fvp, g, tr.cg_iters)
         # ---- 4) step size: F x = g - r (CG invariant): x^T F x = x.g - x.r
         xhx = torch.dot(x, g) - torch.dot(x, r_final)
         beta = torch.sqrt(2.0 * tr.delta / (xhx + 1e-12))
 
-    # ---- 5) KL line search on the full batch
+    # ---- 5) KL line search on the full batch, or on every k-th env
+    # (whole trajectories: envs are i.i.d., time steps are not), with
+    # surr_old re-estimated on the same envs
+    k_ls = tr.ls_subsample
+    if k_ls > 1:
+        if N % k_ls:
+            raise ValueError("ls_subsample needs n_envs % ls_subsample == 0; "
+                             f"got N={N}, k={k_ls}")
+        ls = (obs_ff[..., ::k_ls], act_ff[..., ::k_ls], adv[:, ::k_ls],
+              mu_old_ff[..., ::k_ls], logp_old_ff[:, ::k_ls])
+        surr_old_ls = torch.mean(ls[2])
+    else:
+        ls = (obs_ff, act_ff, adv, mu_old_ff, logp_old_ff)
+        surr_old_ls = surr_old
+
     def eval_fn(thetas):
-        return _eval_candidates(params, thetas, obs_ff, act_ff, adv,
-                                mu_old_ff, logp_old_ff, params["logstd"])
+        return _eval_candidates(params, thetas, *ls, params["logstd"],
+                                store_dtype=store)
 
     with record_function("trpo/line_search"):
         theta_new, accepted, kl_new, surr_new = line_search(
-            eval_fn, theta_old, beta * x, surr_old, tr.delta, tr.ls_steps,
-            tr.ls_backtrack)
+            eval_fn, theta_old, beta * x, surr_old_ls, tr.delta,
+            tr.ls_steps, tr.ls_backtrack)
     new_params = policy.unflatten(theta_new, params)
 
     stats = dict(
