@@ -10,7 +10,8 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
    a. K1 rollout kernel against its plain version (eps mode: tight over
       10 steps, looser over the full horizon), then the Philox mode's
       noise statistics and seed determinism;
-   b. K2 moments kernel against ``normal_eq_ff`` on that batch;
+   b. K2 moments kernel against its plain version (the Gram summed in
+      fp64) on that batch, with the fp32 ``normal_eq_ff`` beside it;
    c. K3 FVP kernel against the plain ``make_gn_fvp`` on c2's Fisher
       subsample, and bit-identical repeat calls;
    d. five full-width c2 training iterations through ``trpo.train.train``,
@@ -18,21 +19,28 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
       no plain version did;
    e. K1-K3 times (CUDA events) beside their bounds, plain versions and,
       for K2, a library yardstick;
-3. c3 (7-DoF arm with gravity, 4096 envs x 200 steps, bf16 storage):
-   a. K4 3-D rollout kernel against ``rollout3d_plain`` (eps mode, fp32 and
-      bf16 stores: tight over 8 steps, looser over the full horizon), the
-      Philox mode's noise statistics and seed determinism;
-   b. K2 in bf16 mode against ``normal_eq_ff`` on that batch;
+3. the 7-DoF configs, each at full width with bf16 storage: c3 (reach,
+   4096 envs x 200 steps), c4 (reach with the obstacle penalty, 16,384
+   envs, Fisher env stride 4) and c5 (reach, track and push tasks, a
+   27-wide observation, 65,536 envs, Fisher env stride 8):
+   a. K4 3-D rollout kernel in eps mode at full width (fp32 and bf16
+      stores) against ``rollout3d_plain`` on every (N / 4096)-th env of
+      the same inputs (tight over 8 steps, looser over the full horizon),
+      then at full width the Philox mode's noise statistics and seed
+      determinism;
+   b. K2 in bf16 mode against its plain version on the full-width batch;
    c. K5 surrogate-gradient kernel against ``surrogate_grad_plain``;
    d. K6 feature-first FVP kernel against its plain version on
-      ``obs_ff[::8]``, and bit-identical repeat calls;
-   e. five full-width c3 training iterations through ``trpo.train.train``
+      ``obs_ff[::8, :, ::e]``, and bit-identical repeat calls;
+   e. five full-width training iterations through ``trpo.train.train``
       (K4, K2, K5 once and K6 ten times per update, no K1/K3, no plain
-      version);
+      version), with the peak device memory;
    f. K4, K2-bf16, K5 and K6 times beside their bounds.
 
-The last lines are the kernels' JSON record, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+The last lines are the kernels' JSON record (c2/c3 figures at the top
+level of each entry, c4/c5 ones under ``at_c4``/``at_c5`` and K2's bf16
+mode under ``bf16_mode_c3/c4/c5``), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -63,6 +71,11 @@ K1_FULL_ATOL = 1e-2
 K2_REL = 1e-5
 K3_REL = 1e-5
 K4_TIGHT_STEPS, K4_TIGHT_ATOL = 8, 1e-5
+# K4 runs at full width; its plain version (~50k small ops per step on the
+# card) runs on every (N / 4096)-th env of the same inputs (all of c3's):
+# envs are independent, so those columns of the kernel's output are what
+# the plain version computes.
+K4_CHECK_ENVS = 4096
 # 200 dependent steps of a 7-DoF arm under gravity amplify any fp32
 # rounding difference between the kernel's fmaf MLP sums and cuBLAS's in
 # the plain version, so the full-horizon bound is looser, as K1's is.
@@ -109,8 +122,6 @@ def bound_ms(flops: float, nbytes: float):
                                        else "bytes")
 
 
-
-
 def elementwise_flops(fn) -> int:
     """Floating-point operations that ``fn`` runs through PyTorch: one per
     output element of each arithmetic or transcendental op, 2 m k n per
@@ -145,6 +156,36 @@ def bf16_ulp(x):
     return torch.pow(2.0, e - 7)
 
 
+def k2_check(tag, obs_ff, targets, horizon):
+    """K2 against its plain version (the Gram summed in fp64), on the Gram
+    and on (A, b) assembled from it; the JAX route's fp32 ``normal_eq_ff``
+    is printed beside it. Returns (kernel Gram, plain Gram, tau)."""
+    from trpo_robot_control_tpu_torch.models import baseline
+    from trpo_robot_control_tpu_torch.ops.cuda import moments_kernel as mk
+    T, do, N = obs_ff.shape
+    tau = baseline._time_features(T, horizon, obs_ff.device)
+    gram_k = mk.extended_gram(obs_ff, targets, tau)
+    gram_p = mk.extended_gram_plain(obs_ff, targets, tau)
+    F2 = 2 * do + 1
+    A_k, b_k = baseline.assemble(gram_k[:F2, :F2], gram_k[:F2, F2:], tau, N,
+                                 do)
+    A_p, b_p = baseline.assemble(gram_p[:F2, :F2], gram_p[:F2, F2:], tau, N,
+                                 do)
+    A_n, b_n = baseline.normal_eq_ff(obs_ff, targets, horizon)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    rel_A, rel_b = rel(A_k, A_p), rel(b_k, b_p)
+    print(f"{tag} K2 ({str(obs_ff.dtype)[6:]}, do {do}): rel err A "
+          f"{rel_A:.3e}, b {rel_b:.3e} vs the plain version (Gram summed in "
+          f"fp64; bound {K2_REL}); fp32 normal_eq_ff differs from it by A "
+          f"{rel(A_n, A_p):.3e}, b {rel(b_n, b_p):.3e}")
+    require(rel_A <= K2_REL and rel_b <= K2_REL,
+            f"{tag} K2 error {rel_A}, {rel_b}")
+    return gram_k, gram_p, tau
+
+
 def train_checked(cfg, n_iters, kernels, expect, train):
     """Train ``n_iters`` full-width iterations with the counts set to 0
     just before; checks the launches, the plain calls and the stats and
@@ -153,11 +194,14 @@ def train_checked(cfg, n_iters, kernels, expect, train):
         print("iter " + json.dumps({k: (round(v, 6) if isinstance(v, float)
                                         else v) for k, v in st.items()}))
 
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
     _, hist = train(cfg, n_iters=n_iters, seed=0, log_fn=log)
     launches = kernels.launch_counts()
     plain = kernels.plain_calls()
-    print(f"{cfg.name} main path: launches {launches}, plain calls {plain}")
+    print(f"{cfg.name} main path: launches {launches}, plain calls {plain}; "
+          f"peak device memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
     require(launches == expect, f"{cfg.name} main-path launches {launches}")
     require(all(c == 0 for c in plain.values()), f"plain calls {plain}")
     for st in hist:
@@ -175,7 +219,7 @@ def c2_phases(dev):
     """K1-K3 at c2 and c2 training; returns {kernel: record}."""
     from trpo_robot_control_tpu_torch.configs import C2_REACHER3
     from trpo_robot_control_tpu_torch.envs import arm
-    from trpo_robot_control_tpu_torch.models import baseline, policy
+    from trpo_robot_control_tpu_torch.models import policy
     from trpo_robot_control_tpu_torch.ops import cuda as kernels
     from trpo_robot_control_tpu_torch.ops.cuda import (fvp_kernel as fk,
                                                        moments_kernel as mk,
@@ -234,19 +278,8 @@ def c2_phases(dev):
     obs_ff, _, rew_ff = k_out
     targets = gae(rew_ff, torch.zeros_like(rew_ff), cfg.trpo.gamma,
                   cfg.trpo.lam, time_axis=0)
-    A_k, b_k = mk.baseline_moments(obs_ff, targets, cfg.horizon)
-    A_r, b_r = baseline.normal_eq_ff(obs_ff, targets, cfg.horizon)
-    tau = baseline._time_features(T, cfg.horizon, dev)
-    gram_k = mk.extended_gram(obs_ff, targets, tau)
-    gram_p = mk.extended_gram_plain(obs_ff, targets, tau)
-    rel_A = float((A_k - A_r).abs().max() / A_r.abs().max())
-    rel_b = float((b_k - b_r).abs().max() / b_r.abs().max())
-    err_gram = float((gram_k - gram_p).abs().max())
-    print(f"K2: rel err A {rel_A:.3e}, b {rel_b:.3e} vs normal_eq_ff "
-          f"(bound {K2_REL}); max |kernel - plain| Gram {err_gram:.3e} "
-          f"(max |Gram| {float(gram_p.abs().max()):.3e})")
-    require(rel_A <= K2_REL and rel_b <= K2_REL, f"K2 error {rel_A}, {rel_b}")
-    rec["moments"] = dict(max_abs_err=err_gram)
+    gram_k, gram_p, tau = k2_check("c2", obs_ff, targets, cfg.horizon)
+    rec["moments"] = dict(max_abs_err=float((gram_k - gram_p).abs().max()))
 
     # ---- K3 FVP vs the plain make_gn_fvp on c2's Fisher subsample
     k = cfg.trpo.fvp_subsample
@@ -318,10 +351,39 @@ def c2_phases(dev):
     return rec
 
 
-def c3_phases(dev):
-    """K4, K2-bf16, K5, K6 at c3 and c3 training; returns {kernel:
-    record} for K4-K6 and the bf16-mode record of K2."""
-    from trpo_robot_control_tpu_torch.configs import C3_FRANKA7
+def k4_flops_per_env_step(r3, cfg, params, s0, eps, task):
+    """K4's work per env-step, counted from the plain version at one env
+    (two steps less one). The plain version computes the push term and the
+    track rotation for every env and selects; the kernel computes them for
+    the envs of those tasks only, so their share of this batch is what
+    counts."""
+    one, two = cfg.replace(horizon=1), cfg.replace(horizon=2)
+    per_step = (elementwise_flops(lambda: r3.rollout3d_plain(
+        two, params, s0.q[:1], s0.qd[:1], s0.tgt[:1], s0.task[:1],
+        eps[:2, :1]))
+        - elementwise_flops(lambda: r3.rollout3d_plain(
+            one, params, s0.q[:1], s0.qd[:1], s0.tgt[:1], s0.task[:1],
+            eps[:1, :1])))
+    c = r3.arm3d_consts(cfg)
+    if c.n_tasks > 1:
+        q = list(s0.q[:1].T)
+        fk = r3._fk3(c, [torch.cos(x) for x in q], [torch.sin(x) for x in q])
+        tg = tuple(s0.tgt[:1, i] for i in range(3))
+        rot = elementwise_flops(lambda: r3.track_target(c, tg, s0.task[:1]))
+        per_step -= rot * float((task != 1).float().mean())
+        if c.n_tasks > 2:
+            d = r3.v_sub(fk[3], tg)
+            push = elementwise_flops(lambda: r3.push_penalty(
+                c, list(s0.qd[:1].T), fk, d))
+            per_step -= push * float((task != 2).float().mean())
+    return per_step
+
+
+def arm3d_phases(dev, cfg, seed):
+    """K4, K2-bf16, K5, K6 on a 7-DoF config and its training; returns
+    {kernel: record} for K4-K6 and the bf16-mode record of K2. K4 runs at
+    full width and is held against its plain version on ``K4_CHECK_ENVS``
+    envs spread over the batch by a stride."""
     from trpo_robot_control_tpu_torch.envs import arm
     from trpo_robot_control_tpu_torch.models import baseline, policy
     from trpo_robot_control_tpu_torch.ops import cuda as kernels
@@ -331,94 +393,107 @@ def c3_phases(dev):
                                                        rollout3d_kernel as r3)
     from trpo_robot_control_tpu_torch.ops.gae import gae
     from trpo_robot_control_tpu_torch.trpo.train import train
-    cfg = C3_FRANKA7
+    tag = cfg.name.split("_")[0]
     T, N, n = cfg.horizon, cfg.n_envs, cfg.arm.n_joints
     do, da = cfg.obs_dim, n
     H = cfg.trpo.hidden[0]
     bf16 = torch.bfloat16
     gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
+    gen.manual_seed(seed)
     params = policy.init_params(gen, do, da, cfg.trpo.hidden,
                                 cfg.trpo.logstd_init)
     P = policy.flatten(params).numel()
     s0 = arm.reset(cfg, gen, N)
     rec = {}
 
-    # ---- K4 3-D rollout vs its plain version (timed once, no warm-up)
+    # ---- K4 3-D rollout at full width vs its plain version on every
+    # stride-th env of the same inputs (plain timed once, no warm-up)
+    stride = max(1, N // K4_CHECK_ENVS)
     eps = torch.randn(T, N, n, generator=gen, device=dev)
-    k32 = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt, eps=eps)
-    k16 = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt, eps=eps,
+    k32 = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt, s0.task, eps=eps)
+    k16 = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt, s0.task, eps=eps,
                        store_dtype=bf16)
+    require(torch.equal(k16[2], k32[2]), f"{tag} K4: bf16 stores changed "
+            "rewards")
+    require(all(bool(torch.isfinite(x.float()).all()) for x in (*k32, *k16)),
+            f"{tag} K4: non-finite output")
+    k32 = tuple(x[..., ::stride] for x in k32)
+    k16 = tuple(x[..., ::stride] for x in k16[:2])
+    st = arm.EnvState(*(x[::stride] for x in s0))
+    Nc = st.q.shape[0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    p_out = r3.rollout3d_plain(cfg, params, s0.q, s0.qd, s0.tgt, eps)
+    p_out = r3.rollout3d_plain(cfg, params, st.q, st.qd, st.tgt, st.task,
+                               eps[:, ::stride])
     torch.cuda.synchronize()
     t_k4p = 1e3 * (time.perf_counter() - t0)
     W = K4_TIGHT_STEPS
     errs_w = [float((k[:W] - p[:W]).abs().max()) for k, p in zip(k32, p_out)]
     errs = [float((k - p).abs().max()) for k, p in zip(k32, p_out)]
-    print("K4 eps mode, fp32 stores: max |kernel - plain| (obs, act, rew) "
-          f"{errs_w} over {W} steps (bound {K4_TIGHT_ATOL}), {errs} over "
-          f"{T} steps (bound {K4_FULL_ATOL})")
-    require(max(errs_w) <= K4_TIGHT_ATOL, f"K4 {W}-step error {errs_w}")
-    require(max(errs) <= K4_FULL_ATOL, f"K4 full-horizon error {errs}")
+    print(f"{tag} K4 eps mode on {N} envs, plain version on every "
+          f"{stride}-th ({Nc} envs), fp32 stores: max |kernel - "
+          f"plain| (obs, act, rew) {errs_w} over {W} steps (bound "
+          f"{K4_TIGHT_ATOL}), {errs} over {T} steps (bound {K4_FULL_ATOL})")
+    require(max(errs_w) <= K4_TIGHT_ATOL, f"{tag} K4 {W}-step error {errs_w}")
+    require(max(errs) <= K4_FULL_ATOL, f"{tag} K4 full-horizon error {errs}")
     ulps = []
-    for k, p in zip(k16[:2], p_out[:2]):
+    for k, p in zip(k16, p_out[:2]):
         pr = p[:W].to(bf16).float()
         ulps.append(float(((k[:W].float() - pr).abs() / bf16_ulp(pr)).max()))
     full16 = max(float((k.float() - p).abs().max())
-                 for k, p in zip(k16[:2], p_out[:2]))
-    print(f"K4 eps mode, bf16 stores: max |kernel - round(plain)| in bf16 "
-          f"ulps (obs, act) {ulps} over {W} steps (bound 1); max |kernel - "
-          f"plain| {full16:.3e} over {T} steps (bound {K4_FULL_ATOL} + the "
-          "bf16 rounding)")
-    require(max(ulps) <= 1.0, f"K4 bf16 error {ulps} ulps")
-    require(torch.equal(k16[2], k32[2]), "K4: bf16 stores changed rewards")
+                 for k, p in zip(k16, p_out[:2]))
+    print(f"{tag} K4 eps mode, bf16 stores: max |kernel - round(plain)| in "
+          f"bf16 ulps (obs, act) {ulps} over {W} steps (bound 1); max "
+          f"|kernel - plain| {full16:.3e} over {T} steps (bound "
+          f"{K4_FULL_ATOL} + the bf16 rounding)")
+    require(max(ulps) <= 1.0, f"{tag} K4 bf16 error {ulps} ulps")
     require(full16 <= K4_FULL_ATOL + 2.0 ** -8 * max(
-        float(p.abs().max()) for p in p_out[:2]), f"K4 bf16 full {full16}")
+        float(p.abs().max()) for p in p_out[:2]), f"{tag} K4 bf16 full "
+        f"{full16}")
+    del k32, k16, p_out
     seed_a = torch.tensor([4242, 17], dtype=torch.int64, device=dev)
     seed_b = torch.tensor([4243, 17], dtype=torch.int64, device=dev)
-    obs_a, act_a, rew_a = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt,
-                                       seed=seed_a, store_dtype=bf16)
-    obs_a2, act_a2, rew_a2 = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt,
-                                          seed=seed_a, store_dtype=bf16)
-    _, act_b, _ = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt,
+    obs_ff, act_ff, rew_ff = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt,
+                                          s0.task, seed=seed_a,
+                                          store_dtype=bf16)
+    again = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt, s0.task,
+                         seed=seed_a, store_dtype=bf16)
+    require(all(torch.equal(a, b) for a, b in
+                zip((obs_ff, act_ff, rew_ff), again)),
+            f"{tag} K4: the same seed gave a different batch")
+    del again
+    _, act_b, _ = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt, s0.task,
                                seed=seed_b, store_dtype=bf16)
-    mu = policy.mean_net(params, obs_a.float().permute(0, 2, 1)) \
-        .permute(0, 2, 1)
-    z = (act_a.float() - mu) / torch.exp(params["logstd"])[None, :, None]
-    z_mean, z_std = float(z.mean()), float(z.std())
-    print(f"K4 Philox mode: {z.numel()} draws, mean {z_mean:+.5f}, "
+    require(not torch.equal(act_ff, act_b),
+            f"{tag} K4: a different seed gave the same batch")
+    del act_b
+    # mu from the stored bf16 obs (the task one-hot rows are exact in bf16)
+    z_sum = z_sq = 0.0
+    for t0_ in range(0, T, 50):
+        mu = policy.mean_net(params, obs_ff[t0_:t0_ + 50].float()
+                             .permute(0, 2, 1)).permute(0, 2, 1)
+        z = (act_ff[t0_:t0_ + 50].float() - mu) \
+            / torch.exp(params["logstd"])[None, :, None]
+        z_sum += float(z.double().sum())
+        z_sq += float((z.double() ** 2).sum())
+    cnt = T * da * N
+    z_mean = z_sum / cnt
+    z_std = math.sqrt((z_sq - cnt * z_mean ** 2) / (cnt - 1))
+    print(f"{tag} K4 Philox mode: {cnt} draws, mean {z_mean:+.5f}, "
           f"std {z_std:.5f} (bound {K4_Z_TOL})")
     require(abs(z_mean) <= K4_Z_TOL and abs(z_std - 1.0) <= K4_Z_TOL,
-            f"K4 Philox noise mean {z_mean}, std {z_std}")
-    require(torch.equal(act_a, act_a2) and torch.equal(obs_a, obs_a2)
-            and torch.equal(rew_a, rew_a2),
-            "K4: the same seed gave a different batch")
-    require(not torch.equal(act_a, act_b),
-            "K4: a different seed gave the same batch")
+            f"{tag} K4 Philox noise mean {z_mean}, std {z_std}")
     require(all(bool(torch.isfinite(x.float()).all())
-                for x in (*k32, *k16, obs_a, act_a, rew_a)),
-            "K4: non-finite output")
+                for x in (obs_ff, act_ff, rew_ff)), f"{tag} K4: non-finite")
     rec["rollout3d"] = dict(max_abs_err=max(errs_w))
 
     # ---- K2 bf16 mode vs normal_eq_ff on the bf16 batch
-    obs_ff, act_ff, rew_ff = k16
     targets = gae(rew_ff, torch.zeros_like(rew_ff), cfg.trpo.gamma,
                   cfg.trpo.lam, time_axis=0)
-    A_k, b_k = mk.baseline_moments(obs_ff, targets, cfg.horizon)
-    A_r, b_r = baseline.normal_eq_ff(obs_ff, targets, cfg.horizon)
-    tau = baseline._time_features(T, cfg.horizon, dev)
-    gram_k = mk.extended_gram(obs_ff, targets, tau)
-    gram_p = mk.extended_gram_plain(obs_ff, targets, tau)
-    rel_A = float((A_k - A_r).abs().max() / A_r.abs().max())
-    rel_b = float((b_k - b_r).abs().max() / b_r.abs().max())
-    print(f"K2 bf16: rel err A {rel_A:.3e}, b {rel_b:.3e} vs normal_eq_ff "
-          f"(bound {K2_REL})")
-    require(rel_A <= K2_REL and rel_b <= K2_REL,
-            f"K2 bf16 error {rel_A}, {rel_b}")
+    gram_k, gram_p, tau = k2_check(tag, obs_ff, targets, cfg.horizon)
     rec["moments_bf16"] = dict(
         max_abs_err=float((gram_k - gram_p).abs().max()))
+    del gram_p
 
     # ---- K5 surrogate gradient vs its plain version
     adv = (targets - targets.mean()) / (targets.std() + 1e-8)
@@ -428,20 +503,24 @@ def c3_phases(dev):
     rel_g = float(torch.linalg.norm(fg_k - fg_p) / torch.linalg.norm(fg_p))
     err_mu = float((mu_k - mu_p).abs().max())
     rel_lp = float(((lp_k - lp_p).abs() / lp_p.abs().clamp_min(1e-6)).max())
-    print(f"K5: rel L2 err g {rel_g:.3e} (bound {K5_REL}), max |mu err| "
-          f"{err_mu:.3e} (bound {K5_MU_ATOL}), max rel logp err "
+    print(f"{tag} K5: rel L2 err g {rel_g:.3e} (bound {K5_REL}), max |mu "
+          f"err| {err_mu:.3e} (bound {K5_MU_ATOL}), max rel logp err "
           f"{rel_lp:.3e} (bound {K5_LOGP_REL})")
     require(rel_g <= K5_REL and err_mu <= K5_MU_ATOL
-            and rel_lp <= K5_LOGP_REL, f"K5 error {rel_g}, {err_mu}, {rel_lp}")
+            and rel_lp <= K5_LOGP_REL,
+            f"{tag} K5 error {rel_g}, {err_mu}, {rel_lp}")
+    del mu_p, lp_p
     again = pk.surrogate_grad(params, obs_ff, act_ff, adv)
     require(torch.equal(policy.flatten(again[0]), fg_k)
             and torch.equal(again[1], mu_k) and torch.equal(again[2], lp_k),
-            "K5 is not deterministic")
+            f"{tag} K5 is not deterministic")
+    del again, mu_k, lp_k
     rec["pg"] = dict(max_abs_err=float((fg_k - fg_p).abs().max()))
 
-    # ---- K6 feature-first FVP vs its plain version on obs_ff[::8]
-    sub = obs_ff[::cfg.trpo.fvp_subsample]
-    B_sub = sub.shape[0] * N
+    # ---- K6 feature-first FVP vs its plain version on the subsample
+    k, e = cfg.trpo.fvp_subsample, cfg.trpo.fvp_env_subsample
+    sub = obs_ff[::k, :, ::e]
+    B_sub = sub.shape[0] * sub.shape[2]
     fvp = ffk.make_gn_fvp_ff(params, sub, cfg.trpo.cg_damping)
     worst_rel, worst_abs = 0.0, 0.0
     for _ in range(10):
@@ -451,13 +530,14 @@ def c3_phases(dev):
         worst_rel = max(worst_rel, float(torch.linalg.norm(f_k - f_p)
                                          / torch.linalg.norm(f_p)))
         worst_abs = max(worst_abs, float((f_k - f_p).abs().max()))
-        require(torch.equal(f_k, fvp(v)), "K6 is not deterministic")
-    print(f"K6: B' = {B_sub}, worst relative L2 err {worst_rel:.3e} over 10 v "
-          f"(bound {K6_REL}); repeat calls bit-identical")
-    require(worst_rel <= K6_REL, f"K6 error {worst_rel}")
+        require(torch.equal(f_k, fvp(v)), f"{tag} K6 is not deterministic")
+    print(f"{tag} K6 on obs_ff[::{k}, :, ::{e}]: B' = {B_sub}, worst "
+          f"relative L2 err {worst_rel:.3e} over 10 v (bound {K6_REL}); "
+          "repeat calls bit-identical")
+    require(worst_rel <= K6_REL, f"{tag} K6 error {worst_rel}")
     rec["fvp_ff"] = dict(max_abs_err=worst_abs)
 
-    # ---- five full-width c3 iterations through the trainer
+    # ---- five full-width iterations through the trainer
     n_iters = 5
     launches, _ = train_checked(
         cfg, n_iters, kernels,
@@ -466,21 +546,17 @@ def c3_phases(dev):
 
     # ---- kernel times beside bounds and plain versions
     B = T * N
-    one = cfg.replace(horizon=1)
-    two = cfg.replace(horizon=2)
-    per_step = (elementwise_flops(lambda: r3.rollout3d_plain(
-        two, params, s0.q[:1], s0.qd[:1], s0.tgt[:1], eps[:2, :1]))
-        - elementwise_flops(lambda: r3.rollout3d_plain(
-            one, params, s0.q[:1], s0.qd[:1], s0.tgt[:1], eps[:1, :1])))
-    print(f"K4 work per env-step, counted from the plain version: "
-          f"{per_step} FLOP (the policy MLP's "
+    per_step = k4_flops_per_env_step(r3, cfg, params, s0, eps, s0.task)
+    print(f"{tag} K4 work per env-step, counted from the plain version: "
+          f"{per_step:.1f} FLOP (the policy MLP's "
           f"{2 * (do * H + H * H + H * da)} included)")
     seed_t = torch.tensor([7, 7], dtype=torch.int64, device=dev)
     t_k4 = cuda_ms(lambda: r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt,
-                                        seed=seed_t, store_dtype=bf16),
-                   3, warmup=1)
-    b4 = bound_ms(float(per_step) * B,
-                  B * ((do + da) * 2 + 4) + 4.0 * (N * (2 * n + 3) + P))
+                                        s0.task, seed=seed_t,
+                                        store_dtype=bf16), 3, warmup=1)
+    state_floats = 2 * n + 3 + (cfg.n_tasks > 1)      # q0, qd0, tgt, task
+    b4 = bound_ms(per_step * B, B * ((do + da) * 2 + 4)
+                  + 4.0 * (N * state_floats + P))
     R = 2 * do + 5
     t_k2 = cuda_ms(lambda: mk.extended_gram(obs_ff, targets, tau), 20)
     t_k2p = cuda_ms(lambda: mk.extended_gram_plain(obs_ff, targets, tau), 5)
@@ -511,10 +587,12 @@ def c3_phases(dev):
         kname = "moments" if name == "moments_bf16" else name
         rec[name].update(launches=launches[kname], ms=ms, plain_ms=plain_ms,
                          bound_ms=bms, bound_by=by, library_ms=lib_ms)
-        print(f"c3 {name}: {ms:.4f} ms/launch (bound {bms:.4f} ms by {by}), "
-              f"plain {plain_ms:.3f} ms"
+        print(f"{tag} {name}: {ms:.4f} ms/launch (bound {bms:.4f} ms by "
+              f"{by}), plain {plain_ms:.3f} ms"
+              + (f" (on {Nc} envs, once)" if name == "rollout3d" else "")
               + (f", library {lib_ms:.4f} ms" if lib_ms is not None else "")
               + f", {launches[kname] // n_iters} launch(es)/update")
+    rec["rollout3d"]["plain_envs"] = Nc
     return rec
 
 
@@ -534,9 +612,18 @@ def main() -> int:
     print(f"build: {build.build_all():.1f} s")
     print(build.ptxas_report())
 
+    from trpo_robot_control_tpu_torch.configs import (C3_FRANKA7,
+                                                      C4_FRANKA7_OBSTACLE,
+                                                      C5_MULTITASK)
     rec = c2_phases(dev)
     print(f"c2 phases done at {time.perf_counter() - t_start:.1f} s")
-    rec.update(c3_phases(dev))
+    rec.update(arm3d_phases(dev, C3_FRANKA7, seed=1))
+    print(f"c3 phases done at {time.perf_counter() - t_start:.1f} s")
+    more = {}
+    for tag, cfg, seed in (("c4", C4_FRANKA7_OBSTACLE, 2),
+                           ("c5", C5_MULTITASK, 3)):
+        more[tag] = arm3d_phases(dev, cfg, seed)
+        print(f"{tag} phases done at {time.perf_counter() - t_start:.1f} s")
     out = []
     for name in ("rollout", "moments", "fvp", "rollout3d", "pg", "fvp_ff"):
         r = rec[name]
@@ -546,8 +633,12 @@ def main() -> int:
                      plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                      bound_by=r["bound_by"], library_ms=r["library_ms"],
                      ok=True)
-        if name == "moments":
-            entry["bf16_mode_c3"] = rec["moments_bf16"]
+        key = "moments_bf16" if name == "moments" else name
+        if key in rec and key != name:
+            entry["bf16_mode_c3"] = rec[key]
+        for tag, r in more.items():
+            if key in r:
+                entry[("bf16_mode_" if key != name else "at_") + tag] = r[key]
         out.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))

@@ -203,9 +203,10 @@ def test_new_wrappers_take_the_plain_version_on_cpu():
 
 
 @pytest.mark.parametrize("over", [dict(ls_subsample=3),
-                                  dict(fvp_subsample=3)])
+                                  dict(fvp_subsample=3),
+                                  dict(fvp_env_subsample=3)])
 def test_subsample_shape_checks(over):
-    """The env stride needs N % k == 0, the time stride T % k == 0."""
+    """The env strides need N % k == 0, the time stride T % k == 0."""
     from trpo_robot_control_tpu_torch.envs.arm import batch_from_ff
     from trpo_robot_control_tpu_torch.trpo.train import init_state
     from trpo_robot_control_tpu_torch.trpo.update import trpo_update

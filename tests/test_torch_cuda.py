@@ -5,11 +5,14 @@ card. They skip without one. Run them there with
 
 (``--noconftest``: the repo's conftest imports JAX, which the GPU machine
 need not have; this file imports only numpy, torch and the port)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from test_torch_helpers import env_inputs_np, policy_params_np, t
+from test_torch_helpers import (OBSTACLE_ON_ARM, env_inputs_np,
+                                policy_params_np, t, tasks_np)
 from trpo_robot_control_tpu_torch import configs as pconfigs
 from trpo_robot_control_tpu_torch.models import policy
 from trpo_robot_control_tpu_torch.ops.cuda import (fvp_ff_kernel,
@@ -77,18 +80,62 @@ def test_rollout3d_kernel_matches_plain_on_card(cuda):
     pn = policy_params_np(np.random.RandomState(9), cfg.obs_dim, 7)
     pc = {k: t(v).to(cuda) for k, v in pn.items()}
     ins = [t(x).to(cuda) for x in env_inputs_np(cfg, N, seed=10)]
-    k_out = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], eps=ins[3])
-    p_out = rollout3d_kernel.rollout3d_plain(cfg, pc, *ins[:3], ins[3])
+    task = torch.zeros(N, dtype=torch.int32, device=cuda)
+    k_out = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task, eps=ins[3])
+    p_out = rollout3d_kernel.rollout3d_plain(cfg, pc, *ins[:3], task, ins[3])
     for a, b in zip(k_out, p_out):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
-    k16 = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], eps=ins[3],
+    k16 = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task, eps=ins[3],
                                      store_dtype=torch.bfloat16)
     for a, b in zip(k16[:2], k_out[:2]):
         assert torch.equal(a, b.to(torch.bfloat16))
     seed = torch.tensor([3, 4], dtype=torch.int64, device=cuda)
-    a1 = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], seed=seed)
-    a2 = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], seed=seed)
+    a1 = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task, seed=seed)
+    a2 = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task, seed=seed)
     assert all(torch.equal(x, y) for x, y in zip(a1, a2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["c4_franka7_obstacle", "c5_multitask"])
+def test_rollout3d_kernel_task_terms_match_plain_on_card(cuda, name):
+    """c4's obstacle term (its sphere moved onto the arm so that it bites
+    within 8 steps) and c5's one-hot, track and push terms."""
+    cfg = pconfigs.CONFIGS[name].replace(horizon=8)
+    if cfg.cost.obstacle_weight > 0.0:
+        cfg = cfg.replace(cost=dataclasses.replace(
+            cfg.cost, obstacle_center=OBSTACLE_ON_ARM))
+    N = 300
+    pn = policy_params_np(np.random.RandomState(13), cfg.obs_dim, 7)
+    pc = {k: t(v).to(cuda) for k, v in pn.items()}
+    ins = [t(x).to(cuda) for x in env_inputs_np(cfg, N, seed=14)]
+    task = torch.tensor(tasks_np(cfg, N, seed=15), device=cuda)
+    k_out = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task, eps=ins[3])
+    p_out = rollout3d_kernel.rollout3d_plain(cfg, pc, *ins[:3], task, ins[3])
+    assert k_out[0].shape == (8, cfg.obs_dim, N)
+    for a, b in zip(k_out, p_out):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    k16 = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task, eps=ins[3],
+                                     store_dtype=torch.bfloat16)
+    for a, b in zip(k16[:2], k_out[:2]):
+        assert torch.equal(a, b.to(torch.bfloat16))
+    seed = torch.tensor([5, 6], dtype=torch.int64, device=cuda)
+    a1 = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task, seed=seed)
+    a2 = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task, seed=seed)
+    assert all(torch.equal(x, y) for x, y in zip(a1, a2))
+
+
+@pytest.mark.cuda
+def test_rollout3d_kernel_refuses_a_pair_it_has_no_instantiation_for(cuda):
+    """Three task families with the obstacle term: the launcher's dispatch
+    has no such instantiation, and the wrapper says so."""
+    cfg = pconfigs.C5_MULTITASK.replace(horizon=2)
+    cfg = cfg.replace(cost=dataclasses.replace(cfg.cost, obstacle_weight=1.0))
+    pn = policy_params_np(np.random.RandomState(16), cfg.obs_dim, 7)
+    pc = {k: t(v).to(cuda) for k, v in pn.items()}
+    ins = [t(x).to(cuda) for x in env_inputs_np(cfg, 32, seed=17)]
+    task = torch.tensor(tasks_np(cfg, 32, seed=18), device=cuda)
+    with pytest.raises(NotImplementedError, match="no instantiation"):
+        rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task, eps=ins[3])
 
 
 @pytest.mark.cuda
@@ -124,13 +171,16 @@ def test_pg_kernel_matches_plain_on_card(cuda, dtype):
 
 
 @pytest.mark.cuda
-def test_fvp_ff_kernel_matches_plain_on_card(cuda):
+@pytest.mark.parametrize("do,e", [(24, 1), (24, 4), (27, 8)])
+def test_fvp_ff_kernel_matches_plain_on_card(cuda, do, e):
+    """On the time-strided subsample (c3) and on the time- and env-strided
+    one (c4, c5)."""
     g = torch.Generator(device=cuda).manual_seed(3)
-    pn = policy_params_np(np.random.RandomState(12), 24, 7)
+    pn = policy_params_np(np.random.RandomState(12), do, 7)
     pc = {k: t(v).to(cuda) for k, v in pn.items()}
-    obs = torch.randn(16, 24, 300, generator=g, device=cuda) \
+    obs = torch.randn(16, do, 304 * e, generator=g, device=cuda) \
         .to(torch.bfloat16)
-    sub = obs[::8]
+    sub = obs[::8, :, ::e]
     v = torch.randn(sum(x.numel() for x in pc.values()), generator=g,
                     device=cuda)
     fk = fvp_ff_kernel.make_gn_fvp_ff(pc, sub, 0.1)(v)

@@ -77,6 +77,18 @@ def env_inputs_np(cfg, N, seed):
     return tuple(x.astype(np.float32) for x in (q0, qd0, tgt, eps))
 
 
+# An obstacle centre beside the 7-DoF arm's third and fourth joint origins
+# at q = 0, so that c4's sphere penalty is active from the first step (the
+# config's own sphere is reached only as the arm moves).
+OBSTACLE_ON_ARM = (0.1, 0.0, 0.7)
+
+
+def tasks_np(cfg, N, seed):
+    """Task families uniform on {0..n_tasks-1}, as the reset draws them."""
+    return np.random.RandomState(seed).randint(0, cfg.n_tasks, N) \
+        .astype(np.int32)
+
+
 def jax_batch(cfg, params_np, q0, qd0, tgt, eps):
     """The JAX reference batch: the fused Pallas rollout in interpret mode
     with caller noise, so it carries obs_ff/actions_ff/rewards_ff."""
@@ -89,19 +101,22 @@ def jax_batch(cfg, params_np, q0, qd0, tgt, eps):
                           qd0=j(qd0), tgt=j(tgt))
 
 
-def jax_batch3d(cfg, params_np, q0, qd0, tgt, eps, store_bf16=True):
+def jax_batch3d(cfg, params_np, q0, qd0, tgt, eps, store_bf16=True,
+                task=None):
     """The JAX reference batch of a 3-D arm: ``rollout3d_reference`` run
     op by op (``jax.disable_jit``: a few seconds, where compiling its scan
     takes a minute on the CPU), with the kernel-native ff views added and
-    obs_ff/actions_ff cast to bf16 as the c3 kernel stores them."""
+    obs_ff/actions_ff cast to bf16 as the c3-c5 kernel stores them. ``task``
+    (N,) int: each env's task family, for configs with several."""
     import jax
     import jax.numpy as jnp
 
     from trpo_robot_control_tpu.ops.pallas.rollout3d_kernel import \
         rollout3d_reference
     with jax.disable_jit():
-        ref = rollout3d_reference(cfg, {k: j(v) for k, v in params_np.items()},
-                                  j(q0), j(qd0), j(tgt), j(eps))
+        ref = rollout3d_reference(
+            cfg, {k: j(v) for k, v in params_np.items()}, j(q0), j(qd0),
+            j(tgt), j(eps), task=None if task is None else jnp.asarray(task))
     ref = {k: jnp.asarray(np.asarray(v)) for k, v in ref.items()}
     dt = jnp.bfloat16 if store_bf16 else jnp.float32
     return dict(ref, obs_ff=jnp.transpose(ref["obs"], (1, 2, 0)).astype(dt),

@@ -57,7 +57,7 @@ def test_rollout3d_plain_matches_reference():
     ref = jax_batch3d(jcfg, pn, *ins, store_bf16=False)
     obs_ff, act_ff, rew_ff = r3.rollout3d(
         pcfg, {k: t(v) for k, v in pn.items()}, *(t(x) for x in ins[:3]),
-        eps=t(ins[3]))
+        torch.zeros(N, dtype=torch.int32), eps=t(ins[3]))
     assert obs_ff.shape == (T, 24, N) and obs_ff.dtype == torch.float32
     for key, mine in (("obs_ff", obs_ff), ("actions_ff", act_ff),
                       ("rewards_ff", rew_ff)):
@@ -95,7 +95,8 @@ def test_rollout3d_plain_matches_generic_rnea_path():
     pt = {k: t(v) for k, v in pn.items()}
     q0, qd0, tgt, eps = (t(x) for x in env_inputs_np(cfg, N, seed=4))
     obs, act, rew = _rnea_path_rollout(cfg, pt, q0, qd0, tgt, eps)
-    obs_ff, act_ff, rew_ff = r3.rollout3d(cfg, pt, q0, qd0, tgt, eps=eps)
+    obs_ff, act_ff, rew_ff = r3.rollout3d(
+        cfg, pt, q0, qd0, tgt, torch.zeros(N, dtype=torch.int32), eps=eps)
     np.testing.assert_allclose(n(obs_ff.permute(0, 2, 1)), n(obs), atol=5e-4)
     np.testing.assert_allclose(n(act_ff.permute(0, 2, 1)), n(act), atol=5e-4)
     np.testing.assert_allclose(n(rew_ff), n(rew), atol=2e-3)
@@ -110,15 +111,17 @@ def test_rollout3d_bf16_stores_and_route():
     pn = policy_params_np(np.random.RandomState(5), cfg.obs_dim, 7)
     pt = {k: t(v) for k, v in pn.items()}
     ins = [t(x) for x in env_inputs_np(cfg, N, seed=6)]
-    f32 = r3.rollout3d(cfg, pt, *ins[:3], eps=ins[3])
-    b16 = r3.rollout3d(cfg, pt, *ins[:3], eps=ins[3],
+    task = torch.zeros(N, dtype=torch.int32)
+    f32 = r3.rollout3d(cfg, pt, *ins[:3], task, eps=ins[3])
+    b16 = r3.rollout3d(cfg, pt, *ins[:3], task, eps=ins[3],
                        store_dtype=torch.bfloat16)
     for a, b in zip(b16[:2], f32[:2]):
         assert a.dtype == torch.bfloat16
         assert torch.equal(a, b.to(torch.bfloat16))
     assert b16[2].dtype == torch.float32 and torch.equal(b16[2], f32[2])
     with pytest.raises(ValueError, match="Philox"):
-        r3.rollout3d(cfg, pt, *ins[:3], seed=torch.zeros(2, dtype=torch.int64))
+        r3.rollout3d(cfg, pt, *ins[:3], task,
+                     seed=torch.zeros(2, dtype=torch.int64))
 
     gen = torch.Generator().manual_seed(0)
     s = arm.reset(cfg, gen, 256)

@@ -88,7 +88,8 @@ def test_three_iterations_accept_the_same_c3():
         bj = jax_batch3d(JCFG, {k: np.asarray(v) for k, v in p_j.items()},
                          q0, qd0, tgt, eps)
         bt = batch_from_ff(*rollout3d_kernel.rollout3d(
-            PCFG, p_t, t(q0), t(qd0), t(tgt), eps=t(eps),
+            PCFG, p_t, t(q0), t(qd0), t(tgt),
+            torch.zeros(N, dtype=torch.int32), eps=t(eps),
             store_dtype=torch.bfloat16))
         p_j, w_j, st_j = _J_UPDATE(p_j, w_j, bj)
         p_t, w_t, st_t = trpo_update(PCFG, p_t, w_t, bt)

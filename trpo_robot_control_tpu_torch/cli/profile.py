@@ -7,7 +7,8 @@ clock (each ends in the stats' device-to-host copy), then profiles another
 ``--iters`` with ``torch.profiler`` and prints, per iteration: the host
 time of each ``trpo/...`` layer range and the device time of the kernels
 it launched, the device time of the busiest kernels, and the device's
-busy and idle shares of the profiled wall time. Needs a CUDA card.
+busy and idle shares of the profiled wall time, and the peak device memory
+allocated over the timed iterations. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -49,11 +50,14 @@ def main(argv=None):
 
     run(2)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     run(args.iters)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / args.iters
-    print(f"unprofiled: {ms:.3f} ms per iteration ({1e3 / ms:.2f} it/s)")
+    print(f"unprofiled: {ms:.3f} ms per iteration ({1e3 / ms:.2f} it/s); "
+          f"peak device memory allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:

@@ -2,6 +2,8 @@
 of stats per iteration.
 
   python -m trpo_robot_control_tpu_torch.cli.train --config c2_reacher3 --iters 20
+  python -m trpo_robot_control_tpu_torch.cli.train --config c5_multitask \
+      --iters 2 --device cpu --n-envs 64 --horizon 16
 
 Runs on the CUDA device unless ``--device cpu`` is given.
 """
@@ -14,8 +16,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", default="c2_reacher3",
-                    help="c1_reacher2, c2_reacher3 or c3_franka7 (the "
-                         "configs the port runs so far)")
+                    help="c1_reacher2, c2_reacher3, c3_franka7, "
+                         "c4_franka7_obstacle or c5_multitask")
     ap.add_argument("--iters", type=int, default=None)
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--n-envs", type=int, default=None)

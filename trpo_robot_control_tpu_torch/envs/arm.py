@@ -1,13 +1,18 @@
-"""Batched arm-reaching environment (port of the reach task of
-``trpo_robot_control_tpu/envs/arm.py``).
+"""Batched arm environment (port of ``trpo_robot_control_tpu/envs/arm.py``
+without early termination).
 
-``reset`` draws the initial states and targets from the same distributions
-as the reference, from a ``torch.Generator``; the random streams differ
-from JAX's, so the tests share batches and action noise instead.
-``make_rollout_fn`` resolves the fused rollout kernel as the reference
-does: planar, gravity-free, single-task arms take the planar kernel (K1,
-fp32 storage), every other arm the 3-D RNEA kernel (K4, fp32 or bf16
-storage).
+Task families (c5): 0 reach (static target), 1 track (the target orbits
+world z at ``cost.track_omega``), 2 push (reach, and match the end
+effector's velocity to ``push_speed`` towards the target); c4 adds the
+obstacle sphere penalty. The 3-D rollout kernel scores all of them.
+
+``reset`` draws the initial states, targets and task families from the
+same distributions as the reference, from a ``torch.Generator``; the
+random streams differ from JAX's, so the tests share batches and action
+noise instead. ``make_rollout_fn`` resolves the fused rollout kernel as
+the reference does: planar, gravity-free, single-task arms without the
+obstacle term take the planar kernel (K1, fp32 storage), every other arm
+the 3-D RNEA kernel (K4, fp32 or bf16 storage).
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ class EnvState(NamedTuple):
     q: torch.Tensor       # (N, n) joint angles
     qd: torch.Tensor      # (N, n) joint velocities
     tgt: torch.Tensor     # (N, 3) target position (world)
+    task: torch.Tensor    # (N,) int32 task family
 
 
 def _planar_route(cfg) -> bool:
@@ -63,7 +69,12 @@ def reset(cfg, gen: torch.Generator, n_envs: int) -> EnvState:
         u = u / (torch.linalg.norm(u, dim=-1, keepdim=True) + 1e-12)
         u = torch.cat([u[:, :2], u[:, 2:].abs()], dim=-1)
         tgt = r[:, None] * u
-    return EnvState(q=q, qd=qd, tgt=tgt)
+    if cfg.n_tasks > 1:       # drawn last, so single-task streams keep theirs
+        task = torch.randint(0, cfg.n_tasks, (n_envs,), generator=gen,
+                             device=dev, dtype=torch.int32)
+    else:
+        task = torch.zeros(n_envs, dtype=torch.int32, device=dev)
+    return EnvState(q=q, qd=qd, tgt=tgt, task=task)
 
 
 def make_rollout_fn(cfg):
@@ -81,8 +92,8 @@ def make_rollout_fn(cfg):
         cfg.trpo.ff_store_dtype]
     if planar and store != torch.float32:
         raise NotImplementedError(
-            "bf16 storage in the planar rollout kernel comes with slice 3 "
-            "of the port")
+            "bf16 storage in the planar rollout kernel comes with a later "
+            "slice of the port")
 
     def fn(params, gen: torch.Generator, n_envs=None):
         N = cfg.n_envs if n_envs is None else n_envs
@@ -101,7 +112,7 @@ def make_rollout_fn(cfg):
                                          eps=eps, seed=seed)
         else:
             out = rollout3d_kernel.rollout3d(cfg, params, s.q, s.qd, s.tgt,
-                                             eps=eps, seed=seed,
+                                             s.task, eps=eps, seed=seed,
                                              store_dtype=store)
         return batch_from_ff(*out)
 

@@ -4,9 +4,10 @@
 //
 // Replaces `make_pallas_gn_fvp_ff` / `_fvp_ff_kernel` in
 // trpo_robot_control_tpu/ops/pallas/fvp_ff_kernel.py. The subsample is
-// obs_ff[::k], a (T', do, N) view of the (T, do, N) batch, read in place
-// through its time stride (no copy, bf16 or fp32 as stored). Per call and
-// per sample, all in fp32 from the upcast inputs:
+// obs_ff[::k, :, ::e], a (T', do, N') view of the (T, do, N) batch, read
+// in place through its time, feature and env strides (no copy, bf16 or
+// fp32 as stored; e = 1 at c3, 4 at c4, 8 at c5). Per call and per sample,
+// all in fp32 from the upcast inputs:
 //   recompute        h0 = tanh(x W0 + b0), h1 = tanh(h0 W1 + b1)
 //   forward tangent  dh0 = (1-h0^2)(x dW0 + db0)
 //                    dh1 = (1-h1^2)(dh0 W1 + h0 dW1 + db1)
@@ -23,9 +24,12 @@
 // 4.9 MB of bf16 obs read (1.5 us at 3.35 TB/s): recomputing the
 // activations costs 2 of the 7 products per sample and saves reading
 // 52 MB of fp32 activations on each of the 10 CG calls. The design is
-// fvp.cu's with a 32-sample tile (one time step, 32 neighbouring envs, so
-// the loads coalesce along N): the extra W0 and activation tiles then
-// still let two blocks share an SM. Blocks keep their share of the
+// fvp.cu's with a 32-sample tile (one time step, 32 subsampled envs): the
+// extra W0 and activation tiles then still let two blocks share an SM.
+// With an env stride e a tile's row spans 32 e neighbouring envs, up to
+// one 32-byte sector per element, which this operation-bound kernel does
+// not feel (at c4, e = 4, it takes as long as at c3, e = 1, for the same
+// 102,400 samples). Blocks keep their share of the
 // gradient in registers across their tiles and write per-block partials;
 // a second pass sums them in a fixed order. No float atomics: two calls on
 // the same v return bit-identical Fv, which CG's acceptance at the KL
@@ -58,8 +62,8 @@ __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
 
 template <typename In>
 __global__ void __launch_bounds__(NT) fvp_ff_partial_kernel(
-    const In* __restrict__ X, long long t_stride,
-    const float* __restrict__ W0, const float* __restrict__ b0,
+    const In* __restrict__ X, long long t_stride, long long d_stride,
+    long long n_stride, const float* __restrict__ W0, const float* __restrict__ b0,
     const float* __restrict__ W1, const float* __restrict__ b1,
     const float* __restrict__ W2, const float* __restrict__ scale,
     const float* __restrict__ v, float* __restrict__ partial, int T,
@@ -127,7 +131,8 @@ __global__ void __launch_bounds__(NT) fvp_ff_partial_kernel(
         for (int i = tid; i < DO * S; i += NT) {
             const int d = i / S, j = i % S;
             sX[j * XS + d] =
-                (j < ns) ? load_f32(X + t * t_stride + (size_t)d * N + n0 + j)
+                (j < ns) ? load_f32(X + t * t_stride + d * d_stride
+                                    + (n0 + j) * n_stride)
                          : 0.f;
         }
         __syncthreads();
@@ -155,7 +160,8 @@ __global__ void __launch_bounds__(NT) fvp_ff_partial_kernel(
 }
 
 template <typename In>
-cudaError_t launch(const void* X, long long t_stride, const float* W0,
+cudaError_t launch(const void* X, long long t_stride, long long d_stride,
+                   long long n_stride, const float* W0,
                    const float* b0, const float* W1, const float* b1,
                    const float* W2, const float* scale, const float* v,
                    float* partial, float* out, int T, int DO, int DA, int N,
@@ -166,7 +172,8 @@ cudaError_t launch(const void* X, long long t_stride, const float* W0,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     fvp_ff_partial_kernel<In><<<n_blocks, NT, smem, st>>>(
-        static_cast<const In*>(X), t_stride, W0, b0, W1, b1, W2, scale, v,
+        static_cast<const In*>(X), t_stride, d_stride, n_stride, W0, b0, W1,
+        b1, W2, scale, v,
         partial, T, DO, DA, N);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -175,12 +182,13 @@ cudaError_t launch(const void* X, long long t_stride, const float* W0,
 
 }  // namespace
 
-// X: the (T', do, N) subsample, element (t, d, n) at X[t * t_stride +
-// d * N + n], bf16 when bf16 != 0, else fp32. W0 (do, 64), b0, W1
+// X: the (T', do, N') subsample, element (t, d, n) at X[t * t_stride +
+// d * d_stride + n * n_stride], bf16 when bf16 != 0, else fp32. W0 (do, 64), b0, W1
 // (64, 64), b1, W2 (64, da), scale (da) = exp(-2 logstd) / B', v and out
 // (P) in flat sorted-key order, all fp32 on the device; partial:
 // n_blocks * (P - da) floats of scratch.
 extern "C" int trpo_fvp_ff_launch(const void* X, long long t_stride,
+                                  long long d_stride, long long n_stride,
                                   const float* W0, const float* b0,
                                   const float* W1, const float* b1,
                                   const float* W2, const float* scale,
@@ -191,10 +199,11 @@ extern "C" int trpo_fvp_ff_launch(const void* X, long long t_stride,
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (bf16)
-        return (int)launch<__nv_bfloat16>(X, t_stride, W0, b0, W1, b1, W2,
-                                          scale, v, partial, out, T, DO, DA,
-                                          N, damping, n_blocks, st);
-    return (int)launch<float>(X, t_stride, W0, b0, W1, b1, W2, scale, v,
-                              partial, out, T, DO, DA, N, damping, n_blocks,
-                              st);
+        return (int)launch<__nv_bfloat16>(X, t_stride, d_stride, n_stride, W0,
+                                          b0, W1, b1, W2, scale, v, partial,
+                                          out, T, DO, DA, N, damping,
+                                          n_blocks, st);
+    return (int)launch<float>(X, t_stride, d_stride, n_stride, W0, b0, W1,
+                              b1, W2, scale, v, partial, out, T, DO, DA, N,
+                              damping, n_blocks, st);
 }

@@ -16,8 +16,11 @@
 // (35 us) against 42.6 MB (13 us). The design reads each obs/y element
 // once, coalesced along the env axis, into a shared tile of v_ext rows
 // (row stride padded by one word so threads on different rows hit
-// different banks); each thread owns fixed upper-triangle entries and
-// accumulates them over the block's tiles in registers. Blocks write
+// different banks); each thread owns fixed upper-triangle entries, sums
+// each tile's 128 products on its own and adds the tile sums over the
+// block's tiles in registers (at c5 a block holds 400 tiles, 51,200
+// samples: a small tile sum loses less to rounding than one product
+// added at a time to the block's large running total). Blocks write
 // per-block partials and a second pass sums them in a fixed order: no
 // float atomics, so the result is bit-identical from call to call.
 //
@@ -104,9 +107,9 @@ __global__ void __launch_bounds__(NT) moments_partial_kernel(
             if (tid + r * NT < E) {
                 const float* va = sV + ea[r] * SP;
                 const float* vb = sV + eb[r] * SP;
-                float s = acc[r];
+                float s = 0.f;         // the tile's sum, then the block's
                 for (int j = 0; j < S; ++j) s = fmaf(va[j], vb[j], s);
-                acc[r] = s;
+                acc[r] += s;
             }
         }
     }

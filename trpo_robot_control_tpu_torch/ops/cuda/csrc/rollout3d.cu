@@ -2,15 +2,19 @@
 // one launch.
 //
 // Replaces `pallas_rollout3d` / `_rollout3d_kernel` in
-// trpo_robot_control_tpu/ops/pallas/rollout3d_kernel.py (reach task,
-// non-terminating; fp32 or bf16 storage). Per env step: forward
-// kinematics from exact sincosf, the observation, the tanh-MLP policy
-// mean, a Gaussian action (caller eps, or Philox4x32-10 + paired
-// Box-Muller), the torque clip, then per substep the 7 mass-matrix columns
-// and the gravity/Coriolis bias as 8 world-frame RNEA passes, a
-// regularised Cholesky solve and a semi-implicit Euler step, and the reach
-// reward at the post-step state (whose FK is the next step's pre-step FK:
-// the same q gives the same numbers).
+// trpo_robot_control_tpu/ops/pallas/rollout3d_kernel.py (non-terminating;
+// fp32 or bf16 storage). Per env step: forward kinematics from exact
+// sincosf, the observation (with the task one-hot when NTASKS > 1), the
+// tanh-MLP policy mean, a Gaussian action (caller eps, or Philox4x32-10 +
+// paired Box-Muller), the torque clip, then per substep the 7 mass-matrix
+// columns and the gravity/Coriolis bias as 8 world-frame RNEA passes, a
+// regularised Cholesky solve and a semi-implicit Euler step, and
+// `_score_step`'s reward at the post-step state (whose FK is the next
+// step's pre-step FK: the same q gives the same numbers): the track
+// task's target rotation (task 1), the reach and control cost, the push
+// task's end-effector velocity penalty (task 2, NTASKS > 2) and the
+// obstacle sphere penalty (OBST). The task terms are template switches,
+// so the reach-only instantiation is the same code as without them.
 //
 // What bounds it on an H100: neither bytes (54 MB written at c3, 16 us)
 // nor FLOPs (~10 GFLOP of MLP plus the dynamics, ~0.2 ms at 67 TFLOP/s)
@@ -33,7 +37,8 @@
 // Numerics: built with -fmad=false so every multiply and add rounds as
 // PyTorch's separate elementwise ops do in the plain version; the
 // Cholesky pivots use 1.0f / sqrtf (correctly rounded, as 1 / torch.sqrt
-// is); the policy MLP uses explicit fmaf. Arm constants arrive as kernel
+// is), and the push term divides by |d| + 1e-6 as the plain version does;
+// the policy MLP uses explicit fmaf. Arm constants arrive as kernel
 // arguments already rounded to float32, and products with the zero and
 // unit entries of the fixed transforms give the same numbers as the plain
 // version's sparse folding of them.
@@ -57,6 +62,10 @@ struct Arm3D {
         inertia[NJ_MAX][9], ee[3];
     float gravity, damping, h, torque_limit, qd_limit, qd_obs_scale,
         ctrl_weight, chol_reg;
+    // task terms: cos/sin of track_omega * dt, push speed and weight,
+    // obstacle weight, radius and centre
+    float track_cos, track_sin, push_speed, push_weight, obstacle_weight,
+        obstacle_radius, obstacle_center[3];
     int n_substeps;
 };
 
@@ -204,10 +213,48 @@ __device__ __forceinline__ __nv_bfloat16 store_cast<__nv_bfloat16>(float x) {
     return __float2bfloat16_rn(x);
 }
 
-template <int NJ, typename Out>
+// The reward of one env at the post-step state: -(|ee - tgt|^2 + ctrl_weight
+// sum tau^2), minus the push penalty for task 2 and the obstacle penalty,
+// in the plain version's operation order.
+template <int NJ, int NTASKS, bool OBST>
+__device__ __forceinline__ float score(const Arm3D& c, const Fk3<NJ>& f,
+                                       const float* qd, V3 tgt, int task,
+                                       float ctrl) {
+    V3 d = vsub(f.ee, tgt);
+    float r = -(vdot(d, d) + c.ctrl_weight * ctrl);
+    if (NTASKS > 2 && task == 2) {
+        V3 v = {0.f, 0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < NJ; ++i)
+            v = vadd(v, vscale(qd[i], vcross(f.axis[i], vsub(f.ee, f.p[i]))));
+        const float dn = sqrtf(vdot(d, d)) + 1e-6f;
+        const V3 dirn = {-d.x / dn, -d.y / dn, -d.z / dn};
+        const V3 verr = vsub(v, vscale(c.push_speed, dirn));
+        r = r - c.push_weight * vdot(verr, verr);
+    }
+    if (OBST) {
+        float pen = 0.f;
+#pragma unroll
+        for (int i = 1; i <= NJ; ++i) {
+            const V3 pt = (i < NJ) ? f.p[i] : f.ee;
+            const float dx = pt.x - c.obstacle_center[0];
+            const float dy = pt.y - c.obstacle_center[1];
+            const float dz = pt.z - c.obstacle_center[2];
+            float t = fmaxf(c.obstacle_radius - sqrtf(dx * dx + dy * dy
+                                                      + dz * dz), 0.f);
+            t = t * t;
+            pen = (i == 1) ? t : pen + t;
+        }
+        r = r - c.obstacle_weight * pen;
+    }
+    return r;
+}
+
+template <int NJ, int NTASKS, bool OBST, typename Out>
 __global__ void __launch_bounds__((NJ + 1) * ENVS) rollout3d_kernel(
     Arm3D c, const float* __restrict__ q0, const float* __restrict__ qd0,
-    const float* __restrict__ tgt0, const float* __restrict__ W0,
+    const float* __restrict__ tgt0, const int* __restrict__ task0,
+    const float* __restrict__ W0,
     const float* __restrict__ b0, const float* __restrict__ W1,
     const float* __restrict__ b1, const float* __restrict__ W2,
     const float* __restrict__ b2, const float* __restrict__ logstd,
@@ -216,7 +263,7 @@ __global__ void __launch_bounds__((NJ + 1) * ENVS) rollout3d_kernel(
     int N, int T) {
     constexpr int NW = NJ + 1;          // warps: one per RNEA pass
     constexpr int NT = NW * ENVS;
-    constexpr int DO = 3 * NJ + 3;
+    constexpr int DO = 3 * NJ + 3 + (NTASKS > 1 ? NTASKS : 0);
     constexpr int UPW = H / NW;         // hidden units per warp
     static_assert(H % NW == 0, "hidden width must split evenly over warps");
     static_assert(NW * NJ <= H, "tau columns alias the first hidden buffer");
@@ -247,7 +294,8 @@ __global__ void __launch_bounds__((NJ + 1) * ENVS) rollout3d_kernel(
         qd[i] = qd0[i * N + e];
         sincosf(q[i], &sq[i], &cq[i]);
     }
-    const V3 tgt = {tgt0[e], tgt0[N + e], tgt0[2 * N + e]};
+    V3 tgt = {tgt0[e], tgt0[N + e], tgt0[2 * N + e]};
+    const int task = (NTASKS > 1) ? task0[e] : 0;
     const float sigma = (wid < NJ) ? expf(logstd[wid]) : 0.f;
     uint2 key = make_uint2(0u, 0u);
     if (eps == nullptr) key = make_uint2((uint32_t)seed[0], (uint32_t)seed[1]);
@@ -265,6 +313,9 @@ __global__ void __launch_bounds__((NJ + 1) * ENVS) rollout3d_kernel(
         o[3 * NJ] = tgt.x - f.ee.x;
         o[3 * NJ + 1] = tgt.y - f.ee.y;
         o[3 * NJ + 2] = tgt.z - f.ee.z;
+#pragma unroll
+        for (int k = 0; k < DO - 3 * NJ - 3; ++k)
+            o[3 * NJ + 3 + k] = (task == k) ? 1.f : 0.f;
         if (live) {
 #pragma unroll
             for (int d = 0; d < DO; ++d)      // rows d = wid (mod NW)
@@ -386,26 +437,45 @@ __global__ void __launch_bounds__((NJ + 1) * ENVS) rollout3d_kernel(
             }
             __syncthreads();      // every warp has read the columns
         }
-        fk3<NJ>(c, cq, sq, f);    // post-step FK: the reward, next step's obs
-        if (wid == 0 && live) {
-            V3 d = vsub(f.ee, tgt);
-            rew[(size_t)t * N + e] = -(vdot(d, d) + c.ctrl_weight * ctrl);
+        if (NTASKS > 1 && task == 1) {   // the track target moves first
+            const float tx = c.track_cos * tgt.x - c.track_sin * tgt.y;
+            const float ty = c.track_sin * tgt.x + c.track_cos * tgt.y;
+            tgt.x = tx;
+            tgt.y = ty;
         }
+        fk3<NJ>(c, cq, sq, f);    // post-step FK: the reward, next step's obs
+        if (wid == 0 && live)
+            rew[(size_t)t * N + e] =
+                score<NJ, NTASKS, OBST>(c, f, qd, tgt, task, ctrl);
     }
 }
 
-template <int NJ, typename Out>
-cudaError_t launch(const Arm3D& c, const float* q0, const float* qd0,
-                   const float* tgt, const float* W0, const float* b0,
-                   const float* W1, const float* b1, const float* W2,
-                   const float* b2, const float* logstd, const float* eps,
-                   const int64_t* seed, void* obs, void* act, float* rew,
-                   int N, int T, cudaStream_t stream) {
-    dim3 grid((N + ENVS - 1) / ENVS);
-    rollout3d_kernel<NJ, Out><<<grid, (NJ + 1) * ENVS, 0, stream>>>(
-        c, q0, qd0, tgt, W0, b0, W1, b1, W2, b2, logstd, eps, seed,
-        static_cast<Out*>(obs), static_cast<Out*>(act), rew, N, T);
+struct Args {
+    const float *q0, *qd0, *tgt;
+    const int* task;
+    const float *W0, *b0, *W1, *b1, *W2, *b2, *logstd, *eps;
+    const int64_t* seed;
+    void *obs, *act;
+    float* rew;
+    int N, T;
+    cudaStream_t stream;
+};
+
+template <int NJ, int NTASKS, bool OBST, typename Out>
+cudaError_t launch(const Arm3D& c, const Args& a) {
+    dim3 grid((a.N + ENVS - 1) / ENVS);
+    rollout3d_kernel<NJ, NTASKS, OBST, Out>
+        <<<grid, (NJ + 1) * ENVS, 0, a.stream>>>(
+            c, a.q0, a.qd0, a.tgt, a.task, a.W0, a.b0, a.W1, a.b1, a.W2,
+            a.b2, a.logstd, a.eps, a.seed, static_cast<Out*>(a.obs),
+            static_cast<Out*>(a.act), a.rew, a.N, a.T);
     return cudaGetLastError();
+}
+
+template <int NJ, int NTASKS, bool OBST>
+cudaError_t launch_store(const Arm3D& c, const Args& a, int store_bf16) {
+    return store_bf16 ? launch<NJ, NTASKS, OBST, __nv_bfloat16>(c, a)
+                      : launch<NJ, NTASKS, OBST, float>(c, a);
 }
 
 }  // namespace
@@ -413,16 +483,22 @@ cudaError_t launch(const Arm3D& c, const float* q0, const float* qd0,
 // consts (host array, float32): T_rot[n][9], T_pos[n][3], mass[n],
 // com[n][3], inertia[n][9] (link frame, row-major), ee_offset[3], gravity,
 // damping, h = dt / n_substeps, torque_limit, qd_limit, qd_obs_scale,
-// ctrl_weight, chol_reg. q0/qd0 (n, N), tgt (3, N); eps (T, n, N) or NULL
-// for Philox mode with seed: int64[2] on the device. obs (T, 3n+3, N) and
-// act (T, n, N) are bf16 when store_bf16 != 0, else fp32; rew (T, N) fp32.
+// ctrl_weight, chol_reg, cos and sin of track_omega * dt, push_speed,
+// push_weight, obstacle_weight, obstacle_radius, obstacle_center[3].
+// q0/qd0 (n, N), tgt (3, N), task (N) int32 (read when n_tasks > 1);
+// eps (T, n, N) or NULL for Philox mode with seed: int64[2] on the device.
+// obs (T, 3n+3 (+ n_tasks when > 1), N) and act (T, n, N) are bf16 when
+// store_bf16 != 0, else fp32; rew (T, N) fp32. Instantiated for n = 7
+// with (n_tasks, obstacle) in {(1, 0), (1, 1), (3, 0)} (c3, c4, c5); any
+// other combination returns cudaErrorNotSupported, which the wrapper
+// raises as NotImplementedError.
 extern "C" int trpo_rollout3d_launch(
-    const float* consts, int n_joints, int n_substeps, int store_bf16,
-    const float* q0, const float* qd0, const float* tgt, const float* W0,
-    const float* b0, const float* W1, const float* b1, const float* W2,
-    const float* b2, const float* logstd, const float* eps,
-    const int64_t* seed, void* obs, void* act, float* rew, int N, int T,
-    void* stream) {
+    const float* consts, int n_joints, int n_substeps, int n_tasks,
+    int obstacle, int store_bf16, const float* q0, const float* qd0,
+    const float* tgt, const int* task, const float* W0, const float* b0,
+    const float* W1, const float* b1, const float* W2, const float* b2,
+    const float* logstd, const float* eps, const int64_t* seed, void* obs,
+    void* act, float* rew, int N, int T, void* stream) {
     if (n_joints != 7) return (int)cudaErrorInvalidValue;
     constexpr int NJ = 7;
     Arm3D c;
@@ -445,12 +521,22 @@ extern "C" int trpo_rollout3d_launch(
     c.qd_obs_scale = s[5];
     c.ctrl_weight = s[6];
     c.chol_reg = s[7];
+    c.track_cos = s[8];
+    c.track_sin = s[9];
+    c.push_speed = s[10];
+    c.push_weight = s[11];
+    c.obstacle_weight = s[12];
+    c.obstacle_radius = s[13];
+    for (int k = 0; k < 3; ++k) c.obstacle_center[k] = s[14 + k];
     c.n_substeps = n_substeps;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (store_bf16)
-        return (int)launch<NJ, __nv_bfloat16>(c, q0, qd0, tgt, W0, b0, W1,
-                                              b1, W2, b2, logstd, eps, seed,
-                                              obs, act, rew, N, T, st);
-    return (int)launch<NJ, float>(c, q0, qd0, tgt, W0, b0, W1, b1, W2, b2,
-                                  logstd, eps, seed, obs, act, rew, N, T, st);
+    const Args a = {q0, qd0, tgt, task, W0, b0, W1, b1, W2, b2, logstd, eps,
+                    seed, obs, act, rew, N, T,
+                    static_cast<cudaStream_t>(stream)};
+    if (n_tasks == 1 && !obstacle)
+        return (int)launch_store<NJ, 1, false>(c, a, store_bf16);
+    if (n_tasks == 1 && obstacle)
+        return (int)launch_store<NJ, 1, true>(c, a, store_bf16);
+    if (n_tasks == 3 && !obstacle)
+        return (int)launch_store<NJ, 3, false>(c, a, store_bf16);
+    return (int)cudaErrorNotSupported;
 }

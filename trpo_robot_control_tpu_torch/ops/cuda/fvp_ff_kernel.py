@@ -3,10 +3,12 @@
 
 Replaces ``make_pallas_gn_fvp_ff`` in
 ``trpo_robot_control_tpu/ops/pallas/fvp_ff_kernel.py``: each CG call reads
-the strided subsample obs_ff[::k] (T', do, N) in place, through its time
-stride and in its storage dtype, recomputes the two hidden activations in
-fp32, and runs the forward tangent and the reverse accumulation. The
-logstd block 2 v and the damping are added in the kernel's reduce pass.
+the strided subsample obs_ff[::k, :, ::e] (T', do, N') in place, through
+its time and env strides and in its storage dtype, recomputes the two
+hidden activations in fp32, and runs the forward tangent and the reverse
+accumulation. The logstd block 2 v and the damping are added in the
+kernel's reduce pass. The view costs no copy: the kernel is bound by its
+operations, not by the bytes of its strided loads.
 
 ``make_gn_fvp_ff`` returns ``fvp(v)``: the CUDA kernel on a CUDA
 subsample (or it raises), ``gn_fvp_ff_plain`` on a CPU one. The plain
@@ -28,7 +30,7 @@ HIDDEN = 64
 MAX_BLOCKS = 256    # fixed, so the reduction order does not depend on the card
 TILE = 32           # samples per tile (csrc/fvp_ff.cu: S)
 
-_SIG = {"trpo_fvp_ff_launch": [ctypes.c_void_p, ctypes.c_longlong]
+_SIG = {"trpo_fvp_ff_launch": [ctypes.c_void_p] + [ctypes.c_longlong] * 3
         + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
 
@@ -59,9 +61,9 @@ def _check(params, obs_sub_ff):
                                   "act_dim <= 8")
     if obs_sub_ff.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("the Fisher subsample must be fp32 or bf16")
-    if obs_sub_ff.stride(2) != 1 or obs_sub_ff.stride(1) != N:
-        raise ValueError("the Fisher subsample must be a time-strided view "
-                         "of a contiguous (T, do, N) batch")
+    if min(obs_sub_ff.stride()) < 1:
+        raise ValueError("the Fisher subsample must be a strided view with "
+                         "positive strides")
     dev = obs_sub_ff.device
     for k in ("W0", "b0", "W1", "b1", "W2", "logstd"):
         x = params[k]
@@ -85,7 +87,7 @@ def gn_fvp_ff(params, obs_sub_ff, scale, v, damping: float):
     out = torch.empty_like(v)
     lib = build.library("fvp_ff", _SIG)
     err = lib.trpo_fvp_ff_launch(
-        build.ptr(obs_sub_ff), obs_sub_ff.stride(0),
+        build.ptr(obs_sub_ff), *obs_sub_ff.stride(),
         *(build.ptr(x) for x in (params["W0"], params["b0"], params["W1"],
                                  params["b1"], params["W2"], scale, v,
                                  partial, out)),
@@ -100,8 +102,9 @@ gn_fvp_ff.launches = 0
 
 
 def make_gn_fvp_ff(params, obs_sub_ff, damping: float):
-    """obs_sub_ff: the (T', do, N) Fisher subsample, a time-strided view of
-    the stored batch. Returns fvp(v_flat) -> flat damped Fv."""
+    """obs_sub_ff: the (T', do, N') Fisher subsample, a time- and
+    env-strided view of the stored batch. Returns fvp(v_flat) -> flat
+    damped Fv."""
     if not obs_sub_ff.is_cuda:
         return lambda v: gn_fvp_ff_plain(params, obs_sub_ff, v, damping)
     _check(params, obs_sub_ff)

@@ -1,13 +1,16 @@
 """K4: fused rollout of a spatial (7-DoF) arm (``csrc/rollout3d.cu``).
 
 Replaces ``pallas_rollout3d`` in
-``trpo_robot_control_tpu/ops/pallas/rollout3d_kernel.py`` for the reach
-task without early termination: per step FK, the observation, the
-tanh-MLP mean, a Gaussian action, the torque clip, the mass matrix and the
-gravity/Coriolis bias as one fused sweep of n + 1 world-frame RNEA passes,
-a regularised Cholesky solve and semi-implicit Euler substeps, and the
-reach reward at the post-step state. See the source for what bounds it on
-the card and how its design spreads one env over eight threads.
+``trpo_robot_control_tpu/ops/pallas/rollout3d_kernel.py`` without early
+termination: per step FK, the observation (with the task one-hot when
+there are several task families), the tanh-MLP mean, a Gaussian action,
+the torque clip, the mass matrix and the gravity/Coriolis bias as one
+fused sweep of n + 1 world-frame RNEA passes, a regularised Cholesky
+solve and semi-implicit Euler substeps, and ``_score_step``'s scoring at
+the post-step state: the track task's target rotation, the reach and
+control cost, the push task's velocity penalty and the obstacle sphere
+penalty. See the source for what bounds it on the card and how its
+design spreads one env over eight threads.
 
 ``rollout3d`` is the wrapper: on CUDA tensors it launches the kernel (or
 raises), on CPU tensors it runs ``rollout3d_plain``, the same component
@@ -16,11 +19,14 @@ every substep, as ``rollout3d_reference`` in the JAX package). Outputs
 keep the (T, d, N) layout; obs and actions are stored in ``store_dtype``
 (fp32 or bf16, rounded once at the store: the trajectory stays fp32),
 rewards in fp32. Noise: ``eps`` (T, N, n) from the caller, or Philox keyed
-by ``seed`` (an int64 pair on the device), on the card only.
+by ``seed`` (an int64 pair on the device), on the card only. ``task``
+(N,) holds each env's task family (0 reach, 1 track, 2 push); it is read
+only when the config has several.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -30,9 +36,12 @@ from ...envs.rigid_body import ArmConstants
 
 HIDDEN = 64
 N_JOINTS = 7        # the kernel is instantiated for 7-DoF arms
+# trpo_rollout3d_launch's answer to a (task families, obstacle) pair it
+# has no instantiation for (cudaErrorNotSupported)
+NOT_INSTANTIATED = 801
 
 _SIG = {"trpo_rollout3d_launch":
-        [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 15
+        [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 16
         + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
 
 
@@ -53,24 +62,28 @@ class Arm3DConsts(NamedTuple):
     qd_obs_scale: float
     ctrl_weight: float
     chol_reg: float
+    n_tasks: int
+    track_cos: float  # cos/sin of track_omega * dt, in fp64 (rounded to
+    track_sin: float  # fp32 where they meet fp32 data)
+    push_speed: float
+    push_weight: float
+    obstacle_weight: float
+    obstacle_radius: float
+    obstacle_center: tuple
 
 
 def arm3d_consts(cfg, chol_reg: float = 1e-6) -> Arm3DConsts:
-    """Constants of a single-task reach arm, float32-rounded as the JAX
-    package rounds them; raises NotImplementedError for what this kernel
-    does not cover yet."""
-    if cfg.n_tasks != 1:
-        raise NotImplementedError(
-            "multi-task rollouts (task one-hot, track/push terms) come with "
-            "slice 3 of the port")
-    if cfg.cost.obstacle_weight != 0.0:
-        raise NotImplementedError(
-            "the obstacle cost comes with slice 3 of the port")
+    """Constants of the arm and its task terms, float32-rounded as the JAX
+    package rounds them; raises NotImplementedError for early termination,
+    which this kernel does not cover yet."""
     if cfg.done_dist > 0.0:
         raise NotImplementedError(
-            "early termination (done_dist > 0) comes with slice 3 of the port")
+            "early termination (done_dist > 0) comes with a later slice of "
+            "the port")
     spec = cfg.arm
     c = ArmConstants(spec)
+    cost = cfg.cost
+    w_dt = float(cost.track_omega) * float(spec.dt)
     return Arm3DConsts(
         n=c.n,
         T_rot=tuple(tuple(map(tuple, t)) for t in c.T_rot),
@@ -85,8 +98,15 @@ def arm3d_consts(cfg, chol_reg: float = 1e-6) -> Arm3DConsts:
         torque_limit=float(spec.torque_limit),
         qd_limit=float(spec.qd_limit),
         qd_obs_scale=float(spec.qd_obs_scale),
-        ctrl_weight=float(cfg.cost.ctrl_weight),
-        chol_reg=chol_reg)
+        ctrl_weight=float(cost.ctrl_weight),
+        chol_reg=chol_reg,
+        n_tasks=int(cfg.n_tasks),
+        track_cos=math.cos(w_dt), track_sin=math.sin(w_dt),
+        push_speed=float(cost.push_speed),
+        push_weight=float(cost.push_weight),
+        obstacle_weight=float(cost.obstacle_weight),
+        obstacle_radius=float(cost.obstacle_radius),
+        obstacle_center=tuple(float(x) for x in cost.obstacle_center))
 
 
 # ------------------------------------------------------- plain version
@@ -288,14 +308,60 @@ def _policy_mean(params, obs):
     return params[f"W{L - 1}"].T @ h + params[f"b{L - 1}"][:, None]
 
 
-def _step3(c: Arm3DConsts, params, sigma, q, qd, tgt, eps_t, cq, sq, fk):
+def track_target(c: Arm3DConsts, tgt, task):
+    """The track task's target orbits world z by track_omega * dt each
+    step, before it is scored; the other tasks keep theirs."""
+    if c.n_tasks < 2:
+        return tgt
+    co, so = c.track_cos, c.track_sin
+    track = task == 1
+    return (torch.where(track, co * tgt[0] - so * tgt[1], tgt[0]),
+            torch.where(track, so * tgt[0] + co * tgt[1], tgt[1]), tgt[2])
+
+
+def push_penalty(c: Arm3DConsts, qd, fk, d):
+    """push_weight |v_ee - push_speed dir(to target)|^2 at the post-step
+    state, v_ee = sum_i qd_i axis_i x (ee - p_i), d = ee - target."""
+    _, p, axis, ee = fk
+    v_ee = (torch.zeros_like(ee[0]),) * 3
+    for i in range(c.n):
+        v_ee = v_add(v_ee, v_scale(qd[i], v_cross(axis[i], v_sub(ee, p[i]))))
+    dn = torch.sqrt(v_dot(d, d)) + 1e-6
+    dirn = (-d[0] / dn, -d[1] / dn, -d[2] / dn)
+    verr = v_sub(v_ee, v_scale(c.push_speed, dirn))
+    return c.push_weight * v_dot(verr, verr)
+
+
+def obstacle_penalty(c: Arm3DConsts, fk):
+    """sum of relu(radius - |pt - centre|)^2 over the joint origins after
+    the base and the end effector."""
+    _, p, _, ee = fk
+    oc = c.obstacle_center
+    pen = None
+    for pt in p[1:] + [ee]:
+        dx = pt[0] - oc[0]
+        dy = pt[1] - oc[1]
+        dz = pt[2] - oc[2]
+        dist = torch.sqrt(dx * dx + dy * dy + dz * dz)
+        term = torch.clamp(c.obstacle_radius - dist, min=0.0)
+        term = term * term
+        pen = term if pen is None else pen + term
+    return pen
+
+
+def _step3(c: Arm3DConsts, params, sigma, q, qd, tgt, task, eps_t, cq, sq,
+           fk):
     """One env step from (q, qd) with their cos/sin and FK -> the next
-    state, its cos/sin and FK, and this step's obs (do, N), act (n, N),
-    reward (N,)."""
+    state, its cos/sin and FK, the (rotated) target, and this step's obs
+    (do, N), act (n, N), reward (N,). Scores in ``_score_step``'s order:
+    target rotation, reach and control cost, push term, obstacle term."""
     n = c.n
     R, p, axis, ee = fk
-    obs = torch.stack(cq + sq + [c.qd_obs_scale * x for x in qd]
-                      + [tgt[0] - ee[0], tgt[1] - ee[1], tgt[2] - ee[2]])
+    rows = (cq + sq + [c.qd_obs_scale * x for x in qd]
+            + [tgt[0] - ee[0], tgt[1] - ee[1], tgt[2] - ee[2]])
+    if c.n_tasks > 1:
+        rows += [(task == k).to(ee[0].dtype) for k in range(c.n_tasks)]
+    obs = torch.stack(rows)
     act = _policy_mean(params, obs) + sigma * eps_t
     tau = list(torch.clamp(act, -c.torque_limit, c.torque_limit))
     h = c.dt / c.n_substeps
@@ -310,6 +376,7 @@ def _step3(c: Arm3DConsts, params, sigma, q, qd, tgt, eps_t, cq, sq, fk):
         q = [q[i] + h * qd[i] for i in range(n)]
         cq = [torch.cos(x) for x in q]
         sq = [torch.sin(x) for x in q]
+    tgt = track_target(c, tgt, task)
     fk = _fk3(c, cq, sq)
     d = v_sub(fk[3], tgt)
     ctrl = None
@@ -317,12 +384,17 @@ def _step3(c: Arm3DConsts, params, sigma, q, qd, tgt, eps_t, cq, sq, fk):
         t2 = tau[i] * tau[i]
         ctrl = t2 if ctrl is None else ctrl + t2
     rew = -(v_dot(d, d) + c.ctrl_weight * ctrl)
-    return q, qd, cq, sq, fk, obs, act, rew
+    if c.n_tasks > 2:
+        pen = push_penalty(c, qd, fk, d)
+        rew = rew - torch.where(task == 2, pen, torch.zeros_like(pen))
+    if c.obstacle_weight > 0.0:
+        rew = rew - c.obstacle_weight * obstacle_penalty(c, fk)
+    return q, qd, tgt, cq, sq, fk, obs, act, rew
 
 
-def rollout3d_plain(cfg, params, q0, qd0, tgt, eps):
-    """q0/qd0 (N, n), tgt (N, 3), eps (T, N, n) -> obs_ff (T, do, N),
-    act_ff (T, n, N), rew_ff (T, N), all fp32."""
+def rollout3d_plain(cfg, params, q0, qd0, tgt, task, eps):
+    """q0/qd0 (N, n), tgt (N, 3), task (N,) int, eps (T, N, n) -> obs_ff
+    (T, do, N), act_ff (T, n, N), rew_ff (T, N), all fp32."""
     rollout3d_plain.calls += 1
     c = arm3d_consts(cfg)
     sigma = torch.exp(params["logstd"])[:, None]
@@ -333,8 +405,8 @@ def rollout3d_plain(cfg, params, q0, qd0, tgt, eps):
     fk = _fk3(c, cq, sq)
     obs_t, act_t, rew_t = [], [], []
     for t in range(eps.shape[0]):
-        q, qd, cq, sq, fk, obs, act, rew = _step3(
-            c, params, sigma, q, qd, tg, eps[t].T, cq, sq, fk)
+        q, qd, tg, cq, sq, fk, obs, act, rew = _step3(
+            c, params, sigma, q, qd, tg, task, eps[t].T, cq, sq, fk)
         obs_t.append(obs)
         act_t.append(act)
         rew_t.append(rew)
@@ -359,15 +431,18 @@ def _consts_array(c: Arm3DConsts):
         vals += [x for row in c.inertia[i] for x in row]
     vals += list(c.ee_offset)
     vals += [c.gravity, c.damping, c.dt / c.n_substeps, c.torque_limit,
-             c.qd_limit, c.qd_obs_scale, c.ctrl_weight, c.chol_reg]
+             c.qd_limit, c.qd_obs_scale, c.ctrl_weight, c.chol_reg,
+             c.track_cos, c.track_sin, c.push_speed, c.push_weight,
+             c.obstacle_weight, c.obstacle_radius, *c.obstacle_center]
     return (ctypes.c_float * len(vals))(*vals)
 
 
-def rollout3d(cfg, params, q0, qd0, tgt, eps=None, seed=None,
+def rollout3d(cfg, params, q0, qd0, tgt, task, eps=None, seed=None,
               store_dtype=torch.float32):
-    """Fused 3-D rollout: q0/qd0 (N, n), tgt (N, 3), and either eps
-    (T, N, n) or seed (int64 (2,) on the device) -> obs_ff (T, do, N) and
-    act_ff (T, n, N) in ``store_dtype``, rew_ff (T, N) fp32."""
+    """Fused 3-D rollout: q0/qd0 (N, n), tgt (N, 3), task (N,) int, and
+    either eps (T, N, n) or seed (int64 (2,) on the device) -> obs_ff
+    (T, do, N) and act_ff (T, n, N) in ``store_dtype``, rew_ff (T, N)
+    fp32."""
     c = arm3d_consts(cfg)
     if store_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(
@@ -376,16 +451,20 @@ def rollout3d(cfg, params, q0, qd0, tgt, eps=None, seed=None,
         if eps is None:
             raise ValueError("Philox noise runs only in the CUDA kernel; "
                              "pass eps on the CPU")
-        obs, act, rew = rollout3d_plain(cfg, params, q0, qd0, tgt, eps)
+        obs, act, rew = rollout3d_plain(cfg, params, q0, qd0, tgt, task,
+                                        eps)
         return obs.to(store_dtype), act.to(store_dtype), rew
     N, n = q0.shape
     T = cfg.horizon
-    do = 3 * n + 3
+    do = cfg.obs_dim
     dev = q0.device
     L = sum(1 for k in params if k.startswith("W"))
     if L != 3 or any(params[f"W{i}"].shape[1] != HIDDEN for i in range(2)):
         raise NotImplementedError(
             "the 3-D rollout kernel takes a (64, 64) tanh policy")
+    if params["W0"].shape[0] != do:
+        raise ValueError(f"W0 takes {params['W0'].shape[0]} inputs, the "
+                         f"observation has {do}")
     if n != N_JOINTS:
         raise NotImplementedError(
             f"the 3-D rollout kernel is built for {N_JOINTS} joints, not {n}")
@@ -395,6 +474,9 @@ def rollout3d(cfg, params, q0, qd0, tgt, eps=None, seed=None,
                **{k: params[k] for k in ("W0", "b0", "W1", "b1", "W2", "b2",
                                          "logstd")})
     ins = {k: v.to(torch.float32).contiguous() for k, v in ins.items()}
+    ins["task"] = task.to(torch.int32).contiguous()
+    if ins["task"].shape != (N,):
+        raise ValueError(f"task must be ({N},)")
     for k, v in ins.items():
         if v.device != dev:
             raise ValueError(f"{k} is on {v.device}, the batch on {dev}")
@@ -413,12 +495,17 @@ def rollout3d(cfg, params, q0, qd0, tgt, eps=None, seed=None,
     rew = torch.empty(T, N, device=dev)
     lib = build.library("rollout3d", _SIG)
     err = lib.trpo_rollout3d_launch(
-        _consts_array(c), n, c.n_substeps,
-        int(store_dtype == torch.bfloat16),
-        *(build.ptr(ins[k]) for k in ("q0", "qd0", "tgt", "W0", "b0", "W1",
-                                      "b1", "W2", "b2", "logstd")),
+        _consts_array(c), n, c.n_substeps, c.n_tasks,
+        int(c.obstacle_weight > 0.0), int(store_dtype == torch.bfloat16),
+        *(build.ptr(ins[k]) for k in ("q0", "qd0", "tgt", "task", "W0", "b0",
+                                      "W1", "b1", "W2", "b2", "logstd")),
         eps_p, seed_p, build.ptr(obs), build.ptr(act), build.ptr(rew), N, T,
         build.stream_handle(dev))
+    if err == NOT_INSTANTIATED:
+        raise NotImplementedError(
+            f"the 3-D rollout kernel has no instantiation for {c.n_tasks} "
+            f"task families with obstacle={c.obstacle_weight > 0.0} (see "
+            "trpo_rollout3d_launch in csrc/rollout3d.cu)")
     build.check(err, "3-D rollout kernel")
     rollout3d.launches += 1
     return obs, act, rew

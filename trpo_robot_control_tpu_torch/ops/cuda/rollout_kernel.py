@@ -62,11 +62,12 @@ def planar_consts(cfg, chol_reg: float = 1e-6) -> PlanarConsts:
             "(ops/cuda/rollout3d_kernel.py)")
     if cfg.n_tasks != 1 or cfg.cost.obstacle_weight != 0.0:
         raise NotImplementedError(
-            "multi-task and obstacle costs take the 3-D rollout kernel, "
-            "where they come with slice 3 of the port")
+            "multi-task and obstacle costs take the 3-D rollout kernel "
+            "(ops/cuda/rollout3d_kernel.py)")
     if cfg.done_dist > 0.0:
         raise NotImplementedError(
-            "early termination (done_dist > 0) comes with slice 3 of the port")
+            "early termination (done_dist > 0) comes with a later slice of "
+            "the port")
     n = spec.n_joints
     l = tuple(float(spec.joints[i + 1].pos[0]) for i in range(n - 1)) \
         + (float(spec.ee_offset[0]),)

@@ -26,7 +26,7 @@ class TrainState(NamedTuple):
 def init_state(cfg, seed: Optional[int] = None, device=None) -> TrainState:
     dev = resolve(device)
     if cfg.trpo.baseline != "linear":
-        raise NotImplementedError("the MLP baseline comes with slice 3")
+        raise NotImplementedError("the MLP baseline comes with a later slice")
     gen = torch.Generator(device=dev)
     gen.manual_seed(cfg.seed if seed is None else seed)
     params = policy.init_params(gen, cfg.obs_dim, cfg.arm.n_joints,

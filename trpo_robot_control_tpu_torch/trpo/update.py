@@ -1,15 +1,16 @@
 """The TRPO natural-gradient update (port of the feature-first branch of
-``trpo_robot_control_tpu/trpo/update.py``, as c1-c3 run it).
+``trpo_robot_control_tpu/trpo/update.py``, as c1-c5 run it).
 
 values -> GAE -> whitening -> baseline moments (K2) -> ridge fit ->
 closed-form surrogate gradient (K5 at B >= 400k samples, else the plain
-form) -> CG on the damped GN-FVP over the time-strided Fisher subsample
-(K6 on the feature-first subsample at B' >= 64k samples, else K3 on its
-batch-major relayout) -> step size from the CG invariant -> KL line search
-over the full batch or an env-strided subsample of it. The kernel gates
-are the JAX package's, on the global batch, and the CPU takes the same
-route through the plain versions. With bf16 storage (c3) obs and actions
-arrive in bf16 and every consumer rounds where the JAX package does.
+form) -> CG on the damped GN-FVP over the Fisher subsample, every k-th time
+step of every e-th env (K6 on the feature-first subsample at B' >= 64k
+samples, else K3 on its batch-major relayout) -> step size from the CG
+invariant -> KL line search over the full batch or an env-strided
+subsample of it. The kernel gates are the JAX package's, on the global
+batch, and the CPU takes the same route through the plain versions. With
+bf16 storage (c3-c5) obs and actions arrive in bf16 and every consumer
+rounds where the JAX package does.
 Every step stays on the device; the only host synchronisation is the
 caller's read of the stats. Each layer runs under a ``record_function``
 range (``trpo/...``) that ``cli/profile.py`` reads; outside a profiler a
@@ -33,9 +34,7 @@ from ..ops.linesearch import line_search
 def _check_supported(cfg, batch, axis_name):
     tr = cfg.trpo
     later = [
-        (tr.baseline == "mlp", "the MLP baseline comes with slice 3"),
-        (tr.fvp_env_subsample > 1,
-         "fvp_env_subsample > 1 comes with slice 3 (c4/c5)"),
+        (tr.baseline == "mlp", "the MLP baseline comes with a later slice"),
         (axis_name is not None, "data parallelism comes with slice 4"),
         ("obs_ff" not in batch or "actions_ff" not in batch,
          "the batch-major update path comes with slice 4; pass a batch "
@@ -132,22 +131,28 @@ def trpo_update(cfg, params, w, batch, axis_name=None,
 
     # ---- 3) CG on the damped GN-FVP over the Fisher subsample. The time
     # stride over (T, do, N) selects the same samples as obs_f[::k] when
-    # T % k == 0. K6 reads that strided view in place; K3 takes it relaid
-    # to (B / k, do) fp32.
-    k = tr.fvp_subsample
+    # T % k == 0; the env stride e (envs are i.i.d.) comes on top of it.
+    # K6 reads that strided view in place; K3 takes it relaid to
+    # (B / (k e), do) fp32.
+    k, e = tr.fvp_subsample, tr.fvp_env_subsample
     if k > 1 and T % k:
         raise ValueError("the feature-first fvp_subsample matches "
                          "obs_f[::k] only when horizon % fvp_subsample "
                          f"== 0; got T={T}, k={k}")
-    sub = obs_ff[::k]
+    if e > 1 and N % e:
+        raise ValueError("fvp_env_subsample needs (local) n_envs % k == 0 so "
+                         f"the strided env set is sharding-invariant; got "
+                         f"N={N}, k={e}")
+    sub = obs_ff[::k, :, ::e]
     ff_fvp = k > 1 and tr.fvp_impl not in ("xla", "pallas_bm") and (
-        tr.fvp_impl == "pallas" or sub.shape[0] * N >= FVP_FF_MIN_B)
+        tr.fvp_impl == "pallas"
+        or sub.shape[0] * sub.shape[2] >= FVP_FF_MIN_B)
     with record_function("trpo/cg_fvp"):
         if ff_fvp:
             fvp = fvp_ff_kernel.make_gn_fvp_ff(params, sub, tr.cg_damping)
         else:
             obs_fvp = (sub.permute(0, 2, 1) if k > 1
-                       else batch["obs"]).reshape(-1, do).float()
+                       else batch["obs"][::e]).reshape(-1, do).float()
             fvp = make_gn_fvp(params, obs_fvp, tr.cg_damping)
         x, r_final, cg_residual = conjugate_gradient(fvp, g, tr.cg_iters)
         # ---- 4) step size: F x = g - r (CG invariant): x^T F x = x.g - x.r
