@@ -35,12 +35,32 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
    e. five full-width training iterations through ``trpo.train.train``
       (K4, K2, K5 once and K6 ten times per update, no K1/K3, no plain
       version), with the peak device memory;
-   f. K4, K2-bf16, K5 and K6 times beside their bounds.
+   f. K4, K2-bf16, K5 and K6 times beside their bounds;
+4. early termination, c2 with done_dist 0.1 (K1's TERM instantiation) and
+   c5 with done_dist 0.05 (K4's, with the task redraw), each at full
+   width:
+   a. the kernel in fresh-state mode (the fresh episodes from the
+      caller) against its plain version on the same inputs, K4's on every
+      16th env: identical done flags and max |kernel - plain| = 0.0 over
+      the whole horizon with fp32 stores; K4 with bf16 stores 0 ulps from
+      the rounded plain output;
+   b. the limit of no done (done_dist 1e-9): in Philox mode the TERM
+      instantiation gives the non-terminating one's batch bit for bit;
+   c. Philox mode's resets: the fresh state of every early done, read
+      back from the next observation, lies in the reset distributions'
+      ranges (q, qd, target radius, z >= 0), and c5's fresh task
+      families come out within 4 sigma of 1/3 each;
+   d. five full-width training iterations through ``trpo.train.train``,
+      launch counts as in 2d / 3e, no plain version, early dones > 0;
+   e. the TERM kernels' times beside their bounds, and in turns with the
+      same instantiation without a done, the non-terminating kernel and
+      TERM at four times the done distance (what the resets cost).
 
 The last lines are the kernels' JSON record (c2/c3 figures at the top
-level of each entry, c4/c5 ones under ``at_c4``/``at_c5`` and K2's bf16
-mode under ``bf16_mode_c3/c4/c5``), the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+level of each entry, c4/c5 ones under ``at_c4``/``at_c5``, K2's bf16
+mode under ``bf16_mode_c3/c4/c5``, and the terminating instantiations as
+``rollout_term`` (c2) and ``rollout3d_term`` (c5)), the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -61,6 +81,10 @@ REPLACES = {
     "rollout3d": "trpo_robot_control_tpu/ops/pallas/rollout3d_kernel.py:895",
     "pg": "trpo_robot_control_tpu/ops/pallas/pg_kernel.py:312",
     "fvp_ff": "trpo_robot_control_tpu/ops/pallas/fvp_ff_kernel.py:188",
+    # the terminating branches of the rollout kernels' bodies
+    "rollout_term": "trpo_robot_control_tpu/ops/pallas/rollout_kernel.py:436",
+    "rollout3d_term":
+        "trpo_robot_control_tpu/ops/pallas/rollout3d_kernel.py:577",
 }
 SOURCE = "trpo_robot_control_tpu_torch/ops/cuda/csrc/{}.cu"
 K1_TIGHT_STEPS, K1_TIGHT_ATOL = 10, 1e-5
@@ -86,6 +110,14 @@ K4_FULL_ATOL = 1e-2
 K4_Z_TOL = 0.01
 K5_REL, K5_MU_ATOL, K5_LOGP_REL = 1e-4, 1e-4, 1e-3
 K6_REL = 1e-5
+# Early termination at full width: c2 and c5 with these done distances
+# (the one the JAX tests use for a 7-DoF arm at c5).
+C2_DONE_DIST, C5_DONE_DIST = 0.1, 0.05
+# Fresh states read back from the next observation: q through atan2 of
+# its cos/sin rows, qd through the observation's scale, the target as
+# (target - ee) + ee with ee from the plain FK; each within this of the
+# reset distribution's range.
+RESET_TOL = 1e-5
 
 
 def require(ok: bool, what) -> None:
@@ -209,6 +241,13 @@ def train_checked(cfg, n_iters, kernels, expect, train):
                 f"non-finite stats {st}")
         require(st["accepted"] < 0 or st["kl"] <= cfg.trpo.delta,
                 f"accepted step outside the trust region {st}")
+    if cfg.done_dist > 0.0:
+        early = [int(st["early_dones"]) for st in hist]
+        print(f"{cfg.name} done_dist {cfg.done_dist}: early dones per "
+              f"iteration {early} of {(cfg.horizon - 1) * cfg.n_envs} "
+              "env-steps each")
+        require(sum(early) > 0, f"{cfg.name}: no early done in {n_iters} "
+                "iterations")
     ms_upd = 1e3 * sum(st["wall_s"] for st in hist[1:]) / (n_iters - 1)
     print(f"{cfg.name} update (host clock, iterations 2-{n_iters}): "
           f"{ms_upd:.3f} ms, {1e3 / ms_upd:.2f} updates/s")
@@ -596,6 +635,306 @@ def arm3d_phases(dev, cfg, seed):
     return rec
 
 
+def check_fresh_state_mode(tag, k_out, p_out):
+    """The TERM kernel in fresh-state mode against its plain version on the
+    same inputs: identical done flags, max |kernel - plain| = 0.0. Returns
+    (max error, early dones checked)."""
+    require(torch.equal(k_out[3], p_out[3]),
+            f"{tag}: the kernel's done flags differ from the plain version's")
+    errs = [float((k - p).abs().max()) for k, p in zip(k_out[:3], p_out[:3])]
+    early = int(p_out[3][:-1].sum())
+    print(f"{tag} fresh-state mode: {early} early dones, identical flags; "
+          f"max |kernel - plain| (obs, act, rew) {errs} over "
+          f"{p_out[0].shape[0]} steps (bound 0.0)")
+    require(max(errs) == 0.0, f"{tag}: kernel differs from plain: {errs}")
+    require(early > 0, f"{tag}: no early done in the checked envs")
+    return max(errs), early
+
+
+def check_no_done_limit(tag, base, out):
+    """TERM with done_dist 1e-9 against the non-terminating instantiation,
+    the same seed: bit for bit, no done flag."""
+    require(len(base) == 3 and len(out) == 4, f"{tag}: output arity")
+    same = all(torch.equal(a, b) for a, b in zip(out[:3], base))
+    print(f"{tag} done_dist 1e-9, Philox mode: TERM batch bit-identical to "
+          f"the non-terminating one: {same}; done flags set: "
+          f"{int(out[3].sum())}")
+    require(same and not bool(out[3].any()),
+            f"{tag}: the limit of no done is not the non-terminating batch")
+
+
+def fresh_states_after_dones(obs, dones):
+    """(step, env) of every done before the last step, and the
+    observation at the next step of each: the fresh episode's first
+    observation, (K, do)."""
+    idx = torch.nonzero(dones[:-1] > 0.5)
+    nxt = obs[idx[:, 0] + 1, :, idx[:, 1]].float()
+    return idx, nxt
+
+
+def check_reset_ranges(tag, c, q, qd, radius):
+    """q in +-q0_noise, qd in +-qd0_noise, the target radius in [rmin,
+    rmax], each within RESET_TOL, and q's mean within 4 sigma of 0."""
+    K = q.shape[0]
+    q_max, qd_max = float(q.abs().max()), float(qd.abs().max())
+    r_lo, r_hi = float(radius.min()), float(radius.max())
+    q_mean = float(q.double().mean())
+    q_sig = c.q0_noise / math.sqrt(3.0 * q.numel())
+    print(f"{tag} Philox resets: {K} fresh episodes; max |q| {q_max:.6f} "
+          f"(q0_noise {c.q0_noise}), mean q {q_mean:+.5f} (4 sigma "
+          f"{4 * q_sig:.5f}), max |qd| {qd_max:.7f} (qd0_noise "
+          f"{c.qd0_noise}), target radius [{r_lo:.5f}, {r_hi:.5f}] (range "
+          f"[{c.rmin:.5f}, {c.rmax:.5f}])")
+    require(K > 0, f"{tag}: no early done in Philox mode")
+    require(q_max <= c.q0_noise + RESET_TOL, f"{tag}: fresh q {q_max}")
+    require(qd_max <= c.qd0_noise + RESET_TOL, f"{tag}: fresh qd {qd_max}")
+    require(c.rmin - RESET_TOL <= r_lo and r_hi <= c.rmax + RESET_TOL,
+            f"{tag}: fresh target radius [{r_lo}, {r_hi}]")
+    require(abs(q_mean) <= 4 * q_sig, f"{tag}: fresh q mean {q_mean}")
+
+
+def term_variant_ms(tag, launch, done_dist, rounds, iters, warmup):
+    """Per-launch ms of the TERM kernel at ``done_dist``, of the same
+    instantiation with no done (1e-9), of the non-terminating kernel (0)
+    and of TERM at 4 done_dist (more resets), timed in turns over
+    ``rounds`` rounds on the same seed; ``launch(d)`` runs the wrapper at
+    done distance d. Prints every round and the resets of each variant;
+    returns {variant: mean ms}."""
+    variants = {"term": done_dist, "no_done": 1e-9, "nonterminating": 0.0,
+                "term_4x": 4.0 * done_dist}
+    resets = {k: (int(launch(d)[3][:-1].sum()) if d > 0.0 else 0)
+              for k, d in variants.items()}
+    times = {k: [] for k in variants}
+    for _ in range(rounds):
+        for k, d in variants.items():
+            times[k].append(cuda_ms(lambda: launch(d), iters, warmup=warmup))
+    for k in variants:
+        print(f"{tag} {k} (done_dist {variants[k]:g}, {resets[k]} early "
+              f"dones): ms per launch in turns "
+              f"{[round(x, 4) for x in times[k]]}")
+    return {k: sum(v) / len(v) for k, v in times.items()}
+
+
+def c2_term_phases(dev):
+    """K1's TERM instantiation at c2 with done_dist C2_DONE_DIST: fresh-state
+    mode against the plain version, the no-done limit, Philox resets,
+    training and its time; returns {"rollout_term": record}."""
+    from trpo_robot_control_tpu_torch.configs import C2_REACHER3
+    from trpo_robot_control_tpu_torch.envs import arm
+    from trpo_robot_control_tpu_torch.models import policy
+    from trpo_robot_control_tpu_torch.ops import cuda as kernels
+    from trpo_robot_control_tpu_torch.ops.cuda import rollout_kernel as rk
+    from trpo_robot_control_tpu_torch.trpo.train import train
+    cfg = C2_REACHER3.replace(done_dist=C2_DONE_DIST)
+    T, N, n = cfg.horizon, cfg.n_envs, cfg.arm.n_joints
+    do, da = cfg.obs_dim, n
+    H = cfg.trpo.hidden[0]
+    c = rk.planar_consts(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    params = policy.init_params(gen, do, da, cfg.trpo.hidden,
+                                cfg.trpo.logstd_init)
+    P = policy.flatten(params).numel()
+    s0 = arm.reset(cfg, gen, N)
+    eps = torch.randn(T, N, n, generator=gen, device=dev)
+    fresh = arm.fresh_episodes(cfg, gen, N)
+
+    # ---- fresh-state mode vs the plain version
+    k_out = rk.rollout(cfg, params, s0.q, s0.qd, s0.tgt, eps=eps,
+                       fresh=fresh)
+    p_out = rk.rollout_plain(cfg, params, s0.q, s0.qd, s0.tgt, eps, fresh)
+    torch.cuda.synchronize()
+    err, _ = check_fresh_state_mode("c2 K1-term", k_out, p_out)
+
+    # ---- the limit of no done
+    seed = torch.tensor([12345, 678], dtype=torch.int64, device=dev)
+    check_no_done_limit(
+        "c2 K1-term",
+        rk.rollout(cfg.replace(done_dist=0.0), params, s0.q, s0.qd, s0.tgt,
+                   seed=seed),
+        rk.rollout(cfg.replace(done_dist=1e-9), params, s0.q, s0.qd, s0.tgt,
+                   seed=seed))
+
+    # ---- Philox resets read back from the next observation
+    obs, _, _, dones = rk.rollout(cfg, params, s0.q, s0.qd, s0.tgt,
+                                  seed=seed)
+    _, o = fresh_states_after_dones(obs, dones)
+    q = torch.atan2(o[:, n:2 * n], o[:, :n])
+    qd = o[:, 2 * n:3 * n] / c.qd_obs_scale
+    *_, eex, eey = rk._fk(c, list(q.T))
+    tx, ty = o[:, 3 * n] + eex, o[:, 3 * n + 1] + eey
+    check_reset_ranges("c2 K1-term", c, q, qd, torch.sqrt(tx * tx + ty * ty))
+    ang = torch.atan2(ty, tx).double()
+    cm, sm = float(torch.cos(ang).mean()), float(torch.sin(ang).mean())
+    sig = math.sqrt(0.5 / ang.numel())
+    print(f"c2 K1-term Philox resets: mean cos, sin of the target angle "
+          f"{cm:+.4f}, {sm:+.4f} (4 sigma {4 * sig:.4f})")
+    require(abs(cm) <= 4 * sig and abs(sm) <= 4 * sig,
+            f"c2 fresh target angle mean cos {cm}, sin {sm}")
+
+    # ---- five full-width iterations through the trainer
+    n_iters = 5
+    launches, _ = train_checked(
+        cfg, n_iters, kernels,
+        {"rollout": n_iters, "moments": n_iters,
+         "fvp": n_iters * cfg.trpo.cg_iters, "rollout3d": 0, "pg": 0,
+         "fvp_ff": 0}, train)
+
+    # ---- time beside the bound: K1's (the MLP's FLOPs; every input read
+    # and output written once) plus the done flags' bytes; the plain
+    # version's reset is selects only, no FLOPs
+    B = T * N
+    t = term_variant_ms(
+        "c2 K1", lambda d: rk.rollout(cfg.replace(done_dist=d), params, s0.q,
+                                      s0.qd, s0.tgt, seed=seed),
+        cfg.done_dist, rounds=3, iters=20, warmup=2)
+    t_k = t["term"]
+    t_p = cuda_ms(lambda: rk.rollout_plain(cfg, params, s0.q, s0.qd, s0.tgt,
+                                           eps, fresh), 2, warmup=1)
+    mlp_macs = do * H + H * H + H * da
+    bms, by = bound_ms(2.0 * mlp_macs * B,
+                       4.0 * (B * (do + da + 2) + N * (2 * n + 2) + P))
+    print(f"c2 rollout_term: {t_k:.4f} ms/launch (bound {bms:.4f} ms by "
+          f"{by}), plain {t_p:.3f} ms, "
+          f"{launches['rollout'] // n_iters} launch(es)/update")
+    return {"rollout_term": dict(
+        launches=launches["rollout"], max_abs_err=err, ms=t_k, plain_ms=t_p,
+        bound_ms=bms, bound_by=by, library_ms=None,
+        done_dist=cfg.done_dist, variants_ms=t)}
+
+
+def c5_term_phases(dev):
+    """K4's TERM instantiation at c5 with done_dist C5_DONE_DIST: fresh-state
+    mode against the plain version on every (N / K4_CHECK_ENVS)-th env,
+    bf16 stores, the no-done limit, Philox resets with the task redraw,
+    training and its time; returns {"rollout3d_term": record}."""
+    from trpo_robot_control_tpu_torch.configs import C5_MULTITASK
+    from trpo_robot_control_tpu_torch.envs import arm
+    from trpo_robot_control_tpu_torch.models import policy
+    from trpo_robot_control_tpu_torch.ops import cuda as kernels
+    from trpo_robot_control_tpu_torch.ops.cuda import rollout3d_kernel as r3
+    from trpo_robot_control_tpu_torch.trpo.train import train
+    cfg = C5_MULTITASK.replace(done_dist=C5_DONE_DIST)
+    T, N, n = cfg.horizon, cfg.n_envs, cfg.arm.n_joints
+    do, da = cfg.obs_dim, n
+    bf16 = torch.bfloat16
+    c = r3.arm3d_consts(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    params = policy.init_params(gen, do, da, cfg.trpo.hidden,
+                                cfg.trpo.logstd_init)
+    P = policy.flatten(params).numel()
+    s0 = arm.reset(cfg, gen, N)
+    eps = torch.randn(T, N, n, generator=gen, device=dev)
+    fresh = arm.fresh_episodes(cfg, gen, N)
+
+    # ---- fresh-state mode at full width vs the plain version on every
+    # stride-th env of the same inputs (plain timed once, no warm-up)
+    stride = max(1, N // K4_CHECK_ENVS)
+    k32 = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt, s0.task, eps=eps,
+                       fresh=fresh)
+    k16 = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt, s0.task, eps=eps,
+                       fresh=fresh, store_dtype=bf16)
+    all_early = int(k32[3][:-1].sum())
+    require(torch.equal(k16[2], k32[2]) and torch.equal(k16[3], k32[3]),
+            "c5 K4-term: bf16 stores changed rewards or done flags")
+    k32 = tuple(x[..., ::stride] for x in k32)
+    k16 = tuple(x[..., ::stride] for x in k16[:2])
+    st = arm.EnvState(*(x[::stride] for x in s0))
+    fr = arm.EnvState(*(x[:, ::stride] for x in fresh))
+    Nc = st.q.shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_out = r3.rollout3d_plain(cfg, params, st.q, st.qd, st.tgt, st.task,
+                               eps[:, ::stride], fr)
+    torch.cuda.synchronize()
+    t_p = 1e3 * (time.perf_counter() - t0)
+    print(f"c5 K4-term fresh-state mode on {N} envs ({all_early} early "
+          f"dones), plain version on every {stride}-th ({Nc} envs):")
+    err, _ = check_fresh_state_mode("c5 K4-term", k32, p_out)
+    ulps = max(float(((k.float() - p.to(bf16).float()).abs()
+                      / bf16_ulp(p.to(bf16).float())).max())
+               for k, p in zip(k16, p_out[:2]))
+    print(f"c5 K4-term bf16 stores: max |kernel - round(plain)| {ulps} bf16 "
+          f"ulps (obs, act) over {T} steps (bound 0)")
+    require(ulps == 0.0, f"c5 K4-term bf16 stores {ulps} ulps")
+    del k32, k16, p_out
+
+    # ---- the limit of no done (bf16 stores, as the trainer runs)
+    seed = torch.tensor([4242, 17], dtype=torch.int64, device=dev)
+    check_no_done_limit(
+        "c5 K4-term",
+        r3.rollout3d(cfg.replace(done_dist=0.0), params, s0.q, s0.qd, s0.tgt,
+                     s0.task, seed=seed, store_dtype=bf16),
+        r3.rollout3d(cfg.replace(done_dist=1e-9), params, s0.q, s0.qd,
+                     s0.tgt, s0.task, seed=seed, store_dtype=bf16))
+
+    # ---- Philox resets (fp32 stores) read back from the next observation
+    obs, _, _, dones = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt,
+                                    s0.task, seed=seed)
+    early = int(dones[:-1].sum())
+    _, o = fresh_states_after_dones(obs, dones)
+    del obs
+    cq, sq = o[:, :n], o[:, n:2 * n]
+    q = torch.atan2(sq, cq)
+    qd = o[:, 2 * n:3 * n] / c.qd_obs_scale
+    ee = r3._fk3(c, list(cq.T), list(sq.T))[3]
+    tgt = torch.stack([o[:, 3 * n + i] + ee[i] for i in range(3)], dim=1)
+    check_reset_ranges("c5 K4-term", c, q, qd, torch.linalg.norm(tgt, dim=1))
+    z_min = float(tgt[:, 2].min())
+    onehot = o[:, 3 * n + 3:]
+    counts = onehot.sum(0)
+    K = onehot.shape[0]
+    sig = math.sqrt(K * (1.0 / 3) * (2.0 / 3))
+    print(f"c5 K4-term Philox resets: {early} early dones; min target z "
+          f"{z_min:+.6f}; fresh task counts {counts.tolist()} (expected "
+          f"{K / 3:.1f} each, 4 sigma {4 * sig:.1f})")
+    require(z_min >= -RESET_TOL, f"c5 fresh target z {z_min}")
+    require(bool(((onehot == 0) | (onehot == 1)).all())
+            and bool((onehot.sum(1) == 1).all()),
+            "c5 fresh task one-hot is not one-hot")
+    require(all(abs(float(x) - K / 3) <= 4 * sig for x in counts),
+            f"c5 fresh task counts {counts.tolist()}")
+    del o, dones
+
+    # ---- five full-width iterations through the trainer
+    n_iters = 5
+    launches, _ = train_checked(
+        cfg, n_iters, kernels,
+        {"rollout": 0, "moments": n_iters, "fvp": 0, "rollout3d": n_iters,
+         "pg": n_iters, "fvp_ff": n_iters * cfg.trpo.cg_iters}, train)
+
+    # ---- time beside the bound: K4's work per env-step (3e) plus, for
+    # this run's share of early dones, the plain version's reset (the
+    # fresh cos/sin and FK), and the done flags' 4 bytes per env-step
+    B = T * N
+    per_step = k4_flops_per_env_step(r3, cfg.replace(done_dist=0.0), params,
+                                     s0, eps, s0.task)
+    one = [x[:1, :1] for x in fresh]
+    q1, qd1 = list(s0.q[:1].T), list(s0.qd[:1].T)
+    tg1 = tuple(s0.tgt[:1, i] for i in range(3))
+    done1 = torch.ones(1, dtype=torch.bool, device=dev)
+    per_reset = elementwise_flops(lambda: r3.start_fresh(
+        c, done1, [x[0] for x in one], q1, qd1, tg1, s0.task[:1]))
+    flops = per_step * B + per_reset * early
+    t = term_variant_ms(
+        "c5 K4", lambda d: r3.rollout3d(cfg.replace(done_dist=d), params,
+                                        s0.q, s0.qd, s0.tgt, s0.task,
+                                        seed=seed, store_dtype=bf16),
+        cfg.done_dist, rounds=3, iters=3, warmup=1)
+    t_k = t["term"]
+    bms, by = bound_ms(flops, B * ((do + da) * 2 + 4 + 4)
+                       + 4.0 * (N * (2 * n + 4) + P))
+    print(f"c5 rollout3d_term: {t_k:.4f} ms/launch (bound {bms:.4f} ms by "
+          f"{by}; {per_step:.1f} FLOP per env-step and {per_reset} per "
+          f"reset, {early} resets), plain {t_p:.3f} ms (on {Nc} envs, "
+          f"once), {launches['rollout3d'] // n_iters} launch(es)/update")
+    return {"rollout3d_term": dict(
+        launches=launches["rollout3d"], max_abs_err=err, ms=t_k,
+        plain_ms=t_p, bound_ms=bms, bound_by=by, library_ms=None,
+        plain_envs=Nc, done_dist=cfg.done_dist, variants_ms=t)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -624,10 +963,18 @@ def main() -> int:
                            ("c5", C5_MULTITASK, 3)):
         more[tag] = arm3d_phases(dev, cfg, seed)
         print(f"{tag} phases done at {time.perf_counter() - t_start:.1f} s")
+    rec.update(c2_term_phases(dev))
+    print(f"c2 termination phases done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+    rec.update(c5_term_phases(dev))
+    print(f"c5 termination phases done at "
+          f"{time.perf_counter() - t_start:.1f} s")
     out = []
-    for name in ("rollout", "moments", "fvp", "rollout3d", "pg", "fvp_ff"):
+    for name in ("rollout", "moments", "fvp", "rollout3d", "pg", "fvp_ff",
+                 "rollout_term", "rollout3d_term"):
         r = rec[name]
-        entry = dict(name=name, route="cuda", source=SOURCE.format(name),
+        src = name.replace("_term", "")
+        entry = dict(name=name, route="cuda", source=SOURCE.format(src),
                      replaces=REPLACES[name], launches=r["launches"],
                      max_abs_err=r["max_abs_err"], ms=r["ms"],
                      plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

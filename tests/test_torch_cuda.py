@@ -187,3 +187,93 @@ def test_fvp_ff_kernel_matches_plain_on_card(cuda, do, e):
     fp = fvp_ff_kernel.gn_fvp_ff_plain(pc, sub, v, 0.1)
     assert float(torch.linalg.norm(fk - fp) / torch.linalg.norm(fp)) < 1e-5
     assert torch.equal(fk, fvp_ff_kernel.make_gn_fvp_ff(pc, sub, 0.1)(v))
+
+
+def _term_inputs(cfg, N, seed, cuda):
+    """Initial states, eps and fresh episodes of a terminating config,
+    drawn on the card from the reset distributions."""
+    from trpo_robot_control_tpu_torch.envs import arm
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    s = arm.reset(cfg, gen, N)
+    eps = torch.randn(cfg.horizon, N, cfg.arm.n_joints, generator=gen,
+                      device=cuda)
+    return s, eps, arm.fresh_episodes(cfg, gen, N)
+
+
+@pytest.mark.cuda
+def test_rollout_kernel_terminating_matches_plain_on_card(cuda):
+    """K1's TERM instantiation in fresh-state mode: the same done flags as
+    the plain version, and the same trajectories through the resets."""
+    cfg = pconfigs.C2_REACHER3.replace(horizon=30, done_dist=0.25)
+    N = 300
+    pn = policy_params_np(np.random.RandomState(19), cfg.obs_dim, 3)
+    pc = {k: t(v).to(cuda) for k, v in pn.items()}
+    s, eps, fresh = _term_inputs(cfg, N, 20, cuda)
+    k_out = rollout_kernel.rollout(cfg, pc, s.q, s.qd, s.tgt, eps=eps,
+                                   fresh=fresh)
+    p_out = rollout_kernel.rollout_plain(cfg, pc, s.q, s.qd, s.tgt, eps,
+                                         fresh)
+    assert torch.equal(k_out[3], p_out[3]) and bool(k_out[3][:-1].any())
+    for a, b in zip(k_out[:3], p_out[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["c3_franka7", "c4_franka7_obstacle",
+                                  "c5_multitask"])
+def test_rollout3d_kernel_terminating_matches_plain_on_card(cuda, name):
+    """K4's TERM instantiation of each (task families, obstacle) pair in
+    fresh-state mode, fp32 and bf16 stores: the same done flags as the
+    plain version and the same trajectories through the resets (a reset
+    redraws c5's task)."""
+    cfg = pconfigs.CONFIGS[name].replace(horizon=16, done_dist=0.4)
+    if cfg.cost.obstacle_weight > 0.0:
+        cfg = cfg.replace(cost=dataclasses.replace(
+            cfg.cost, obstacle_center=OBSTACLE_ON_ARM))
+    N = 300
+    pn = policy_params_np(np.random.RandomState(21), cfg.obs_dim, 7)
+    pc = {k: t(v).to(cuda) for k, v in pn.items()}
+    s, eps, fresh = _term_inputs(cfg, N, 22, cuda)
+    k_out = rollout3d_kernel.rollout3d(cfg, pc, s.q, s.qd, s.tgt, s.task,
+                                       eps=eps, fresh=fresh)
+    p_out = rollout3d_kernel.rollout3d_plain(cfg, pc, s.q, s.qd, s.tgt,
+                                             s.task, eps, fresh)
+    assert torch.equal(k_out[3], p_out[3]) and bool(k_out[3][:-1].any())
+    for a, b in zip(k_out[:3], p_out[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    k16 = rollout3d_kernel.rollout3d(cfg, pc, s.q, s.qd, s.tgt, s.task,
+                                     eps=eps, fresh=fresh,
+                                     store_dtype=torch.bfloat16)
+    for a, b in zip(k16[:2], k_out[:2]):
+        assert torch.equal(a, b.to(torch.bfloat16))
+    assert torch.equal(k16[3], k_out[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["c2_reacher3", "c3_franka7",
+                                  "c4_franka7_obstacle", "c5_multitask"])
+def test_terminating_kernel_without_a_done_is_the_nonterminating_one(
+        cuda, name):
+    """With done_dist = 1e-9 no env finishes: in Philox mode the TERM
+    instantiation gives the non-terminating one's batch bit for bit from
+    the same seed (the resets' uniforms use their own Philox counters)."""
+    cfg = pconfigs.CONFIGS[name].replace(horizon=12)
+    n = cfg.arm.n_joints
+    N = 300
+    pn = policy_params_np(np.random.RandomState(23), cfg.obs_dim, n)
+    pc = {k: t(v).to(cuda) for k, v in pn.items()}
+    s, _, _ = _term_inputs(cfg, N, 24, cuda)
+    seed = torch.tensor([11, 12], dtype=torch.int64, device=cuda)
+    term = cfg.replace(done_dist=1e-9)
+    if n < 7:
+        base = rollout_kernel.rollout(cfg, pc, s.q, s.qd, s.tgt, seed=seed)
+        out = rollout_kernel.rollout(term, pc, s.q, s.qd, s.tgt, seed=seed)
+    else:
+        base = rollout3d_kernel.rollout3d(cfg, pc, s.q, s.qd, s.tgt, s.task,
+                                          seed=seed)
+        out = rollout3d_kernel.rollout3d(term, pc, s.q, s.qd, s.tgt, s.task,
+                                         seed=seed)
+    assert len(base) == 3 and len(out) == 4
+    for a, b in zip(out[:3], base):
+        assert torch.equal(a, b)
+    assert not bool(out[3].any())

@@ -136,7 +136,58 @@ def torch_batch_from_jax(batch):
     from trpo_robot_control_tpu_torch.envs.arm import batch_from_ff
     return batch_from_ff(torch_ff(batch["obs_ff"]),
                          torch_ff(batch["actions_ff"]),
-                         t(batch["rewards_ff"]))
+                         t(batch["rewards_ff"]),
+                         t(batch["dones_ff"]) if "dones_ff" in batch else None)
+
+
+def jax_ff_batch(cfg, batch):
+    """A batch-major JAX batch (numpy) with the kernel-native views added:
+    obs_ff, actions_ff (T, d, N), in bf16 when the config stores bf16,
+    rewards_ff and dones_ff (T, N)."""
+    import jax.numpy as jnp
+    dt = jnp.bfloat16 if cfg.trpo.ff_store_dtype == "bf16" else jnp.float32
+    out = {k: jnp.asarray(v) for k, v in batch.items()}
+    out.update(obs_ff=jnp.asarray(batch["obs"].transpose(1, 2, 0)).astype(dt),
+               actions_ff=jnp.asarray(
+                   batch["actions"].transpose(1, 2, 0)).astype(dt),
+               rewards_ff=jnp.asarray(batch["rewards"].T))
+    if "dones" in batch:
+        out["dones_ff"] = jnp.asarray(batch["dones"].T)
+    return out
+
+
+def jax_init_params_np(cfg, seed):
+    """The JAX package's policy initialisation, as numpy."""
+    import jax
+
+    from trpo_robot_control_tpu.models import policy as jpol
+    p = jpol.init_params(jax.random.PRNGKey(seed), cfg.obs_dim,
+                         cfg.arm.n_joints, cfg.trpo.hidden,
+                         cfg.trpo.logstd_init)
+    return {k: np.asarray(v) for k, v in p.items()}
+
+
+def check_update_parity(jcfg, pcfg, params_np, jbatch):
+    """The port's trpo_update against the JAX package's on the same batch,
+    held to tests/test_parity.py's criteria: direction cosine >= 0.999,
+    |beta| relative error <= 1e-3, the same accepted exponent. Returns the
+    port's stats."""
+    from trpo_robot_control_tpu_torch.trpo.update import trpo_update
+    from trpo_robot_control_tpu_torch.utils.convert import (
+        params_from_numpy, w_from_numpy)
+    w0 = np.zeros(2 * jcfg.obs_dim + 4, np.float32)
+    _, _, st_j = jit_jax_update(jcfg)({k: j(v) for k, v in params_np.items()},
+                                      j(w0), jbatch)
+    _, w_t, st_t = trpo_update(pcfg, params_from_numpy(params_np, "cpu"),
+                               w_from_numpy(w0, "cpu"),
+                               torch_batch_from_jax(jbatch),
+                               return_directions=True)
+    assert cosine(n(st_t["x"]), st_j["x"]) >= 0.999
+    beta_j = float(st_j["beta"])
+    assert abs(float(st_t["beta"]) - beta_j) / beta_j <= 1e-3
+    assert int(st_t["accepted"]) == int(st_j["accepted"])
+    assert bool(torch.isfinite(w_t).all())
+    return st_t
 
 
 def jit_jax_update(cfg):
@@ -145,3 +196,94 @@ def jit_jax_update(cfg):
     from trpo_robot_control_tpu.trpo.update import trpo_update
     return jax.jit(lambda p, w, b: trpo_update(cfg, p, w, b,
                                                return_directions=True))
+
+
+def jax_terminating(cfg, params_np, seed):
+    """JAX's terminating rollout (``envs/arm.py:rollout``, jitted) from
+    ``PRNGKey(seed)``, and the draws it made, reproduced from the same key:
+    the initial state (q, qd, tgt, task), the action noise eps (T, N, n)
+    and the fresh episodes (q, qd, tgt, task) with a leading T axis, row t
+    being what an env done at step t starts. All numpy."""
+    import jax
+
+    from trpo_robot_control_tpu.envs import arm as jarm
+    from trpo_robot_control_tpu.models import policy as jpol
+    N, T, n_j = cfg.n_envs, cfg.horizon, cfg.arm.n_joints
+    key = jax.random.PRNGKey(seed)
+    params = {k: j(v) for k, v in params_np.items()}
+    batch = jax.jit(lambda p, k: jarm.rollout(cfg, p, jpol.sample, k))(
+        params, key)
+    k_reset, k_roll = jax.random.split(key)
+    s0 = jarm.reset(cfg, k_reset, N)
+    eps, fresh = [], []
+    for k_t in jax.random.split(k_roll, T):
+        k_act, k_re = jax.random.split(k_t)
+        eps.append(np.asarray(jax.random.normal(k_act, (N, n_j))))
+        fresh.append(jarm.reset(cfg, k_re, N))
+    fresh = tuple(np.stack([np.asarray(f[i]) for f in fresh])
+                  for i in range(4))
+    return ({k: np.asarray(v) for k, v in batch.items()},
+            tuple(np.asarray(x) for x in s0), np.stack(eps), fresh)
+
+
+def torch_state(x):
+    """A (q, qd, tgt, task) numpy tuple -> torch, task as int32."""
+    return (t(x[0]), t(x[1]), t(x[2]),
+            torch.tensor(np.asarray(x[3], np.int32)))
+
+
+def done_mismatch(d_port, d_jax, obs_port, obs_jax, rows, done_dist):
+    """The assertion message for done flags (T, N) that differ: at each
+    such step, the distance the side that did not reset reports in its
+    next observation (the target-minus-end-effector rows), beside
+    done_dist. A distance within fp32 drift of done_dist is a near-tie
+    between two orders of the same arithmetic."""
+    out = []
+    for tt, e in np.argwhere(d_port != d_jax)[:5]:
+        obs = obs_port if d_port[tt, e] < 0.5 else obs_jax
+        dist = float(np.linalg.norm(obs[tt + 1, rows, e]))
+        out.append(f"step {tt} env {e}: distance {dist:.7f} vs done_dist "
+                   f"{done_dist} (margin {dist - done_dist:+.2e})")
+    return "done flags differ: " + "; ".join(out)
+
+
+def check_against_jax(name, N, T, done_dist, seed, atol_obs, atol_rew,
+                      params_np=None):
+    """The port's terminating plain rollout (K1's or K4's) on the draws of
+    JAX's terminating rollout of config ``name`` from ``PRNGKey(seed)``
+    with ``params_np`` (default: ``policy_params_np`` of ``seed``):
+    identical done flags before the last step, at least one of them set,
+    and obs, act, rew within the given tolerances. Returns (early dones,
+    JAX config, port config, params, JAX batch)."""
+    from trpo_robot_control_tpu.configs import CONFIGS as JCONFIGS
+    from trpo_robot_control_tpu_torch.configs import CONFIGS as PCONFIGS
+    from trpo_robot_control_tpu_torch.ops.cuda import rollout3d_kernel as r3
+    from trpo_robot_control_tpu_torch.ops.cuda import rollout_kernel as rk
+    jcfg = JCONFIGS[name].replace(n_envs=N, horizon=T, done_dist=done_dist)
+    pcfg = PCONFIGS[name].replace(n_envs=N, horizon=T, done_dist=done_dist)
+    pn = params_np if params_np is not None else policy_params_np(
+        np.random.RandomState(seed), jcfg.obs_dim, jcfg.arm.n_joints)
+    bj, s0, eps, fresh = jax_terminating(jcfg, pn, seed)
+    pt = {k: t(v) for k, v in pn.items()}
+    q0, qd0, tgt, task = torch_state(s0)
+    if jcfg.arm.n_joints < 7:
+        out = rk.rollout(pcfg, pt, q0, qd0, tgt, eps=t(eps),
+                         fresh=torch_state(fresh))
+    else:
+        out = r3.rollout3d(pcfg, pt, q0, qd0, tgt, task, eps=t(eps),
+                           fresh=torch_state(fresh))
+    obs, act, rew, dones = (n(x) for x in out)
+    d_jax = bj["dones"].T                         # (T, N), last row 1
+    nj = jcfg.arm.n_joints
+    rows = slice(3 * nj, 3 * nj + 3)
+    obs_jax = bj["obs"].transpose(1, 2, 0)
+    early = int(d_jax[:-1].sum())
+    assert early > 0, "no early done: the branch was not exercised"
+    assert np.array_equal(dones[:-1], d_jax[:-1]), done_mismatch(
+        dones[:-1], d_jax[:-1], obs, obs_jax, rows, done_dist)
+    np.testing.assert_allclose(obs, obs_jax, atol=atol_obs, err_msg="obs")
+    np.testing.assert_allclose(act, bj["actions"].transpose(1, 2, 0),
+                               atol=atol_obs, err_msg="actions")
+    np.testing.assert_allclose(rew, bj["rewards"].T, atol=atol_rew,
+                               err_msg="rewards")
+    return early, jcfg, pcfg, pn, bj

@@ -109,8 +109,8 @@ def test_cli_trains_on_cpu(capsys):
 
 def test_cli_has_no_unported_flags():
     from trpo_robot_control_tpu_torch.cli.train import main
-    for flag in ("--sharded", "--n-model", "--baseline", "--done-dist",
-                 "--ckpt-dir", "--resume"):
+    for flag in ("--sharded", "--n-model", "--baseline", "--ckpt-dir",
+                 "--resume"):
         with pytest.raises(SystemExit):
             main(["--iters", "1", "--device", "cpu", flag, "1"])
 
@@ -126,13 +126,11 @@ def test_unported_paths_raise():
     make_rollout_fn(C3_FRANKA7)               # ported in slice 2
     make_rollout_fn(C4_FRANKA7_OBSTACLE)      # ported in slice 3
     make_rollout_fn(C5_MULTITASK)
-    with pytest.raises(NotImplementedError, match="termination"):
-        make_rollout_fn(C3_FRANKA7.replace(done_dist=0.05))
+    make_rollout_fn(C3_FRANKA7.replace(done_dist=0.05))     # slice 4
+    make_rollout_fn(C1_REACHER2.replace(done_dist=0.05))
     with pytest.raises(NotImplementedError, match="bf16"):
         make_rollout_fn(C1_REACHER2.replace(trpo=dataclasses.replace(
             C1_REACHER2.trpo, ff_store_dtype="bf16")))
-    with pytest.raises(NotImplementedError, match="termination"):
-        make_rollout_fn(C1_REACHER2.replace(done_dist=0.05))
     with pytest.raises(NotImplementedError, match="MLP baseline"):
         init_state(C1_REACHER2.replace(trpo=dataclasses.replace(
             C1_REACHER2.trpo, baseline="mlp")), device="cpu")

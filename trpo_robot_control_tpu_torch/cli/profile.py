@@ -1,6 +1,8 @@
 """Where the time of one training iteration goes, on the card.
 
   python -m trpo_robot_control_tpu_torch.cli.profile --config c2_reacher3
+  python -m trpo_robot_control_tpu_torch.cli.profile --config c5_multitask \
+      --done-dist 0.05
 
 Runs two warm-up iterations, then times ``--iters`` iterations on the host
 clock (each ends in the stats' device-to-host copy), then profiles another
@@ -22,6 +24,9 @@ def main(argv=None):
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", default="c2_reacher3")
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--done-dist", type=float, default=None,
+                    help="early episode termination distance (default: "
+                         "the config's, 0 = fixed horizon)")
     args = ap.parse_args(argv)
 
     import torch
@@ -34,19 +39,23 @@ def main(argv=None):
 
     dev = resolve(None)
     cfg = CONFIGS[args.config]
+    if args.done_dist is not None:
+        cfg = cfg.replace(done_dist=args.done_dist)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(f"card: {card}; config {cfg.name}, {cfg.n_envs} envs x "
-          f"{cfg.horizon} steps")
+          f"{cfg.horizon} steps, done_dist {cfg.done_dist}")
     state = init_state(cfg, seed=0, device=dev)
     step = make_train_step(cfg)
+
+    early = []
 
     def run(k):
         nonlocal state
         for _ in range(k):
             state, stats = step(state)
-            stats_to_host(stats)
+            early.append(stats_to_host(stats).get("early_dones"))
 
     run(2)
     torch.cuda.synchronize()
@@ -58,6 +67,8 @@ def main(argv=None):
     print(f"unprofiled: {ms:.3f} ms per iteration ({1e3 / ms:.2f} it/s); "
           f"peak device memory allocated "
           f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB")
+    if early[-1] is not None:
+        print(f"early dones per iteration: {[int(x) for x in early]}")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:

@@ -1,5 +1,4 @@
-"""Batched arm environment (port of ``trpo_robot_control_tpu/envs/arm.py``
-without early termination).
+"""Batched arm environment (port of ``trpo_robot_control_tpu/envs/arm.py``).
 
 Task families (c5): 0 reach (static target), 1 track (the target orbits
 world z at ``cost.track_omega``), 2 push (reach, and match the end
@@ -13,6 +12,12 @@ noise instead. ``make_rollout_fn`` resolves the fused rollout kernel as
 the reference does: planar, gravity-free, single-task arms without the
 obstacle term take the planar kernel (K1, fp32 storage), every other arm
 the 3-D RNEA kernel (K4, fp32 or bf16 storage).
+
+Early termination (``cfg.done_dist > 0``): an env whose post-step end
+effector comes within ``done_dist`` of its target is flagged done and
+starts a fresh episode, drawn from ``reset``'s distributions, before the
+next step; both kernels do this in their terminating instantiations, and
+the batch carries the done flags, with the last step always done.
 """
 from __future__ import annotations
 
@@ -77,15 +82,25 @@ def reset(cfg, gen: torch.Generator, n_envs: int) -> EnvState:
     return EnvState(q=q, qd=qd, tgt=tgt, task=task)
 
 
+def fresh_episodes(cfg, gen: torch.Generator, n_envs: int) -> EnvState:
+    """``horizon`` fresh episodes per env, stacked on a leading T axis: row
+    t is the episode an env starts when it is done at step t (a ``reset``
+    per step, as the JAX package's terminating rollout draws them)."""
+    draws = [reset(cfg, gen, n_envs) for _ in range(cfg.horizon)]
+    return EnvState(*(torch.stack(x) for x in zip(*draws)))
+
+
 def make_rollout_fn(cfg):
     """Returns fn(params, gen, n_envs=None) -> batch dict with the
     kernel-native obs_ff (T, do, N), actions_ff (T, n, N) (in
     ``ff_store_dtype``), rewards_ff (T, N) and their batch-major views obs
-    (N, T, do), actions, rewards.
+    (N, T, do), actions, rewards; with ``cfg.done_dist > 0`` also dones_ff
+    (T, N), the last row set to 1, and its view dones (N, T).
 
-    On the card the kernel draws its action noise from Philox keyed by a
-    seed taken from ``gen``; on the CPU the noise is drawn here and the
-    wrapper runs the plain version."""
+    On the card the kernel draws its action noise, and a terminating
+    config's fresh episodes, from Philox keyed by a seed taken from
+    ``gen``; on the CPU they are drawn here and the wrapper runs the plain
+    version."""
     _check_ported(cfg)
     planar = _planar_route(cfg)
     store = {"f32": torch.float32, "bf16": torch.bfloat16}[
@@ -99,29 +114,38 @@ def make_rollout_fn(cfg):
         N = cfg.n_envs if n_envs is None else n_envs
         dev = gen.device
         s = reset(cfg, gen, N)
+        seed = eps = fresh = None
         if dev.type == "cuda":
             seed = torch.randint(0, 2 ** 32, (2,), generator=gen, device=dev,
                                  dtype=torch.int64)
-            eps = None
         else:
-            seed = None
             eps = torch.randn(cfg.horizon, N, cfg.arm.n_joints,
                               generator=gen, device=dev)
+            if cfg.done_dist > 0.0:
+                fresh = fresh_episodes(cfg, gen, N)
         if planar:
             out = rollout_kernel.rollout(cfg, params, s.q, s.qd, s.tgt,
-                                         eps=eps, seed=seed)
+                                         eps=eps, seed=seed, fresh=fresh)
         else:
             out = rollout3d_kernel.rollout3d(cfg, params, s.q, s.qd, s.tgt,
                                              s.task, eps=eps, seed=seed,
-                                             store_dtype=store)
+                                             store_dtype=store, fresh=fresh)
+        if len(out) == 4:
+            # the final step always ends the episode (fixed buffer end, no
+            # bootstrap), as in the JAX package
+            out[3][-1] = 1.0
         return batch_from_ff(*out)
 
     return fn
 
 
-def batch_from_ff(obs_ff, act_ff, rew_ff):
+def batch_from_ff(obs_ff, act_ff, rew_ff, dones_ff=None):
     """The batch dict of the JAX rollouts; the batch-major entries are
-    views, not copies."""
-    return dict(obs=obs_ff.permute(2, 0, 1), actions=act_ff.permute(2, 0, 1),
-                rewards=rew_ff.T, obs_ff=obs_ff, actions_ff=act_ff,
-                rewards_ff=rew_ff)
+    views, not copies. ``dones_ff`` (T, N), where given, is used as it is:
+    its last row is the caller's to set."""
+    batch = dict(obs=obs_ff.permute(2, 0, 1),
+                 actions=act_ff.permute(2, 0, 1), rewards=rew_ff.T,
+                 obs_ff=obs_ff, actions_ff=act_ff, rewards_ff=rew_ff)
+    if dones_ff is not None:
+        batch.update(dones_ff=dones_ff, dones=dones_ff.T)
+    return batch

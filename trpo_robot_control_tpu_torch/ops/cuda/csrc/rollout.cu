@@ -1,12 +1,21 @@
 // Fused planar-arm rollout: the whole horizon in one launch.
 //
 // Replaces `pallas_rollout` / `_rollout_kernel` in
-// trpo_robot_control_tpu/ops/pallas/rollout_kernel.py (non-terminating,
-// fp32-storage mode). Per env step: forward kinematics, the closed-form
-// planar mass matrix and centripetal bias, an unrolled Cholesky solve,
-// semi-implicit Euler over n_substeps, the tanh-MLP policy mean, a Gaussian
-// action (caller-supplied eps, or Philox4x32-10 + paired Box-Muller), the
-// torque clip and the reward at the post-step state.
+// trpo_robot_control_tpu/ops/pallas/rollout_kernel.py (fp32-storage
+// mode). Per env step: forward kinematics, the closed-form planar mass
+// matrix and centripetal bias, an unrolled Cholesky solve, semi-implicit
+// Euler over n_substeps, the tanh-MLP policy mean, a Gaussian action
+// (caller-supplied eps, or Philox4x32-10 + paired Box-Muller), the torque
+// clip and the reward at the post-step state. The terminating
+// instantiation (TERM, the TPU kernel's `terminating` branch) then flags
+// an env done when its post-step end effector is within done_dist of the
+// target and gives it a fresh episode in registers: q and qd uniform in
+// +-noise, the target at a uniform radius in [rmin, rmax] and a uniform
+// angle, drawn from Philox with counter (env, t, block, 1) (the action
+// normals use (env, t, block, 0), so the action noise is the same whether
+// the env terminates or not), or read from caller-supplied fresh states.
+// TERM is a template switch: the non-terminating instantiation is the
+// same code as without it.
 //
 // What bounds it on an H100: not bytes (6.6 MB written at c2, ~2 us) and
 // not FLOPs (~1 GFLOP of fp32 FMA, ~15 us at 67 TFLOP/s) but the T
@@ -38,6 +47,9 @@ struct Planar {
     float l[NJ_MAX], lc[NJ_MAX], m[NJ_MAX], iz[NJ_MAX];
     float damping, h, torque_limit, qd_limit, qd_obs_scale, ctrl_weight,
           chol_reg;
+    // termination: done_dist^2 (rounded to fp32 once) and the reset
+    // distributions' q0_noise, qd0_noise, rmin, rmax
+    float done_dist2, q0_noise, qd0_noise, rmin, rmax;
     int n_substeps;
 };
 
@@ -159,7 +171,50 @@ __device__ __forceinline__ void substep(const Planar& c, const Fk<NJ>& f,
     }
 }
 
+// The fresh episode of a done env: fq/fqd (T, NJ, N) and ftgt (T, 2, N)
+// from the caller, or, when fq is NULL, uniforms from Philox with counter
+// (env, t, block, 1): q_i = u[i], qd_i = u[NJ + i], radius u[2 NJ], angle
+// u[2 NJ + 1].
 template <int NJ>
+__device__ __forceinline__ void fresh_episode(
+    const Planar& c, uint2 key, int e, int t, int N,
+    const float* __restrict__ fq, const float* __restrict__ fqd,
+    const float* __restrict__ ftgt, float* q, float* qd, float& tgtx,
+    float& tgty) {
+    if (fq != nullptr) {
+#pragma unroll
+        for (int i = 0; i < NJ; ++i) {
+            q[i] = fq[((size_t)t * NJ + i) * N + e];
+            qd[i] = fqd[((size_t)t * NJ + i) * N + e];
+        }
+        tgtx = ftgt[((size_t)t * 2) * N + e];
+        tgty = ftgt[((size_t)t * 2 + 1) * N + e];
+        return;
+    }
+    constexpr int NB = (2 * NJ + 2 + 3) / 4;
+    float u[4 * NB];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+        uint4 r = philox4x32_10(
+            make_uint4((uint32_t)e, (uint32_t)t, (uint32_t)b, 1u), key);
+        u[4 * b + 0] = uniform01(r.x);
+        u[4 * b + 1] = uniform01(r.y);
+        u[4 * b + 2] = uniform01(r.z);
+        u[4 * b + 3] = uniform01(r.w);
+    }
+#pragma unroll
+    for (int i = 0; i < NJ; ++i) {
+        q[i] = c.q0_noise * (2.f * u[i] - 1.f);
+        qd[i] = c.qd0_noise * (2.f * u[NJ + i] - 1.f);
+    }
+    const float r = c.rmin + (c.rmax - c.rmin) * u[2 * NJ];
+    float s, cs;
+    sincosf(6.283185307179586f * u[2 * NJ + 1], &s, &cs);
+    tgtx = r * cs;
+    tgty = r * s;
+}
+
+template <int NJ, bool TERM>
 __global__ void __launch_bounds__(NT) rollout_kernel(
     Planar c, const float* __restrict__ q0, const float* __restrict__ qd0,
     const float* __restrict__ tgt, const float* __restrict__ W0,
@@ -167,8 +222,10 @@ __global__ void __launch_bounds__(NT) rollout_kernel(
     const float* __restrict__ b1, const float* __restrict__ W2,
     const float* __restrict__ b2, const float* __restrict__ logstd,
     const float* __restrict__ eps, const int64_t* __restrict__ seed,
-    float* __restrict__ obs, float* __restrict__ act,
-    float* __restrict__ rew, int N, int T) {
+    const float* __restrict__ fq, const float* __restrict__ fqd,
+    const float* __restrict__ ftgt, float* __restrict__ obs,
+    float* __restrict__ act, float* __restrict__ rew,
+    float* __restrict__ dones, int N, int T) {
     constexpr int DO = 3 * NJ + 3;
     __shared__ __align__(16) float sW1[H * H];
     __shared__ float sW0[DO * H], sb0[H], sb1[H], sW2[H * NJ], sb2[NJ];
@@ -192,7 +249,7 @@ __global__ void __launch_bounds__(NT) rollout_kernel(
         qd[i] = qd0[i * N + e];
         sigma[i] = expf(logstd[i]);
     }
-    const float tgtx = tgt[e], tgty = tgt[N + e];
+    float tgtx = tgt[e], tgty = tgt[N + e];
     uint2 key = make_uint2(0u, 0u);
     if (eps == nullptr) {
         key = make_uint2((uint32_t)seed[0], (uint32_t)seed[1]);
@@ -271,37 +328,62 @@ __global__ void __launch_bounds__(NT) rollout_kernel(
         }
         fk<NJ>(c, q, f);                  // reward at the post-step state
         float dx = f.eex - tgtx, dy = f.eey - tgty;
-        rew[(size_t)t * N + e] = -((dx * dx + dy * dy) + c.ctrl_weight * ctrl);
+        const float dist2 = dx * dx + dy * dy;
+        rew[(size_t)t * N + e] = -(dist2 + c.ctrl_weight * ctrl);
+        if (TERM) {
+            const bool done = dist2 < c.done_dist2;
+            dones[(size_t)t * N + e] = done ? 1.f : 0.f;
+            if (done)
+                fresh_episode<NJ>(c, key, e, t, N, fq, fqd, ftgt, q, qd, tgtx,
+                                  tgty);
+        }
     }
 }
 
-template <int NJ>
-cudaError_t launch(const Planar& c, const float* q0, const float* qd0,
-                   const float* tgt, const float* W0, const float* b0,
-                   const float* W1, const float* b1, const float* W2,
-                   const float* b2, const float* logstd, const float* eps,
-                   const int64_t* seed, float* obs, float* act, float* rew,
-                   int N, int T, cudaStream_t stream) {
-    dim3 grid((N + NT - 1) / NT);
-    rollout_kernel<NJ><<<grid, NT, 0, stream>>>(
-        c, q0, qd0, tgt, W0, b0, W1, b1, W2, b2, logstd, eps, seed, obs, act,
-        rew, N, T);
+struct Args {
+    const float *q0, *qd0, *tgt, *W0, *b0, *W1, *b1, *W2, *b2, *logstd, *eps;
+    const int64_t* seed;
+    const float *fq, *fqd, *ftgt;
+    float *obs, *act, *rew, *dones;
+    int N, T;
+    cudaStream_t stream;
+};
+
+template <int NJ, bool TERM>
+cudaError_t launch(const Planar& c, const Args& a) {
+    dim3 grid((a.N + NT - 1) / NT);
+    rollout_kernel<NJ, TERM><<<grid, NT, 0, a.stream>>>(
+        c, a.q0, a.qd0, a.tgt, a.W0, a.b0, a.W1, a.b1, a.W2, a.b2, a.logstd,
+        a.eps, a.seed, a.fq, a.fqd, a.ftgt, a.obs, a.act, a.rew, a.dones,
+        a.N, a.T);
     return cudaGetLastError();
+}
+
+template <int NJ>
+cudaError_t launch_term(const Planar& c, const Args& a, int terminating) {
+    return terminating ? launch<NJ, true>(c, a) : launch<NJ, false>(c, a);
 }
 
 }  // namespace
 
 // consts (host array): l[n], lc[n], m[n], iz[n], damping, h, torque_limit,
-// qd_limit, qd_obs_scale, ctrl_weight, chol_reg.
+// qd_limit, qd_obs_scale, ctrl_weight, chol_reg, done_dist^2, q0_noise,
+// qd0_noise, rmin, rmax.
 // eps: (T, n, N) or NULL for Philox mode with seed: int64[2] on the device.
+// terminating != 0 takes the TERM instantiation, which writes dones (T, N)
+// and takes the fresh episodes from fq/fqd (T, n, N) and ftgt (T, 2, N),
+// or from Philox when fq is NULL.
 extern "C" int trpo_rollout_launch(
-    const float* consts, int n_substeps, int n_joints, const float* q0,
-    const float* qd0, const float* tgt, const float* W0, const float* b0,
-    const float* W1, const float* b1, const float* W2, const float* b2,
-    const float* logstd, const float* eps, const int64_t* seed, float* obs,
-    float* act, float* rew, int N, int T, void* stream) {
+    const float* consts, int n_substeps, int n_joints, int terminating,
+    const float* q0, const float* qd0, const float* tgt, const float* W0,
+    const float* b0, const float* W1, const float* b1, const float* W2,
+    const float* b2, const float* logstd, const float* eps,
+    const int64_t* seed, const float* fq, const float* fqd,
+    const float* ftgt, float* obs, float* act, float* rew, float* dones,
+    int N, int T, void* stream) {
     Planar c;
     const int n = n_joints;
+    if (n < 1 || n > NJ_MAX) return (int)cudaErrorInvalidValue;
     for (int i = 0; i < n; ++i) {
         c.l[i] = consts[i];
         c.lc[i] = consts[n + i];
@@ -316,15 +398,20 @@ extern "C" int trpo_rollout_launch(
     c.qd_obs_scale = s[4];
     c.ctrl_weight = s[5];
     c.chol_reg = s[6];
+    c.done_dist2 = s[7];
+    c.q0_noise = s[8];
+    c.qd0_noise = s[9];
+    c.rmin = s[10];
+    c.rmax = s[11];
     c.n_substeps = n_substeps;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const Args a = {q0, qd0, tgt, W0, b0, W1, b1, W2, b2, logstd, eps, seed,
+                    fq, fqd, ftgt, obs, act, rew, dones, N, T,
+                    static_cast<cudaStream_t>(stream)};
     switch (n) {
         case 2:
-            return (int)launch<2>(c, q0, qd0, tgt, W0, b0, W1, b1, W2, b2,
-                                  logstd, eps, seed, obs, act, rew, N, T, st);
+            return (int)launch_term<2>(c, a, terminating);
         case 3:
-            return (int)launch<3>(c, q0, qd0, tgt, W0, b0, W1, b1, W2, b2,
-                                  logstd, eps, seed, obs, act, rew, N, T, st);
+            return (int)launch_term<3>(c, a, terminating);
         default:
             return (int)cudaErrorInvalidValue;
     }

@@ -2,8 +2,8 @@
 // one launch.
 //
 // Replaces `pallas_rollout3d` / `_rollout3d_kernel` in
-// trpo_robot_control_tpu/ops/pallas/rollout3d_kernel.py (non-terminating;
-// fp32 or bf16 storage). Per env step: forward kinematics from exact
+// trpo_robot_control_tpu/ops/pallas/rollout3d_kernel.py (fp32 or bf16
+// storage). Per env step: forward kinematics from exact
 // sincosf, the observation (with the task one-hot when NTASKS > 1), the
 // tanh-MLP policy mean, a Gaussian action (caller eps, or Philox4x32-10 +
 // paired Box-Muller), the torque clip, then per substep the 7 mass-matrix
@@ -13,8 +13,16 @@
 // step's pre-step FK: the same q gives the same numbers): the track
 // task's target rotation (task 1), the reach and control cost, the push
 // task's end-effector velocity penalty (task 2, NTASKS > 2) and the
-// obstacle sphere penalty (OBST). The task terms are template switches,
-// so the reach-only instantiation is the same code as without them.
+// obstacle sphere penalty (OBST). The terminating instantiation (TERM,
+// the TPU kernel's `terminating` branch) then flags an env done when its
+// post-step end effector is within done_dist of the (rotated) target and
+// gives it a fresh episode: q and qd uniform in +-noise, the target at a
+// uniform radius in [rmin, rmax] along a normalised 3-normal with z >= 0
+// (Box-Muller), and with several families a task floor(u n_tasks); drawn
+// from Philox with counter (env, t, block, 1), the action normals' being
+// (env, t, block, 0), or read from caller-supplied fresh states. The task
+// terms and TERM are template switches, so the reach-only non-terminating
+// instantiation is the same code as without them.
 //
 // What bounds it on an H100: neither bytes (54 MB written at c3, 16 us)
 // nor FLOPs (~10 GFLOP of MLP plus the dynamics, ~0.2 ms at 67 TFLOP/s)
@@ -27,7 +35,11 @@
 // joint j, no gravity), warp 7 the bias (real velocity, gravity, zero
 // acceleration); the columns meet in shared memory and every warp then
 // solves the same 7x7 system redundantly, so q and qd stay in registers
-// in every warp without another exchange. The 64 hidden units of each
+// in every warp without another exchange. The same holds for a reset:
+// every warp sees the same distance, so all take the same done decision,
+// and counter-based Philox gives all of them the same fresh episode
+// without an exchange; after it every warp recomputes the cos/sin and
+// the FK that the next observation reads. The 64 hidden units of each
 // policy layer are split the same way (8 per warp) with the activations
 // in shared memory, and warp m < 7 forms action m. No warp diverges:
 // its 32 lanes are 32 envs on the same pass. Stores are rows of 32
@@ -66,6 +78,9 @@ struct Arm3D {
     // obstacle weight, radius and centre
     float track_cos, track_sin, push_speed, push_weight, obstacle_weight,
         obstacle_radius, obstacle_center[3];
+    // termination: done_dist^2 (rounded to fp32 once) and the reset
+    // distributions' q0_noise, qd0_noise, rmin, rmax
+    float done_dist2, q0_noise, qd0_noise, rmin, rmax;
     int n_substeps;
 };
 
@@ -250,7 +265,59 @@ __device__ __forceinline__ float score(const Arm3D& c, const Fk3<NJ>& f,
     return r;
 }
 
-template <int NJ, int NTASKS, bool OBST, typename Out>
+// The fresh episode of a done env: fq/fqd (T, NJ, N), ftgt (T, 3, N) and
+// ftask (T, N) from the caller, or, when fq is NULL, uniforms from Philox
+// with counter (env, t, block, 1): q_i = u[i], qd_i = u[NJ + i], radius
+// u[2 NJ], the direction's Box-Muller pairs u[2 NJ + 1 .. 2 NJ + 4], task
+// u[2 NJ + 5]. Every warp of the env's block computes the same values.
+template <int NJ, int NTASKS>
+__device__ __forceinline__ void fresh_episode(
+    const Arm3D& c, uint2 key, int e, int t, int N,
+    const float* __restrict__ fq, const float* __restrict__ fqd,
+    const float* __restrict__ ftgt, const int* __restrict__ ftask,
+    float* q, float* qd, V3& tgt, int& task) {
+    if (fq != nullptr) {
+#pragma unroll
+        for (int i = 0; i < NJ; ++i) {
+            q[i] = fq[((size_t)t * NJ + i) * N + e];
+            qd[i] = fqd[((size_t)t * NJ + i) * N + e];
+        }
+        tgt = {ftgt[((size_t)t * 3) * N + e], ftgt[((size_t)t * 3 + 1) * N + e],
+               ftgt[((size_t)t * 3 + 2) * N + e]};
+        if (NTASKS > 1) task = ftask[(size_t)t * N + e];
+        return;
+    }
+    constexpr int NB = (2 * NJ + 6 + 3) / 4;
+    float u[4 * NB];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+        uint4 r = philox4x32_10(
+            make_uint4((uint32_t)e, (uint32_t)t, (uint32_t)b, 1u), key);
+        u[4 * b + 0] = uniform01(r.x);
+        u[4 * b + 1] = uniform01(r.y);
+        u[4 * b + 2] = uniform01(r.z);
+        u[4 * b + 3] = uniform01(r.w);
+    }
+#pragma unroll
+    for (int i = 0; i < NJ; ++i) {
+        q[i] = c.q0_noise * (2.f * u[i] - 1.f);
+        qd[i] = c.qd0_noise * (2.f * u[NJ + i] - 1.f);
+    }
+    const float r = c.rmin + (c.rmax - c.rmin) * u[2 * NJ];
+    constexpr float TWO_PI = 6.283185307179586f;
+    float s, cs;
+    const float g1 = sqrtf(-2.f * logf(u[2 * NJ + 1]))
+                   * cosf(TWO_PI * u[2 * NJ + 2]);
+    const float bm = sqrtf(-2.f * logf(u[2 * NJ + 3]));
+    sincosf(TWO_PI * u[2 * NJ + 4], &s, &cs);
+    const float g2 = bm * cs, g3 = bm * s;
+    const float nrm = sqrtf(g1 * g1 + g2 * g2 + g3 * g3) + 1e-12f;
+    tgt = {r * g1 / nrm, r * g2 / nrm, r * fabsf(g3) / nrm};
+    // u <= 1 - 2^-24, so u * n_tasks rounds to below n_tasks
+    if (NTASKS > 1) task = (int)(u[2 * NJ + 5] * (float)NTASKS);
+}
+
+template <int NJ, int NTASKS, bool OBST, bool TERM, typename Out>
 __global__ void __launch_bounds__((NJ + 1) * ENVS) rollout3d_kernel(
     Arm3D c, const float* __restrict__ q0, const float* __restrict__ qd0,
     const float* __restrict__ tgt0, const int* __restrict__ task0,
@@ -259,8 +326,10 @@ __global__ void __launch_bounds__((NJ + 1) * ENVS) rollout3d_kernel(
     const float* __restrict__ b1, const float* __restrict__ W2,
     const float* __restrict__ b2, const float* __restrict__ logstd,
     const float* __restrict__ eps, const int64_t* __restrict__ seed,
+    const float* __restrict__ fq, const float* __restrict__ fqd,
+    const float* __restrict__ ftgt, const int* __restrict__ ftask,
     Out* __restrict__ obs, Out* __restrict__ act, float* __restrict__ rew,
-    int N, int T) {
+    float* __restrict__ dones, int N, int T) {
     constexpr int NW = NJ + 1;          // warps: one per RNEA pass
     constexpr int NT = NW * ENVS;
     constexpr int DO = 3 * NJ + 3 + (NTASKS > 1 ? NTASKS : 0);
@@ -295,7 +364,7 @@ __global__ void __launch_bounds__((NJ + 1) * ENVS) rollout3d_kernel(
         sincosf(q[i], &sq[i], &cq[i]);
     }
     V3 tgt = {tgt0[e], tgt0[N + e], tgt0[2 * N + e]};
-    const int task = (NTASKS > 1) ? task0[e] : 0;
+    int task = (NTASKS > 1) ? task0[e] : 0;     // changes only at a reset
     const float sigma = (wid < NJ) ? expf(logstd[wid]) : 0.f;
     uint2 key = make_uint2(0u, 0u);
     if (eps == nullptr) key = make_uint2((uint32_t)seed[0], (uint32_t)seed[1]);
@@ -447,6 +516,18 @@ __global__ void __launch_bounds__((NJ + 1) * ENVS) rollout3d_kernel(
         if (wid == 0 && live)
             rew[(size_t)t * N + e] =
                 score<NJ, NTASKS, OBST>(c, f, qd, tgt, task, ctrl);
+        if (TERM) {               // every warp decides, warp 0 stores
+            const V3 d = vsub(f.ee, tgt);
+            const bool done = vdot(d, d) < c.done_dist2;
+            if (wid == 0 && live) dones[(size_t)t * N + e] = done ? 1.f : 0.f;
+            if (done) {
+                fresh_episode<NJ, NTASKS>(c, key, e, t, N, fq, fqd, ftgt,
+                                          ftask, q, qd, tgt, task);
+#pragma unroll
+                for (int i = 0; i < NJ; ++i) sincosf(q[i], &sq[i], &cq[i]);
+                fk3<NJ>(c, cq, sq, f);
+            }
+        }
     }
 }
 
@@ -455,27 +536,30 @@ struct Args {
     const int* task;
     const float *W0, *b0, *W1, *b1, *W2, *b2, *logstd, *eps;
     const int64_t* seed;
+    const float *fq, *fqd, *ftgt;
+    const int* ftask;
     void *obs, *act;
-    float* rew;
+    float *rew, *dones;
     int N, T;
     cudaStream_t stream;
 };
 
-template <int NJ, int NTASKS, bool OBST, typename Out>
+template <int NJ, int NTASKS, bool OBST, bool TERM, typename Out>
 cudaError_t launch(const Arm3D& c, const Args& a) {
     dim3 grid((a.N + ENVS - 1) / ENVS);
-    rollout3d_kernel<NJ, NTASKS, OBST, Out>
+    rollout3d_kernel<NJ, NTASKS, OBST, TERM, Out>
         <<<grid, (NJ + 1) * ENVS, 0, a.stream>>>(
             c, a.q0, a.qd0, a.tgt, a.task, a.W0, a.b0, a.W1, a.b1, a.W2,
-            a.b2, a.logstd, a.eps, a.seed, static_cast<Out*>(a.obs),
-            static_cast<Out*>(a.act), a.rew, a.N, a.T);
+            a.b2, a.logstd, a.eps, a.seed, a.fq, a.fqd, a.ftgt, a.ftask,
+            static_cast<Out*>(a.obs), static_cast<Out*>(a.act), a.rew,
+            a.dones, a.N, a.T);
     return cudaGetLastError();
 }
 
-template <int NJ, int NTASKS, bool OBST>
+template <int NJ, int NTASKS, bool OBST, bool TERM>
 cudaError_t launch_store(const Arm3D& c, const Args& a, int store_bf16) {
-    return store_bf16 ? launch<NJ, NTASKS, OBST, __nv_bfloat16>(c, a)
-                      : launch<NJ, NTASKS, OBST, float>(c, a);
+    return store_bf16 ? launch<NJ, NTASKS, OBST, TERM, __nv_bfloat16>(c, a)
+                      : launch<NJ, NTASKS, OBST, TERM, float>(c, a);
 }
 
 }  // namespace
@@ -484,21 +568,27 @@ cudaError_t launch_store(const Arm3D& c, const Args& a, int store_bf16) {
 // com[n][3], inertia[n][9] (link frame, row-major), ee_offset[3], gravity,
 // damping, h = dt / n_substeps, torque_limit, qd_limit, qd_obs_scale,
 // ctrl_weight, chol_reg, cos and sin of track_omega * dt, push_speed,
-// push_weight, obstacle_weight, obstacle_radius, obstacle_center[3].
+// push_weight, obstacle_weight, obstacle_radius, obstacle_center[3],
+// done_dist^2, q0_noise, qd0_noise, rmin, rmax.
 // q0/qd0 (n, N), tgt (3, N), task (N) int32 (read when n_tasks > 1);
 // eps (T, n, N) or NULL for Philox mode with seed: int64[2] on the device.
+// terminating != 0 takes the TERM instantiation, which writes dones (T, N)
+// fp32 and takes the fresh episodes from fq/fqd (T, n, N), ftgt (T, 3, N)
+// and ftask (T, N) int32, or from Philox when fq is NULL.
 // obs (T, 3n+3 (+ n_tasks when > 1), N) and act (T, n, N) are bf16 when
 // store_bf16 != 0, else fp32; rew (T, N) fp32. Instantiated for n = 7
-// with (n_tasks, obstacle) in {(1, 0), (1, 1), (3, 0)} (c3, c4, c5); any
-// other combination returns cudaErrorNotSupported, which the wrapper
-// raises as NotImplementedError.
+// with (n_tasks, obstacle) in {(1, 0), (1, 1), (3, 0)} (c3, c4, c5), each
+// terminating or not; any other combination returns
+// cudaErrorNotSupported, which the wrapper raises as NotImplementedError.
 extern "C" int trpo_rollout3d_launch(
     const float* consts, int n_joints, int n_substeps, int n_tasks,
-    int obstacle, int store_bf16, const float* q0, const float* qd0,
-    const float* tgt, const int* task, const float* W0, const float* b0,
-    const float* W1, const float* b1, const float* W2, const float* b2,
-    const float* logstd, const float* eps, const int64_t* seed, void* obs,
-    void* act, float* rew, int N, int T, void* stream) {
+    int obstacle, int terminating, int store_bf16, const float* q0,
+    const float* qd0, const float* tgt, const int* task, const float* W0,
+    const float* b0, const float* W1, const float* b1, const float* W2,
+    const float* b2, const float* logstd, const float* eps,
+    const int64_t* seed, const float* fq, const float* fqd,
+    const float* ftgt, const int* ftask, void* obs, void* act, float* rew,
+    float* dones, int N, int T, void* stream) {
     if (n_joints != 7) return (int)cudaErrorInvalidValue;
     constexpr int NJ = 7;
     Arm3D c;
@@ -528,15 +618,27 @@ extern "C" int trpo_rollout3d_launch(
     c.obstacle_weight = s[12];
     c.obstacle_radius = s[13];
     for (int k = 0; k < 3; ++k) c.obstacle_center[k] = s[14 + k];
+    c.done_dist2 = s[17];
+    c.q0_noise = s[18];
+    c.qd0_noise = s[19];
+    c.rmin = s[20];
+    c.rmax = s[21];
     c.n_substeps = n_substeps;
     const Args a = {q0, qd0, tgt, task, W0, b0, W1, b1, W2, b2, logstd, eps,
-                    seed, obs, act, rew, N, T,
+                    seed, fq, fqd, ftgt, ftask, obs, act, rew, dones, N, T,
                     static_cast<cudaStream_t>(stream)};
-    if (n_tasks == 1 && !obstacle)
-        return (int)launch_store<NJ, 1, false>(c, a, store_bf16);
-    if (n_tasks == 1 && obstacle)
-        return (int)launch_store<NJ, 1, true>(c, a, store_bf16);
-    if (n_tasks == 3 && !obstacle)
-        return (int)launch_store<NJ, 3, false>(c, a, store_bf16);
+    const bool term = terminating != 0;
+    if (n_tasks == 1 && !obstacle && !term)
+        return (int)launch_store<NJ, 1, false, false>(c, a, store_bf16);
+    if (n_tasks == 1 && obstacle && !term)
+        return (int)launch_store<NJ, 1, true, false>(c, a, store_bf16);
+    if (n_tasks == 3 && !obstacle && !term)
+        return (int)launch_store<NJ, 3, false, false>(c, a, store_bf16);
+    if (n_tasks == 1 && !obstacle && term)
+        return (int)launch_store<NJ, 1, false, true>(c, a, store_bf16);
+    if (n_tasks == 1 && obstacle && term)
+        return (int)launch_store<NJ, 1, true, true>(c, a, store_bf16);
+    if (n_tasks == 3 && !obstacle && term)
+        return (int)launch_store<NJ, 3, false, true>(c, a, store_bf16);
     return (int)cudaErrorNotSupported;
 }

@@ -1,16 +1,19 @@
 """K4: fused rollout of a spatial (7-DoF) arm (``csrc/rollout3d.cu``).
 
 Replaces ``pallas_rollout3d`` in
-``trpo_robot_control_tpu/ops/pallas/rollout3d_kernel.py`` without early
-termination: per step FK, the observation (with the task one-hot when
-there are several task families), the tanh-MLP mean, a Gaussian action,
-the torque clip, the mass matrix and the gravity/Coriolis bias as one
-fused sweep of n + 1 world-frame RNEA passes, a regularised Cholesky
-solve and semi-implicit Euler substeps, and ``_score_step``'s scoring at
-the post-step state: the track task's target rotation, the reach and
-control cost, the push task's velocity penalty and the obstacle sphere
-penalty. See the source for what bounds it on the card and how its
-design spreads one env over eight threads.
+``trpo_robot_control_tpu/ops/pallas/rollout3d_kernel.py``: per step FK,
+the observation (with the task one-hot when there are several task
+families), the tanh-MLP mean, a Gaussian action, the torque clip, the
+mass matrix and the gravity/Coriolis bias as one fused sweep of n + 1
+world-frame RNEA passes, a regularised Cholesky solve and semi-implicit
+Euler substeps, and ``_score_step``'s scoring at the post-step state: the
+track task's target rotation, the reach and control cost, the push
+task's velocity penalty and the obstacle sphere penalty; and, when
+``cfg.done_dist > 0``, the terminating branch: an env whose post-step
+end effector is within ``done_dist`` of its (rotated) target is flagged
+done and starts a fresh episode (state, target and, with several
+families, task) before the next step. See the source for what bounds it
+on the card and how its design spreads one env over eight threads.
 
 ``rollout3d`` is the wrapper: on CUDA tensors it launches the kernel (or
 raises), on CPU tensors it runs ``rollout3d_plain``, the same component
@@ -21,7 +24,9 @@ keep the (T, d, N) layout; obs and actions are stored in ``store_dtype``
 rewards in fp32. Noise: ``eps`` (T, N, n) from the caller, or Philox keyed
 by ``seed`` (an int64 pair on the device), on the card only. ``task``
 (N,) holds each env's task family (0 reach, 1 track, 2 push); it is read
-only when the config has several.
+only when the config has several. Fresh episodes of a terminating config
+come as in ``rollout_kernel``: ``fresh`` = (q, qd, tgt, task) with a
+leading T axis alongside ``eps``, or drawn in the kernel in Philox mode.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import torch
 
 from . import build
 from ...envs.rigid_body import ArmConstants
+from .rollout_kernel import check_fresh, done_dist2, fresh_feature_first
 
 HIDDEN = 64
 N_JOINTS = 7        # the kernel is instantiated for 7-DoF arms
@@ -41,7 +47,7 @@ N_JOINTS = 7        # the kernel is instantiated for 7-DoF arms
 NOT_INSTANTIATED = 801
 
 _SIG = {"trpo_rollout3d_launch":
-        [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 16
+        [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 21
         + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
 
 
@@ -70,16 +76,18 @@ class Arm3DConsts(NamedTuple):
     obstacle_weight: float
     obstacle_radius: float
     obstacle_center: tuple
+    # early termination and the reset distributions, as in PlanarConsts
+    # (the target direction is a normalised 3-normal with z >= 0)
+    done_dist: float = 0.0
+    q0_noise: float = 0.0
+    qd0_noise: float = 0.0
+    rmin: float = 0.0
+    rmax: float = 0.0
 
 
 def arm3d_consts(cfg, chol_reg: float = 1e-6) -> Arm3DConsts:
-    """Constants of the arm and its task terms, float32-rounded as the JAX
-    package rounds them; raises NotImplementedError for early termination,
-    which this kernel does not cover yet."""
-    if cfg.done_dist > 0.0:
-        raise NotImplementedError(
-            "early termination (done_dist > 0) comes with a later slice of "
-            "the port")
+    """Constants of the arm, its task terms and its episode resets,
+    float32-rounded as the JAX package rounds them."""
     spec = cfg.arm
     c = ArmConstants(spec)
     cost = cfg.cost
@@ -106,7 +114,11 @@ def arm3d_consts(cfg, chol_reg: float = 1e-6) -> Arm3DConsts:
         push_weight=float(cost.push_weight),
         obstacle_weight=float(cost.obstacle_weight),
         obstacle_radius=float(cost.obstacle_radius),
-        obstacle_center=tuple(float(x) for x in cost.obstacle_center))
+        obstacle_center=tuple(float(x) for x in cost.obstacle_center),
+        done_dist=float(cfg.done_dist), q0_noise=float(spec.q0_noise),
+        qd0_noise=float(spec.qd0_noise),
+        rmin=float(spec.target_rmin_frac * spec.reach),
+        rmax=float(spec.target_rmax_frac * spec.reach))
 
 
 # ------------------------------------------------------- plain version
@@ -352,9 +364,10 @@ def obstacle_penalty(c: Arm3DConsts, fk):
 def _step3(c: Arm3DConsts, params, sigma, q, qd, tgt, task, eps_t, cq, sq,
            fk):
     """One env step from (q, qd) with their cos/sin and FK -> the next
-    state, its cos/sin and FK, the (rotated) target, and this step's obs
-    (do, N), act (n, N), reward (N,). Scores in ``_score_step``'s order:
-    target rotation, reach and control cost, push term, obstacle term."""
+    state, its cos/sin and FK, the (rotated) target, this step's obs
+    (do, N), act (n, N), reward (N,) and the squared post-step distance
+    to the target (N,). Scores in ``_score_step``'s order: target
+    rotation, reach and control cost, push term, obstacle term."""
     n = c.n
     R, p, axis, ee = fk
     rows = (cq + sq + [c.qd_obs_scale * x for x in qd]
@@ -383,34 +396,63 @@ def _step3(c: Arm3DConsts, params, sigma, q, qd, tgt, task, eps_t, cq, sq,
     for i in range(n):
         t2 = tau[i] * tau[i]
         ctrl = t2 if ctrl is None else ctrl + t2
-    rew = -(v_dot(d, d) + c.ctrl_weight * ctrl)
+    dist2 = v_dot(d, d)
+    rew = -(dist2 + c.ctrl_weight * ctrl)
     if c.n_tasks > 2:
         pen = push_penalty(c, qd, fk, d)
         rew = rew - torch.where(task == 2, pen, torch.zeros_like(pen))
     if c.obstacle_weight > 0.0:
         rew = rew - c.obstacle_weight * obstacle_penalty(c, fk)
-    return q, qd, tgt, cq, sq, fk, obs, act, rew
+    return q, qd, tgt, cq, sq, fk, obs, act, rew, dist2
 
 
-def rollout3d_plain(cfg, params, q0, qd0, tgt, task, eps):
+def start_fresh(c: Arm3DConsts, done, fresh_t, q, qd, tgt, task):
+    """Done envs take the fresh episode ``fresh_t`` = (q (N, n), qd (N, n),
+    tgt (N, 3), task (N,)); the cos/sin and FK carried into the next
+    observation are recomputed from the new q (for every env: the others'
+    values come out the same). Returns (q, qd, tgt, task, cq, sq, fk)."""
+    q = [torch.where(done, x, y) for x, y in zip(fresh_t[0].T, q)]
+    qd = [torch.where(done, x, y) for x, y in zip(fresh_t[1].T, qd)]
+    tgt = tuple(torch.where(done, fresh_t[2][:, i], tgt[i]) for i in range(3))
+    task = torch.where(done, fresh_t[3].to(task.dtype), task)
+    cq = [torch.cos(x) for x in q]
+    sq = [torch.sin(x) for x in q]
+    return q, qd, tgt, task, cq, sq, _fk3(c, cq, sq)
+
+
+def rollout3d_plain(cfg, params, q0, qd0, tgt, task, eps, fresh=None):
     """q0/qd0 (N, n), tgt (N, 3), task (N,) int, eps (T, N, n) -> obs_ff
-    (T, do, N), act_ff (T, n, N), rew_ff (T, N), all fp32."""
+    (T, do, N), act_ff (T, n, N), rew_ff (T, N), all fp32, and, when
+    ``cfg.done_dist > 0``, the done flags (T, N); ``fresh`` (q, qd, tgt,
+    task) with a leading T axis holds the episodes that done envs
+    start."""
     rollout3d_plain.calls += 1
     c = arm3d_consts(cfg)
+    term = c.done_dist > 0.0
+    if term and fresh is None:
+        raise ValueError("a terminating config needs the fresh episodes")
     sigma = torch.exp(params["logstd"])[:, None]
     q, qd = list(q0.T), list(qd0.T)
     tg = (tgt[:, 0], tgt[:, 1], tgt[:, 2])
     cq = [torch.cos(x) for x in q]
     sq = [torch.sin(x) for x in q]
     fk = _fk3(c, cq, sq)
-    obs_t, act_t, rew_t = [], [], []
+    if term:
+        dd2 = torch.tensor(done_dist2(c), dtype=q0.dtype, device=q0.device)
+    obs_t, act_t, rew_t, done_t = [], [], [], []
     for t in range(eps.shape[0]):
-        q, qd, tg, cq, sq, fk, obs, act, rew = _step3(
+        q, qd, tg, cq, sq, fk, obs, act, rew, dist2 = _step3(
             c, params, sigma, q, qd, tg, task, eps[t].T, cq, sq, fk)
         obs_t.append(obs)
         act_t.append(act)
         rew_t.append(rew)
-    return torch.stack(obs_t), torch.stack(act_t), torch.stack(rew_t)
+        if term:            # a done env starts the fresh episode of row t
+            done = dist2 < dd2
+            done_t.append(done.to(q0.dtype))
+            q, qd, tg, task, cq, sq, fk = start_fresh(
+                c, done, [x[t] for x in fresh], q, qd, tg, task)
+    out = (torch.stack(obs_t), torch.stack(act_t), torch.stack(rew_t))
+    return out + (torch.stack(done_t),) if term else out
 
 
 rollout3d_plain.calls = 0
@@ -433,17 +475,21 @@ def _consts_array(c: Arm3DConsts):
     vals += [c.gravity, c.damping, c.dt / c.n_substeps, c.torque_limit,
              c.qd_limit, c.qd_obs_scale, c.ctrl_weight, c.chol_reg,
              c.track_cos, c.track_sin, c.push_speed, c.push_weight,
-             c.obstacle_weight, c.obstacle_radius, *c.obstacle_center]
+             c.obstacle_weight, c.obstacle_radius, *c.obstacle_center,
+             done_dist2(c), c.q0_noise, c.qd0_noise, c.rmin, c.rmax]
     return (ctypes.c_float * len(vals))(*vals)
 
 
 def rollout3d(cfg, params, q0, qd0, tgt, task, eps=None, seed=None,
-              store_dtype=torch.float32):
+              store_dtype=torch.float32, fresh=None):
     """Fused 3-D rollout: q0/qd0 (N, n), tgt (N, 3), task (N,) int, and
-    either eps (T, N, n) or seed (int64 (2,) on the device) -> obs_ff
-    (T, do, N) and act_ff (T, n, N) in ``store_dtype``, rew_ff (T, N)
-    fp32."""
+    either eps (T, N, n) (with ``fresh`` when the config terminates) or
+    seed (int64 (2,) on the device) -> obs_ff (T, do, N) and act_ff
+    (T, n, N) in ``store_dtype``, rew_ff (T, N) fp32 and, when
+    ``cfg.done_dist > 0``, dones (T, N) fp32."""
     c = arm3d_consts(cfg)
+    term = c.done_dist > 0.0
+    check_fresh(term, eps, fresh)
     if store_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(
             f"store_dtype must be fp32 or bf16, not {store_dtype}")
@@ -451,9 +497,8 @@ def rollout3d(cfg, params, q0, qd0, tgt, task, eps=None, seed=None,
         if eps is None:
             raise ValueError("Philox noise runs only in the CUDA kernel; "
                              "pass eps on the CPU")
-        obs, act, rew = rollout3d_plain(cfg, params, q0, qd0, tgt, task,
-                                        eps)
-        return obs.to(store_dtype), act.to(store_dtype), rew
+        out = rollout3d_plain(cfg, params, q0, qd0, tgt, task, eps, fresh)
+        return (out[0].to(store_dtype), out[1].to(store_dtype)) + out[2:]
     N, n = q0.shape
     T = cfg.horizon
     do = cfg.obs_dim
@@ -490,16 +535,26 @@ def rollout3d(cfg, params, q0, qd0, tgt, task, eps=None, seed=None,
                 or seed.device != dev):
             raise ValueError("seed must be an int64 (2,) tensor on the device")
         eps_p, seed_p = ctypes.c_void_p(None), build.ptr(seed)
+    fresh_ff = [None] * 4
+    if fresh is not None:
+        ftask = fresh[3].to(torch.int32).contiguous()
+        if ftask.shape != (T, N) or ftask.device != dev:
+            raise ValueError(f"fresh task must be ({T}, {N}) on {dev}")
+        fresh_ff = fresh_feature_first(fresh, T, N, n, dev, 3) + [ftask]
     obs = torch.empty(T, do, N, device=dev, dtype=store_dtype)
     act = torch.empty(T, n, N, device=dev, dtype=store_dtype)
     rew = torch.empty(T, N, device=dev)
+    dones = torch.empty(T, N, device=dev) if term else None
+    opt = lambda x: build.ptr(x) if x is not None else ctypes.c_void_p(None)
     lib = build.library("rollout3d", _SIG)
     err = lib.trpo_rollout3d_launch(
         _consts_array(c), n, c.n_substeps, c.n_tasks,
-        int(c.obstacle_weight > 0.0), int(store_dtype == torch.bfloat16),
+        int(c.obstacle_weight > 0.0), int(term),
+        int(store_dtype == torch.bfloat16),
         *(build.ptr(ins[k]) for k in ("q0", "qd0", "tgt", "task", "W0", "b0",
                                       "W1", "b1", "W2", "b2", "logstd")),
-        eps_p, seed_p, build.ptr(obs), build.ptr(act), build.ptr(rew), N, T,
+        eps_p, seed_p, *(opt(x) for x in fresh_ff), build.ptr(obs),
+        build.ptr(act), build.ptr(rew), opt(dones), N, T,
         build.stream_handle(dev))
     if err == NOT_INSTANTIATED:
         raise NotImplementedError(
@@ -508,7 +563,7 @@ def rollout3d(cfg, params, q0, qd0, tgt, task, eps=None, seed=None,
             "trpo_rollout3d_launch in csrc/rollout3d.cu)")
     build.check(err, "3-D rollout kernel")
     rollout3d.launches += 1
-    return obs, act, rew
+    return (obs, act, rew, dones) if term else (obs, act, rew)
 
 
 rollout3d.launches = 0

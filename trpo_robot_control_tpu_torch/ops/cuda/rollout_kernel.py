@@ -4,8 +4,11 @@ Replaces ``pallas_rollout`` in
 ``trpo_robot_control_tpu/ops/pallas/rollout_kernel.py``: the whole horizon
 of a planar single-task arm in one launch (FK, closed-form mass matrix and
 centripetal bias, unrolled Cholesky, semi-implicit Euler, tanh-MLP policy,
-Gaussian action, torque clip, reward). One thread per env; see the source
-for what bounds it on the card and what its design does about that.
+Gaussian action, torque clip, reward) and, when ``cfg.done_dist > 0``, the
+terminating branch: an env whose post-step end effector comes within
+``done_dist`` of its target is flagged done and starts a fresh episode
+before the next step. One thread per env; see the source for what bounds
+it on the card and what its design does about that.
 
 ``rollout`` is the wrapper: on CUDA tensors it launches the kernel (or
 raises), on CPU tensors it runs ``rollout_plain``, the same feature-first
@@ -16,7 +19,12 @@ Noise: ``eps`` (T, N, n) from the caller gives an exact comparison with
 the plain version and with the JAX reference; without it the kernel draws
 Philox4x32-10 normals keyed by ``seed`` (an int64 pair on the device,
 drawn by the caller from its ``torch.Generator``). Philox mode exists only
-on the card: the caller draws ``eps`` on the CPU.
+on the card: the caller draws ``eps`` on the CPU. Fresh episodes of a
+terminating config follow the noise: with ``eps`` the caller passes them
+too, ``fresh`` = (q (T, N, n), qd (T, N, n), tgt (T, N, 3), task (T, N)),
+the episode an env starts when it is done at step t being row t; in
+Philox mode the kernel draws them from the reset distributions of
+``envs/arm.py:reset``.
 """
 from __future__ import annotations
 
@@ -30,8 +38,8 @@ from . import build
 HIDDEN = 64
 
 _SIG = {"trpo_rollout_launch":
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-        + [ctypes.c_void_p] * 15 + [ctypes.c_int, ctypes.c_int,
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 19 + [ctypes.c_int, ctypes.c_int,
                                     ctypes.c_void_p]}
 
 
@@ -49,6 +57,14 @@ class PlanarConsts(NamedTuple):
     qd_obs_scale: float
     ctrl_weight: float
     chol_reg: float
+    # early termination (done_dist > 0) and the reset distributions of
+    # envs/arm.py:reset: q and qd uniform in +-noise, the target at a
+    # radius uniform in [rmin, rmax] and an angle uniform in [0, 2 pi)
+    done_dist: float = 0.0
+    q0_noise: float = 0.0
+    qd0_noise: float = 0.0
+    rmin: float = 0.0
+    rmax: float = 0.0
 
 
 def planar_consts(cfg, chol_reg: float = 1e-6) -> PlanarConsts:
@@ -64,10 +80,6 @@ def planar_consts(cfg, chol_reg: float = 1e-6) -> PlanarConsts:
         raise NotImplementedError(
             "multi-task and obstacle costs take the 3-D rollout kernel "
             "(ops/cuda/rollout3d_kernel.py)")
-    if cfg.done_dist > 0.0:
-        raise NotImplementedError(
-            "early termination (done_dist > 0) comes with a later slice of "
-            "the port")
     n = spec.n_joints
     l = tuple(float(spec.joints[i + 1].pos[0]) for i in range(n - 1)) \
         + (float(spec.ee_offset[0]),)
@@ -81,7 +93,17 @@ def planar_consts(cfg, chol_reg: float = 1e-6) -> PlanarConsts:
         torque_limit=float(spec.torque_limit),
         qd_limit=float(spec.qd_limit),
         qd_obs_scale=float(spec.qd_obs_scale),
-        ctrl_weight=float(cfg.cost.ctrl_weight), chol_reg=chol_reg)
+        ctrl_weight=float(cfg.cost.ctrl_weight), chol_reg=chol_reg,
+        done_dist=float(cfg.done_dist), q0_noise=float(spec.q0_noise),
+        qd0_noise=float(spec.qd0_noise),
+        rmin=float(spec.target_rmin_frac * spec.reach),
+        rmax=float(spec.target_rmax_frac * spec.reach))
+
+
+def done_dist2(c) -> float:
+    """done_dist^2, taken in fp64 and rounded to fp32 once where it meets
+    the fp32 distance, as the JAX kernels' Python-float product is."""
+    return c.done_dist * c.done_dist
 
 
 # ------------------------------------------------------- plain version
@@ -190,18 +212,25 @@ def _policy_mean(params, obs):
     return params[f"W{L - 1}"].T @ h + params[f"b{L - 1}"][:, None]
 
 
-def rollout_plain(cfg, params, q0, qd0, tgt, eps):
+def rollout_plain(cfg, params, q0, qd0, tgt, eps, fresh=None):
     """q0/qd0 (N, n), tgt (N, 3), eps (T, N, n) -> obs_ff (T, do, N),
-    act_ff (T, n, N), rew_ff (T, N)."""
+    act_ff (T, n, N), rew_ff (T, N) and, when ``cfg.done_dist > 0``, the
+    done flags (T, N); ``fresh`` (q, qd, tgt, task) with a leading T axis
+    holds the episodes that done envs start (task unused here)."""
     rollout_plain.calls += 1
     c = planar_consts(cfg)
     n = c.n
+    term = c.done_dist > 0.0
+    if term and fresh is None:
+        raise ValueError("a terminating config needs the fresh episodes")
     sigma = torch.exp(params["logstd"])[:, None]
     q = list(q0.T)
     qd = list(qd0.T)
     tgtx, tgty = tgt[:, 0], tgt[:, 1]
     h = c.dt / c.n_substeps
-    obs_t, act_t, rew_t = [], [], []
+    if term:
+        dd2 = torch.tensor(done_dist2(c), dtype=q0.dtype, device=q0.device)
+    obs_t, act_t, rew_t, done_t = [], [], [], []
     for t in range(eps.shape[0]):
         px, py, cx, cy, eex, eey = _fk(c, q)
         qs = torch.stack(q)
@@ -227,10 +256,19 @@ def rollout_plain(cfg, params, q0, qd0, tgt, eps):
         for i in range(n):
             t2 = tau[i] * tau[i]
             ctrl = t2 if ctrl is None else ctrl + t2
+        dist2 = dx * dx + dy * dy
         obs_t.append(obs)
         act_t.append(act)
-        rew_t.append(-((dx * dx + dy * dy) + c.ctrl_weight * ctrl))
-    return torch.stack(obs_t), torch.stack(act_t), torch.stack(rew_t)
+        rew_t.append(-(dist2 + c.ctrl_weight * ctrl))
+        if term:            # a done env starts the fresh episode of row t
+            done = dist2 < dd2
+            done_t.append(done.to(q0.dtype))
+            q = [torch.where(done, x, y) for x, y in zip(fresh[0][t].T, q)]
+            qd = [torch.where(done, x, y) for x, y in zip(fresh[1][t].T, qd)]
+            tgtx = torch.where(done, fresh[2][t, :, 0], tgtx)
+            tgty = torch.where(done, fresh[2][t, :, 1], tgty)
+    out = (torch.stack(obs_t), torch.stack(act_t), torch.stack(rew_t))
+    return out + (torch.stack(done_t),) if term else out
 
 
 rollout_plain.calls = 0
@@ -238,16 +276,41 @@ rollout_plain.calls = 0
 
 # ------------------------------------------------------------- wrapper
 
-def rollout(cfg, params, q0, qd0, tgt, eps=None, seed=None):
+def fresh_feature_first(fresh, T, N, n, dev, width):
+    """The fresh episodes (T, N, ...) relaid feature-first for the kernel:
+    q, qd (T, n, N) and the target's first ``width`` coordinates
+    (T, width, N), fp32."""
+    q, qd, tgt = fresh[0], fresh[1], fresh[2]
+    if (q.shape != (T, N, n) or qd.shape != (T, N, n)
+            or tgt.shape != (T, N, 3)
+            or any(x.device != dev for x in (q, qd, tgt))):
+        raise ValueError(f"fresh q, qd must be ({T}, {N}, {n}) and tgt "
+                         f"({T}, {N}, 3) on {dev}")
+    return [x.to(torch.float32).permute(0, 2, 1).contiguous()
+            for x in (q, qd, tgt[..., :width])]
+
+
+def check_fresh(term: bool, eps, fresh) -> None:
+    if not term and fresh is not None:
+        raise ValueError("fresh episodes belong to a terminating config")
+    if term and (eps is None) != (fresh is None):
+        raise ValueError("a terminating rollout takes fresh episodes with "
+                         "eps, and draws them with the Philox seed")
+
+
+def rollout(cfg, params, q0, qd0, tgt, eps=None, seed=None, fresh=None):
     """Fused rollout: q0/qd0 (N, n), tgt (N, 3), and either eps (T, N, n)
-    or seed (int64 (2,) on the device) -> obs_ff (T, do, N),
-    act_ff (T, n, N), rew_ff (T, N), all fp32."""
+    (with ``fresh`` when the config terminates) or seed (int64 (2,) on the
+    device) -> obs_ff (T, do, N), act_ff (T, n, N), rew_ff (T, N) and,
+    when ``cfg.done_dist > 0``, dones (T, N), all fp32."""
     c = planar_consts(cfg)
+    term = c.done_dist > 0.0
+    check_fresh(term, eps, fresh)
     if not q0.is_cuda:
         if eps is None:
             raise ValueError("Philox noise runs only in the CUDA kernel; "
                              "pass eps on the CPU")
-        return rollout_plain(cfg, params, q0, qd0, tgt, eps)
+        return rollout_plain(cfg, params, q0, qd0, tgt, eps, fresh)
     N, n = q0.shape
     T = cfg.horizon
     do = 3 * n + 3
@@ -278,24 +341,31 @@ def rollout(cfg, params, q0, qd0, tgt, eps=None, seed=None):
             raise ValueError("seed must be an int64 (2,) tensor on the device")
         eps_ff = None
         seed_p = build.ptr(seed)
+    fresh_ff = [None] * 3
+    if fresh is not None:
+        fresh_ff = fresh_feature_first(fresh, T, N, n, dev, 2)
     obs = torch.empty(T, do, N, device=dev)
     act = torch.empty(T, n, N, device=dev)
     rew = torch.empty(T, N, device=dev)
+    dones = torch.empty(T, N, device=dev) if term else None
     consts = list(c.l) + list(c.lc) + list(c.m) + list(c.iz) + [
         c.damping, c.dt / c.n_substeps, c.torque_limit, c.qd_limit,
-        c.qd_obs_scale, c.ctrl_weight, c.chol_reg]
+        c.qd_obs_scale, c.ctrl_weight, c.chol_reg, done_dist2(c),
+        c.q0_noise, c.qd0_noise, c.rmin, c.rmax]
     consts_arr = (ctypes.c_float * len(consts))(*consts)
+    opt = lambda x: build.ptr(x) if x is not None else ctypes.c_void_p(None)
     lib = build.library("rollout", _SIG)
     err = lib.trpo_rollout_launch(
-        consts_arr, c.n_substeps, n,
+        consts_arr, c.n_substeps, n, int(term),
         *(build.ptr(ins[k]) for k in ("q0", "qd0", "tgt", "W0", "b0", "W1",
                                       "b1", "W2", "b2", "logstd")),
-        build.ptr(eps_ff) if eps_ff is not None else ctypes.c_void_p(None),
-        seed_p, build.ptr(obs), build.ptr(act), build.ptr(rew), N, T,
+        opt(eps_ff), seed_p,
+        *(opt(x) for x in fresh_ff),
+        build.ptr(obs), build.ptr(act), build.ptr(rew), opt(dones), N, T,
         build.stream_handle(dev))
     build.check(err, "rollout kernel")
     rollout.launches += 1
-    return obs, act, rew
+    return (obs, act, rew, dones) if term else (obs, act, rew)
 
 
 rollout.launches = 0

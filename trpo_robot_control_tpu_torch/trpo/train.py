@@ -37,13 +37,17 @@ def init_state(cfg, seed: Optional[int] = None, device=None) -> TrainState:
 
 def make_train_step(cfg):
     """Returns ``train_step(state) -> (state, stats)``; stats are device
-    tensors."""
+    tensors. A terminating config adds ``early_dones``, the number of
+    env-steps before the last that ended an episode."""
     rollout_fn = arm.make_rollout_fn(cfg)
 
     def train_step(state: TrainState):
         with record_function("trpo/rollout"):
             batch = rollout_fn(state.params, state.gen)
         params, w, stats = trpo_update(cfg, state.params, state.w, batch)
+        if "dones_ff" in batch:
+            # episodes ended before the buffer's end, counted on the device
+            stats["early_dones"] = torch.sum(batch["dones_ff"][:-1])
         return TrainState(params=params, w=w, gen=state.gen,
                           iteration=state.iteration + 1), stats
 
