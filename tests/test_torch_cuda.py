@@ -138,10 +138,16 @@ def test_rollout3d_kernel_refuses_a_pair_it_has_no_instantiation_for(cuda):
         rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task, eps=ins[3])
 
 
+# (T, do, N): c3/c4's do 24 and c5's 27 (7 column blocks), 30 (8) and
+# the widest, 32 (9, 80 staged rows); N = 300 and 4096 + 37 are not
+# multiples of 8 (plain loads), 4096 + 40 is (cp.async with the envs past
+# N zero-filled); none is a multiple of the 256-env tile.
 @pytest.mark.cuda
-def test_moments_kernel_bf16_matches_plain_on_card(cuda):
+@pytest.mark.parametrize("T,do,N", [
+    (20, 24, 300), (6, 27, 4096 + 37), (6, 27, 4096 + 40),
+    (6, 30, 4096 + 40), (6, 32, 4096 + 37), (6, 32, 4096 + 40)])
+def test_moments_kernel_bf16_matches_plain_on_card(cuda, T, do, N):
     g = torch.Generator(device=cuda).manual_seed(1)
-    T, do, N = 20, 24, 300
     obs = torch.randn(T, do, N, generator=g, device=cuda).to(torch.bfloat16)
     y = 5.0 * torch.randn(T, N, generator=g, device=cuda)
     tau = moments_kernel._time_features(T, T, cuda)

@@ -10,29 +10,59 @@
 // bf16 mode obs is read as stored (bf16), obs^2 and y are rounded to bf16
 // (as the JAX package's normal_eq_ff rounds them) and tau stays fp32.
 //
-// What bounds it on an H100: bytes at c2, where it reads 5.3 MB (obs and
-// y once, ~1.6 us at 3.35 TB/s) against ~0.09 GFLOP of fp32 FMA (the upper
-// triangle, ~1.3 us at 67 TFLOP/s); operations at c3 (bf16), 2.35 GFLOP
-// (35 us) against 42.6 MB (13 us). The design reads each obs/y element
-// once, coalesced along the env axis, into a shared tile of v_ext rows
-// (row stride padded by one word so threads on different rows hit
-// different banks); each thread owns fixed upper-triangle entries, sums
-// each tile's 128 products on its own and adds the tile sums over the
-// block's tiles in registers (at c5 a block holds 400 tiles, 51,200
-// samples: a small tile sum loses less to rounding than one product
-// added at a time to the block's large running total). Blocks write
-// per-block partials and a second pass sums them in a fixed order: no
-// float atomics, so the result is bit-identical from call to call.
+// fp32 mode (c1, c2) is bound by bytes on an H100: it reads 5.3 MB at c2
+// (~1.6 us at 3.35 TB/s) against ~0.09 GFLOP of fp32 FMA (~1.3 us at 67
+// TFLOP/s). It reads each obs/y element once, coalesced along the env
+// axis, into a shared tile of v_ext rows (row stride padded by one word);
+// each thread owns fixed upper-triangle entries, sums each tile's 128
+// products on its own and adds the tile sums over the block's tiles in
+// registers (a small tile sum loses less to rounding than one product
+// added at a time to a large running total).
+//
+// bf16 mode (c3-c5) is bound by bytes too, once its products run on the
+// tensor cores: every data operand is a bf16 value (obs as stored, obs^2
+// and y rounded), a bf16 x bf16 product is exact in fp32, so
+// mma.sync m16n8k16 (bf16 in, fp32 accumulate) forms the same products.
+// At c5 it reads 760 MB (0.23 ms at 3.35 TB/s) for 46 GFLOP of upper
+// triangle (0.05 ms at 989 TFLOP/s); the old design summed them as fp32
+// FMA from shared memory and lost to one torch.matmul. A tile is one step
+// t and ST = 256 envs, staged in shared memory as rows
+// [obs; bf16(obs^2); bf16(y); ones; zeros] (64 rows, 80 at do = 32),
+// sample-contiguous with a 16-byte row pad so ldmatrix hits distinct
+// banks. The obs rows and y arrive by cp.async in a ring of NS stages, so
+// the loads of the next two tiles are in flight while this one's products
+// run; the threads then form the obs^2 (bf16x2 multiplies: the exact
+// product rounded once, as __float2bfloat16_rn rounds the fp32 one), y and
+// ones rows. One ldmatrix.x4 of a 16-row block gives both an A fragment
+// and the B fragments of its two 8-row halves (the Gram is V V^T: B is V
+// read as "col"). Only the 16 x 8 fragments that touch the upper
+// triangle of the first NB column blocks (8 NB >= 2 do + 2: 16 fragments
+// at c3-c5) are issued, split between two warp groups (even and odd
+// fragments); the four warps of a group take a quarter of the tile's
+// samples each. Each tile's products go into accumulators set by the
+// tile's first mma and are then added in fp32 to per-thread running
+// totals: the two-level sum of fp32 mode. tau is not in the tile: the
+// ones column gives each tile's row sums s_a, and an fp32 epilogue adds
+// tau_k(t) s_a into the v x tau block and tau_k tau_l c (c the tile's
+// valid envs) into the tau x tau block, so tau is never rounded to bf16.
+//
+// Both modes write per-block partials and a second pass sums them in a
+// fixed order: no float atomics, so the result is bit-identical from call
+// to call.
 //
 // C interface (ctypes); returns cudaGetLastError() after the launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+#include <utility>
 
 namespace {
 
 constexpr int NT = 256;                 // threads per block
-constexpr int S = 128;                  // samples (envs of one step) per tile
+constexpr int S = 128;                  // fp32 mode: samples per tile
 constexpr int SP = S + 1;               // padded row stride
 constexpr int DO_MAX = 32;
 constexpr int R_MAX = 2 * DO_MAX + 5;
@@ -40,6 +70,7 @@ constexpr int E_MAX = R_MAX * (R_MAX + 1) / 2;
 constexpr int PER_THREAD = (E_MAX + NT - 1) / NT;
 constexpr int RED_OUT = 32;             // outputs per reduce block
 constexpr int RED_GROUPS = NT / RED_OUT;
+constexpr int SMEM_MAX = 232448;        // a block's shared memory on sm_90
 
 // upper-triangle entry e -> (a, b), a <= b, row-major
 __device__ __forceinline__ void entry(int e, int R, int& a, int& b) {
@@ -51,21 +82,8 @@ __device__ __forceinline__ void entry(int e, int R, int& a, int& b) {
     b = a + e;
 }
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-}
-// the storage rounding of a value formed in fp32: none for fp32 storage
-__device__ __forceinline__ float store_round(float x, const float*) {
-    return x;
-}
-__device__ __forceinline__ float store_round(float x, const __nv_bfloat16*) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <typename In>
 __global__ void __launch_bounds__(NT) moments_partial_kernel(
-    const In* __restrict__ obs, const float* __restrict__ y,
+    const float* __restrict__ obs, const float* __restrict__ y,
     const float* __restrict__ tau, float* __restrict__ partial, int T,
     int DO, int N) {
     extern __shared__ float sV[];            // R rows of SP
@@ -88,15 +106,13 @@ __global__ void __launch_bounds__(NT) moments_partial_kernel(
         __syncthreads();
         for (int i = tid; i < DO * S; i += NT) {
             const int d = i / S, j = i % S, n = n0 + j;
-            const float x =
-                (n < N) ? load_f32(obs + ((size_t)t * DO + d) * N + n) : 0.f;
+            const float x = (n < N) ? obs[((size_t)t * DO + d) * N + n] : 0.f;
             sV[d * SP + j] = x;
-            sV[(DO + d) * SP + j] = store_round(x * x, obs);
+            sV[(DO + d) * SP + j] = x * x;
         }
         for (int j = tid; j < S; j += NT) {
             const bool ok = n0 + j < N;
-            sV[2 * DO * SP + j] =
-                ok ? store_round(y[(size_t)t * N + n0 + j], obs) : 0.f;
+            sV[2 * DO * SP + j] = ok ? y[(size_t)t * N + n0 + j] : 0.f;
 #pragma unroll
             for (int k = 0; k < 4; ++k)
                 sV[(2 * DO + 1 + k) * SP + j] = ok ? tau[t * 4 + k] : 0.f;
@@ -117,6 +133,381 @@ __global__ void __launch_bounds__(NT) moments_partial_kernel(
     for (int r = 0; r < PER_THREAD; ++r) {
         const int e = tid + r * NT;
         if (e < E) partial[(size_t)blockIdx.x * E + e] = acc[r];
+    }
+}
+
+// ---------------------------------------------------------------- bf16 mode
+
+constexpr int ST = 256;                 // envs per tile
+constexpr int NS = 3;                   // cp.async ring stages
+constexpr int GROUP_WARPS = 4;          // warps per fragment group
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+}
+
+// d = A (16 x 16, row) * B (16 x 8, col) + (first ? 0 : d), bf16 in, fp32
+// accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1,
+                                         bool first) {
+    const float z = 0.f;
+    if (first)
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+            "{%10, %10, %10, %10};\n"
+            : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+              "f"(z));
+    else
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+            "{%0, %1, %2, %3};\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// fn(std::integral_constant<int, 0>{}), ..., up to P - 1: register
+// arrays indexed by the constant stay in registers
+template <typename Fn, int... I>
+__device__ __forceinline__ void static_for_seq(
+    Fn&& fn, std::integer_sequence<int, I...>) {
+    (fn(std::integral_constant<int, I>{}), ...);
+}
+template <int P, typename Fn>
+__device__ __forceinline__ void static_for(Fn&& fn) {
+    static_for_seq(fn, std::make_integer_sequence<int, P>{});
+}
+
+// The 16 x 8 fragments (i, j) of the Gram's first 8 NB columns that touch
+// its upper triangle (2 i <= j < NB), numbered row by row; group g takes
+// the fragments f with f % 2 == g. The staged tile has the 16 (NB + 1) / 2
+// rows those fragments read.
+template <int NB>
+struct Frags {
+    static constexpr int MB = (NB + 1) / 2;            // 16-row blocks
+    static constexpr int M = 16 * MB;                  // staged rows
+    // fragments in the row blocks before block i: sum_{i' < i} (NB - 2 i')
+    __host__ __device__ static constexpr int first(int i) {
+        return i * (NB - i + 1);
+    }
+    static constexpr int COUNT = first(MB);
+    static constexpr int PER_GROUP = (COUNT + 1) / 2;
+    __host__ __device__ static constexpr int row(int f) {
+        int i = 0;
+        while (f >= first(i + 1)) ++i;
+        return i;
+    }
+    __host__ __device__ static constexpr int col(int f) {
+        return 2 * row(f) + f - first(row(f));
+    }
+};
+
+template <int M>
+struct TcTile {
+    static constexpr int RS = ST + 8;                   // row stride (bf16)
+    static constexpr int V_BYTES = M * RS * 2;
+    static constexpr int STAGE_BYTES = V_BYTES + ST * 4;   // + y (fp32)
+    static constexpr int KS = ST / (16 * GROUP_WARPS);  // k-steps per warp
+    static constexpr int SMEM = NS * STAGE_BYTES;
+};
+
+// Stage the obs rows and y of tile (t, n0): cp.async when every row start
+// is 16-byte aligned (N % 8 == 0; envs past N zero-filled), else plain
+// loads with the ragged edge masked.
+template <int M>
+__device__ __forceinline__ void load_tile(
+    char* stage, const __nv_bfloat16* __restrict__ obs,
+    const float* __restrict__ y, int t, int n0, int DO, int N, bool vec) {
+    using L = TcTile<M>;
+    __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(stage);
+    float* sY = reinterpret_cast<float*>(stage + L::V_BYTES);
+    const int tid = threadIdx.x;
+    const __nv_bfloat16* ot = obs + (size_t)t * DO * N;
+    const float* yt = y + (size_t)t * N;
+    if (vec) {
+        constexpr int CH = ST / 8;           // 16-byte chunks of an obs row
+        const int n_obs = DO * CH;
+        for (int c = tid; c < n_obs + ST / 4; c += NT) {
+            if (c < n_obs) {
+                const int d = c / CH, n = n0 + 8 * (c % CH);
+                const bool ok = n < N;
+                cp_async16(sV + d * L::RS + (n - n0),
+                           ok ? ot + (size_t)d * N + n : ot, ok ? 16 : 0);
+            } else {
+                const int n = n0 + 4 * (c - n_obs);
+                const bool ok = n < N;
+                cp_async16(sY + (n - n0), ok ? yt + n : yt, ok ? 16 : 0);
+            }
+        }
+    } else {
+        for (int i = tid; i < DO * ST; i += NT) {
+            const int d = i / ST, j = i % ST, n = n0 + j;
+            sV[d * L::RS + j] = (n < N) ? ot[(size_t)d * N + n]
+                                        : __float2bfloat16_rn(0.f);
+        }
+        for (int j = tid; j < ST; j += NT)
+            sY[j] = (n0 + j < N) ? yt[n0 + j] : 0.f;
+    }
+}
+
+// Rows DO..2DO+1 of a staged tile: bf16(obs^2), bf16(y) and the ones row
+// (1 for envs < N, else 0).
+template <int M>
+__device__ __forceinline__ void build_rows(char* stage, int n0, int DO,
+                                           int N) {
+    using L = TcTile<M>;
+    __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(stage);
+    const float* sY = reinterpret_cast<const float*>(stage + L::V_BYTES);
+    const int tid = threadIdx.x;
+    constexpr int CH = ST / 8;
+    for (int c = tid; c < DO * CH; c += NT) {
+        const int d = c / CH, j = 8 * (c % CH);
+        uint4 raw = *reinterpret_cast<const uint4*>(sV + d * L::RS + j);
+        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+        // bf16 x bf16 is exact before its one rounding, as the fp32
+        // product rounded by __float2bfloat16_rn (for |obs| >= 2^-63)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) h[q] = __hmul2(h[q], h[q]);
+        *reinterpret_cast<uint4*>(sV + (DO + d) * L::RS + j) = raw;
+    }
+    for (int j = tid; j < ST; j += NT) {
+        sV[2 * DO * L::RS + j] = __float2bfloat16_rn(sY[j]);
+        sV[(2 * DO + 1) * L::RS + j] =
+            __float2bfloat16_rn(n0 + j < N ? 1.f : 0.f);
+    }
+}
+
+// One warp's products on its quarter of a staged tile, for the fragments
+// of group G: fresh sums (zeroed here), then added to the running totals;
+// the fresh sums of the ones column go to sS[warp in group][row].
+template <int NB, int G>
+__device__ __forceinline__ void tile_products(
+    const __nv_bfloat16* sV, float (&tot)[Frags<NB>::PER_GROUP][4],
+    float* sS, int wig, int lane, int jc, int tco, int eo) {
+    using F = Frags<NB>;
+    constexpr int M = F::M;
+    using L = TcTile<M>;
+    constexpr int P = F::PER_GROUP;
+    float fr[P][4];            // the fresh sums, set by the first k-step
+    // lane's ldmatrix row and column within a 16 x 16 block
+    const int lr = lane % 16, lc = (lane / 16) * 8;
+#pragma unroll
+    for (int ks = 0; ks < L::KS; ++ks) {
+        const int k0 = (wig * L::KS + ks) * 16;
+        uint32_t a[F::MB][4];
+#pragma unroll
+        for (int i = 0; i < F::MB; ++i)
+            ldmatrix_x4(a[i], sV + (16 * i + lr) * L::RS + k0 + lc);
+        static_for<P>([&](auto pc) {
+            constexpr int p = decltype(pc)::value, f = 2 * p + G;
+            if constexpr (f < F::COUNT) {
+                constexpr int i = F::row(f), j = F::col(f);
+                // B of 8-row block j: the (j % 2) half of 16-row block j / 2
+                mma_bf16(fr[p], a[i], a[j / 2][j % 2], a[j / 2][2 + j % 2],
+                         ks == 0);
+            }
+        });
+    }
+    const int g = lane / 4, tc = lane % 4;
+    static_for<P>([&](auto pc) {
+        constexpr int p = decltype(pc)::value, f = 2 * p + G;
+        if constexpr (f < F::COUNT) {
+            constexpr int i = F::row(f), j = F::col(f);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) tot[p][q] += fr[p][q];
+            if (j == jc && tc == tco) {
+                float* s = sS + wig * M + 16 * i + g;
+                s[0] = eo ? fr[p][1] : fr[p][0];
+                s[8] = eo ? fr[p][3] : fr[p][2];
+            }
+        }
+    });
+}
+
+// Per-block partial of the extended Gram in bf16 mode; NB 8-column blocks
+// (8 NB >= 2 DO + 2). Same partial layout as
+// moments_partial_kernel.
+template <int NB>
+__global__ void __launch_bounds__(NT, Frags<NB>::M == 64 ? 2 : 1)
+    moments_partial_tc_kernel(const __nv_bfloat16* __restrict__ obs,
+                              const float* __restrict__ y,
+                              const float* __restrict__ tau,
+                              float* __restrict__ partial, int T, int DO,
+                              int N) {
+    using F = Frags<NB>;
+    constexpr int M = F::M;
+    using L = TcTile<M>;
+    constexpr int P = F::PER_GROUP;
+    constexpr int NTAU = (4 * M + NT - 1) / NT;   // (row, k) pairs a thread
+    extern __shared__ __align__(16) char smem[];   // NS stages
+    __shared__ float sS[GROUP_WARPS * M];          // ones column, per warp
+    __shared__ float sT[4 * M];                    // v x tau block
+    __shared__ float sTT[16];                      // tau x tau block
+    const int R = 2 * DO + 5, E = R * (R + 1) / 2, F2 = 2 * DO + 1;
+    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+    const int grp = warp / GROUP_WARPS, wig = warp % GROUP_WARPS;
+    const int c1 = 2 * DO + 1;                     // the ones row
+    const int jc = c1 / 8, tco = (c1 % 8) / 2, eo = c1 % 2;
+    const bool vec = (N % 8) == 0;
+    const int tiles_per_t = (N + ST - 1) / ST;
+    const int n_tiles = T * tiles_per_t;
+    const int G = gridDim.x;
+    const int nt = (n_tiles - (int)blockIdx.x + G - 1) / G;   // >= 1
+
+    // zero rows 2DO+2.. of every stage; nothing writes them again
+    for (int s = 0; s < NS; ++s) {
+        __nv_bfloat16* sV =
+            reinterpret_cast<__nv_bfloat16*>(smem + s * L::STAGE_BYTES);
+        for (int i = (2 * DO + 2) * L::RS + tid; i < M * L::RS; i += NT)
+            sV[i] = __float2bfloat16_rn(0.f);
+    }
+    float tot[P][4];
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) tot[p][q] = 0.f;
+    float tacc[NTAU], tt = 0.f;
+#pragma unroll
+    for (int r = 0; r < NTAU; ++r) tacc[r] = 0.f;
+
+    // the block's tiles are blockIdx.x, + G, + 2 G, ...: two cursors
+    // (t, tile within t) step through them without a division, one for
+    // the loads and one for the tile being summed
+    const int dt = G / tiles_per_t, dr = G % tiles_per_t;
+    auto advance = [&](int& t, int& r) {
+        t += dt;
+        r += dr;
+        if (r >= tiles_per_t) {
+            r -= tiles_per_t;
+            ++t;
+        }
+    };
+    int lt = blockIdx.x / tiles_per_t, lr = blockIdx.x % tiles_per_t;
+    int ct = lt, cr = lr;
+    // the tau values a thread's epilogue needs for tile (t, r) (its k is
+    // tid % 4 for every pair, as NT % 4 == 0), read one tile ahead so the
+    // load's latency is off the epilogue's path
+    float tau_k = 0.f, tau_kl_c = 0.f;
+    auto tau_prefetch = [&](int t, int r) {
+        tau_k = __ldg(tau + t * 4 + tid % 4);
+        if (tid < 16)
+            tau_kl_c = __ldg(tau + t * 4 + tid / 4) * tau_k *
+                       (float)min(ST, N - r * ST);
+    };
+    // tau_k(t) s_a into the v x tau block, tau_k tau_l c into tau x tau
+    auto tau_epilogue = [&]() {
+#pragma unroll
+        for (int r = 0; r < NTAU; ++r) {
+            const int a = (tid + r * NT) / 4;
+            if (a < F2) {
+                float s = sS[a];
+#pragma unroll
+                for (int w = 1; w < GROUP_WARPS; ++w) s += sS[w * M + a];
+                tacc[r] = fmaf(tau_k, s, tacc[r]);
+            }
+        }
+        if (tid < 16) tt += tau_kl_c;
+    };
+
+#pragma unroll
+    for (int s = 0; s < NS - 1; ++s) {
+        if (s < nt) {
+            load_tile<M>(smem + s * L::STAGE_BYTES, obs, y, lt, lr * ST,
+                             DO, N, vec);
+            advance(lt, lr);
+        }
+        cp_async_commit();
+    }
+    for (int i = 0; i < nt; ++i) {
+        cp_async_wait<NS - 2>();
+        __syncthreads();       // tile i staged; every warp is done with i - 1
+        if (i > 0) tau_epilogue();
+        tau_prefetch(ct, cr);
+        if (i + NS - 1 < nt) {
+            load_tile<M>(smem + ((i + NS - 1) % NS) * L::STAGE_BYTES, obs,
+                             y, lt, lr * ST, DO, N, vec);
+            advance(lt, lr);
+        }
+        cp_async_commit();
+        char* stage = smem + (i % NS) * L::STAGE_BYTES;
+        build_rows<M>(stage, cr * ST, DO, N);
+        advance(ct, cr);
+        __syncthreads();
+        const __nv_bfloat16* sV = reinterpret_cast<const __nv_bfloat16*>(stage);
+        if (grp == 0)
+            tile_products<NB, 0>(sV, tot, sS, wig, lane, jc, tco, eo);
+        else
+            tile_products<NB, 1>(sV, tot, sS, wig, lane, jc, tco, eo);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    tau_epilogue();
+
+    // the block's Gram: the four warps of each group add their totals into
+    // sG in warp order
+    float* sG = reinterpret_cast<float*>(smem);     // M x M, over the stages
+    const int g = lane / 4, tc = lane % 4;
+    for (int w = 0; w < GROUP_WARPS; ++w) {
+        if (wig == w) {
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+                const int f = 2 * p + grp;
+                if (f >= F::COUNT) continue;
+                const int i = F::row(f), j = F::col(f);
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    const int row = 16 * i + g + 8 * (q / 2);
+                    const int col = 8 * j + 2 * tc + q % 2;
+                    float& dst = sG[row * M + col];
+                    dst = (w == 0) ? tot[p][q] : dst + tot[p][q];
+                }
+            }
+        }
+        __syncthreads();
+    }
+#pragma unroll
+    for (int r = 0; r < NTAU; ++r) {
+        const int pair = tid + r * NT;
+        if (pair < 4 * M) sT[pair] = tacc[r];
+    }
+    if (tid < 16) sTT[tid] = tt;
+    __syncthreads();
+    for (int e = tid; e < E; e += NT) {
+        int a, b;
+        entry(e, R, a, b);
+        float v;
+        if (b < F2)
+            v = sG[a * M + b];
+        else if (a < F2)
+            v = sT[a * 4 + (b - F2)];
+        else
+            v = sTT[(a - F2) * 4 + (b - F2)];
+        partial[(size_t)blockIdx.x * E + e] = v;
     }
 }
 
@@ -146,6 +537,23 @@ __global__ void __launch_bounds__(NT) moments_reduce_kernel(
     }
 }
 
+template <int NB>
+cudaError_t launch_tc(const __nv_bfloat16* obs, const float* y,
+                      const float* tau, float* partial, int T, int DO, int N,
+                      int n_blocks, cudaStream_t st) {
+    constexpr int M = Frags<NB>::M;
+    constexpr int smem = TcTile<M>::SMEM;
+    // the static shared memory: sS, sT, sTT
+    constexpr int fixed = sizeof(float) * (GROUP_WARPS * M + 4 * M + 16);
+    static_assert(smem + fixed <= SMEM_MAX, "tile exceeds shared memory");
+    auto kern = moments_partial_tc_kernel<NB>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<n_blocks, NT, smem, st>>>(obs, y, tau, partial, T, DO, N);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 // obs (T, do, N) fp32, or bf16 when obs_bf16 != 0; y (T, N) and
@@ -159,14 +567,24 @@ extern "C" int trpo_moments_launch(const void* obs, const float* y,
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int R = 2 * DO + 5;
     const int E = R * (R + 1) / 2;
-    const size_t smem = (size_t)R * SP * sizeof(float);
-    if (obs_bf16)
-        moments_partial_kernel<<<n_blocks, NT, smem, st>>>(
-            static_cast<const __nv_bfloat16*>(obs), y, tau, partial, T, DO, N);
-    else
+    cudaError_t err;
+    if (obs_bf16) {
+        // column blocks that hold the 2 DO + 2 tile rows: 7 up to do 27
+        // (c3-c5), 8 up to do 31, 9 at do 32
+        const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(obs);
+        const int nb = (2 * DO + 2 + 7) / 8;
+        err = nb <= 7   ? launch_tc<7>(o, y, tau, partial, T, DO, N, n_blocks,
+                                       st)
+              : nb == 8 ? launch_tc<8>(o, y, tau, partial, T, DO, N, n_blocks,
+                                       st)
+                        : launch_tc<9>(o, y, tau, partial, T, DO, N, n_blocks,
+                                       st);
+    } else {
+        const size_t smem = (size_t)R * SP * sizeof(float);
         moments_partial_kernel<<<n_blocks, NT, smem, st>>>(
             static_cast<const float*>(obs), y, tau, partial, T, DO, N);
-    cudaError_t err = cudaGetLastError();
+        err = cudaGetLastError();
+    }
     if (err != cudaSuccess) return (int)err;
     moments_reduce_kernel<<<(E + RED_OUT - 1) / RED_OUT, NT, 0, st>>>(
         partial, gram, n_blocks, DO);

@@ -7,7 +7,9 @@ v_ext = [obs; obs^2; y; tau_t] (2do+5 rows), whose blocks are every moment
 of the ridge fit. (A, b) is assembled outside with the exact fp32
 A_tt = N tau^T tau, as the TPU wrapper does. obs_ff may be fp32 or bf16
 (c3's storage); in bf16 mode obs^2 and y are rounded to bf16 and tau
-stays fp32, as ``models/baseline.normal_eq_ff`` rounds them.
+stays fp32, as ``models/baseline.normal_eq_ff`` rounds them, and the
+products run on the tensor cores (``mma.sync``, exact bf16 products summed
+in fp32).
 
 ``extended_gram`` is the wrapper: the CUDA kernel on CUDA tensors (or it
 raises), ``extended_gram_plain`` on CPU tensors. ``baseline_moments`` is
@@ -24,7 +26,8 @@ import torch
 from . import build
 from ...models.baseline import _time_features, assemble, data_rows
 
-TILE = 128          # envs of one step per tile (csrc/moments.cu: S)
+TILE = 128          # fp32 mode: envs of one step per tile (csrc/moments.cu: S)
+BF16_TILE = 256     # bf16 mode's (csrc/moments.cu: ST)
 MAX_BLOCKS = 256    # fixed, so the reduction order does not depend on the card
 MAX_OBS_DIM = 32
 
@@ -50,6 +53,7 @@ extended_gram_plain.calls = 0
 
 
 def extended_gram(obs_ff, y, tau):
+    """The (2do+5, 2do+5) Gram of ``extended_gram_plain``."""
     if not obs_ff.is_cuda:
         return extended_gram_plain(obs_ff, y, tau)
     T, do, N = obs_ff.shape
@@ -57,6 +61,7 @@ def extended_gram(obs_ff, y, tau):
         raise NotImplementedError(f"moments kernel takes obs_dim <= {MAX_OBS_DIM}")
     if obs_ff.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("obs_ff must be fp32 or bf16")
+    bf16 = obs_ff.dtype == torch.bfloat16
     for name, x, shape in (("obs_ff", obs_ff, (T, do, N)), ("y", y, (T, N)),
                            ("tau", tau, (T, 4))):
         if (x.dtype != (obs_ff.dtype if x is obs_ff else torch.float32)
@@ -66,14 +71,14 @@ def extended_gram(obs_ff, y, tau):
                              f"{obs_ff.device} (fp32, obs_ff fp32 or bf16)")
     R = 2 * do + 5
     E = R * (R + 1) // 2
-    n_blocks = min(T * -(-N // TILE), MAX_BLOCKS)
+    tile = BF16_TILE if bf16 else TILE
+    n_blocks = min(T * -(-N // tile), MAX_BLOCKS)
     partial = torch.empty(n_blocks * E, device=obs_ff.device)
     gram = torch.empty(R, R, device=obs_ff.device)
     lib = build.library("moments", _SIG)
     err = lib.trpo_moments_launch(
         build.ptr(obs_ff), build.ptr(y), build.ptr(tau), build.ptr(partial),
-        build.ptr(gram), T, do, N, n_blocks,
-        int(obs_ff.dtype == torch.bfloat16),
+        build.ptr(gram), T, do, N, n_blocks, int(bf16),
         build.stream_handle(obs_ff.device))
     build.check(err, "moments kernel")
     extended_gram.launches += 1
