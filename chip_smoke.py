@@ -30,15 +30,16 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
       determinism;
    b. K2 in bf16 mode (tensor cores) against its plain version on the
       full-width batch, and bit-identical repeat calls;
-   c. K5 surrogate-gradient kernel against ``surrogate_grad_plain``;
+   c. K5 surrogate-gradient kernel (bf16 mode, tensor cores) against
+      ``surrogate_grad_plain``, and bit-identical repeat calls;
    d. K6 feature-first FVP kernel against its plain version on
       ``obs_ff[::8, :, ::e]``, and bit-identical repeat calls;
    e. five full-width training iterations through ``trpo.train.train``
       (K4, K2, K5 once and K6 ten times per update, no K1/K3, no plain
       version), with the peak device memory;
-   f. K4, K2-bf16, K5 and K6 times beside their bounds; K2-bf16's bound
-      is the tensor-core one (its share printed), with the fp32-FMA
-      figure beside it, and the library yardstick;
+   f. K4, K2-bf16, K5 and K6 times beside their bounds; K2-bf16's and
+      K5's bounds are the tensor-core ones (their shares printed), with
+      the fp32-FMA figures beside them, and K2's library yardstick;
 4. early termination, c2 with done_dist 0.1 (K1's TERM instantiation) and
    c5 with done_dist 0.05 (K4's, with the task redraw), each at full
    width:
@@ -113,6 +114,12 @@ K4_FULL_ATOL = 1e-2
 # 2^-9) and of obs (mu is recomputed from the stored bf16 obs).
 K4_Z_TOL = 0.01
 K5_REL, K5_MU_ATOL, K5_LOGP_REL = 1e-4, 1e-4, 1e-3
+# K5 against the fp64 evaluation with the same bf16 rounding points
+# (``pg_fp64``): mu within the slack of its ambiguous roundings plus this,
+# g on the samples with no ambiguous rounding within this relative L2;
+# a rounding is ambiguous within PG_AMBIG_ULPS fp32 roundings of its
+# terms' magnitude (as ``tests/test_torch_helpers.py`` holds it).
+PG_MU_FP64_ATOL, PG_G_KEPT_REL, PG_AMBIG_ULPS = 1e-5, 1e-5, 4
 K6_REL = 1e-5
 # Early termination at full width: c2 and c5 with these done distances
 # (the one the JAX tests use for a 7-DoF arm at c5).
@@ -190,6 +197,101 @@ def bf16_ulp(x):
     """One bf16 unit in the last place of each element of x (fp32)."""
     e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
     return torch.pow(2.0, e - 7)
+
+
+def rel_l2(a, ref):
+    return float(torch.linalg.norm(a.double() - ref) / torch.linalg.norm(ref))
+
+
+def pg_fp64(params, obs_ff, act_ff, adv_ff, B):
+    """K5's bf16-mode function in fp64 on a time slice of a batch of B
+    samples (a copy of ``tests/test_torch_helpers.surrogate_grad_fp64``,
+    the gradient flat in ``policy.flatten``'s order):
+    h0, h1, g1, g0 rounded to bf16 where the port rounds them. A rounding
+    is ambiguous where an fp32 value within PG_AMBIG_ULPS fp32 roundings of
+    its terms' magnitude may round to the other bf16 neighbour. Returns mu,
+    mu_slack (how far ambiguous h0/h1 roundings may move mu), kept (the
+    samples with no ambiguous rounding), and the gradient over all samples
+    and over the kept ones."""
+    p = {k: v.double() for k, v in params.items()}
+    ab = {k: v.abs() for k, v in p.items()}
+    T, _, N = obs_ff.shape
+    x, a, adv = obs_ff.double(), act_ff.double(), adv_ff.double()[:, None]
+
+    def fwd(W, h):
+        return torch.einsum("io,tin->ton", W, h)
+
+    def bwd(W, c):
+        return torch.einsum("io,ton->tin", W, c)
+
+    def rnd(v):
+        return v.float().to(torch.bfloat16).double()
+
+    eps = PG_AMBIG_ULPS * 2.0 ** -24
+    hs, spread = [], torch.zeros_like(x)
+    amb = torch.zeros(T, N, dtype=torch.bool, device=x.device)
+    h = x
+    for i in range(2):
+        v = torch.tanh(fwd(p[f"W{i}"], h) + p[f"b{i}"][:, None])
+        dz = fwd(ab[f"W{i}"], spread)
+        e = eps * ((1 - v * v) * (fwd(ab[f"W{i}"], h.abs())
+                                  + ab[f"b{i}"][:, None]) + v.abs()) \
+            + (1 - (v.abs() - dz).clamp(min=0) ** 2) * dz
+        h = rnd(v)
+        spread = torch.maximum(rnd(v + e) - h, h - rnd(v - e))
+        amb |= (spread > 0).any(1)
+        hs.append(h)
+    mu = fwd(p["W2"], h) + p["b2"][:, None]
+    mu_slack = fwd(ab["W2"], spread)
+    inv_var = torch.exp(-2 * p["logstd"])[:, None]
+    z = (a - mu) * torch.exp(-p["logstd"])[:, None]
+    ct = adv * (a - mu) * inv_var / B
+    mag = adv.abs() * inv_var / B * (fwd(ab["W2"], h.abs())
+                                     + ab["b2"][:, None] + (a - mu).abs())
+    cts = [ct]
+    for l in (2, 1):
+        d = 1 - hs[l - 1] ** 2
+        v = bwd(p[f"W{l}"], ct) * d
+        e = eps * (d * bwd(ab[f"W{l}"], mag) + v.abs())
+        amb |= (rnd(v + e) != rnd(v - e)).any(1)
+        ct = rnd(v)
+        mag = ct.abs()
+        cts.append(ct)
+
+    def grads(m):
+        g = {"logstd": (adv * m * (z * z - 1)).sum((0, 2)) / B}
+        for l, c, h_in in ((2, cts[0], hs[1]), (1, cts[1], hs[0]),
+                           (0, cts[2], x)):
+            g[f"W{l}"] = torch.einsum("tin,ton->io", h_in, c * m)
+            g[f"b{l}"] = (c * m).sum((0, 2))
+        return torch.cat([g[k].reshape(-1) for k in sorted(g)])
+
+    kept = ~amb
+    return dict(mu=mu, mu_slack=mu_slack, kept=kept, g=grads(1.0),
+                g_kept=grads(kept.double()[:, None]))
+
+
+def pg_fp64_batch(params, obs_ff, act_ff, adv, mus):
+    """``pg_fp64`` over the whole batch in time slices of about 2^20
+    samples: the flat fp64 gradient over all and over the kept samples,
+    the kept mask (T, N) and its share, and for each mu of ``mus`` the
+    largest |mu - fp64 mu| less its slack."""
+    T, _, N = obs_ff.shape
+    step = max(1, 2 ** 20 // N)
+    out = dict(g=0.0, g_kept=0.0, kept=[],
+               mu_over={k: -math.inf for k in mus})
+    for t0 in range(0, T, step):
+        sl = slice(t0, t0 + step)
+        r = pg_fp64(params, obs_ff[sl], act_ff[sl], adv[sl], T * N)
+        out["g"] = out["g"] + r["g"]
+        out["g_kept"] = out["g_kept"] + r["g_kept"]
+        out["kept"].append(r["kept"])
+        for k, mu in mus.items():
+            over = (mu[sl].double() - r["mu"]).abs() - r["mu_slack"]
+            out["mu_over"][k] = max(out["mu_over"][k], float(over.max()))
+    out["kept"] = torch.cat(out["kept"])
+    out["kept_share"] = float(out["kept"].double().mean())
+    return out
 
 
 def k2_check(tag, obs_ff, targets, horizon):
@@ -552,6 +654,27 @@ def arm3d_phases(dev, cfg, seed):
     print(f"{tag} K5: rel L2 err g {rel_g:.3e} (bound {K5_REL}), max |mu "
           f"err| {err_mu:.3e} (bound {K5_MU_ATOL}), max rel logp err "
           f"{rel_lp:.3e} (bound {K5_LOGP_REL})")
+    # both fp32 sum orders against the fp64 evaluation with the same bf16
+    # rounding points: mu beyond its slack, g in all and on the samples
+    # whose roundings are unambiguous (run again with the others' adv 0)
+    ref = pg_fp64_batch(params, obs_ff, act_ff, adv,
+                        dict(kernel=mu_k, plain=mu_p))
+    adv_kept = adv * ref["kept"]
+    far = {}
+    for name, fn, g_all in (("kernel", pk.surrogate_grad, fg_k),
+                            ("plain", pk.surrogate_grad_plain, fg_p)):
+        g_kept = policy.flatten(fn(params, obs_ff, act_ff, adv_kept)[0])
+        far[name] = (ref["mu_over"][name], rel_l2(g_all, ref["g"]),
+                     rel_l2(g_kept, ref["g_kept"]))
+        print(f"{tag} K5 {name} vs fp64 evaluation: mu beyond its slack "
+              f"{far[name][0]:.3e} (bound {PG_MU_FP64_ATOL}), rel L2 g "
+              f"{far[name][1]:.3e}, on the {ref['kept_share']:.3f} of "
+              f"samples with unambiguous roundings {far[name][2]:.3e} "
+              f"(bound {PG_G_KEPT_REL})")
+    del ref, adv_kept
+    require(far["kernel"][0] <= PG_MU_FP64_ATOL
+            and far["kernel"][2] <= PG_G_KEPT_REL,
+            f"{tag} K5 against the fp64 evaluation {far['kernel']}")
     require(rel_g <= K5_REL and err_mu <= K5_MU_ATOL
             and rel_lp <= K5_LOGP_REL,
             f"{tag} K5 error {rel_g}, {err_mu}, {rel_lp}")
@@ -560,6 +683,7 @@ def arm3d_phases(dev, cfg, seed):
     require(torch.equal(policy.flatten(again[0]), fg_k)
             and torch.equal(again[1], mu_k) and torch.equal(again[2], lp_k),
             f"{tag} K5 is not deterministic")
+    print(f"{tag} K5: repeat calls bit-identical")
     del again, mu_k, lp_k
     rec["pg"] = dict(max_abs_err=float((fg_k - fg_p).abs().max()))
 
@@ -628,9 +752,17 @@ def arm3d_phases(dev, cfg, seed):
     t_k5 = cuda_ms(lambda: pk.surrogate_grad(params, obs_ff, act_ff, adv), 10)
     t_k5p = cuda_ms(lambda: pk.surrogate_grad_plain(params, obs_ff, act_ff,
                                                     adv), 3, warmup=1)
+    # the MLP's products, each counted once (the kernel's three-plane split
+    # of the weights is its own cost, not the work), at the bf16
+    # tensor-core peak; the fp32-FMA figure is kept beside it, labelled
     pg_macs = 2 * do * H + 3 * H * H + 3 * H * da
-    b5 = bound_ms(2.0 * pg_macs * B, B * ((do + da) * 2 + 4 + 4 * da + 4)
-                  + 4.0 * 2 * P)
+    pg_bytes = B * ((do + da) * 2 + 4 + 4 * da + 4) + 4.0 * 2 * P
+    b5 = bound_ms(2.0 * pg_macs * B, pg_bytes, peak_flops=PEAK_BF16_FLOPS)
+    b5fma = bound_ms(2.0 * pg_macs * B, pg_bytes)
+    print(f"{tag} pg: tensor-core bound {b5[0]:.4f} ms ({b5[1]}), "
+          f"{100 * b5[0] / t_k5:.1f} % of it reached; fp32-FMA bound "
+          f"{b5fma[0]:.4f} ms ({b5fma[1]})")
+    rec["pg"].update(bound_fp32_fma_ms=b5fma[0], bound_share=b5[0] / t_k5)
     v = torch.randn(P, generator=gen, device=dev)
     t_k6 = cuda_ms(lambda: fvp(v), 20)
     t_k6p = cuda_ms(lambda: ffk.gn_fvp_ff_plain(params, sub, v,

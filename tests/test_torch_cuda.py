@@ -11,8 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_helpers import (OBSTACLE_ON_ARM, env_inputs_np,
-                                policy_params_np, t, tasks_np)
+from test_torch_helpers import (OBSTACLE_ON_ARM, PG_G_KEPT_REL,
+                                PG_MU_FP64_ATOL, env_inputs_np,
+                                pg_fp64_errors, policy_params_np,
+                                surrogate_grad_fp64, t, tasks_np)
 from trpo_robot_control_tpu_torch import configs as pconfigs
 from trpo_robot_control_tpu_torch.models import policy
 from trpo_robot_control_tpu_torch.ops.cuda import (fvp_ff_kernel,
@@ -157,11 +159,26 @@ def test_moments_kernel_bf16_matches_plain_on_card(cuda, T, do, N):
     assert torch.equal(gk, moments_kernel.extended_gram(obs, y, tau))
 
 
+# (dtype, T, do, N): the fp32 mode; the bf16 mode (tensor cores, 64-env
+# tiles) at c3's do 24 and c5's 27, N = 200 with a ragged last tile, and
+# 16 x 65 tiles on 264 blocks, so every block sums several tiles (N =
+# 4096 + 40 staged by cp.async, 4096 + 37 by plain loads). In bf16 mode h0,
+# h1, g1 and g0 are rounded to bf16; where a value before its rounding lies
+# within fp32 roundings of a bf16 boundary, two fp32 summation orders (the
+# kernel's, the plain version's) may round it to neighbouring bf16 values,
+# and one h1 moves mu by |W2| 2^-8 (up to 6e-4 with this output layer).
+# So mu is held to the fp64 evaluation within the slack of its ambiguous
+# roundings, and g to it on the samples with none; mu against the plain
+# version keeps its 1e-4 where no rounding is ambiguous. The plain
+# version must meet the same fp64 checks.
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_pg_kernel_matches_plain_on_card(cuda, dtype):
+@pytest.mark.parametrize("dtype,T,do,N", [
+    (torch.float32, 6, 24, 200), (torch.bfloat16, 6, 24, 200),
+    (torch.bfloat16, 6, 27, 200), (torch.bfloat16, 16, 27, 4096 + 40),
+    (torch.bfloat16, 16, 24, 4096 + 37)])
+def test_pg_kernel_matches_plain_on_card(cuda, dtype, T, do, N):
     g = torch.Generator(device=cuda).manual_seed(2)
-    T, do, da, N = 6, 24, 7, 200
+    da = 7
     pn = policy_params_np(np.random.RandomState(11), do, da)
     pc = {k: t(v).to(cuda) for k, v in pn.items()}
     obs = torch.randn(T, do, N, generator=g, device=cuda).to(dtype)
@@ -169,11 +186,27 @@ def test_pg_kernel_matches_plain_on_card(cuda, dtype):
     adv = torch.randn(T, N, generator=g, device=cuda)
     gk, muk, lpk = pg_kernel.surrogate_grad(pc, obs, act, adv)
     gp, mup, lpp = pg_kernel.surrogate_grad_plain(pc, obs, act, adv)
+    if dtype == torch.bfloat16:
+        ref = surrogate_grad_fp64(pc, obs, act, adv)
+        adv_kept = adv * ref["kept"]
+        for fn, mu in ((pg_kernel.surrogate_grad, muk),
+                       (pg_kernel.surrogate_grad_plain, mup)):
+            mu_over, g_rel = pg_fp64_errors(ref, mu,
+                                            fn(pc, obs, act, adv_kept)[0])
+            assert mu_over <= PG_MU_FP64_ATOL and g_rel <= PG_G_KEPT_REL, (
+                f"{fn.__name__} against the fp64 evaluation: mu beyond its "
+                f"slack {mu_over:.3e}, g on the kept samples {g_rel:.3e}")
+        assert float(ref["kept"].double().mean()) > 0.3
     fk, fp = policy.flatten(gk), policy.flatten(gp)
     assert float(torch.linalg.norm(fk - fp) / torch.linalg.norm(fp)) < 1e-4
-    assert float((muk - mup).abs().max()) < 1e-4
-    assert torch.equal(fk, policy.flatten(
-        pg_kernel.surrogate_grad(pc, obs, act, adv)[0]))
+    if dtype == torch.float32:
+        assert float((muk - mup).abs().max()) < 1e-4
+    else:
+        exact = ref["mu_slack"] == 0
+        assert float((muk - mup).abs()[exact].max()) < 1e-4
+    again = pg_kernel.surrogate_grad(pc, obs, act, adv)
+    assert torch.equal(fk, policy.flatten(again[0]))
+    assert torch.equal(muk, again[1]) and torch.equal(lpk, again[2])
 
 
 @pytest.mark.cuda

@@ -287,3 +287,108 @@ def check_against_jax(name, N, T, done_dist, seed, atol_obs, atol_rew,
     np.testing.assert_allclose(rew, bj["rewards"].T, atol=atol_rew,
                                err_msg="rewards")
     return early, jcfg, pcfg, pn, bj
+
+
+# fp32 roundings of a sum's magnitude that an fp32 implementation may be
+# off from the exact sum, in ``surrogate_grad_fp64``'s ambiguity test
+AMBIG_ULPS = 4
+
+
+def surrogate_grad_fp64(params, obs_ff, act_ff, adv_ff, ulps=AMBIG_ULPS,
+                        B=None):
+    """The bf16-mode surrogate gradient (``policy.surrogate_grad_ff`` with
+    bf16 storage) evaluated in fp64, on the tensors' device, with what an
+    fp32 implementation may differ from it by.
+
+    h0, h1, g1 and g0 are rounded to bf16 where the port rounds them. An
+    fp32 implementation's value before such a rounding may be off from
+    this one by ``ulps`` fp32 roundings of the terms' magnitude (sum of
+    |terms|, through tanh's slope); where the bf16 roundings of the two
+    ends of that interval differ, the rounding is ambiguous and either
+    bf16 neighbour is right. Returns a dict:
+
+    - ``mu``, ``g`` (a tree like the port's): the fp64 values;
+    - ``mu_slack`` (T, da, N): how far mu may move through ambiguous h0
+      and h1 roundings (|W2|^T of each h1's spread, with h0's spread
+      carried into h1's interval). An fp32 mu is within mu_slack plus its
+      own sums' error of ``mu``;
+    - ``kept`` (T, N) bool: samples with no ambiguous rounding;
+    - ``g_kept``: ``g`` over the kept samples only, which is what an fp32
+      implementation gives for ``adv_ff * kept`` up to its own sums.
+
+    ``B`` is the whole batch's T * N where the call gets a slice of it."""
+    p = {k: v.double() for k, v in params.items()}
+    ab = {k: v.abs() for k, v in p.items()}
+    T, _, N = obs_ff.shape
+    B = B or T * N
+    x, a, adv = obs_ff.double(), act_ff.double(), adv_ff.double()[:, None]
+
+    def fwd(W, h):
+        return torch.einsum("io,tin->ton", W, h)
+
+    def bwd(W, c):
+        return torch.einsum("io,ton->tin", W, c)
+
+    def rnd(v):
+        return v.float().to(torch.bfloat16).double()
+
+    eps = ulps * 2.0 ** -24
+    hs, spread = [], torch.zeros_like(x)
+    amb = torch.zeros(T, N, dtype=torch.bool, device=x.device)
+    h = x
+    for i in range(2):
+        v = torch.tanh(fwd(p[f"W{i}"], h) + p[f"b{i}"][:, None])
+        dz = fwd(ab[f"W{i}"], spread)
+        e = eps * ((1 - v * v) * (fwd(ab[f"W{i}"], h.abs())
+                                  + ab[f"b{i}"][:, None]) + v.abs()) \
+            + (1 - (v.abs() - dz).clamp(min=0) ** 2) * dz
+        h = rnd(v)
+        spread = torch.maximum(rnd(v + e) - h, h - rnd(v - e))
+        amb |= (spread > 0).any(1)
+        hs.append(h)
+    mu = fwd(p["W2"], h) + p["b2"][:, None]
+    mu_slack = fwd(ab["W2"], spread)
+    inv_var = torch.exp(-2 * p["logstd"])[:, None]
+    z = (a - mu) * torch.exp(-p["logstd"])[:, None]
+    ct = adv * (a - mu) * inv_var / B
+    mag = adv.abs() * inv_var / B * (fwd(ab["W2"], h.abs())
+                                     + ab["b2"][:, None] + (a - mu).abs())
+    cts = [ct]
+    for l in (2, 1):
+        d = 1 - hs[l - 1] ** 2
+        v = bwd(p[f"W{l}"], ct) * d
+        e = eps * (d * bwd(ab[f"W{l}"], mag) + v.abs())
+        amb |= (rnd(v + e) != rnd(v - e)).any(1)
+        ct = rnd(v)
+        mag = ct.abs()
+        cts.append(ct)
+
+    def grads(m):
+        g = {"logstd": (adv * m * (z * z - 1)).sum((0, 2)) / B}
+        for l, c, h_in in ((2, cts[0], hs[1]), (1, cts[1], hs[0]),
+                           (0, cts[2], x)):
+            g[f"W{l}"] = torch.einsum("tin,ton->io", h_in, c * m)
+            g[f"b{l}"] = (c * m).sum((0, 2))
+        return g
+
+    kept = ~amb
+    return dict(mu=mu, g=grads(1.0),
+                g_kept=grads(kept.double()[:, None]), mu_slack=mu_slack,
+                kept=kept)
+
+
+# an fp32 bf16-mode surrogate gradient against ``surrogate_grad_fp64``:
+# mu within its slack plus this, g on the kept samples within this
+# relative L2 (their fp32 sums' error; the plain version's is ~3e-7)
+PG_MU_FP64_ATOL = 1e-5
+PG_G_KEPT_REL = 1e-5
+
+
+def pg_fp64_errors(ref, mu, g_masked):
+    """(max of |mu - ref mu| less its slack, relative L2 distance of the
+    gradient for ``adv * ref["kept"]`` from ``ref["g_kept"]``)."""
+    from trpo_robot_control_tpu_torch.models import policy
+    over = float(((mu.double() - ref["mu"]).abs() - ref["mu_slack"]).max())
+    f = policy.flatten(g_masked).double()
+    f64 = policy.flatten(ref["g_kept"])
+    return over, float(torch.linalg.norm(f - f64) / torch.linalg.norm(f64))

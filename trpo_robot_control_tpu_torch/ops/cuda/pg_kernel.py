@@ -9,6 +9,12 @@ logp (T, N). The TPU kernel's lane-pair packing, block-diagonal weights,
 ones-row bias fold and accumulator rotation are matrix-unit tricks and are
 not carried over.
 
+In bf16 mode (c3-c5) the products run on the tensor cores and stay exact
+against the fp32 weights: the kernel's prologue splits each weight into
+three bf16 planes as ``split3`` does, so a bf16 activation times the three
+planes is the fp32 product (the TPU kernel rounds its weights to bf16
+instead). The fp32 mode runs on the CUDA cores.
+
 ``surrogate_grad`` is the wrapper: the CUDA kernel on CUDA tensors (or it
 raises), ``surrogate_grad_plain`` on CPU tensors, which is
 ``models/policy.surrogate_grad_ff`` with the storage dtype's rounding.
@@ -24,11 +30,24 @@ from . import build
 from ...models import policy
 
 HIDDEN = 64
-MAX_BLOCKS = 256    # fixed, so the reduction order does not depend on the card
-TILE = 64           # samples per tile (csrc/pg.cu: S)
+# fixed, so the reduction order does not depend on the card: two blocks on
+# each of an H100's 132 SMs
+MAX_BLOCKS = 264
+TILE = 64           # samples per tile, both modes (csrc/pg.cu: S, TS)
 
 _SIG = {"trpo_pg_launch": [ctypes.c_void_p] * 14
         + [ctypes.c_int] * 6 + [ctypes.c_void_p]}
+
+
+def split3(w):
+    """fp32 w -> bf16 planes (hi, mid, lo) with hi + mid + lo == w exactly
+    (for |w| above about 2^-100: three 8-bit significands hold fp32's 24,
+    and bf16 has fp32's exponent range). The bf16 kernel's prologue splits
+    W0 and W1 so."""
+    hi = w.to(torch.bfloat16)
+    r = w - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
 
 
 def surrogate_grad_plain(params, obs_ff, act_ff, adv_ff):
