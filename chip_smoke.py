@@ -6,6 +6,10 @@ Needs one CUDA card; exits non-zero, and prints no result, without one.
 Drives the port (``trpo_robot_control_tpu_torch``) only:
 
 1. names the card and builds the six CUDA kernels from ``ops/cuda/csrc``;
+   prints every kernel's ``-Xptxas -v`` lines (K4's for each
+   instantiation), then what the card makes of each K4 instantiation
+   (resident blocks and warps per SM from ``rollout3d_kernel.occupancy``;
+   at least 16 warps);
 2. c2 (3-link planar arm, 1024 envs x 100 steps):
    a. K1 rollout kernel against its plain version (eps mode: tight over
       10 steps, looser over the full horizon), then the Philox mode's
@@ -27,7 +31,8 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
       stores) against ``rollout3d_plain`` on every (N / 4096)-th env of
       the same inputs (tight over 8 steps, looser over the full horizon),
       then at full width the Philox mode's noise statistics and seed
-      determinism;
+      determinism, and a SHA-256 of the Philox batch (signed zeros made
+      +0), the digest a kernel that changes no output bit keeps;
    b. K2 in bf16 mode (tensor cores) against its plain version on the
       full-width batch, and bit-identical repeat calls;
    c. K5 surrogate-gradient kernel (bf16 mode, tensor cores) against
@@ -37,9 +42,11 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
    e. five full-width training iterations through ``trpo.train.train``
       (K4, K2, K5 once and K6 ten times per update, no K1/K3, no plain
       version), with the peak device memory;
-   f. K4, K2-bf16, K5 and K6 times beside their bounds; K2-bf16's and
-      K5's bounds are the tensor-core ones (their shares printed), with
-      the fp32-FMA figures beside them, and K2's library yardstick;
+   f. K4, K2-bf16, K5 and K6 times beside their bounds; K4's bound counts
+      the operations of its specialised passes (the fused RNEA sweep's
+      figure, with its structural zeros, beside it); K2-bf16's and K5's
+      bounds are the tensor-core ones (their shares printed), with the
+      fp32-FMA figures beside them, and K2's library yardstick;
 4. early termination, c2 with done_dist 0.1 (K1's TERM instantiation) and
    c5 with done_dist 0.05 (K4's, with the task redraw), each at full
    width:
@@ -53,7 +60,7 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
    c. Philox mode's resets: the fresh state of every early done, read
       back from the next observation, lies in the reset distributions'
       ranges (q, qd, target radius, z >= 0), and c5's fresh task
-      families come out within 4 sigma of 1/3 each;
+      families come out within 4 sigma of 1/3 each; the batch's SHA-256;
    d. five full-width training iterations through ``trpo.train.train``,
       launch counts as in 2d / 3e, no plain version, early dones > 0;
    e. the TERM kernels' times beside their bounds, and in turns with the
@@ -68,6 +75,7 @@ power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import subprocess
@@ -131,6 +139,10 @@ C2_DONE_DIST, C5_DONE_DIST = 0.1, 0.05
 RESET_TOL = 1e-5
 
 
+# Philox-mode seeds of the K4 digests and timings (phases 3a, 3f, 4)
+K4_SEED_A, K4_SEED_T = (4242, 17), (7, 7)
+
+
 def require(ok: bool, what) -> None:
     """A check that stays under ``python -O``."""
     if not ok:
@@ -191,6 +203,75 @@ def elementwise_flops(fn) -> int:
     with Counter():
         fn()
     return count[0]
+
+
+def sha256(*tensors) -> str:
+    """SHA-256 of the tensors' fp32 bytes in order, each -0 made +0: the
+    digest of a batch up to the sign of a zero."""
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update((x.float() + 0.0).contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def k4_setup(dev, cfg, seed):
+    """The 7-DoF phases' generator, policy and initial states: (gen,
+    params, s0), drawn in this order from ``seed``."""
+    from trpo_robot_control_tpu_torch.envs import arm
+    from trpo_robot_control_tpu_torch.models import policy
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = policy.init_params(gen, cfg.obs_dim, cfg.arm.n_joints,
+                                cfg.trpo.hidden, cfg.trpo.logstd_init)
+    return gen, params, arm.reset(cfg, gen, cfg.n_envs)
+
+
+def k4_occupancy():
+    """What the card makes of each K4 instantiation c3-c5 reach
+    (``rollout3d_kernel.occupancy``); requires at least 16 resident warps
+    per SM for every one. Returns {instantiation: occupancy}."""
+    from trpo_robot_control_tpu_torch.configs import (C3_FRANKA7,
+                                                      C4_FRANKA7_OBSTACLE,
+                                                      C5_MULTITASK)
+    from trpo_robot_control_tpu_torch.ops.cuda import rollout3d_kernel as r3
+    out = {}
+    for tag, cfg in (("c3", C3_FRANKA7), ("c4", C4_FRANKA7_OBSTACLE),
+                     ("c5", C5_MULTITASK)):
+        for term in (False, True):
+            for dt in (torch.float32, torch.bfloat16):
+                name = (f"{tag}{'-term' if term else ''}-"
+                        f"{'bf16' if dt == torch.bfloat16 else 'fp32'}")
+                occ = r3.occupancy(cfg.replace(done_dist=0.05 if term
+                                               else 0.0), dt)
+                print(f"K4 occupancy [{name}]: {occ}")
+                require(occ["warps_per_sm"] >= 16,
+                        f"K4 {name}: {occ['warps_per_sm']} warps per SM")
+                out[name] = occ
+    return out
+
+
+def k4_ms(cfg, params, s0):
+    """3f's K4 time per launch on a 7-DoF phase's inputs: Philox mode
+    with seed K4_SEED_T, bf16 stores."""
+    from trpo_robot_control_tpu_torch.ops.cuda import rollout3d_kernel as r3
+    seed = torch.tensor(K4_SEED_T, dtype=torch.int64, device=s0.q.device)
+    return cuda_ms(lambda: r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt,
+                                        s0.task, seed=seed,
+                                        store_dtype=torch.bfloat16),
+                   3, warmup=1)
+
+
+def k4_term_ms(cfg, params, s0):
+    """4e's K4-term variants (``term_variant_ms``) on c5-term's inputs:
+    Philox mode with seed K4_SEED_A, bf16 stores."""
+    from trpo_robot_control_tpu_torch.ops.cuda import rollout3d_kernel as r3
+    seed = torch.tensor(K4_SEED_A, dtype=torch.int64, device=s0.q.device)
+    return term_variant_ms(
+        "c5 K4", lambda d: r3.rollout3d(cfg.replace(done_dist=d), params,
+                                        s0.q, s0.qd, s0.tgt, s0.task,
+                                        seed=seed,
+                                        store_dtype=torch.bfloat16),
+        cfg.done_dist, rounds=3, iters=3, warmup=1)
 
 
 def bf16_ulp(x):
@@ -524,6 +605,20 @@ def k4_flops_per_env_step(r3, cfg, params, s0, eps, task):
     return per_step
 
 
+def k4_zero_flops_per_env_step(r3, cfg, s0):
+    """The structural zeros of the fused RNEA sweep that the kernel's
+    specialised passes skip, per env-step: the sweep's count less the
+    specialised passes' (``mass_bias_split``, the shared frame vectors
+    included), at one env, times the substeps."""
+    c = r3.arm3d_consts(cfg)
+    q, qd = list(s0.q[:1].T), list(s0.qd[:1].T)
+    R, p, axis, _ = r3._fk3(c, [torch.cos(x) for x in q],
+                            [torch.sin(x) for x in q])
+    fused = elementwise_flops(lambda: r3._mass_bias_fused(c, R, p, axis, qd))
+    split = elementwise_flops(lambda: r3.mass_bias_split(c, R, p, axis, qd))
+    return c.n_substeps * (fused - split)
+
+
 def arm3d_phases(dev, cfg, seed):
     """K4, K2-bf16, K5, K6 on a 7-DoF config and its training; returns
     {kernel: record} for K4-K6 and the bf16-mode record of K2. K4 runs at
@@ -543,12 +638,8 @@ def arm3d_phases(dev, cfg, seed):
     do, da = cfg.obs_dim, n
     H = cfg.trpo.hidden[0]
     bf16 = torch.bfloat16
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    params = policy.init_params(gen, do, da, cfg.trpo.hidden,
-                                cfg.trpo.logstd_init)
+    gen, params, s0 = k4_setup(dev, cfg, seed)
     P = policy.flatten(params).numel()
-    s0 = arm.reset(cfg, gen, N)
     rec = {}
 
     # ---- K4 3-D rollout at full width vs its plain version on every
@@ -596,11 +687,15 @@ def arm3d_phases(dev, cfg, seed):
         float(p.abs().max()) for p in p_out[:2]), f"{tag} K4 bf16 full "
         f"{full16}")
     del k32, k16, p_out
-    seed_a = torch.tensor([4242, 17], dtype=torch.int64, device=dev)
-    seed_b = torch.tensor([4243, 17], dtype=torch.int64, device=dev)
+    seed_a = torch.tensor(K4_SEED_A, dtype=torch.int64, device=dev)
+    seed_b = torch.tensor([K4_SEED_A[0] + 1, K4_SEED_A[1]], dtype=torch.int64,
+                          device=dev)
     obs_ff, act_ff, rew_ff = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt,
                                           s0.task, seed=seed_a,
                                           store_dtype=bf16)
+    digest = sha256(obs_ff, act_ff, rew_ff)
+    print(f"{tag} K4 Philox batch (seed {K4_SEED_A}, bf16 stores) SHA-256 "
+          f"{digest}")
     again = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt, s0.task,
                          seed=seed_a, store_dtype=bf16)
     require(all(torch.equal(a, b) for a, b in
@@ -630,7 +725,7 @@ def arm3d_phases(dev, cfg, seed):
             f"{tag} K4 Philox noise mean {z_mean}, std {z_std}")
     require(all(bool(torch.isfinite(x.float()).all())
                 for x in (obs_ff, act_ff, rew_ff)), f"{tag} K4: non-finite")
-    rec["rollout3d"] = dict(max_abs_err=max(errs_w))
+    rec["rollout3d"] = dict(max_abs_err=max(errs_w), philox_sha256=digest)
 
     # ---- K2 bf16 mode vs normal_eq_ff on the bf16 batch
     targets = gae(rew_ff, torch.zeros_like(rew_ff), cfg.trpo.gamma,
@@ -720,13 +815,30 @@ def arm3d_phases(dev, cfg, seed):
     print(f"{tag} K4 work per env-step, counted from the plain version: "
           f"{per_step:.1f} FLOP (the policy MLP's "
           f"{2 * (do * H + H * H + H * da)} included)")
-    seed_t = torch.tensor([7, 7], dtype=torch.int64, device=dev)
-    t_k4 = cuda_ms(lambda: r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt,
-                                        s0.task, seed=seed_t,
-                                        store_dtype=bf16), 3, warmup=1)
+    t_k4 = k4_ms(cfg, params, s0)
     state_floats = 2 * n + 3 + (cfg.n_tasks > 1)      # q0, qd0, tgt, task
-    b4 = bound_ms(per_step * B, B * ((do + da) * 2 + 4)
-                  + 4.0 * (N * state_floats + P))
+    k4_bytes = B * ((do + da) * 2 + 4) + 4.0 * (N * state_floats + P)
+    # the bound counts the operations the function needs: the fused
+    # sweep's less its structural zeros, which the kernel's specialised
+    # passes skip (the fused figure is kept beside it, labelled); and
+    # the share of it that -fmad=false leaves reachable (every multiply
+    # and add of the dynamics is an instruction of its own, the bound
+    # counts an FMA's two FLOPs per instruction, only the MLP's fmaf
+    # keep two)
+    zero = k4_zero_flops_per_env_step(r3, cfg, s0)
+    need = per_step - zero
+    mlp = 2 * (do * H + H * H + H * da)
+    b4 = bound_ms(need * B, k4_bytes)
+    b4fused = bound_ms(per_step * B, k4_bytes)
+    ceiling = (need / 2) / ((need - mlp) + mlp / 2)
+    print(f"{tag} K4: {zero:.1f} of the fused sweep's {per_step:.1f} FLOP "
+          f"per env-step ({100 * zero / per_step:.1f} %) are structural "
+          f"zeros the kernel skips; bound on the {need:.1f} it needs "
+          f"{b4[0]:.4f} ms ({b4[1]}), the fused sweep's {b4fused[0]:.4f} "
+          f"ms; -fmad=false leaves at most {100 * ceiling:.1f} % of the "
+          f"bound reachable")
+    rec["rollout3d"].update(zero_flop_share=zero / per_step,
+                            bound_fused_ms=b4fused[0], fmad_ceiling=ceiling)
     R = 2 * do + 5
     t_k2 = cuda_ms(lambda: mk.extended_gram(obs_ff, targets, tau), 20)
     t_k2p = cuda_ms(lambda: mk.extended_gram_plain(obs_ff, targets, tau), 5)
@@ -970,12 +1082,8 @@ def c5_term_phases(dev):
     do, da = cfg.obs_dim, n
     bf16 = torch.bfloat16
     c = r3.arm3d_consts(cfg)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(13)
-    params = policy.init_params(gen, do, da, cfg.trpo.hidden,
-                                cfg.trpo.logstd_init)
+    gen, params, s0 = k4_setup(dev, cfg, 13)
     P = policy.flatten(params).numel()
-    s0 = arm.reset(cfg, gen, N)
     eps = torch.randn(T, N, n, generator=gen, device=dev)
     fresh = arm.fresh_episodes(cfg, gen, N)
 
@@ -1012,7 +1120,7 @@ def c5_term_phases(dev):
     del k32, k16, p_out
 
     # ---- the limit of no done (bf16 stores, as the trainer runs)
-    seed = torch.tensor([4242, 17], dtype=torch.int64, device=dev)
+    seed = torch.tensor(K4_SEED_A, dtype=torch.int64, device=dev)
     check_no_done_limit(
         "c5 K4-term",
         r3.rollout3d(cfg.replace(done_dist=0.0), params, s0.q, s0.qd, s0.tgt,
@@ -1021,8 +1129,12 @@ def c5_term_phases(dev):
                      s0.tgt, s0.task, seed=seed, store_dtype=bf16))
 
     # ---- Philox resets (fp32 stores) read back from the next observation
-    obs, _, _, dones = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt,
-                                    s0.task, seed=seed)
+    batch = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt, s0.task, seed=seed)
+    digest = sha256(*batch)
+    print(f"c5 K4-term Philox batch (seed {K4_SEED_A}, fp32 stores) SHA-256 "
+          f"{digest}")
+    obs, dones = batch[0], batch[3]
+    del batch
     early = int(dones[:-1].sum())
     _, o = fresh_states_after_dones(obs, dones)
     del obs
@@ -1055,35 +1167,36 @@ def c5_term_phases(dev):
         {"rollout": 0, "moments": n_iters, "fvp": 0, "rollout3d": n_iters,
          "pg": n_iters, "fvp_ff": n_iters * cfg.trpo.cg_iters}, train)
 
-    # ---- time beside the bound: K4's work per env-step (3e) plus, for
-    # this run's share of early dones, the plain version's reset (the
-    # fresh cos/sin and FK), and the done flags' 4 bytes per env-step
+    # ---- time beside the bound: K4's work per env-step (3f, the
+    # structural zeros left out; the fused sweep's figure beside it) plus,
+    # for this run's early dones, the plain version's reset (the fresh
+    # cos/sin and FK), and the done flags' 4 bytes per env-step
     B = T * N
     per_step = k4_flops_per_env_step(r3, cfg.replace(done_dist=0.0), params,
                                      s0, eps, s0.task)
+    zero = k4_zero_flops_per_env_step(r3, cfg, s0)
     one = [x[:1, :1] for x in fresh]
     q1, qd1 = list(s0.q[:1].T), list(s0.qd[:1].T)
     tg1 = tuple(s0.tgt[:1, i] for i in range(3))
     done1 = torch.ones(1, dtype=torch.bool, device=dev)
     per_reset = elementwise_flops(lambda: r3.start_fresh(
         c, done1, [x[0] for x in one], q1, qd1, tg1, s0.task[:1]))
-    flops = per_step * B + per_reset * early
-    t = term_variant_ms(
-        "c5 K4", lambda d: r3.rollout3d(cfg.replace(done_dist=d), params,
-                                        s0.q, s0.qd, s0.tgt, s0.task,
-                                        seed=seed, store_dtype=bf16),
-        cfg.done_dist, rounds=3, iters=3, warmup=1)
+    t = k4_term_ms(cfg, params, s0)
     t_k = t["term"]
-    bms, by = bound_ms(flops, B * ((do + da) * 2 + 4 + 4)
-                       + 4.0 * (N * (2 * n + 4) + P))
+    nbytes = B * ((do + da) * 2 + 4 + 4) + 4.0 * (N * (2 * n + 4) + P)
+    bms, by = bound_ms((per_step - zero) * B + per_reset * early, nbytes)
+    fused = bound_ms(per_step * B + per_reset * early, nbytes)[0]
     print(f"c5 rollout3d_term: {t_k:.4f} ms/launch (bound {bms:.4f} ms by "
-          f"{by}; {per_step:.1f} FLOP per env-step and {per_reset} per "
-          f"reset, {early} resets), plain {t_p:.3f} ms (on {Nc} envs, "
-          f"once), {launches['rollout3d'] // n_iters} launch(es)/update")
+          f"{by}; {per_step - zero:.1f} FLOP per env-step, the fused "
+          f"sweep's {per_step:.1f} less its structural zeros, and "
+          f"{per_reset} per reset, {early} resets; the fused sweep's bound "
+          f"{fused:.4f} ms), plain {t_p:.3f} ms (on {Nc} envs, once), "
+          f"{launches['rollout3d'] // n_iters} launch(es)/update")
     return {"rollout3d_term": dict(
         launches=launches["rollout3d"], max_abs_err=err, ms=t_k,
         plain_ms=t_p, bound_ms=bms, bound_by=by, library_ms=None,
-        plain_envs=Nc, done_dist=cfg.done_dist, variants_ms=t)}
+        bound_fused_ms=fused, plain_envs=Nc, done_dist=cfg.done_dist,
+        variants_ms=t, philox_sha256=digest)}
 
 
 def main() -> int:
@@ -1101,6 +1214,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     print(f"build: {build.build_all():.1f} s")
     print(build.ptxas_report())
+    occupancy = k4_occupancy()
 
     from trpo_robot_control_tpu_torch.configs import (C3_FRANKA7,
                                                       C4_FRANKA7_OBSTACLE,
@@ -1131,12 +1245,15 @@ def main() -> int:
                      plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                      bound_by=r["bound_by"], library_ms=r["library_ms"],
                      ok=True)
+        entry.update({k: v for k, v in r.items() if k not in entry})
         key = "moments_bf16" if name == "moments" else name
         if key in rec and key != name:
             entry["bf16_mode_c3"] = rec[key]
         for tag, r in more.items():
             if key in r:
                 entry[("bf16_mode_" if key != name else "at_") + tag] = r[key]
+        if name == "rollout3d":
+            entry["occupancy"] = occupancy
         out.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))

@@ -75,18 +75,31 @@ def test_fvp_kernel_matches_plain_on_card(cuda):
     assert torch.equal(fk, fvp_kernel.gn_fvp(pc, obs, hs, scale, v, 0.1))
 
 
+def _exact(k_out, p_out, atol=0.0):
+    """The kernel's outputs equal the plain version's (up to the sign of a
+    zero, as torch.equal compares), or lie within atol of them."""
+    for a, b in zip(k_out, p_out):
+        if atol == 0.0:
+            assert torch.equal(a, b), float((a - b).abs().max())
+        else:
+            torch.testing.assert_close(a, b, rtol=0, atol=atol)
+
+
 @pytest.mark.cuda
-def test_rollout3d_kernel_matches_plain_on_card(cuda):
+@pytest.mark.parametrize("N, atol", [(300, 0.0), (33, 0.0), (1, 1e-5)])
+def test_rollout3d_kernel_matches_plain_on_card(cuda, N, atol):
+    """N = 300 and 33 are not multiples of the 32-env block; N = 1 is a
+    block with one live lane. At N = 1 the plain version's policy products
+    round differently from the kernel's fmaf chains (1.5e-8 on an H100),
+    so that case keeps a tolerance."""
     cfg = pconfigs.C3_FRANKA7.replace(horizon=8)
-    N = 300                     # not a multiple of the 32-env block
     pn = policy_params_np(np.random.RandomState(9), cfg.obs_dim, 7)
     pc = {k: t(v).to(cuda) for k, v in pn.items()}
     ins = [t(x).to(cuda) for x in env_inputs_np(cfg, N, seed=10)]
     task = torch.zeros(N, dtype=torch.int32, device=cuda)
     k_out = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task, eps=ins[3])
     p_out = rollout3d_kernel.rollout3d_plain(cfg, pc, *ins[:3], task, ins[3])
-    for a, b in zip(k_out, p_out):
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    _exact(k_out, p_out, atol)
     k16 = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task, eps=ins[3],
                                      store_dtype=torch.bfloat16)
     for a, b in zip(k16[:2], k_out[:2]):
@@ -114,8 +127,7 @@ def test_rollout3d_kernel_task_terms_match_plain_on_card(cuda, name):
     k_out = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task, eps=ins[3])
     p_out = rollout3d_kernel.rollout3d_plain(cfg, pc, *ins[:3], task, ins[3])
     assert k_out[0].shape == (8, cfg.obs_dim, N)
-    for a, b in zip(k_out, p_out):
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    _exact(k_out, p_out)
     k16 = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task, eps=ins[3],
                                      store_dtype=torch.bfloat16)
     for a, b in zip(k16[:2], k_out[:2]):
@@ -124,6 +136,21 @@ def test_rollout3d_kernel_task_terms_match_plain_on_card(cuda, name):
     a1 = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task, seed=seed)
     a2 = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task, seed=seed)
     assert all(torch.equal(x, y) for x, y in zip(a1, a2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["c3_franka7", "c4_franka7_obstacle",
+                                  "c5_multitask"])
+def test_rollout3d_kernel_keeps_two_blocks_per_sm(cuda, name):
+    """Every instantiation c3-c5 reach, terminating or not, fp32 or bf16
+    stores: at least two 8-warp blocks resident on an SM."""
+    cfg = pconfigs.CONFIGS[name]
+    for done_dist in (0.0, 0.05):
+        for dtype in (torch.float32, torch.bfloat16):
+            occ = rollout3d_kernel.occupancy(
+                cfg.replace(done_dist=done_dist), dtype)
+            assert occ["blocks_per_sm"] >= 2 and occ["warps_per_sm"] >= 16, \
+                occ
 
 
 @pytest.mark.cuda
@@ -278,8 +305,7 @@ def test_rollout3d_kernel_terminating_matches_plain_on_card(cuda, name):
     p_out = rollout3d_kernel.rollout3d_plain(cfg, pc, s.q, s.qd, s.tgt,
                                              s.task, eps, fresh)
     assert torch.equal(k_out[3], p_out[3]) and bool(k_out[3][:-1].any())
-    for a, b in zip(k_out[:3], p_out[:3]):
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    _exact(k_out[:3], p_out[:3])
     k16 = rollout3d_kernel.rollout3d(cfg, pc, s.q, s.qd, s.tgt, s.task,
                                      eps=eps, fresh=fresh,
                                      store_dtype=torch.bfloat16)

@@ -25,35 +25,59 @@
 // instantiation is the same code as without them.
 //
 // What bounds it on an H100: neither bytes (54 MB written at c3, 16 us)
-// nor FLOPs (~10 GFLOP of MLP plus the dynamics, ~0.2 ms at 67 TFLOP/s)
-// but the 200 dependent steps of each env: a chain of two 64-wide MLP
-// layers, 2 x (FK + RNEA pass + 7x7 Cholesky) and ~20 transcendentals.
-// The design spreads one env over eight threads, one per RNEA pass, which
-// is the TPU kernel's `_mass_bias_fused` row split turned into warps: a
-// block holds 32 envs (one per lane) and NJ + 1 = 8 warps. Warp j < 7
-// computes mass-matrix column j (zero velocity, unit acceleration of
-// joint j, no gravity), warp 7 the bias (real velocity, gravity, zero
-// acceleration); the columns meet in shared memory and every warp then
-// solves the same 7x7 system redundantly, so q and qd stay in registers
-// in every warp without another exchange. The same holds for a reset:
-// every warp sees the same distance, so all take the same done decision,
-// and counter-based Philox gives all of them the same fresh episode
-// without an exchange; after it every warp recomputes the cos/sin and
-// the FK that the next observation reads. The 64 hidden units of each
-// policy layer are split the same way (8 per warp) with the activations
-// in shared memory, and warp m < 7 forms action m. No warp diverges:
-// its 32 lanes are 32 envs on the same pass. Stores are rows of 32
-// neighbouring envs, so they coalesce. 4096 envs give 128 blocks of 256
-// threads: one block on each of 128 SMs.
+// nor FLOPs (~10 GFLOP of MLP plus the dynamics, ~0.5 ms at 67 TFLOP/s)
+// but the 200 dependent steps of each env: per substep a chain of FK ->
+// RNEA bias pass -> 7x7 Cholesky -> solve -> Euler step -> sincosf, and per
+// step two 64-wide MLP layers whose weights reach every lane as
+// shared-memory broadcasts (each returns a weight to all 32 lanes, so the
+// load-return path bounds the MLP); and instruction fetch, since one warp
+// alone runs most of that chain's code.
+//
+// Design: warp roles. A block holds 32 envs (one per lane, so every
+// feature-first store is a 128-byte row) and NJ + 1 = 8 warps:
+// - the state warp (warp NJ) keeps each env's target and task in
+//   registers and its q and qd in shared memory, and alone does the
+//   env's serial work once: the FK, the bias pass (real velocity,
+//   gravity, zero acceleration), the Cholesky and both solves, the
+//   integration, the observation, the score, the done test and the
+//   fresh episode;
+// - column warp j < NJ computes mass-matrix column j with a pass
+//   specialised to what is not structurally zero: with qd = 0, unit qdd_j
+//   and no gravity every angular velocity is zero and every quantity of
+//   joints before j vanishes, so the pass starts at joint j, carries no
+//   w terms, and below j only carries the force's moment down to the
+//   joints whose torques column j needs (tau_i, i <= j). The column
+//   warps also run the policy MLP (units split 9/9/9/9/9/9/10, warp m
+//   forms action m), the sincosf of the new q (warp j: joint j) and, in
+//   Philox mode, the next step's action normals (warp NJ - 1, while the
+//   state warp finishes the step).
+// Shared memory carries the rest: per joint R, p, axis and the pass-
+// independent r = p_i - p_{i-1}, d = R com and (p + d) - p that every
+// pass reads (written once by the state warp), q, qd and cos/sin q (the
+// observation's rows), the normals, the actions and the upper triangle of
+// M. The roles meet at named producer/consumer barriers (bar.arrive on one
+// side, bar.sync on the other; see BAR_*), so at substep 0 the state warp
+// runs the bias pass and the Cholesky (neither needs the action) while the
+// column warps run their columns and then the MLP. The joint loops (FK,
+// bias pass, column passes) are rolled, with their per-joint carries in
+// shared memory: unrolled, the code outgrew the instruction cache, and the
+// state warp, whose code no other warp shares, stalled on instruction
+// fetch. At under 128 registers two blocks (16 warps) fit on an SM, so
+// one block's idle column warps leave the issue slots to the other's.
 //
 // Numerics: built with -fmad=false so every multiply and add rounds as
 // PyTorch's separate elementwise ops do in the plain version; the
 // Cholesky pivots use 1.0f / sqrtf (correctly rounded, as 1 / torch.sqrt
 // is), and the push term divides by |d| + 1e-6 as the plain version does;
-// the policy MLP uses explicit fmaf. Arm constants arrive as kernel
-// arguments already rounded to float32, and products with the zero and
-// unit entries of the fixed transforms give the same numbers as the plain
-// version's sparse folding of them.
+// the policy MLP uses explicit fmaf in d / k order. Arm constants arrive
+// as kernel arguments already rounded to float32, and products with the
+// zero and unit entries of the fixed transforms give the same numbers as
+// the plain version's sparse folding of them. The specialised passes
+// leave out only terms that are exactly +-0 in the plain version's fused
+// sweep, and x + (+-0) = x for every non-zero x, so they give the fused
+// sweep's numbers up to the sign of a zero
+// (`rollout3d_kernel.mass_bias_split` states them in PyTorch; the CPU
+// tests hold it to `_mass_bias_fused` with torch.equal).
 //
 // C interface (ctypes); returns cudaGetLastError() after the launch.
 
@@ -68,6 +92,19 @@ namespace {
 constexpr int H = 64;          // hidden width (both layers)
 constexpr int ENVS = 32;       // envs per block, one per lane
 constexpr int NJ_MAX = 7;
+constexpr int FR = 24;         // floats per joint frame in shared memory
+// frame fields: R (row-major), p, axis s, r = p_i - p_{i-1}, d = R com,
+// cwd = (p + d) - p
+constexpr int F_R = 0, F_P = 9, F_S = 12, F_RR = 15, F_D = 18, F_CWD = 21;
+// named barriers (0 is __syncthreads), each but MLP a producer/consumer
+// pair, the producers arriving and the consumers waiting: FRAMES (state
+// -> column warps: a substep's frames, at substep 0 also the observation
+// and the normals), COLS (column warps -> state: the columns), ACT
+// (column warps -> state: the actions), MLP (the column warps between the
+// policy's layers), Q (state -> column warps: the new q), TRIG (column
+// warps -> state: its cos/sin)
+constexpr int BAR_FRAMES = 1, BAR_COLS = 2, BAR_ACT = 3, BAR_MLP = 4,
+              BAR_Q = 5, BAR_TRIG = 6;
 
 struct Arm3D {
     float T_rot[NJ_MAX][9], T_pos[NJ_MAX][3], mass[NJ_MAX], com[NJ_MAX][3],
@@ -129,91 +166,155 @@ __device__ __forceinline__ V3 inertia_vec(const float* R, const float* I,
     return mvec(R, iv);
 }
 
-template <int NJ>
-struct Fk3 {
-    float R[NJ][9];
-    V3 p[NJ], axis[NJ], ee;
-};
+// Frame fields in shared memory, (field, lane) with a lane stride of ENVS:
+// `f` points at field 0 of one joint for this lane.
+__device__ __forceinline__ V3 ld3(const float* f, int k) {
+    return {f[k * ENVS], f[(k + 1) * ENVS], f[(k + 2) * ENVS]};
+}
+__device__ __forceinline__ void st3(float* f, int k, V3 v) {
+    f[k * ENVS] = v.x;
+    f[(k + 1) * ENVS] = v.y;
+    f[(k + 2) * ENVS] = v.z;
+}
+__device__ __forceinline__ void ld9(const float* f, int k, float* R) {
+#pragma unroll
+    for (int m = 0; m < 9; ++m) R[m] = f[(k + m) * ENVS];
+}
 
+// Forward kinematics in fk3's operation order, one joint per iteration:
+// reads cos/sin of q_i from `cs` (rows i and NJ + i, this lane's), writes
+// joint i's frame and the pass-independent vectors every RNEA pass reads
+// to `fr` (this lane's field 0 of joint 0) and returns the end effector.
 template <int NJ>
-__device__ __forceinline__ void fk3(const Arm3D& c, const float* cq,
-                                    const float* sq, Fk3<NJ>& f) {
+__device__ __forceinline__ V3 fk_store(const Arm3D& c, const float* cs,
+                                       float* fr) {
     float Rp[9] = {1.f, 0.f, 0.f, 0.f, 1.f, 0.f, 0.f, 0.f, 1.f};
     V3 pp = {0.f, 0.f, 0.f};
-#pragma unroll
+#pragma unroll 1
     for (int i = 0; i < NJ; ++i) {
+        const float cq = cs[i * ENVS], sq = cs[(NJ + i) * ENVS];
+        const float* T = c.T_rot[i];
         float A[9];
 #pragma unroll
         for (int r = 0; r < 3; ++r)
 #pragma unroll
             for (int k = 0; k < 3; ++k)
-                A[3 * r + k] = Rp[3 * r] * c.T_rot[i][k]
-                             + Rp[3 * r + 1] * c.T_rot[i][3 + k]
-                             + Rp[3 * r + 2] * c.T_rot[i][6 + k];
-        f.p[i] = vadd(pp, mvec_c(Rp, c.T_pos[i]));
+                A[3 * r + k] = Rp[3 * r] * T[k] + Rp[3 * r + 1] * T[3 + k]
+                             + Rp[3 * r + 2] * T[6 + k];
+        const V3 p = vadd(pp, mvec_c(Rp, c.T_pos[i]));
 #pragma unroll
         for (int r = 0; r < 3; ++r) {
-            f.R[i][3 * r] = A[3 * r] * cq[i] + A[3 * r + 1] * sq[i];
-            f.R[i][3 * r + 1] = -A[3 * r] * sq[i] + A[3 * r + 1] * cq[i];
-            f.R[i][3 * r + 2] = A[3 * r + 2];
+            Rp[3 * r] = A[3 * r] * cq + A[3 * r + 1] * sq;
+            Rp[3 * r + 1] = -A[3 * r] * sq + A[3 * r + 1] * cq;
+            Rp[3 * r + 2] = A[3 * r + 2];
         }
-        f.axis[i] = V3{A[2], A[5], A[8]};
+        const V3 d = mvec_c(Rp, c.com[i]);
+        float* f = fr + i * FR * ENVS;
 #pragma unroll
-        for (int k = 0; k < 9; ++k) Rp[k] = f.R[i][k];
-        pp = f.p[i];
+        for (int m = 0; m < 9; ++m) f[(F_R + m) * ENVS] = Rp[m];
+        st3(f, F_P, p);
+        st3(f, F_S, V3{A[2], A[5], A[8]});
+        st3(f, F_RR, vsub(p, pp));
+        st3(f, F_D, d);
+        st3(f, F_CWD, vsub(vadd(p, d), p));
+        pp = p;
     }
-    f.ee = vadd(f.p[NJ - 1], mvec_c(f.R[NJ - 1], c.ee));
+    return vadd(pp, mvec_c(Rp, c.ee));
 }
 
-// One RNEA pass of the fused sweep: pass j < NJ gives column j of the
-// mass matrix (qd = 0, qdd = e_j, no gravity), pass NJ the bias (real qd,
-// qdd = 0, gravity). Writes tau_i of this pass to tau[i].
+// One step of the backward recursion at a joint: the child's force fc and
+// moment nc (zero below the last joint, whose child offset rc reads 0)
+// become this joint's.
+__device__ __forceinline__ void backward_step(V3 F, V3 N, V3 cwd, V3 rc,
+                                              V3& fc, V3& nc) {
+    const V3 fi = vadd(F, fc);
+    nc = vadd(vadd(N, nc), vadd(vcross(cwd, F), vcross(rc, fc)));
+    fc = fi;
+}
+
+// The bias pass (real qd, qdd = 0, gravity) of the fused sweep without its
+// qdd terms: qd from `qd` (row i, this lane's); F_i and N_i go through
+// `fn` (6 rows a joint) to the backward loop, tau_i to bias (row i).
 template <int NJ>
-__device__ __forceinline__ void rnea_pass(const Arm3D& c, const Fk3<NJ>& f,
-                                          const float* qd, int j,
-                                          float* tau) {
-    const bool bias = (j == NJ);
-    V3 w_par = {0.f, 0.f, 0.f}, wd_par = {0.f, 0.f, 0.f};
-    V3 a_par = {0.f, 0.f, bias ? c.gravity : 0.f};
-    V3 p_par = {0.f, 0.f, 0.f};
-    V3 ws[NJ], wds[NJ], acs[NJ], cws[NJ];
-#pragma unroll
+__device__ __forceinline__ void bias_pass(const Arm3D& c, const float* fr,
+                                          const float* qd, float* fn,
+                                          float* bias) {
+    V3 w = {0.f, 0.f, 0.f}, wd = {0.f, 0.f, 0.f};
+    V3 a = {0.f, 0.f, c.gravity};
+#pragma unroll 1
     for (int i = 0; i < NJ; ++i) {
-        const float qd_i = bias ? qd[i] : 0.f;
-        const float qdd_i = (i == j) ? 1.f : 0.f;
-        V3 r = vsub(f.p[i], p_par);
-        V3 a_i = vadd(a_par, vadd(vcross(wd_par, r),
-                                  vcross(w_par, vcross(w_par, r))));
-        V3 s = f.axis[i];
-        V3 w_i = vadd(w_par, vscale(qd_i, s));
-        V3 wd_i = vadd(vadd(wd_par, vscale(qdd_i, s)),
-                       vcross(w_par, vscale(qd_i, s)));
-        V3 d = mvec_c(f.R[i], c.com[i]);
-        acs[i] = vadd(a_i, vadd(vcross(wd_i, d),
-                                vcross(w_i, vcross(w_i, d))));
-        ws[i] = w_i;
-        wds[i] = wd_i;
-        cws[i] = vadd(f.p[i], d);
-        w_par = w_i;
-        wd_par = wd_i;
-        a_par = a_i;
-        p_par = f.p[i];
+        const float* f = fr + i * FR * ENVS;
+        float R[9];
+        ld9(f, F_R, R);
+        const V3 s = ld3(f, F_S), r = ld3(f, F_RR), d = ld3(f, F_D);
+        const V3 qs = vscale(qd[i * ENVS], s);
+        a = vadd(a, vadd(vcross(wd, r), vcross(w, vcross(w, r))));
+        const V3 w_i = vadd(w, qs);
+        wd = vadd(wd, vcross(w, qs));
+        w = w_i;
+        const V3 ac = vadd(a, vadd(vcross(wd, d), vcross(w, vcross(w, d))));
+        float* g = fn + 6 * i * ENVS;
+        st3(g, 0, vscale(c.mass[i], ac));
+        st3(g, 3, vadd(inertia_vec(R, c.inertia[i], wd),
+                       vcross(w, inertia_vec(R, c.inertia[i], w))));
     }
-    V3 f_child = {0.f, 0.f, 0.f}, n_child = {0.f, 0.f, 0.f};
-    V3 p_child = {0.f, 0.f, 0.f};
-#pragma unroll
+    V3 fc = {0.f, 0.f, 0.f}, nc = {0.f, 0.f, 0.f};
+#pragma unroll 1
     for (int i = NJ - 1; i >= 0; --i) {
-        V3 F = vscale(c.mass[i], acs[i]);
-        V3 N = vadd(inertia_vec(f.R[i], c.inertia[i], wds[i]),
-                    vcross(ws[i], inertia_vec(f.R[i], c.inertia[i], ws[i])));
-        V3 fi = vadd(F, f_child);
-        V3 nn = vadd(vadd(N, n_child),
-                     vadd(vcross(vsub(cws[i], f.p[i]), F),
-                          vcross(vsub(p_child, f.p[i]), f_child)));
-        tau[i] = vdot(f.axis[i], nn);
-        f_child = fi;
-        n_child = nn;
-        p_child = f.p[i];
+        const float* f = fr + i * FR * ENVS;
+        const float* g = fn + 6 * i * ENVS;
+        backward_step(ld3(g, 0), ld3(g, 3), ld3(f, F_CWD),
+                      ld3(f + FR * ENVS, F_RR), fc, nc);
+        bias[i * ENVS] = vdot(ld3(f, F_S), nc);
+    }
+}
+
+// Column j of the mass matrix (qd = 0, qdd = e_j, no gravity) from the
+// joints' frames: every w is zero, wd = s_j from joint j on, so
+// a_i = a_{i-1} + s_j x r_i (a_j = 0; through `as`, 3 rows a joint from
+// joint j on), ac_i = a_i + s_j x d_i, N_i = I_i(s_j); below joint j the
+// force and moment are zero, so only the child's moment is carried down.
+// Writes tau_i, i <= j, to the upper triangle m[tri(i, j)].
+template <int NJ>
+__device__ __forceinline__ void column_pass(const Arm3D& c, const float* fr,
+                                            int j, float* as, float* m) {
+    const V3 s = ld3(fr + j * FR * ENVS, F_S);
+    V3 a = {0.f, 0.f, 0.f};
+    st3(as, 0, a);
+#pragma unroll 1
+    for (int i = j + 1; i < NJ; ++i) {
+        a = vadd(a, vcross(s, ld3(fr + i * FR * ENVS, F_RR)));
+        st3(as + 3 * (i - j) * ENVS, 0, a);
+    }
+    V3 fc = {0.f, 0.f, 0.f}, nc = {0.f, 0.f, 0.f};
+    float* col = m + (j * (j + 1) / 2) * ENVS;
+#pragma unroll 1
+    for (int i = NJ - 1; i >= 0; --i) {
+        const float* f = fr + i * FR * ENVS;
+        const V3 rc = ld3(f + FR * ENVS, F_RR);
+        if (i >= j) {
+            float R[9];
+            ld9(f, F_R, R);
+            const V3 ai = ld3(as + 3 * (i - j) * ENVS, 0);
+            const V3 F = vscale(c.mass[i], vadd(ai, vcross(s, ld3(f, F_D))));
+            backward_step(F, inertia_vec(R, c.inertia[i], s), ld3(f, F_CWD),
+                          rc, fc, nc);
+        } else {                         // F = N = 0 below joint j
+            nc = vadd(nc, vcross(rc, fc));
+        }
+        if (i <= j) col[i * ENVS] = vdot(ld3(f, F_S), nc);
+    }
+}
+
+// cos and sin of q (rows i, this lane's) to rows i and NJ + i of `cs`.
+template <int NJ>
+__device__ __forceinline__ void sincos_rows(const float* q, float* cs) {
+#pragma unroll 1
+    for (int i = 0; i < NJ; ++i) {
+        float sn, cn;
+        sincosf(q[i * ENVS], &sn, &cn);
+        cs[i * ENVS] = cn;
+        cs[(NJ + i) * ENVS] = sn;
     }
 }
 
@@ -230,18 +331,22 @@ __device__ __forceinline__ __nv_bfloat16 store_cast<__nv_bfloat16>(float x) {
 
 // The reward of one env at the post-step state: -(|ee - tgt|^2 + ctrl_weight
 // sum tau^2), minus the push penalty for task 2 and the obstacle penalty,
-// in the plain version's operation order.
+// in the plain version's operation order; p and axis from the frames, qd
+// from rows i of `qd`.
 template <int NJ, int NTASKS, bool OBST>
-__device__ __forceinline__ float score(const Arm3D& c, const Fk3<NJ>& f,
-                                       const float* qd, V3 tgt, int task,
-                                       float ctrl) {
-    V3 d = vsub(f.ee, tgt);
+__device__ __forceinline__ float score(const Arm3D& c, const float* fr,
+                                       V3 ee, const float* qd, V3 tgt,
+                                       int task, float ctrl) {
+    V3 d = vsub(ee, tgt);
     float r = -(vdot(d, d) + c.ctrl_weight * ctrl);
     if (NTASKS > 2 && task == 2) {
         V3 v = {0.f, 0.f, 0.f};
-#pragma unroll
-        for (int i = 0; i < NJ; ++i)
-            v = vadd(v, vscale(qd[i], vcross(f.axis[i], vsub(f.ee, f.p[i]))));
+#pragma unroll 1
+        for (int i = 0; i < NJ; ++i) {
+            const float* f = fr + i * FR * ENVS;
+            v = vadd(v, vscale(qd[i * ENVS], vcross(ld3(f, F_S),
+                                                   vsub(ee, ld3(f, F_P)))));
+        }
         const float dn = sqrtf(vdot(d, d)) + 1e-6f;
         const V3 dirn = {-d.x / dn, -d.y / dn, -d.z / dn};
         const V3 verr = vsub(v, vscale(c.push_speed, dirn));
@@ -249,9 +354,9 @@ __device__ __forceinline__ float score(const Arm3D& c, const Fk3<NJ>& f,
     }
     if (OBST) {
         float pen = 0.f;
-#pragma unroll
+#pragma unroll 1
         for (int i = 1; i <= NJ; ++i) {
-            const V3 pt = (i < NJ) ? f.p[i] : f.ee;
+            const V3 pt = (i < NJ) ? ld3(fr + i * FR * ENVS, F_P) : ee;
             const float dx = pt.x - c.obstacle_center[0];
             const float dy = pt.y - c.obstacle_center[1];
             const float dz = pt.z - c.obstacle_center[2];
@@ -269,7 +374,7 @@ __device__ __forceinline__ float score(const Arm3D& c, const Fk3<NJ>& f,
 // ftask (T, N) from the caller, or, when fq is NULL, uniforms from Philox
 // with counter (env, t, block, 1): q_i = u[i], qd_i = u[NJ + i], radius
 // u[2 NJ], the direction's Box-Muller pairs u[2 NJ + 1 .. 2 NJ + 4], task
-// u[2 NJ + 5]. Every warp of the env's block computes the same values.
+// u[2 NJ + 5].
 template <int NJ, int NTASKS>
 __device__ __forceinline__ void fresh_episode(
     const Arm3D& c, uint2 key, int e, int t, int N,
@@ -317,8 +422,78 @@ __device__ __forceinline__ void fresh_episode(
     if (NTASKS > 1) task = (int)(u[2 * NJ + 5] * (float)NTASKS);
 }
 
+__device__ __forceinline__ void bar_sync(int id, int n) {
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+    asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// Shared-memory layout in floats (dynamic shared memory; every per-env
+// array is (row, lane)). The layer weights are padded per column warp:
+// slot (w, u), u < UPAD, holds unit first(w) + u, with first(w) = w H /
+// NJ, or 0 beyond the warp's units; UPAD rounds the most units a warp
+// takes (UMAX) up to 16 bytes. The frames have a joint slot NJ whose r
+// stays 0, the last joint's child offset.
+template <int NJ, int DO>
+struct Smem {
+    static constexpr int UMAX = (H + NJ - 1) / NJ;
+    static constexpr int UPAD = (UMAX + 3) / 4 * 4;
+    static constexpr int SLOTS = NJ * UPAD;
+    static constexpr int W1 = 0;
+    static constexpr int W0 = W1 + H * SLOTS;
+    static constexpr int B0 = W0 + DO * SLOTS;
+    static constexpr int B1 = B0 + SLOTS;
+    static constexpr int W2 = B1 + SLOTS;
+    static constexpr int B2 = W2 + H * NJ;
+    static constexpr int OBS = B2 + ((NJ + 7) / 8) * 8;
+    static constexpr int H0 = OBS + DO * ENVS;
+    static constexpr int H1 = H0 + H * ENVS;
+    static constexpr int Z = H1 + H * ENVS;
+    static constexpr int ACT = Z + NJ * ENVS;
+    static constexpr int FRAME = ACT + NJ * ENVS;
+    static constexpr int M = FRAME + (NJ + 1) * FR * ENVS;
+    static constexpr int Q = M + (NJ * (NJ + 1) / 2) * ENVS;   // q
+    static constexpr int QD = Q + NJ * ENVS;                   // qd
+    static constexpr int FN = QD + NJ * ENVS;      // bias pass F_i, N_i
+    static constexpr int BIAS = FN + 6 * NJ * ENVS;
+    // column warp j's a_i, i >= j: NJ - j joints from joint j * NJ -
+    // j (j - 1) / 2 on
+    static constexpr int AS = BIAS + NJ * ENVS;
+    static constexpr int END = AS + 3 * (NJ * (NJ + 1) / 2) * ENVS;
+    static constexpr size_t BYTES = END * sizeof(float);
+    static_assert(SLOTS % 4 == 0 && (DO * SLOTS) % 4 == 0,
+                  "weight slices stay 16-byte aligned");
+};
+
+// U hidden units of one layer for this lane: z_u = sum_d in[d] W[d][u]
+// (fmaf in d order; in is (d, lane)) from the warp's padded weight slice
+// (row stride STRIDE), then tanh(z + b) to out (unit, lane) for the warp's
+// cnt <= U units (one code for every column warp).
+template <int U, int DIN, int STRIDE>
+__device__ __forceinline__ void layer_units(const float* in, const float* W,
+                                            const float* b, int first,
+                                            int cnt, float* out, int lane) {
+    float z[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) z[u] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < DIN; ++d) {
+        const float x = in[d * ENVS + lane];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+            z[u] = fmaf(x, W[d * STRIDE + u], z[u]);
+    }
+    float* o = out + first * ENVS + lane;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+        if (u < cnt) o[u * ENVS] = z[u];
+#pragma unroll 1
+    for (int u = 0; u < cnt; ++u) o[u * ENVS] = tanhf(o[u * ENVS] + b[u]);
+}
+
 template <int NJ, int NTASKS, bool OBST, bool TERM, typename Out>
-__global__ void __launch_bounds__((NJ + 1) * ENVS) rollout3d_kernel(
+__global__ void __launch_bounds__((NJ + 1) * ENVS, 2) rollout3d_kernel(
     Arm3D c, const float* __restrict__ q0, const float* __restrict__ qd0,
     const float* __restrict__ tgt0, const int* __restrict__ task0,
     const float* __restrict__ W0,
@@ -330,203 +505,259 @@ __global__ void __launch_bounds__((NJ + 1) * ENVS) rollout3d_kernel(
     const float* __restrict__ ftgt, const int* __restrict__ ftask,
     Out* __restrict__ obs, Out* __restrict__ act, float* __restrict__ rew,
     float* __restrict__ dones, int N, int T) {
-    constexpr int NW = NJ + 1;          // warps: one per RNEA pass
+    constexpr int NW = NJ + 1;
     constexpr int NT = NW * ENVS;
+    constexpr int NCT = NJ * ENVS;       // column warps' threads
     constexpr int DO = 3 * NJ + 3 + (NTASKS > 1 ? NTASKS : 0);
-    constexpr int UPW = H / NW;         // hidden units per warp
-    static_assert(H % NW == 0, "hidden width must split evenly over warps");
-    static_assert(NW * NJ <= H, "tau columns alias the first hidden buffer");
-    __shared__ float sW0[DO * H], sW1[H * H], sW2[H * NJ];
-    __shared__ float sb0[H], sb1[H], sb2[NJ];
-    __shared__ float sH0[H * ENVS], sH1[H * ENVS], sAct[NJ * ENVS];
-    float* sTau = sH0;   // (NW, NJ, ENVS): used only between MLP phases
-    for (int i = threadIdx.x; i < H * H; i += NT) sW1[i] = W1[i];
-    for (int i = threadIdx.x; i < DO * H; i += NT) sW0[i] = W0[i];
-    for (int i = threadIdx.x; i < H * NJ; i += NT) sW2[i] = W2[i];
-    for (int i = threadIdx.x; i < H; i += NT) {
-        sb0[i] = b0[i];
-        sb1[i] = b1[i];
+    using L = Smem<NJ, DO>;
+    constexpr int UPAD = L::UPAD;
+    extern __shared__ float smem[];
+    float* sW1 = smem + L::W1;
+    float* sW0 = smem + L::W0;
+    float* sb0 = smem + L::B0;
+    float* sb1 = smem + L::B1;
+    float* sW2 = smem + L::W2;
+    float* sb2 = smem + L::B2;
+    float* sObs = smem + L::OBS;
+    float* sH0 = smem + L::H0;
+    float* sH1 = smem + L::H1;
+    float* sZ = smem + L::Z;
+    float* sAct = smem + L::ACT;
+    float* sM = smem + L::M;
+    for (int i = threadIdx.x; i < (H + DO + 2) * L::SLOTS; i += NT) {
+        const int row = i / L::SLOTS, w = (i % L::SLOTS) / UPAD;
+        const int u = i % UPAD;
+        const int first = w * H / NJ, cnt = (w + 1) * H / NJ - first;
+        float v = 0.f;
+        if (u < cnt) {
+            const int k = first + u;
+            if (row < H) v = W1[row * H + k];
+            else if (row < H + DO) v = W0[(row - H) * H + k];
+            else if (row == H + DO) v = b0[k];
+            else v = b1[k];
+        }
+        smem[i] = v;                     // W1, W0, b0, b1 are contiguous
     }
+    for (int i = threadIdx.x; i < H * NJ; i += NT) sW2[i] = W2[i];
     if (threadIdx.x < NJ) sb2[threadIdx.x] = b2[threadIdx.x];
-    __syncthreads();
 
     const int lane = threadIdx.x % ENVS;
-    const int wid = threadIdx.x / ENVS;           // this warp's pass
+    const int wid = threadIdx.x / ENVS;
     const int e_raw = blockIdx.x * ENVS + lane;
     const bool live = e_raw < N;
     const int e = live ? e_raw : N - 1;          // padded lanes shadow env N-1
-
-    float q[NJ], qd[NJ], cq[NJ], sq[NJ];
-#pragma unroll
-    for (int i = 0; i < NJ; ++i) {
-        q[i] = q0[i * N + e];
-        qd[i] = qd0[i * N + e];
-        sincosf(q[i], &sq[i], &cq[i]);
-    }
-    V3 tgt = {tgt0[e], tgt0[N + e], tgt0[2 * N + e]};
-    int task = (NTASKS > 1) ? task0[e] : 0;     // changes only at a reset
-    const float sigma = (wid < NJ) ? expf(logstd[wid]) : 0.f;
+    float* fr = smem + L::FRAME + lane;
+    float* q = smem + L::Q + lane;
+    float* cs = sObs + lane;             // cos q, sin q: the obs's rows
     uint2 key = make_uint2(0u, 0u);
     if (eps == nullptr) key = make_uint2((uint32_t)seed[0], (uint32_t)seed[1]);
+    __syncthreads();                     // the weights are in place
 
-    Fk3<NJ> f;
-    fk3<NJ>(c, cq, sq, f);
-    for (int t = 0; t < T; ++t) {
-        float o[DO];
+    if (wid == NJ) {
+        // ------------------------------------------------- the state warp
+        float* qd = smem + L::QD + lane;
+        float* fn = smem + L::FN + lane;
+        float* bias = smem + L::BIAS + lane;
+        st3(fr + NJ * FR * ENVS, F_RR, V3{0.f, 0.f, 0.f});
 #pragma unroll
         for (int i = 0; i < NJ; ++i) {
-            o[i] = cq[i];
-            o[NJ + i] = sq[i];
-            o[2 * NJ + i] = c.qd_obs_scale * qd[i];
+            q[i * ENVS] = q0[i * N + e];
+            qd[i * ENVS] = qd0[i * N + e];
         }
-        o[3 * NJ] = tgt.x - f.ee.x;
-        o[3 * NJ + 1] = tgt.y - f.ee.y;
-        o[3 * NJ + 2] = tgt.z - f.ee.z;
-#pragma unroll
-        for (int k = 0; k < DO - 3 * NJ - 3; ++k)
-            o[3 * NJ + 3 + k] = (task == k) ? 1.f : 0.f;
-        if (live) {
-#pragma unroll
-            for (int d = 0; d < DO; ++d)      // rows d = wid (mod NW)
-                if (d % NW == wid)
-                    obs[((size_t)t * DO + d) * N + e] = store_cast<Out>(o[d]);
-        }
-
-        // policy layer 0: this warp's UPW units
-#pragma unroll
-        for (int u = 0; u < UPW; ++u) {
-            const int k = wid * UPW + u;
-            float z = 0.f;
-#pragma unroll
-            for (int d = 0; d < DO; ++d) z = fmaf(o[d], sW0[d * H + k], z);
-            sH0[k * ENVS + lane] = tanhf(z + sb0[k]);
-        }
-        __syncthreads();
-        // policy layer 1: UPW chains in flight
-        {
-            float z[UPW];
-#pragma unroll
-            for (int u = 0; u < UPW; ++u) z[u] = 0.f;
-#pragma unroll 8
-            for (int k = 0; k < H; ++k) {
-                const float hk = sH0[k * ENVS + lane];
-#pragma unroll
-                for (int u = 0; u < UPW; ++u)
-                    z[u] = fmaf(hk, sW1[k * H + wid * UPW + u], z[u]);
-            }
-#pragma unroll
-            for (int u = 0; u < UPW; ++u) {
-                const int j = wid * UPW + u;
-                sH1[j * ENVS + lane] = tanhf(z[u] + sb1[j]);
-            }
-        }
-        __syncthreads();
-        // action m = wid: mean, noise, store
-        if (wid < NJ) {
-            float mu = 0.f;
-#pragma unroll 8
-            for (int k = 0; k < H; ++k)
-                mu = fmaf(sH1[k * ENVS + lane], sW2[k * NJ + wid], mu);
-            float zn;
-            if (eps != nullptr) {
-                zn = eps[((size_t)t * NJ + wid) * N + e];
-            } else {
-                float zz[NJ];
-                normals<NJ>(key, (uint32_t)e, (uint32_t)t, zz);
-                zn = zz[0];
-#pragma unroll
-                for (int i = 1; i < NJ; ++i)
-                    if (i == wid) zn = zz[i];
-            }
-            const float a = (mu + sb2[wid]) + sigma * zn;
-            if (live) act[((size_t)t * NJ + wid) * N + e] = store_cast<Out>(a);
-            sAct[wid * ENVS + lane] = a;
-        }
-        __syncthreads();
-        float tau[NJ];
+        V3 tgt = {tgt0[e], tgt0[N + e], tgt0[2 * N + e]};
+        int task = (NTASKS > 1) ? task0[e] : 0;     // changes only at a reset
+        sincos_rows<NJ>(q, cs);
+        V3 ee = fk_store<NJ>(c, cs, fr);
         float ctrl = 0.f;
+        for (int t = 0; t <= T; ++t) {
+            // the rest of this step's observation, then its frames go
+#pragma unroll 1
+            for (int i = 0; i < NJ; ++i)
+                cs[(2 * NJ + i) * ENVS] = c.qd_obs_scale * qd[i * ENVS];
+            cs[(3 * NJ) * ENVS] = tgt.x - ee.x;
+            cs[(3 * NJ + 1) * ENVS] = tgt.y - ee.y;
+            cs[(3 * NJ + 2) * ENVS] = tgt.z - ee.z;
 #pragma unroll
-        for (int i = 0; i < NJ; ++i) {
-            tau[i] = fminf(fmaxf(sAct[i * ENVS + lane], -c.torque_limit),
-                           c.torque_limit);
-            ctrl = (i == 0) ? tau[0] * tau[0] : ctrl + tau[i] * tau[i];
-        }
+            for (int k = 0; k < DO - 3 * NJ - 3; ++k)
+                cs[(3 * NJ + 3 + k) * ENVS] = (task == k) ? 1.f : 0.f;
+            bar_arrive(BAR_FRAMES, NT);
+            // without resets the previous step's frames, qd, target and
+            // ctrl stay in place until this step's actions arrive, so its
+            // reward is scored here, off the chain
+            if (!TERM && t > 0 && live)
+                rew[(size_t)(t - 1) * N + e] =
+                    score<NJ, NTASKS, OBST>(c, fr, ee, qd, tgt, task, ctrl);
+            if (t == T) break;
 
-        for (int s = 0; s < c.n_substeps; ++s) {
-            if (s > 0) fk3<NJ>(c, cq, sq, f);
-            {
-                float col[NJ];
-                rnea_pass<NJ>(c, f, qd, wid, col);
+            for (int s = 0; s < c.n_substeps; ++s) {
+                if (s > 0) {
+                    fk_store<NJ>(c, cs, fr);
+                    bar_arrive(BAR_FRAMES, NT);   // substep s's frames
+                }
+                bias_pass<NJ>(c, fr, qd, fn, bias);
+                bar_sync(BAR_COLS, NT);  // the columns are in sM
+#define MUP(i, k) sM[((k) * ((k) + 1) / 2 + (i)) * ENVS + lane]
+                float L_[NJ][NJ], inv_d[NJ];
 #pragma unroll
-                for (int i = 0; i < NJ; ++i)
-                    sTau[(wid * NJ + i) * ENVS + lane] = col[i];
+                for (int jj = 0; jj < NJ; ++jj) {
+                    float sacc = MUP(jj, jj) + c.chol_reg;
+#pragma unroll
+                    for (int k = 0; k < jj; ++k)
+                        sacc = sacc - L_[jj][k] * L_[jj][k];
+                    const float inv = 1.0f / sqrtf(sacc);
+                    inv_d[jj] = inv;
+                    L_[jj][jj] = sacc * inv;
+#pragma unroll
+                    for (int i = jj + 1; i < NJ; ++i) {
+                        float tt = MUP(jj, i);
+#pragma unroll
+                        for (int k = 0; k < jj; ++k)
+                            tt = tt - L_[i][k] * L_[jj][k];
+                        L_[i][jj] = tt * inv;
+                    }
+                }
+#undef MUP
+                if (s == 0) {
+                    bar_sync(BAR_ACT, NT);   // the actions are in sAct
+#pragma unroll
+                    for (int i = 0; i < NJ; ++i) {
+                        const float tq = fminf(fmaxf(sAct[i * ENVS + lane],
+                                                     -c.torque_limit),
+                                               c.torque_limit);
+                        ctrl = (i == 0) ? tq * tq : ctrl + tq * tq;
+                    }
+                }
+                float y[NJ], x[NJ];
+#pragma unroll
+                for (int i = 0; i < NJ; ++i) {
+                    const float tq = fminf(fmaxf(sAct[i * ENVS + lane],
+                                                 -c.torque_limit),
+                                           c.torque_limit);
+                    float sacc = (tq - bias[i * ENVS]) - c.damping * qd[i * ENVS];
+#pragma unroll
+                    for (int k = 0; k < i; ++k) sacc = sacc - L_[i][k] * y[k];
+                    y[i] = sacc * inv_d[i];
+                }
+#pragma unroll
+                for (int i = NJ - 1; i >= 0; --i) {
+                    float sacc = y[i];
+#pragma unroll
+                    for (int k = i + 1; k < NJ; ++k)
+                        sacc = sacc - L_[k][i] * x[k];
+                    x[i] = sacc * inv_d[i];
+                }
+#pragma unroll
+                for (int i = 0; i < NJ; ++i) {
+                    const float v = fminf(fmaxf(qd[i * ENVS] + c.h * x[i],
+                                                -c.qd_limit), c.qd_limit);
+                    qd[i * ENVS] = v;
+                    q[i * ENVS] = q[i * ENVS] + c.h * v;
+                }
+                bar_arrive(BAR_Q, NT);   // column warp i: cos/sin of q_i
+                bar_sync(BAR_TRIG, NT);
             }
-            __syncthreads();
-            // M[i][k] (i <= k) = tau_i of pass k; bias_i = tau_i of pass NJ
-#define MUP(i, k) sTau[((k) * NJ + (i)) * ENVS + lane]
-            float L[NJ][NJ], inv_d[NJ];
+            if (NTASKS > 1 && task == 1) {   // the track target moves first
+                const float tx = c.track_cos * tgt.x - c.track_sin * tgt.y;
+                const float ty = c.track_sin * tgt.x + c.track_cos * tgt.y;
+                tgt.x = tx;
+                tgt.y = ty;
+            }
+            ee = fk_store<NJ>(c, cs, fr);   // the reward, next step's obs
+            if (TERM) {                 // scored before a reset moves it
+                if (live)
+                    rew[(size_t)t * N + e] = score<NJ, NTASKS, OBST>(
+                        c, fr, ee, qd, tgt, task, ctrl);
+                const V3 d = vsub(ee, tgt);
+                const bool done = vdot(d, d) < c.done_dist2;
+                if (live) dones[(size_t)t * N + e] = done ? 1.f : 0.f;
+                if (__any_sync(0xffffffffu, done)) {
+                    if (done) {
+                        float qn[NJ], qdn[NJ];
+                        fresh_episode<NJ, NTASKS>(c, key, e, t, N, fq, fqd,
+                                                  ftgt, ftask, qn, qdn, tgt,
+                                                  task);
 #pragma unroll
-            for (int jj = 0; jj < NJ; ++jj) {
-                float sacc = MUP(jj, jj) + c.chol_reg;
-#pragma unroll
-                for (int k = 0; k < jj; ++k) sacc = sacc - L[jj][k] * L[jj][k];
-                const float inv = 1.0f / sqrtf(sacc);
-                inv_d[jj] = inv;
-                L[jj][jj] = sacc * inv;
-#pragma unroll
-                for (int i = jj + 1; i < NJ; ++i) {
-                    float tt = MUP(jj, i);
-#pragma unroll
-                    for (int k = 0; k < jj; ++k) tt = tt - L[i][k] * L[jj][k];
-                    L[i][jj] = tt * inv;
+                        for (int i = 0; i < NJ; ++i) {
+                            q[i * ENVS] = qn[i];
+                            qd[i * ENVS] = qdn[i];
+                        }
+                    }
+                    __syncwarp();
+                    // the other lanes recompute their own unchanged values
+                    sincos_rows<NJ>(q, cs);
+                    ee = fk_store<NJ>(c, cs, fr);
                 }
             }
-            float y[NJ], x[NJ];
-#pragma unroll
-            for (int i = 0; i < NJ; ++i) {
-                float sacc = (tau[i] - MUP(i, NJ)) - c.damping * qd[i];
-#pragma unroll
-                for (int k = 0; k < i; ++k) sacc = sacc - L[i][k] * y[k];
-                y[i] = sacc * inv_d[i];
-            }
-#undef MUP
-#pragma unroll
-            for (int i = NJ - 1; i >= 0; --i) {
-                float sacc = y[i];
-#pragma unroll
-                for (int k = i + 1; k < NJ; ++k) sacc = sacc - L[k][i] * x[k];
-                x[i] = sacc * inv_d[i];
-            }
-#pragma unroll
-            for (int i = 0; i < NJ; ++i) {
-                qd[i] = fminf(fmaxf(qd[i] + c.h * x[i], -c.qd_limit),
-                              c.qd_limit);
-                q[i] = q[i] + c.h * qd[i];
-                sincosf(q[i], &sq[i], &cq[i]);
-            }
-            __syncthreads();      // every warp has read the columns
         }
-        if (NTASKS > 1 && task == 1) {   // the track target moves first
-            const float tx = c.track_cos * tgt.x - c.track_sin * tgt.y;
-            const float ty = c.track_sin * tgt.x + c.track_cos * tgt.y;
-            tgt.x = tx;
-            tgt.y = ty;
-        }
-        fk3<NJ>(c, cq, sq, f);    // post-step FK: the reward, next step's obs
-        if (wid == 0 && live)
-            rew[(size_t)t * N + e] =
-                score<NJ, NTASKS, OBST>(c, f, qd, tgt, task, ctrl);
-        if (TERM) {               // every warp decides, warp 0 stores
-            const V3 d = vsub(f.ee, tgt);
-            const bool done = vdot(d, d) < c.done_dist2;
-            if (wid == 0 && live) dones[(size_t)t * N + e] = done ? 1.f : 0.f;
-            if (done) {
-                fresh_episode<NJ, NTASKS>(c, key, e, t, N, fq, fqd, ftgt,
-                                          ftask, q, qd, tgt, task);
+    } else {
+        // ------------------------------------------------ a column warp
+        const int j = wid;
+        const float sigma = expf(logstd[j]);
+        const int first = j * H / NJ, cnt = (j + 1) * H / NJ - first;
+        float* as = smem + L::AS + 3 * (j * NJ - j * (j - 1) / 2) * ENVS
+                  + lane;
+        // the action normals, drawn by the last column warp a step ahead
+        // while the state warp finishes the step
+        const bool draws = eps == nullptr && j == NJ - 1;
+        if (draws) {
+            float zz[NJ];
+            normals<NJ>(key, (uint32_t)e, 0u, zz);
 #pragma unroll
-                for (int i = 0; i < NJ; ++i) sincosf(q[i], &sq[i], &cq[i]);
-                fk3<NJ>(c, cq, sq, f);
+            for (int i = 0; i < NJ; ++i) sZ[i * ENVS + lane] = zz[i];
+        }
+        bar_sync(BAR_FRAMES, NT);        // step 0's inputs are in place
+        for (int t = 0; t < T; ++t) {
+            for (int s = 0; s < c.n_substeps; ++s) {
+                column_pass<NJ>(c, fr, j, as, sM + lane);
+                bar_arrive(BAR_COLS, NT);
+                if (s == 0) {
+                    // policy layer 0; this warp stores observation rows
+                    // d = j (mod NJ)
+                    if (live) {
+#pragma unroll 1
+                        for (int d = j; d < DO; d += NJ)
+                            obs[((size_t)t * DO + d) * N + e] =
+                                store_cast<Out>(sObs[d * ENVS + lane]);
+                    }
+                    layer_units<L::UMAX, DO, L::SLOTS>(
+                        sObs, sW0 + j * UPAD, sb0 + j * UPAD, first, cnt, sH0,
+                        lane);
+                    bar_sync(BAR_MLP, NCT);
+                    layer_units<L::UMAX, H, L::SLOTS>(
+                        sH0, sW1 + j * UPAD, sb1 + j * UPAD, first, cnt, sH1,
+                        lane);
+                    bar_sync(BAR_MLP, NCT);
+                    // action j: mean, noise, store
+                    float mu = 0.f;
+#pragma unroll 8
+                    for (int k = 0; k < H; ++k)
+                        mu = fmaf(sH1[k * ENVS + lane], sW2[k * NJ + j], mu);
+                    const float zn = (eps != nullptr)
+                                         ? eps[((size_t)t * NJ + j) * N + e]
+                                         : sZ[j * ENVS + lane];
+                    const float a = (mu + sb2[j]) + sigma * zn;
+                    if (live)
+                        act[((size_t)t * NJ + j) * N + e] = store_cast<Out>(a);
+                    sAct[j * ENVS + lane] = a;
+                    bar_arrive(BAR_ACT, NT);
+                }
+                bar_sync(BAR_Q, NT);     // cos/sin of the new q_j
+                {
+                    float sn, cn;
+                    sincosf(q[j * ENVS], &sn, &cn);
+                    cs[j * ENVS] = cn;
+                    cs[(NJ + j) * ENVS] = sn;
+                }
+                bar_arrive(BAR_TRIG, NT);
+                if (s + 1 < c.n_substeps) bar_sync(BAR_FRAMES, NT);
             }
+            if (draws && t + 1 < T) {
+                float zz[NJ];
+                normals<NJ>(key, (uint32_t)e, (uint32_t)(t + 1), zz);
+#pragma unroll
+                for (int i = 0; i < NJ; ++i) sZ[i * ENVS + lane] = zz[i];
+            }
+            bar_sync(BAR_FRAMES, NT);    // step t + 1's inputs are in place
         }
     }
 }
@@ -544,22 +775,53 @@ struct Args {
     cudaStream_t stream;
 };
 
-template <int NJ, int NTASKS, bool OBST, bool TERM, typename Out>
-cudaError_t launch(const Arm3D& c, const Args& a) {
-    dim3 grid((a.N + ENVS - 1) / ENVS);
-    rollout3d_kernel<NJ, NTASKS, OBST, TERM, Out>
-        <<<grid, (NJ + 1) * ENVS, 0, a.stream>>>(
-            c, a.q0, a.qd0, a.tgt, a.task, a.W0, a.b0, a.W1, a.b1, a.W2,
-            a.b2, a.logstd, a.eps, a.seed, a.fq, a.fqd, a.ftgt, a.ftask,
-            static_cast<Out*>(a.obs), static_cast<Out*>(a.act), a.rew,
-            a.dones, a.N, a.T);
-    return cudaGetLastError();
+// One instantiation: its kernel and its dynamic shared memory.
+template <int NJ, int NTASKS, bool OBST, bool TERM, typename Out_>
+struct Inst {
+    using Out = Out_;
+    static constexpr int THREADS = (NJ + 1) * ENVS;
+    static constexpr size_t SMEM =
+        Smem<NJ, 3 * NJ + 3 + (NTASKS > 1 ? NTASKS : 0)>::BYTES;
+    static auto kernel() {
+        return &rollout3d_kernel<NJ, NTASKS, OBST, TERM, Out>;
+    }
+};
+
+template <int NJ, int NTASKS, bool OBST, bool TERM, typename Op>
+cudaError_t with_store(int store_bf16, Op op) {
+    return store_bf16 ? op(Inst<NJ, NTASKS, OBST, TERM, __nv_bfloat16>{})
+                      : op(Inst<NJ, NTASKS, OBST, TERM, float>{});
 }
 
-template <int NJ, int NTASKS, bool OBST, bool TERM>
-cudaError_t launch_store(const Arm3D& c, const Args& a, int store_bf16) {
-    return store_bf16 ? launch<NJ, NTASKS, OBST, TERM, __nv_bfloat16>(c, a)
-                      : launch<NJ, NTASKS, OBST, TERM, float>(c, a);
+// The instantiations: n = 7 with (n_tasks, obstacle) in {(1, 0), (1, 1),
+// (3, 0)} (c3, c4, c5), each terminating or not, each with fp32 or bf16
+// stores; anything else is cudaErrorNotSupported.
+template <typename Op>
+cudaError_t dispatch(int n_joints, int n_tasks, int obstacle, int terminating,
+                     int store_bf16, Op op) {
+    if (n_joints != 7) return cudaErrorInvalidValue;
+    constexpr int NJ = 7;
+    const bool term = terminating != 0;
+    if (n_tasks == 1 && !obstacle && !term)
+        return with_store<NJ, 1, false, false>(store_bf16, op);
+    if (n_tasks == 1 && obstacle && !term)
+        return with_store<NJ, 1, true, false>(store_bf16, op);
+    if (n_tasks == 3 && !obstacle && !term)
+        return with_store<NJ, 3, false, false>(store_bf16, op);
+    if (n_tasks == 1 && !obstacle && term)
+        return with_store<NJ, 1, false, true>(store_bf16, op);
+    if (n_tasks == 1 && obstacle && term)
+        return with_store<NJ, 1, true, true>(store_bf16, op);
+    if (n_tasks == 3 && !obstacle && term)
+        return with_store<NJ, 3, false, true>(store_bf16, op);
+    return cudaErrorNotSupported;
+}
+
+template <typename I>
+cudaError_t set_smem() {
+    return cudaFuncSetAttribute(I::kernel(),
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)I::SMEM);
 }
 
 }  // namespace
@@ -576,10 +838,9 @@ cudaError_t launch_store(const Arm3D& c, const Args& a, int store_bf16) {
 // fp32 and takes the fresh episodes from fq/fqd (T, n, N), ftgt (T, 3, N)
 // and ftask (T, N) int32, or from Philox when fq is NULL.
 // obs (T, 3n+3 (+ n_tasks when > 1), N) and act (T, n, N) are bf16 when
-// store_bf16 != 0, else fp32; rew (T, N) fp32. Instantiated for n = 7
-// with (n_tasks, obstacle) in {(1, 0), (1, 1), (3, 0)} (c3, c4, c5), each
-// terminating or not; any other combination returns
-// cudaErrorNotSupported, which the wrapper raises as NotImplementedError.
+// store_bf16 != 0, else fp32; rew (T, N) fp32. Instantiated as `dispatch`
+// lists; any other combination returns cudaErrorNotSupported, which the
+// wrapper raises as NotImplementedError.
 extern "C" int trpo_rollout3d_launch(
     const float* consts, int n_joints, int n_substeps, int n_tasks,
     int obstacle, int terminating, int store_bf16, const float* q0,
@@ -627,18 +888,51 @@ extern "C" int trpo_rollout3d_launch(
     const Args a = {q0, qd0, tgt, task, W0, b0, W1, b1, W2, b2, logstd, eps,
                     seed, fq, fqd, ftgt, ftask, obs, act, rew, dones, N, T,
                     static_cast<cudaStream_t>(stream)};
-    const bool term = terminating != 0;
-    if (n_tasks == 1 && !obstacle && !term)
-        return (int)launch_store<NJ, 1, false, false>(c, a, store_bf16);
-    if (n_tasks == 1 && obstacle && !term)
-        return (int)launch_store<NJ, 1, true, false>(c, a, store_bf16);
-    if (n_tasks == 3 && !obstacle && !term)
-        return (int)launch_store<NJ, 3, false, false>(c, a, store_bf16);
-    if (n_tasks == 1 && !obstacle && term)
-        return (int)launch_store<NJ, 1, false, true>(c, a, store_bf16);
-    if (n_tasks == 1 && obstacle && term)
-        return (int)launch_store<NJ, 1, true, true>(c, a, store_bf16);
-    if (n_tasks == 3 && !obstacle && term)
-        return (int)launch_store<NJ, 3, false, true>(c, a, store_bf16);
-    return (int)cudaErrorNotSupported;
+    return (int)dispatch(
+        n_joints, n_tasks, obstacle, terminating, store_bf16,
+        [&](auto inst) -> cudaError_t {
+            using I = decltype(inst);
+            cudaError_t err = set_smem<I>();
+            if (err != cudaSuccess) return err;
+            dim3 grid((a.N + ENVS - 1) / ENVS);
+            I::kernel()<<<grid, I::THREADS, I::SMEM, a.stream>>>(
+                c, a.q0, a.qd0, a.tgt, a.task, a.W0, a.b0, a.W1, a.b1, a.W2,
+                a.b2, a.logstd, a.eps, a.seed, a.fq, a.fqd, a.ftgt, a.ftask,
+                static_cast<typename I::Out*>(a.obs),
+                static_cast<typename I::Out*>(a.act), a.rew, a.dones, a.N,
+                a.T);
+            return cudaGetLastError();
+        });
+}
+
+// What the card makes of an instantiation: out[0] resident blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its block size and
+// dynamic shared memory), out[1] registers per thread, out[2] local
+// (spill) bytes per thread, out[3] dynamic and out[4] static shared bytes
+// per block, out[5] threads per block. Same dispatch and return codes as
+// trpo_rollout3d_launch.
+extern "C" int trpo_rollout3d_occupancy(int n_joints, int n_tasks,
+                                        int obstacle, int terminating,
+                                        int store_bf16, int* out) {
+    return (int)dispatch(
+        n_joints, n_tasks, obstacle, terminating, store_bf16,
+        [&](auto inst) -> cudaError_t {
+            using I = decltype(inst);
+            cudaError_t err = set_smem<I>();
+            if (err != cudaSuccess) return err;
+            int blocks = 0;
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &blocks, I::kernel(), I::THREADS, I::SMEM);
+            if (err != cudaSuccess) return err;
+            cudaFuncAttributes fa;
+            err = cudaFuncGetAttributes(&fa, I::kernel());
+            if (err != cudaSuccess) return err;
+            out[0] = blocks;
+            out[1] = fa.numRegs;
+            out[2] = (int)fa.localSizeBytes;
+            out[3] = (int)I::SMEM;
+            out[4] = (int)fa.sharedSizeBytes;
+            out[5] = I::THREADS;
+            return cudaSuccess;
+        });
 }

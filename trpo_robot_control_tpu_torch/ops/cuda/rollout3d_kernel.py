@@ -13,7 +13,11 @@ task's velocity penalty and the obstacle sphere penalty; and, when
 end effector is within ``done_dist`` of its (rotated) target is flagged
 done and starts a fresh episode (state, target and, with several
 families, task) before the next step. See the source for what bounds it
-on the card and how its design spreads one env over eight threads.
+on the card and its warp roles: one state warp does each env's serial
+work, seven column warps run mass-matrix passes specialised to what is
+not structurally zero (``mass_bias_split`` states them in PyTorch) and
+the policy MLP; ``occupancy`` reports what the card makes of each
+instantiation.
 
 ``rollout3d`` is the wrapper: on CUDA tensors it launches the kernel (or
 raises), on CPU tensors it runs ``rollout3d_plain``, the same component
@@ -48,7 +52,8 @@ NOT_INSTANTIATED = 801
 
 _SIG = {"trpo_rollout3d_launch":
         [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 21
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        "trpo_rollout3d_occupancy": [ctypes.c_int] * 5 + [ctypes.c_void_p]}
 
 
 class Arm3DConsts(NamedTuple):
@@ -213,6 +218,16 @@ def _fk3(c: Arm3DConsts, cq, sq):
     return R, p, axis, ee
 
 
+def _inertia_vec(Ri, Ic, v):
+    """World inertia times v: R (I (R^T v)), I a link-frame 3x3 of
+    floats."""
+    tv = m_vec((Ri[0], Ri[3], Ri[6], Ri[1], Ri[4], Ri[7], Ri[2], Ri[5], Ri[8]),
+               v)
+    iv = tuple(tv[0] * float(Ic[r][0]) + tv[1] * float(Ic[r][1])
+               + tv[2] * float(Ic[r][2]) for r in range(3))
+    return m_vec(Ri, iv)
+
+
 def _mass_bias_fused(c: Arm3DConsts, R, p, axis, qd):
     """All n mass-matrix columns and the bias as one RNEA sweep on
     (n + 1, N) channels: row j < n is the zero-velocity, unit-qdd_j pass
@@ -259,16 +274,9 @@ def _mass_bias_fused(c: Arm3DConsts, R, p, axis, qd):
     p_child = (torch.zeros_like(ref),) * 3
     for i in range(n - 1, -1, -1):
         Ri, Ic = R[i], c.inertia[i]
-
-        def inertia_vec(v, Ri=Ri, Ic=Ic):
-            tv = m_vec((Ri[0], Ri[3], Ri[6], Ri[1], Ri[4], Ri[7],
-                        Ri[2], Ri[5], Ri[8]), v)
-            iv = tuple(tv[0] * float(Ic[r][0]) + tv[1] * float(Ic[r][1])
-                       + tv[2] * float(Ic[r][2]) for r in range(3))
-            return m_vec(Ri, iv)
-
         F = v_scale(c.mass[i], acs[i])
-        N = v_add(inertia_vec(wds[i]), v_cross(ws[i], inertia_vec(ws[i])))
+        N = v_add(_inertia_vec(Ri, Ic, wds[i]),
+                  v_cross(ws[i], _inertia_vec(Ri, Ic, ws[i])))
         f = v_add(F, f_child)
         nn = v_add(v_add(N, n_child),
                    v_add(v_cross(v_sub(cws[i], p[i]), F),
@@ -278,6 +286,97 @@ def _mass_bias_fused(c: Arm3DConsts, R, p, axis, qd):
 
     M = {(i, j): taus[i][j] for i in range(n) for j in range(i, n)}
     return M, [taus[i][n] for i in range(n)]
+
+
+# The kernel's specialised passes, stated on (N,) tensors in its operation
+# order. Each leaves out of the fused sweep only terms that are exactly
+# +-0 there (zero velocities, zero accelerations, no gravity), and
+# x + (+-0) = x for every non-zero x, so they give the fused sweep's
+# numbers up to the sign of a zero (tests/test_torch_rnea_column.py).
+
+def pass_frames(c: Arm3DConsts, R, p, axis):
+    """What every pass reads of joint i, computed once per substep as the
+    kernel's state warp does: (R_i, s_i, r_i = p_i - p_{i-1}, d_i = R_i
+    com_i, cwd_i = (p_i + d_i) - p_i), p_{-1} = 0; and a joint n whose r,
+    the last joint's child offset, is 0."""
+    zero = (torch.zeros_like(p[0][0]),) * 3
+    out = []
+    for i in range(c.n):
+        d = m_vec(R[i], tuple(float(x) for x in c.com[i]))
+        out.append((R[i], axis[i], v_sub(p[i], p[i - 1] if i else zero), d,
+                    v_sub(v_add(p[i], d), p[i])))
+    return out + [(None, None, zero, None, None)]
+
+
+def _backward_step(F, N, cwd, rc, fc, nc):
+    """The backward recursion at a joint: the child's force fc and moment
+    nc (zero below the last joint, whose child offset rc is 0) become this
+    joint's."""
+    return v_add(F, fc), v_add(v_add(N, nc),
+                               v_add(v_cross(cwd, F), v_cross(rc, fc)))
+
+
+def column_pass(c: Arm3DConsts, frames, j):
+    """Column j of M (qd = 0, qdd = e_j, no gravity): every w is zero and
+    wd = s_j from joint j on, so a_i = a_{i-1} + s_j x r_i (a_j = 0),
+    ac_i = a_i + s_j x d_i and N_i = I_i(s_j); below joint j only the
+    child's moment is carried down. Returns [tau_i for i <= j], the upper
+    triangle's column j as ``_mass_bias_fused`` keys it."""
+    s = frames[j][1]
+    zero = (torch.zeros_like(s[0]),) * 3
+    a = {j: zero}
+    for i in range(j + 1, c.n):
+        a[i] = v_add(a[i - 1], v_cross(s, frames[i][2]))
+    fc = nc = zero
+    taus = [None] * (j + 1)
+    for i in range(c.n - 1, -1, -1):
+        Ri, s_i, _, d, cwd = frames[i]
+        rc = frames[i + 1][2]
+        if i >= j:
+            F = v_scale(c.mass[i], v_add(a[i], v_cross(s, d)))
+            fc, nc = _backward_step(F, _inertia_vec(Ri, c.inertia[i], s),
+                                    cwd, rc, fc, nc)
+        else:                                   # F = N = 0 below joint j
+            nc = v_add(nc, v_cross(rc, fc))
+        if i <= j:
+            taus[i] = v_dot(s_i, nc)
+    return taus
+
+
+def bias_pass(c: Arm3DConsts, frames, qd):
+    """The bias (real qd, qdd = 0, gravity) without its qdd terms."""
+    zero = (torch.zeros_like(qd[0]),) * 3
+    w = wd = zero
+    a = (zero[0], zero[0], torch.full_like(qd[0], c.gravity))
+    F, Nn = [], []
+    for i in range(c.n):
+        Ri, s, r, d, _ = frames[i]
+        Ic = c.inertia[i]
+        qs = v_scale(qd[i], s)
+        a = v_add(a, v_add(v_cross(wd, r), v_cross(w, v_cross(w, r))))
+        w, wd = v_add(w, qs), v_add(wd, v_cross(w, qs))
+        ac = v_add(a, v_add(v_cross(wd, d), v_cross(w, v_cross(w, d))))
+        F.append(v_scale(c.mass[i], ac))
+        Nn.append(v_add(_inertia_vec(Ri, Ic, wd),
+                        v_cross(w, _inertia_vec(Ri, Ic, w))))
+    fc = nc = zero
+    bias = [None] * c.n
+    for i in range(c.n - 1, -1, -1):
+        fc, nc = _backward_step(F[i], Nn[i], frames[i][4], frames[i + 1][2],
+                                fc, nc)
+        bias[i] = v_dot(frames[i][1], nc)
+    return bias
+
+
+def mass_bias_split(c: Arm3DConsts, R, p, axis, qd):
+    """``_mass_bias_fused``'s (M, bias) from the kernel's specialised
+    passes."""
+    frames = pass_frames(c, R, p, axis)
+    M = {}
+    for j in range(c.n):
+        for i, tau in enumerate(column_pass(c, frames, j)):
+            M[(i, j)] = tau
+    return M, bias_pass(c, frames, qd)
 
 
 def _chol_solve3(c: Arm3DConsts, M, rhs):
@@ -567,3 +666,23 @@ def rollout3d(cfg, params, q0, qd0, tgt, task, eps=None, seed=None,
 
 
 rollout3d.launches = 0
+
+
+def occupancy(cfg, store_dtype=torch.float32) -> dict:
+    """What the card makes of the kernel instantiation ``cfg`` and
+    ``store_dtype`` launch: resident blocks and warps per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
+    (spill) bytes per thread, dynamic and static shared bytes per block."""
+    c = arm3d_consts(cfg)
+    out = (ctypes.c_int * 6)()
+    err = build.library("rollout3d", _SIG).trpo_rollout3d_occupancy(
+        c.n, c.n_tasks, int(c.obstacle_weight > 0.0), int(c.done_dist > 0.0),
+        int(store_dtype == torch.bfloat16), out)
+    if err == NOT_INSTANTIATED:
+        raise NotImplementedError("the 3-D rollout kernel has no such "
+                                  "instantiation")
+    build.check(err, "3-D rollout kernel occupancy")
+    blocks, regs, local, dyn, static, threads = out
+    return dict(blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32,
+                registers=regs, local_bytes=local, smem_dynamic=dyn,
+                smem_static=static, threads=threads)
