@@ -9,7 +9,7 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
    prints every kernel's ``-Xptxas -v`` lines (K4's for each
    instantiation), then what the card makes of each K4 instantiation
    (resident blocks and warps per SM from ``rollout3d_kernel.occupancy``;
-   at least 16 warps);
+   at least 16 warps) and of K6's two (``fvp_ff_kernel.occupancy``);
 2. c2 (3-link planar arm, 1024 envs x 100 steps):
    a. K1 rollout kernel against its plain version (eps mode: tight over
       10 steps, looser over the full horizon), then the Philox mode's
@@ -44,9 +44,10 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
       version), with the peak device memory;
    f. K4, K2-bf16, K5 and K6 times beside their bounds; K4's bound counts
       the operations of its specialised passes (the fused RNEA sweep's
-      figure, with its structural zeros, beside it); K2-bf16's and K5's
-      bounds are the tensor-core ones (their shares printed), with the
-      fp32-FMA figures beside them, and K2's library yardstick;
+      figure, with its structural zeros, beside it); K2-bf16's, K5's and
+      K6's bounds are the tensor-core ones (their shares printed), with
+      the fp32-FMA figures beside them, K6's strided sector reads as a
+      note, and K2's library yardstick;
 4. early termination, c2 with done_dist 0.1 (K1's TERM instantiation) and
    c5 with done_dist 0.05 (K4's, with the task redraw), each at full
    width:
@@ -250,6 +251,20 @@ def k4_occupancy():
     return out
 
 
+def k6_occupancy():
+    """What the card makes of K6's bf16 and fp32 instantiations
+    (``fvp_ff_kernel.occupancy``); each must be resident. Returns
+    {instantiation: occupancy}."""
+    from trpo_robot_control_tpu_torch.ops.cuda import fvp_ff_kernel as ffk
+    out = {}
+    for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        occ = ffk.occupancy(dt)
+        print(f"K6 occupancy [{name}]: {occ}")
+        require(occ["blocks_per_sm"] >= 1, f"K6 {name} does not fit an SM")
+        out[name] = occ
+    return out
+
+
 def k4_ms(cfg, params, s0):
     """3f's K4 time per launch on a 7-DoF phase's inputs: Philox mode
     with seed K4_SEED_T, bf16 stores."""
@@ -259,6 +274,14 @@ def k4_ms(cfg, params, s0):
                                         s0.task, seed=seed,
                                         store_dtype=torch.bfloat16),
                    3, warmup=1)
+
+
+def k6_ms(params, sub, damping, v):
+    """3f's K6 time per launch: 20 CG calls fvp(v) on a Fisher subsample
+    after warm-up."""
+    from trpo_robot_control_tpu_torch.ops.cuda import fvp_ff_kernel as ffk
+    fvp = ffk.make_gn_fvp_ff(params, sub, damping)
+    return cuda_ms(lambda: fvp(v), 20)
 
 
 def k4_term_ms(cfg, params, s0):
@@ -876,11 +899,33 @@ def arm3d_phases(dev, cfg, seed):
           f"{b5fma[0]:.4f} ms ({b5fma[1]})")
     rec["pg"].update(bound_fp32_fma_ms=b5fma[0], bound_share=b5[0] / t_k5)
     v = torch.randn(P, generator=gen, device=dev)
-    t_k6 = cuda_ms(lambda: fvp(v), 20)
+    t_k6 = k6_ms(params, sub, cfg.trpo.cg_damping, v)
     t_k6p = cuda_ms(lambda: ffk.gn_fvp_ff_plain(params, sub, v,
                                                 cfg.trpo.cg_damping), 5)
+    # the function's products, each counted once, at the bf16 tensor-core
+    # peak (the kernel's three-plane split of its fp32 operands is its own
+    # cost, not the work, as for K5); the fp32-FMA figure beside it,
+    # labelled. Bytes: the subsample read once in its storage dtype, v, the
+    # weights and Fv. The strided view's reads come in 32-byte sectors:
+    # printed as a note, not as the bound.
     ff_macs = 3 * do * H + 5 * H * H + 4 * H * da
-    b6 = bound_ms(2.0 * ff_macs * B_sub, 2.0 * B_sub * do + 4.0 * 3 * P)
+    es = sub.element_size()
+    ff_bytes = es * B_sub * do + 4.0 * 3 * P
+    b6 = bound_ms(2.0 * ff_macs * B_sub, ff_bytes, peak_flops=PEAK_BF16_FLOPS)
+    b6fma = bound_ms(2.0 * ff_macs * B_sub, ff_bytes)
+    span = sub.stride(2) * es                  # bytes between two envs
+    sectors = (sub.shape[2] if span >= 32
+               else math.ceil(sub.shape[2] * span / 32))
+    sector_bytes = 32.0 * sectors * sub.shape[0] * do
+    print(f"{tag} fvp_ff: tensor-core bound {b6[0]:.4f} ms ({b6[1]}), "
+          f"{100 * b6[0] / t_k6:.1f} % of it reached; fp32-FMA bound "
+          f"{b6fma[0]:.4f} ms ({b6fma[1]}); note: the strided view "
+          f"(env stride {sub.stride(2)}, {es}-byte elements) reads "
+          f"{sector_bytes / 1e6:.1f} MB of 32-byte sectors, "
+          f"{1e3 * sector_bytes / PEAK_BYTES:.4f} ms at {PEAK_BYTES / 1e12} "
+          "TB/s")
+    rec["fvp_ff"].update(bound_fp32_fma_ms=b6fma[0], bound_share=b6[0] / t_k6,
+                         sector_read_mb=sector_bytes / 1e6)
     for name, ms, plain_ms, (bms, by), lib_ms in (
             ("rollout3d", t_k4, t_k4p, b4, None),
             ("moments_bf16", t_k2, t_k2p, b2, t_k2lib),
@@ -1215,6 +1260,7 @@ def main() -> int:
     print(f"build: {build.build_all():.1f} s")
     print(build.ptxas_report())
     occupancy = k4_occupancy()
+    occupancy_k6 = k6_occupancy()
 
     from trpo_robot_control_tpu_torch.configs import (C3_FRANKA7,
                                                       C4_FRANKA7_OBSTACLE,
@@ -1254,6 +1300,8 @@ def main() -> int:
                 entry[("bf16_mode_" if key != name else "at_") + tag] = r[key]
         if name == "rollout3d":
             entry["occupancy"] = occupancy
+        if name == "fvp_ff":
+            entry["occupancy"] = occupancy_k6
         out.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))

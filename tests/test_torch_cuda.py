@@ -13,8 +13,9 @@ import torch
 
 from test_torch_helpers import (OBSTACLE_ON_ARM, PG_G_KEPT_REL,
                                 PG_MU_FP64_ATOL, env_inputs_np,
-                                pg_fp64_errors, policy_params_np,
-                                surrogate_grad_fp64, t, tasks_np)
+                                gn_fvp_ff_split, pg_fp64_errors,
+                                policy_params_np, surrogate_grad_fp64, t,
+                                tasks_np)
 from trpo_robot_control_tpu_torch import configs as pconfigs
 from trpo_robot_control_tpu_torch.models import policy
 from trpo_robot_control_tpu_torch.ops.cuda import (fvp_ff_kernel,
@@ -237,21 +238,31 @@ def test_pg_kernel_matches_plain_on_card(cuda, dtype, T, do, N):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("do,e", [(24, 1), (24, 4), (27, 8)])
-def test_fvp_ff_kernel_matches_plain_on_card(cuda, do, e):
+@pytest.mark.parametrize("do,e,dtype,T,N", [
+    (24, 1, torch.bfloat16, 16, 304),
+    (24, 4, torch.bfloat16, 16, 304),
+    (27, 8, torch.bfloat16, 16, 304),
+    (24, 1, torch.float32, 16, 304),        # fp32 storage: x split too
+    (27, 4, torch.bfloat16, 16, 129),       # a last tile of one sample
+    (24, 8, torch.bfloat16, 8, 200),        # T' = 1
+    (27, 8, torch.bfloat16, 80, 4096),      # several tiles per block
+])
+def test_fvp_ff_kernel_matches_plain_on_card(cuda, do, e, dtype, T, N):
     """On the time-strided subsample (c3) and on the time- and env-strided
-    one (c4, c5)."""
+    one (c4, c5), against the plain version and against the statement of
+    the kernel's plane products (``gn_fvp_ff_split``)."""
     g = torch.Generator(device=cuda).manual_seed(3)
     pn = policy_params_np(np.random.RandomState(12), do, 7)
     pc = {k: t(v).to(cuda) for k, v in pn.items()}
-    obs = torch.randn(16, do, 304 * e, generator=g, device=cuda) \
-        .to(torch.bfloat16)
+    obs = torch.randn(T, do, N * e, generator=g, device=cuda).to(dtype)
     sub = obs[::8, :, ::e]
     v = torch.randn(sum(x.numel() for x in pc.values()), generator=g,
                     device=cuda)
     fk = fvp_ff_kernel.make_gn_fvp_ff(pc, sub, 0.1)(v)
     fp = fvp_ff_kernel.gn_fvp_ff_plain(pc, sub, v, 0.1)
+    fs = gn_fvp_ff_split(pc, sub, v, 0.1)
     assert float(torch.linalg.norm(fk - fp) / torch.linalg.norm(fp)) < 1e-5
+    assert float(torch.linalg.norm(fk - fs) / torch.linalg.norm(fs)) < 1e-6
     assert torch.equal(fk, fvp_ff_kernel.make_gn_fvp_ff(pc, sub, 0.1)(v))
 
 

@@ -392,3 +392,88 @@ def pg_fp64_errors(ref, mu, g_masked):
     f = policy.flatten(g_masked).double()
     f64 = policy.flatten(ref["g_kept"])
     return over, float(torch.linalg.norm(f - f64) / torch.linalg.norm(f64))
+
+
+# K6's plane products (csrc/fvp_ff.cu): hi hi, then the five others that
+# hold fp32's 24 bits
+SIX_PAIRS = ((0, 0), (0, 1), (1, 0), (0, 2), (2, 0), (1, 1))
+
+
+def gn_fvp_ff_split(params, obs_sub_ff, v, damping, pairs=SIX_PAIRS,
+                    blocks=None):
+    """A PyTorch statement of K6's arithmetic, on the tensors' device.
+
+    Every 64-wide product takes its operands as the three bf16 planes of
+    ``pg_kernel.split3`` (a bf16 x is its own hi plane, the other two
+    zero) and sums the plane products ``pairs`` in fp64: hi hi on its own
+    and the others together, each rounded to fp32 where the kernel's
+    accumulators round, then added in fp32. The da-wide head runs in fp32.
+    Samples go in the kernel's tiles of one time step and
+    ``fvp_ff_kernel.TILE`` envs (padding gets u = 0); the weight gradients are per-tile sums, added in fp32 per
+    block over its tiles (block b takes tiles b, b + G, ...), and the
+    blocks' partials are summed in the reduce pass's order."""
+    from trpo_robot_control_tpu_torch.models import policy
+    from trpo_robot_control_tpu_torch.ops.cuda import fvp_ff_kernel
+    from trpo_robot_control_tpu_torch.ops.cuda.pg_kernel import split3
+    blocks = blocks or fvp_ff_kernel.MAX_BLOCKS
+    tile = fvp_ff_kernel.TILE
+    rest = [pq for pq in pairs if pq != (0, 0)]
+
+    def planes(x):
+        return [p.double() for p in split3(x.float())]
+
+    def mm(*terms):
+        hi = sum(a[0] @ b[0] for a, b in terms).float()
+        if not rest:
+            return hi
+        return hi + sum(a[p] @ b[q] for a, b in terms for p, q in rest).float()
+
+    def tr(ps):
+        return [p.transpose(-1, -2) for p in ps]
+
+    Ts, do, N = obs_sub_ff.shape
+    nt = -(-N // tile)
+    dev = obs_sub_ff.device
+    x = torch.zeros(Ts, nt * tile, do, device=dev)
+    x[:, :N] = obs_sub_ff.permute(0, 2, 1).float()
+    x = x.reshape(Ts * nt, tile, do)
+    mask = torch.zeros(Ts, nt * tile, 1, device=dev)
+    mask[:, :N] = 1.0
+    mask = mask.reshape(Ts * nt, tile, 1)
+    p, t = params, policy.unflatten(v, params)
+    scale = torch.exp(-2.0 * p["logstd"]) / (Ts * N)
+    xp, w0, dw0 = planes(x), planes(p["W0"]), planes(t["W0"])
+    w1, dw1 = planes(p["W1"]), planes(t["W1"])
+    h0 = torch.tanh(mm((xp, w0)) + p["b0"])
+    dh0 = (1.0 - h0 * h0) * (mm((xp, dw0)) + t["b0"])
+    h0p = planes(h0)
+    h1 = torch.tanh(mm((h0p, w1)) + p["b1"])
+    dh1 = (1.0 - h1 * h1) * (mm((planes(dh0), w1), (h0p, dw1)) + t["b1"])
+    u = (dh1 @ p["W2"] + h1 @ t["W2"] + t["b2"]) * scale * mask
+    g1 = (u @ p["W2"].T) * (1.0 - h1 * h1)
+    g1p = planes(g1)
+    g0 = mm((g1p, tr(w1))) * (1.0 - h0 * h0)
+    per_tile = {"W0": mm((tr(xp), planes(g0))), "W1": mm((tr(h0p), g1p)),
+                "W2": h1.transpose(1, 2) @ u, "b0": g0.sum(1),
+                "b1": g1.sum(1), "b2": u.sum(1)}
+    flat = torch.cat([per_tile[k].reshape(Ts * nt, -1)
+                      for k in ("W0", "W1", "W2", "b0", "b1", "b2")], 1)
+    G = min(Ts * nt, blocks)
+    part = []
+    for b in range(G):
+        tot = flat[b]
+        for i in range(b + G, Ts * nt, G):
+            tot = tot + flat[i]
+        part.append(tot)
+    groups = []                # the reduce pass: 8 groups, blocks g, g + 8..
+    for gi in range(8):
+        s = torch.zeros_like(flat[0])
+        for b in range(gi, G, 8):
+            s = s + part[b]
+        groups.append(s)
+    red = groups[0]
+    for s in groups[1:]:
+        red = red + s
+    Pg = red.shape[0]
+    return torch.cat([red + damping * v[:Pg],
+                      2.0 * v[Pg:] + damping * v[Pg:]])

@@ -5,10 +5,13 @@ Replaces ``make_pallas_gn_fvp_ff`` in
 ``trpo_robot_control_tpu/ops/pallas/fvp_ff_kernel.py``: each CG call reads
 the strided subsample obs_ff[::k, :, ::e] (T', do, N') in place, through
 its time and env strides and in its storage dtype, recomputes the two
-hidden activations in fp32, and runs the forward tangent and the reverse
+hidden activations, and runs the forward tangent and the reverse
 accumulation. The logstd block 2 v and the damping are added in the
-kernel's reduce pass. The view costs no copy: the kernel is bound by its
-operations, not by the bytes of its strided loads.
+kernel's reduce pass. The 64-wide products run on the tensor cores and
+stay exact to fp32: the kernel splits every fp32 operand (weights, v,
+activations, fp32-stored obs) into three bf16 planes as
+``pg_kernel.split3`` does and sums the six plane products that hold
+fp32's 24 bits (the TPU kernel rounds to bf16 instead).
 
 ``make_gn_fvp_ff`` returns ``fvp(v)``: the CUDA kernel on a CUDA
 subsample (or it raises), ``gn_fvp_ff_plain`` on a CPU one. The plain
@@ -27,12 +30,15 @@ from .fvp_kernel import activations, gn_fvp_math
 from ...models import policy
 
 HIDDEN = 64
-MAX_BLOCKS = 256    # fixed, so the reduction order does not depend on the card
-TILE = 32           # samples per tile (csrc/fvp_ff.cu: S)
+# fixed, so the reduction order does not depend on the card: one block (188
+# KB of shared memory) on each of an H100's 132 SMs
+MAX_BLOCKS = 132
+TILE = 64           # samples per tile (csrc/fvp_ff.cu: TS)
 
 _SIG = {"trpo_fvp_ff_launch": [ctypes.c_void_p] + [ctypes.c_longlong] * 3
         + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        "trpo_fvp_ff_occupancy": [ctypes.c_int, ctypes.c_void_p]}
 
 
 def gn_fvp_ff_plain(params, obs_sub_ff, v, damping: float):
@@ -111,3 +117,17 @@ def make_gn_fvp_ff(params, obs_sub_ff, damping: float):
     B = obs_sub_ff.shape[0] * obs_sub_ff.shape[2]
     scale = torch.exp(-2.0 * params["logstd"]) / B
     return lambda v: gn_fvp_ff(params, obs_sub_ff, scale, v, damping)
+
+
+def occupancy(store_dtype=torch.bfloat16) -> dict:
+    """What the card makes of the kernel for a subsample stored in
+    ``store_dtype``: resident blocks and warps per SM, registers and local
+    (spill) bytes per thread, dynamic and static shared bytes per block."""
+    out = (ctypes.c_int * 6)()
+    err = build.library("fvp_ff", _SIG).trpo_fvp_ff_occupancy(
+        int(store_dtype == torch.bfloat16), out)
+    build.check(err, "feature-first FVP kernel occupancy")
+    blocks, regs, local, dyn, static, threads = out
+    return dict(blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32,
+                registers=regs, local_bytes=local, smem_dynamic=dyn,
+                smem_static=static, threads=threads)
