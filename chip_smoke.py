@@ -7,13 +7,18 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
 
 1. names the card and builds the six CUDA kernels from ``ops/cuda/csrc``;
    prints every kernel's ``-Xptxas -v`` lines (K4's for each
-   instantiation), then what the card makes of each K4 instantiation
-   (resident blocks and warps per SM from ``rollout3d_kernel.occupancy``;
-   at least 16 warps) and of K6's two (``fvp_ff_kernel.occupancy``);
+   instantiation), then what the card makes of each K1 instantiation
+   (``rollout_kernel.occupancy`` and the grid at c1's and c2's width; no
+   spill stores, at least 128 blocks at c2), of each K4
+   instantiation (resident blocks and warps per SM from
+   ``rollout3d_kernel.occupancy``; at least 16 warps) and of K6's two
+   (``fvp_ff_kernel.occupancy``);
 2. c2 (3-link planar arm, 1024 envs x 100 steps):
    a. K1 rollout kernel against its plain version (eps mode: tight over
       10 steps, looser over the full horizon), then the Philox mode's
-      noise statistics and seed determinism;
+      noise statistics and seed determinism, and a SHA-256 of the Philox
+      batch at seed K1_SEED (also at c1, 2 links and 64 envs x 50 steps,
+      which is held against its plain version too);
    b. K2 moments kernel against its plain version (the Gram summed in
       fp64) on that batch, with the fp32 ``normal_eq_ff`` beside it;
    c. K3 FVP kernel against the plain ``make_gn_fvp`` on c2's Fisher
@@ -22,7 +27,8 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
       with the launch counters showing every kernel of that path ran and
       no plain version did;
    e. K1-K3 times (CUDA events) beside their bounds, plain versions and,
-      for K2, a library yardstick;
+      for K2, a library yardstick; K1 also at c1, and in microseconds
+      per dependent step;
 3. the 7-DoF configs, each at full width with bf16 storage: c3 (reach,
    4096 envs x 200 steps), c4 (reach with the obstacle penalty, 16,384
    envs, Fisher env stride 4) and c5 (reach, track and push tasks, a
@@ -79,6 +85,7 @@ from __future__ import annotations
 import hashlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -142,6 +149,11 @@ RESET_TOL = 1e-5
 
 # Philox-mode seeds of the K4 digests and timings (phases 3a, 3f, 4)
 K4_SEED_A, K4_SEED_T = (4242, 17), (7, 7)
+# Philox-mode seed of the K1 digests at c1, c2 and c2-term (phases 2a, 4c)
+K1_SEED = (2468, 13)
+# K1 takes about as long as its wrapper's host work, so its timings queue
+# the launches behind a sleep kernel of this many ms (``cuda_ms``)
+K1_LEAD_MS = 20.0
 
 
 def require(ok: bool, what) -> None:
@@ -158,12 +170,19 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+def cuda_ms(fn, iters: int, warmup: int = 2, lead_ms: float = 0.0) -> float:
+    """Device ms per call of ``fn`` over ``iters`` calls after ``warmup``.
+    With ``lead_ms`` a sleep kernel of about that length runs first, so that
+    the host has queued every timed call before the card reaches the first:
+    the time of a kernel shorter than its wrapper's host work is then the
+    card's, not the host's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if lead_ms > 0.0:
+        torch.cuda._sleep(int(lead_ms * 2e6))      # ~2e6 cycles per ms
     start.record()
     for _ in range(iters):
         fn()
@@ -225,6 +244,69 @@ def k4_setup(dev, cfg, seed):
     params = policy.init_params(gen, cfg.obs_dim, cfg.arm.n_joints,
                                 cfg.trpo.hidden, cfg.trpo.logstd_init)
     return gen, params, arm.reset(cfg, gen, cfg.n_envs)
+
+
+def k1_setup(dev, cfg, seed):
+    """A planar phase's policy and initial states, drawn as ``k4_setup``
+    draws them, and K1_SEED on the device: (params, s0, philox seed)."""
+    _, params, s0 = k4_setup(dev, cfg, seed)
+    return params, s0, torch.tensor(K1_SEED, dtype=torch.int64, device=dev)
+
+
+def k1_ms(cfg, params, s0, seed):
+    """K1's time per launch in Philox mode: 20 launches after warm-up,
+    queued behind K1_LEAD_MS of sleep."""
+    from trpo_robot_control_tpu_torch.ops.cuda import rollout_kernel as rk
+    return cuda_ms(lambda: rk.rollout(cfg, params, s0.q, s0.qd, s0.tgt,
+                                      seed=seed), 20, lead_ms=K1_LEAD_MS)
+
+
+def k1_digest(cfg, params, s0, seed):
+    """SHA-256 of K1's Philox batch (obs, act, rew and, when the config
+    terminates, dones) at ``seed``."""
+    from trpo_robot_control_tpu_torch.ops.cuda import rollout_kernel as rk
+    return sha256(*rk.rollout(cfg, params, s0.q, s0.qd, s0.tgt, seed=seed))
+
+
+def k1_bound(cfg, P):
+    """K1's bound at ``cfg``: the policy MLP's FLOPs over the fp32 peak or
+    every input read and output written once (the done flags too when the
+    config terminates), whichever is larger."""
+    T, N, n = cfg.horizon, cfg.n_envs, cfg.arm.n_joints
+    do, H = cfg.obs_dim, cfg.trpo.hidden[0]
+    B = T * N
+    rows = do + n + (2 if cfg.done_dist > 0.0 else 1)
+    return bound_ms(2.0 * (do * H + H * H + H * n) * B,
+                    4.0 * (B * rows + N * (2 * n + 2) + P))
+
+
+def k1_occupancy():
+    """What the card makes of K1's four instantiations
+    (``rollout_kernel.occupancy``) and the grid of each at its config's
+    width (c1 for 2 joints, c2 for 3); requires no spill store in the
+    ``-Xptxas -v`` report, a resident block and at least 128 blocks at c2.
+    Returns {instantiation: occupancy}."""
+    from trpo_robot_control_tpu_torch.configs import C1_REACHER2, C2_REACHER3
+    from trpo_robot_control_tpu_torch.ops.cuda import build
+    from trpo_robot_control_tpu_torch.ops.cuda import rollout_kernel as rk
+    report = [ln for ln in build.ptxas_report().splitlines()
+              if ln.startswith("rollout: ")]
+    spills = [int(x) for x in
+              re.findall(r"(\d+) bytes spill stores", "\n".join(report))]
+    print(f"K1 spill stores per instantiation (bytes): {spills}")
+    require(len(spills) >= 4 and not any(spills), f"K1 spills {spills}")
+    out = {}
+    for tag, cfg in (("c1", C1_REACHER2), ("c2", C2_REACHER3)):
+        for term in (False, True):
+            name = f"{tag}{'-term' if term else ''}"
+            occ = rk.occupancy(cfg.arm.n_joints, term)
+            occ["grid_blocks"] = -(-cfg.n_envs // occ["envs_per_block"])
+            print(f"K1 occupancy [{name}, {cfg.n_envs} envs]: {occ}")
+            require(occ["blocks_per_sm"] >= 1, f"K1 {name}: {occ}")
+            require(tag != "c2" or occ["grid_blocks"] >= 128,
+                    f"K1 {name}: {occ['grid_blocks']} blocks")
+            out[name] = occ
+    return out
 
 
 def k4_occupancy():
@@ -464,6 +546,45 @@ def train_checked(cfg, n_iters, kernels, expect, train):
     return launches, ms_upd
 
 
+def k1_c1(dev):
+    """K1 at c1 (2 links, 64 envs x 50 steps): eps mode against its plain
+    version, the Philox batch's SHA-256 at seed K1_SEED, and its time
+    beside its bound; returns its record."""
+    from trpo_robot_control_tpu_torch.configs import C1_REACHER2
+    from trpo_robot_control_tpu_torch.models import policy
+    from trpo_robot_control_tpu_torch.ops.cuda import rollout_kernel as rk
+    cfg = C1_REACHER2
+    T, N, n = cfg.horizon, cfg.n_envs, cfg.arm.n_joints
+    params, s0, seed = k1_setup(dev, cfg, 4)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    eps = torch.randn(T, N, n, generator=gen, device=dev)
+    k_out = rk.rollout(cfg, params, s0.q, s0.qd, s0.tgt, eps=eps)
+    p_out = rk.rollout_plain(cfg, params, s0.q, s0.qd, s0.tgt, eps)
+    errs10 = [float((k[:K1_TIGHT_STEPS] - p[:K1_TIGHT_STEPS]).abs().max())
+              for k, p in zip(k_out, p_out)]
+    errs = [float((k - p).abs().max()) for k, p in zip(k_out, p_out)]
+    print(f"c1 K1 eps mode: max |kernel - plain| (obs, act, rew) {errs10} "
+          f"over {K1_TIGHT_STEPS} steps (bound {K1_TIGHT_ATOL}), {errs} over "
+          f"{T} steps (bound {K1_FULL_ATOL})")
+    require(max(errs10) <= K1_TIGHT_ATOL, f"c1 K1 10-step error {errs10}")
+    require(max(errs) <= K1_FULL_ATOL, f"c1 K1 full-horizon error {errs}")
+    require(all(bool(torch.isfinite(x).all()) for x in
+                rk.rollout(cfg, params, s0.q, s0.qd, s0.tgt, seed=seed)),
+            "c1 K1: non-finite output")
+    digest = k1_digest(cfg, params, s0, seed)
+    print(f"c1 K1 Philox batch (seed {K1_SEED}) SHA-256 {digest}")
+    ms = k1_ms(cfg, params, s0, seed)
+    plain_ms = cuda_ms(lambda: rk.rollout_plain(cfg, params, s0.q, s0.qd,
+                                                s0.tgt, eps), 2, warmup=1)
+    bms, by = k1_bound(cfg, policy.flatten(params).numel())
+    print(f"c1 rollout: {ms:.4f} ms/launch, {1e3 * ms / T:.3f} us per step "
+          f"(bound {bms:.4f} ms by {by}), plain {plain_ms:.3f} ms")
+    return dict(max_abs_err=max(errs10), ms=ms, us_per_step=1e3 * ms / T,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                philox_sha256=digest)
+
+
 def c2_phases(dev):
     """K1-K3 at c2 and c2 training; returns {kernel: record}."""
     from trpo_robot_control_tpu_torch.configs import C2_REACHER3
@@ -521,7 +642,11 @@ def c2_phases(dev):
             "K1: a different seed gave the same batch")
     require(all(bool(torch.isfinite(x).all()) for x in (obs_a, act_a, rew_a)),
             "K1: non-finite output")
-    rec["rollout"] = dict(max_abs_err=err10)
+    seed_k1 = torch.tensor(K1_SEED, dtype=torch.int64, device=dev)
+    digest = k1_digest(cfg, params, s0, seed_k1)
+    print(f"c2 K1 Philox batch (seed {K1_SEED}) SHA-256 {digest}")
+    rec["rollout"] = dict(max_abs_err=err10, philox_sha256=digest,
+                          at_c1=k1_c1(dev))
 
     # ---- K2 moments vs normal_eq_ff on that rollout's batch
     obs_ff, _, rew_ff = k_out
@@ -564,13 +689,11 @@ def c2_phases(dev):
     # ---- kernel times beside bounds, plain versions and yardsticks
     B = T * N
     seed_t = torch.tensor([7, 7], dtype=torch.int64, device=dev)
-    t_k1 = cuda_ms(lambda: rk.rollout(cfg, params, s0.q, s0.qd, s0.tgt,
-                                      seed=seed_t), 20)
+    t_k1 = k1_ms(cfg, params, s0, seed_t)
     t_k1p = cuda_ms(lambda: rk.rollout_plain(cfg, params, s0.q, s0.qd,
                                              s0.tgt, eps), 2, warmup=1)
-    mlp_macs = do * H + H * H + H * da
-    b1 = bound_ms(2.0 * mlp_macs * B,
-                  4.0 * (B * (do + da + 1) + N * (2 * n + 2) + P))
+    b1 = k1_bound(cfg, P)
+    rec["rollout"]["us_per_step"] = 1e3 * t_k1 / T
     t_k2 = cuda_ms(lambda: mk.extended_gram(obs_ff, targets, tau), 50)
     t_k2p = cuda_ms(lambda: mk.extended_gram_plain(obs_ff, targets, tau), 20)
     R = 2 * do + 5
@@ -594,7 +717,9 @@ def c2_phases(dev):
         rec[name].update(launches=launches[name], ms=ms, plain_ms=plain_ms,
                          bound_ms=bms, bound_by=by, library_ms=lib_ms)
         print(f"c2 {name}: {ms:.4f} ms/launch (bound {bms:.4f} ms by {by}), "
-              f"plain {plain_ms:.3f} ms"
+              + (f"{1e3 * ms / T:.3f} us per step, " if name == "rollout"
+                 else "")
+              + f"plain {plain_ms:.3f} ms"
               + (f", library {lib_ms:.4f} ms" if lib_ms is not None else "")
               + f", {launches[name] // n_iters} launch(es)/update")
     return rec
@@ -1001,7 +1126,8 @@ def check_reset_ranges(tag, c, q, qd, radius):
     require(abs(q_mean) <= 4 * q_sig, f"{tag}: fresh q mean {q_mean}")
 
 
-def term_variant_ms(tag, launch, done_dist, rounds, iters, warmup):
+def term_variant_ms(tag, launch, done_dist, rounds, iters, warmup,
+                    lead_ms=0.0):
     """Per-launch ms of the TERM kernel at ``done_dist``, of the same
     instantiation with no done (1e-9), of the non-terminating kernel (0)
     and of TERM at 4 done_dist (more resets), timed in turns over
@@ -1015,7 +1141,8 @@ def term_variant_ms(tag, launch, done_dist, rounds, iters, warmup):
     times = {k: [] for k in variants}
     for _ in range(rounds):
         for k, d in variants.items():
-            times[k].append(cuda_ms(lambda: launch(d), iters, warmup=warmup))
+            times[k].append(cuda_ms(lambda: launch(d), iters, warmup=warmup,
+                                    lead_ms=lead_ms))
     for k in variants:
         print(f"{tag} {k} (done_dist {variants[k]:g}, {resets[k]} early "
               f"dones): ms per launch in turns "
@@ -1035,12 +1162,10 @@ def c2_term_phases(dev):
     from trpo_robot_control_tpu_torch.trpo.train import train
     cfg = C2_REACHER3.replace(done_dist=C2_DONE_DIST)
     T, N, n = cfg.horizon, cfg.n_envs, cfg.arm.n_joints
-    do, da = cfg.obs_dim, n
-    H = cfg.trpo.hidden[0]
     c = rk.planar_consts(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(10)
-    params = policy.init_params(gen, do, da, cfg.trpo.hidden,
+    params = policy.init_params(gen, cfg.obs_dim, n, cfg.trpo.hidden,
                                 cfg.trpo.logstd_init)
     P = policy.flatten(params).numel()
     s0 = arm.reset(cfg, gen, N)
@@ -1079,6 +1204,9 @@ def c2_term_phases(dev):
           f"{cm:+.4f}, {sm:+.4f} (4 sigma {4 * sig:.4f})")
     require(abs(cm) <= 4 * sig and abs(sm) <= 4 * sig,
             f"c2 fresh target angle mean cos {cm}, sin {sm}")
+    digest = k1_digest(cfg, params, s0, torch.tensor(
+        K1_SEED, dtype=torch.int64, device=dev))
+    print(f"c2 K1-term Philox batch (seed {K1_SEED}) SHA-256 {digest}")
 
     # ---- five full-width iterations through the trainer
     n_iters = 5
@@ -1091,24 +1219,21 @@ def c2_term_phases(dev):
     # ---- time beside the bound: K1's (the MLP's FLOPs; every input read
     # and output written once) plus the done flags' bytes; the plain
     # version's reset is selects only, no FLOPs
-    B = T * N
     t = term_variant_ms(
         "c2 K1", lambda d: rk.rollout(cfg.replace(done_dist=d), params, s0.q,
                                       s0.qd, s0.tgt, seed=seed),
-        cfg.done_dist, rounds=3, iters=20, warmup=2)
+        cfg.done_dist, rounds=3, iters=20, warmup=2, lead_ms=K1_LEAD_MS)
     t_k = t["term"]
     t_p = cuda_ms(lambda: rk.rollout_plain(cfg, params, s0.q, s0.qd, s0.tgt,
                                            eps, fresh), 2, warmup=1)
-    mlp_macs = do * H + H * H + H * da
-    bms, by = bound_ms(2.0 * mlp_macs * B,
-                       4.0 * (B * (do + da + 2) + N * (2 * n + 2) + P))
-    print(f"c2 rollout_term: {t_k:.4f} ms/launch (bound {bms:.4f} ms by "
-          f"{by}), plain {t_p:.3f} ms, "
+    bms, by = k1_bound(cfg, P)
+    print(f"c2 rollout_term: {t_k:.4f} ms/launch, {1e3 * t_k / T:.3f} us per "
+          f"step (bound {bms:.4f} ms by {by}), plain {t_p:.3f} ms, "
           f"{launches['rollout'] // n_iters} launch(es)/update")
     return {"rollout_term": dict(
         launches=launches["rollout"], max_abs_err=err, ms=t_k, plain_ms=t_p,
-        bound_ms=bms, bound_by=by, library_ms=None,
-        done_dist=cfg.done_dist, variants_ms=t)}
+        bound_ms=bms, bound_by=by, library_ms=None, us_per_step=1e3 * t_k / T,
+        done_dist=cfg.done_dist, variants_ms=t, philox_sha256=digest)}
 
 
 def c5_term_phases(dev):
@@ -1259,6 +1384,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     print(f"build: {build.build_all():.1f} s")
     print(build.ptxas_report())
+    occupancy_k1 = k1_occupancy()
     occupancy = k4_occupancy()
     occupancy_k6 = k6_occupancy()
 
@@ -1298,6 +1424,8 @@ def main() -> int:
         for tag, r in more.items():
             if key in r:
                 entry[("bf16_mode_" if key != name else "at_") + tag] = r[key]
+        if name == "rollout":
+            entry["occupancy"] = occupancy_k1
         if name == "rollout3d":
             entry["occupancy"] = occupancy
         if name == "fvp_ff":

@@ -55,6 +55,14 @@ def test_rollout_plain_matches_pallas_and_reference(name):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("n", [1, 4, 7])
+def test_rollout_occupancy_refuses_joint_counts_it_is_not_built_for(n):
+    """The planar kernel has instantiations for 2 and 3 joints only;
+    ``occupancy`` says so before it builds or loads anything."""
+    with pytest.raises(NotImplementedError, match="2 and 3 joints"):
+        rollout_kernel.occupancy(n, False)
+
+
 def test_moments_plain_matches_pallas_and_twin():
     rng = np.random.RandomState(2)
     T, do, N = 16, 12, 256

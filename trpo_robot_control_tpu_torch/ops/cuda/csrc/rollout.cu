@@ -1,34 +1,65 @@
 // Fused planar-arm rollout: the whole horizon in one launch.
 //
-// Replaces `pallas_rollout` / `_rollout_kernel` in
-// trpo_robot_control_tpu/ops/pallas/rollout_kernel.py (fp32-storage
-// mode). Per env step: forward kinematics, the closed-form planar mass
-// matrix and centripetal bias, an unrolled Cholesky solve, semi-implicit
-// Euler over n_substeps, the tanh-MLP policy mean, a Gaussian action
-// (caller-supplied eps, or Philox4x32-10 + paired Box-Muller), the torque
-// clip and the reward at the post-step state. The terminating
+// Replaces `pallas_rollout` (trpo_robot_control_tpu/ops/pallas/
+// rollout_kernel.py:490, its pallas_call at :594; body `_rollout_kernel`,
+// fp32-storage mode). Per env step: forward kinematics, the closed-form
+// planar mass matrix and centripetal bias, an unrolled Cholesky solve,
+// semi-implicit Euler over n_substeps, the tanh-MLP policy mean, a Gaussian
+// action (caller-supplied eps, or Philox4x32-10 + paired Box-Muller), the
+// torque clip and the reward at the post-step state. The terminating
 // instantiation (TERM, the TPU kernel's `terminating` branch) then flags
 // an env done when its post-step end effector is within done_dist of the
-// target and gives it a fresh episode in registers: q and qd uniform in
-// +-noise, the target at a uniform radius in [rmin, rmax] and a uniform
-// angle, drawn from Philox with counter (env, t, block, 1) (the action
-// normals use (env, t, block, 0), so the action noise is the same whether
-// the env terminates or not), or read from caller-supplied fresh states.
-// TERM is a template switch: the non-terminating instantiation is the
-// same code as without it.
+// target and gives it a fresh episode: q and qd uniform in +-noise, the
+// target at a uniform radius in [rmin, rmax] and a uniform angle, drawn
+// from Philox with counter (env, t, block, 1) (the action normals use
+// (env, t, block, 0), so the action noise is the same whether the env
+// terminates or not), or read from caller-supplied fresh states. TERM is a
+// template switch: the non-terminating instantiation is the same code as
+// without it.
 //
 // What bounds it on an H100: not bytes (6.6 MB written at c2, ~2 us) and
 // not FLOPs (~1 GFLOP of fp32 FMA, ~15 us at 67 TFLOP/s) but the T
-// dependent steps of one env: each step is a chain of ~5k FMAs and 128
-// tanh through the policy MLP. The design keeps each env on one thread
-// with q, qd and the target in registers for all T steps, the first hidden
-// vector (64 floats) in registers, and the policy weights in shared memory
-// where every thread of a warp reads the same word (broadcast). The second
-// hidden layer is never stored: each unit is folded into the mean as soon
-// as it is computed, four units at a time so four FMA chains are in flight.
-// Outputs are feature-first (T, d, N): neighbouring threads are
-// neighbouring envs, so every store coalesces. 1024 envs fill only 32
-// one-warp blocks; more parallelism per env is later work.
+// dependent steps of each env, and how much of each step's latency the
+// SMs hide. One step's critical path is the policy (a DO-long and two
+// 64-long dependent fmaf chains: a layer-1 unit, then the mean over the 64
+// units; two tanhf) and then the dynamics that make the next observation
+// (solve, Euler step, the trig of FK). c2's 1024 envs are ~8 per SM, so
+// the card has no other work to hide that latency behind.
+//
+// Design: a block holds ENVS = 8 envs (c2: 128 blocks, one per SM; c1: 8)
+// in five warps whose roles meet at named barriers (BAR_*):
+// - four MLP warps: MLP warp g takes the env pair g, and its lane j hidden
+//   units j and j + 32 of both layers: four independent chains a thread,
+//   each term's input one 8-byte shared-memory broadcast feeding four
+//   fmaf, the two units' weight columns in the thread's registers. h0 and
+//   layer 1's outputs go through shared memory. While the state warp runs
+//   the dynamics, the first ENVS lanes of warp NORMALS_WARP draw the next
+//   step's action normals (or fetch its eps) and, in TERM, those of warp
+//   FRESH_WARP the next step's fresh episodes: neither depends on the state.
+// - the state warp does each env's serial work once (lane = part * ENVS +
+//   env; its four parts hold the same state): the mean over the 64 layer-1
+//   outputs (part m runs action m's chain, with W2's column m in
+//   registers), the action, the solve and Euler step, FK, the reward, the
+//   done test and the reset, the observation. Its parts split the trig of
+//   FK and the observation (cos and sin of q_i and of the cumulative
+//   angles, a sincosf each, which gives cosf's and sinf's bits) and trade
+//   the results by shuffles. The mass matrix, the bias and the Cholesky
+//   factor depend on q and qd only, so they are formed for step t + 1
+//   while the MLP warps run its policy; FK of the post-step q serves the
+//   reward and the next step (again only after a reset). A step's stores
+//   leave after the observation has been handed over.
+// Every sum is one thread's fmaf chain in index order (layer 0 over d from
+// 0, layer 1 over k from 0, the mean over j from 0), with the precise
+// tanhf, trig and rsqrtf, so the outputs are bit for bit those of one
+// thread per env. A tree reduction over lanes or a split chain would
+// change them. Tensor cores are no help: one step's layer-1 product at c2 is 64 x
+// 64 x 1024 MACs, and a split-bf16 mma.sync chain over 8 envs is no
+// shorter than the 64-long FMA chain and gives up bit-equality.
+// Outputs are feature-first (T, d, N): a row of a block's 8 envs is one
+// 32-byte sector. Built with -fmad=false (the dynamics round every
+// multiply and add as PyTorch's separate elementwise ops do); the policy
+// uses explicit fmaf. The two units' weights (about 150 registers) leave
+// room for one block per SM, all that c1 and c2 need.
 //
 // C interface (ctypes); returns cudaGetLastError() after the launch.
 
@@ -40,8 +71,21 @@
 namespace {
 
 constexpr int H = 64;          // hidden width (both layers)
-constexpr int NT = 32;         // threads (envs) per block
+constexpr int ENVS = 8;        // envs per block
+constexpr int UNITS = 2;       // hidden units per MLP thread: lane + u H / UNITS
+constexpr int GROUP = 2;       // envs per MLP thread (a float2 of each input)
+constexpr int PARTS = 32 / ENVS;                // state-warp lanes per env
+constexpr int MLP_THREADS = H * ENVS / (UNITS * GROUP);   // four warps
+constexpr int THREADS = MLP_THREADS + 32;       // and the state warp
+constexpr int NORMALS_WARP = 3, FRESH_WARP = 2;
 constexpr int NJ_MAX = 8;
+// named barriers (0 is __syncthreads), each a producer/consumer pair, the
+// producers arriving and the consumers waiting: OBS (state warp -> MLP
+// warps: the observation), MLP (between the policy's layers, MLP warps
+// only), ACT (MLP warps -> state warp: layer 1's outputs, the step's
+// normals and fresh episodes)
+constexpr int BAR_OBS = 1, BAR_MLP = 2, BAR_ACT = 3;
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Planar {
     float l[NJ_MAX], lc[NJ_MAX], m[NJ_MAX], iz[NJ_MAX];
@@ -58,30 +102,101 @@ struct Fk {
     float px[NJ], py[NJ], cx[NJ], cy[NJ], eex, eey;
 };
 
+// cos and sin of q_i (the observation) and of the cumulative joint angles
+// th_i (FK; th_0 = q_0)
 template <int NJ>
-__device__ __forceinline__ void fk(const Planar& c, const float* q,
-                                   Fk<NJ>& f) {
-    float th = 0.f, x = 0.f, y = 0.f;
+struct Trig {
+    float cq[NJ], sq[NJ], ct[NJ], st[NJ];
+};
+
+// The state warp's trig: the NA = 2 NJ - 1 distinct angles (q_0 .. q_{NJ-1},
+// th_1 .. th_{NJ-1}) are dealt to its PARTS lane groups, angle a to part
+// a % PARTS in round a / PARTS; each lane takes the sincosf of its angle
+// (one argument reduction and one slow-path branch for both), and the
+// shuffles hand every lane all of them. Every lane of the warp must call
+// it.
+template <int NJ>
+__device__ __forceinline__ void trig(const float* q, int part, int slot,
+                                     Trig<NJ>& g) {
+    constexpr int NA = 2 * NJ - 1, ROUNDS = (NA + PARTS - 1) / PARTS;
+    float ang[NA];
+    float th = q[0];
 #pragma unroll
     for (int i = 0; i < NJ; ++i) {
-        th = (i == 0) ? q[0] : th + q[i];
-        float ct = cosf(th), st = sinf(th);
+        if (i > 0) th = th + q[i];
+        ang[i] = q[i];
+        if (i > 0) ang[NJ + i - 1] = th;
+    }
+    float cr[ROUNDS], sr[ROUNDS];
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+        const int a = r * PARTS + part;
+        float x = ang[0];
+#pragma unroll
+        for (int k = 1; k < NA; ++k) x = (a == k) ? ang[k] : x;
+        sincosf(x, &sr[r], &cr[r]);
+    }
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+        const int src = (a % PARTS) * ENVS + slot;
+        const float cv = __shfl_sync(FULL, cr[a / PARTS], src);
+        const float sv = __shfl_sync(FULL, sr[a / PARTS], src);
+        if (a < NJ) {
+            g.cq[a] = cv;
+            g.sq[a] = sv;
+        } else {
+            g.ct[a - NJ + 1] = cv;
+            g.st[a - NJ + 1] = sv;
+        }
+    }
+    g.ct[0] = g.cq[0];
+    g.st[0] = g.sq[0];
+}
+
+template <int NJ>
+__device__ __forceinline__ void fk(const Planar& c, const Trig<NJ>& g,
+                                   Fk<NJ>& f) {
+    float x = 0.f, y = 0.f;
+#pragma unroll
+    for (int i = 0; i < NJ; ++i) {
         f.px[i] = x;
         f.py[i] = y;
-        f.cx[i] = x + c.lc[i] * ct;
-        f.cy[i] = y + c.lc[i] * st;
-        x = x + c.l[i] * ct;
-        y = y + c.l[i] * st;
+        f.cx[i] = x + c.lc[i] * g.ct[i];
+        f.cy[i] = y + c.lc[i] * g.st[i];
+        x = x + c.l[i] * g.ct[i];
+        y = y + c.l[i] * g.st[i];
     }
     f.eex = x;
     f.eey = y;
 }
 
-// One semi-implicit Euler substep: M qdd = tau - bias - damping qd.
+// [cos q, sin q, qd_obs_scale qd, target - ee, 0]
 template <int NJ>
-__device__ __forceinline__ void substep(const Planar& c, const Fk<NJ>& f,
-                                        const float* tau, float* q,
-                                        float* qd) {
+__device__ __forceinline__ void observe(const Planar& c, const Trig<NJ>& g,
+                                        const float* qd, const Fk<NJ>& f,
+                                        float tgtx, float tgty, float* o) {
+#pragma unroll
+    for (int i = 0; i < NJ; ++i) {
+        o[i] = g.cq[i];
+        o[NJ + i] = g.sq[i];
+        o[2 * NJ + i] = c.qd_obs_scale * qd[i];
+    }
+    o[3 * NJ] = tgtx - f.eex;
+    o[3 * NJ + 1] = tgty - f.eey;
+    o[3 * NJ + 2] = 0.f;
+}
+
+// What a substep needs of q and qd before the action is known: the
+// Cholesky factor of M + reg I (L below the diagonal, the pivots' rsqrt),
+// the centripetal bias and damping * qd.
+template <int NJ>
+struct Factor {
+    float L[NJ][NJ], inv_d[NJ], bias[NJ], dq[NJ];
+};
+
+template <int NJ>
+__device__ __forceinline__ void factor(const Planar& c, const Fk<NJ>& f,
+                                       const float* qd, Factor<NJ>& F) {
     // mass matrix, upper triangle: M_ij = sum_{k>=j} m_k <J_ki, J_kj> + I_k
     float M[NJ][NJ];
 #pragma unroll
@@ -113,7 +228,6 @@ __device__ __forceinline__ void substep(const Planar& c, const Fk<NJ>& f,
             ay = ay - w2 * (f.py[i + 1] - f.py[i]);
         }
     }
-    float bias[NJ];
     float fx = 0.f, fy = 0.f, nz = 0.f, pcx = 0.f, pcy = 0.f;
 #pragma unroll
     for (int i = NJ - 1; i >= 0; --i) {
@@ -121,48 +235,53 @@ __device__ __forceinline__ void substep(const Planar& c, const Fk<NJ>& f,
         float Fy = c.m[i] * acy[i];
         nz = nz + (f.cx[i] - f.px[i]) * Fy - (f.cy[i] - f.py[i]) * Fx
                 + (pcx - f.px[i]) * fy - (pcy - f.py[i]) * fx;
-        bias[i] = nz;
+        F.bias[i] = nz;
         fx = Fx + fx;
         fy = Fy + fy;
         pcx = f.px[i];
         pcy = f.py[i];
     }
-    float rhs[NJ];
 #pragma unroll
-    for (int i = 0; i < NJ; ++i)
-        rhs[i] = tau[i] - bias[i] - c.damping * qd[i];
+    for (int i = 0; i < NJ; ++i) F.dq[i] = c.damping * qd[i];
     // unrolled Cholesky of (M + reg I), one rsqrt per pivot
-    float L[NJ][NJ], inv_d[NJ];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
         float s = M[j][j] + c.chol_reg;
 #pragma unroll
-        for (int k = 0; k < j; ++k) s = s - L[j][k] * L[j][k];
+        for (int k = 0; k < j; ++k) s = s - F.L[j][k] * F.L[j][k];
         float inv = rsqrtf(s);
-        inv_d[j] = inv;
-        L[j][j] = s * inv;
+        F.inv_d[j] = inv;
 #pragma unroll
         for (int i = j + 1; i < NJ; ++i) {
             float t = M[j][i];
 #pragma unroll
-            for (int k = 0; k < j; ++k) t = t - L[i][k] * L[j][k];
-            L[i][j] = t * inv;
+            for (int k = 0; k < j; ++k) t = t - F.L[i][k] * F.L[j][k];
+            F.L[i][j] = t * inv;
         }
     }
+}
+
+// The rest of a semi-implicit Euler substep: M qdd = tau - bias - damping
+// qd by the two triangular solves, then the velocity clip and the step.
+template <int NJ>
+__device__ __forceinline__ void solve_step(const Planar& c,
+                                           const Factor<NJ>& F,
+                                           const float* tau, float* q,
+                                           float* qd) {
     float y[NJ], x[NJ];
 #pragma unroll
     for (int i = 0; i < NJ; ++i) {
-        float s = rhs[i];
+        float s = (tau[i] - F.bias[i]) - F.dq[i];
 #pragma unroll
-        for (int k = 0; k < i; ++k) s = s - L[i][k] * y[k];
-        y[i] = s * inv_d[i];
+        for (int k = 0; k < i; ++k) s = s - F.L[i][k] * y[k];
+        y[i] = s * F.inv_d[i];
     }
 #pragma unroll
     for (int i = NJ - 1; i >= 0; --i) {
         float s = y[i];
 #pragma unroll
-        for (int k = i + 1; k < NJ; ++k) s = s - L[k][i] * x[k];
-        x[i] = s * inv_d[i];
+        for (int k = i + 1; k < NJ; ++k) s = s - F.L[k][i] * x[k];
+        x[i] = s * F.inv_d[i];
     }
 #pragma unroll
     for (int i = 0; i < NJ; ++i) {
@@ -214,8 +333,48 @@ __device__ __forceinline__ void fresh_episode(
     tgty = r * s;
 }
 
+// What the MLP warps' drawing lanes hand the state warp for step t: the
+// action normals (or eps rows) to z (rows of ENVS) when draws_z, else the
+// fresh episode (q, qd, target) to fr.
 template <int NJ, bool TERM>
-__global__ void __launch_bounds__(NT) rollout_kernel(
+__device__ __forceinline__ void draw(
+    const Planar& c, uint2 key, int e, int t, int N, bool draws_z,
+    const float* __restrict__ eps, const float* __restrict__ fq,
+    const float* __restrict__ fqd, const float* __restrict__ ftgt, float* z,
+    float* fr) {
+    if (draws_z) {
+        float zz[NJ];
+        if (eps == nullptr) {
+            normals<NJ>(key, (uint32_t)e, (uint32_t)t, zz);
+        } else {
+#pragma unroll
+            for (int i = 0; i < NJ; ++i)
+                zz[i] = eps[((size_t)t * NJ + i) * N + e];
+        }
+#pragma unroll
+        for (int i = 0; i < NJ; ++i) z[i * ENVS] = zz[i];
+    } else if (TERM) {
+        float qn[NJ], qdn[NJ], tx, ty;
+        fresh_episode<NJ>(c, key, e, t, N, fq, fqd, ftgt, qn, qdn, tx, ty);
+#pragma unroll
+        for (int i = 0; i < NJ; ++i) {
+            fr[i * ENVS] = qn[i];
+            fr[(NJ + i) * ENVS] = qdn[i];
+        }
+        fr[2 * NJ * ENVS] = tx;
+        fr[(2 * NJ + 1) * ENVS] = ty;
+    }
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+    asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+template <int NJ, bool TERM>
+__global__ void __launch_bounds__(THREADS, 1) rollout_kernel(
     Planar c, const float* __restrict__ q0, const float* __restrict__ qd0,
     const float* __restrict__ tgt, const float* __restrict__ W0,
     const float* __restrict__ b0, const float* __restrict__ W1,
@@ -226,116 +385,194 @@ __global__ void __launch_bounds__(NT) rollout_kernel(
     const float* __restrict__ ftgt, float* __restrict__ obs,
     float* __restrict__ act, float* __restrict__ rew,
     float* __restrict__ dones, int N, int T) {
+    static_assert(NJ <= PARTS, "one state-warp part per action");
+    static_assert(GROUP == 2 && MLP_THREADS == 128, "four MLP warps of float2");
     constexpr int DO = 3 * NJ + 3;
-    __shared__ __align__(16) float sW1[H * H];
-    __shared__ float sW0[DO * H], sb0[H], sb1[H], sW2[H * NJ], sb2[NJ];
-    for (int i = threadIdx.x; i < H * H; i += NT) sW1[i] = W1[i];
-    for (int i = threadIdx.x; i < DO * H; i += NT) sW0[i] = W0[i];
-    for (int i = threadIdx.x; i < H * NJ; i += NT) sW2[i] = W2[i];
-    for (int i = threadIdx.x; i < H; i += NT) {
-        sb0[i] = b0[i];
-        sb1[i] = b1[i];
-    }
-    if (threadIdx.x < NJ) sb2[threadIdx.x] = b2[threadIdx.x];
-    __syncthreads();
+    constexpr int NF = 2 * NJ + 2;       // a fresh episode: q, qd, target
+    // per-env arrays are (row, env of the block)
+    __shared__ __align__(16) float sObs[DO * ENVS];
+    __shared__ __align__(16) float sH0[H * ENVS];
+    __shared__ __align__(16) float sA[H * ENVS];
+    __shared__ float sZ[2][NJ * ENVS];   // by step parity
+    __shared__ float sFr[2][NF * ENVS];
+    if (T <= 0) return;
 
-    const int e = blockIdx.x * NT + threadIdx.x;
-    if (e >= N) return;
-
-    float q[NJ], qd[NJ], sigma[NJ];
-#pragma unroll
-    for (int i = 0; i < NJ; ++i) {
-        q[i] = q0[i * N + e];
-        qd[i] = qd0[i * N + e];
-        sigma[i] = expf(logstd[i]);
-    }
-    float tgtx = tgt[e], tgty = tgt[N + e];
+    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+    const int slot = lane % ENVS;
+    const int e_raw = blockIdx.x * ENVS + slot;
+    const bool live = e_raw < N;
+    const int e = live ? e_raw : N - 1;          // padded slots shadow env N-1
     uint2 key = make_uint2(0u, 0u);
-    if (eps == nullptr) {
-        key = make_uint2((uint32_t)seed[0], (uint32_t)seed[1]);
-    }
+    if (eps == nullptr) key = make_uint2((uint32_t)seed[0], (uint32_t)seed[1]);
 
-    for (int t = 0; t < T; ++t) {
-        Fk<NJ> f;
-        fk<NJ>(c, q, f);
-        float o[DO];
+    if (tid < MLP_THREADS) {
+        // ------------------------------------------------- the MLP warps
+        const int j = tid % (H / UNITS);         // units j + u H / UNITS
+        const int col = GROUP * (tid / (H / UNITS));   // the pair's first env
+        float w0[UNITS][DO], w1[UNITS][H], bu0[UNITS], bu1[UNITS];
 #pragma unroll
-        for (int i = 0; i < NJ; ++i) {
-            o[i] = cosf(q[i]);
-            o[NJ + i] = sinf(q[i]);
-            o[2 * NJ + i] = c.qd_obs_scale * qd[i];
+        for (int u = 0; u < UNITS; ++u) {
+            const int k = j + u * (H / UNITS);
+#pragma unroll
+            for (int d = 0; d < DO; ++d) w0[u][d] = W0[d * H + k];
+#pragma unroll
+            for (int kk = 0; kk < H; ++kk) w1[u][kk] = W1[kk * H + k];
+            bu0[u] = b0[k];
+            bu1[u] = b1[k];
         }
-        o[3 * NJ] = tgtx - f.eex;
-        o[3 * NJ + 1] = tgty - f.eey;
-        o[3 * NJ + 2] = 0.f;
+        const bool draws_z = warp == NORMALS_WARP && lane < ENVS;
+        const bool draws_fresh = TERM && warp == FRESH_WARP && lane < ENVS;
+        if (draws_z || draws_fresh)
+            draw<NJ, TERM>(c, key, e, 0, N, draws_z, eps, fq, fqd, ftgt,
+                           sZ[0] + slot, sFr[0] + slot);
+        for (int t = 0; t < T; ++t) {
+            bar_sync(BAR_OBS, THREADS);  // step t's observation is in sObs
+            // UNITS x GROUP chains a layer, each fmaf in input order from 0
+            float z[UNITS][GROUP];
 #pragma unroll
-        for (int d = 0; d < DO; ++d) obs[((size_t)t * DO + d) * N + e] = o[d];
-
-        // policy mean: tanh(W0^T o + b0) -> tanh(W1^T h0 + b1) -> W2^T h1 + b2
-        float h0[H];
+            for (int u = 0; u < UNITS; ++u) z[u][0] = z[u][1] = 0.f;
 #pragma unroll
-        for (int k = 0; k < H; ++k) {
-            float z = 0.f;
+            for (int d = 0; d < DO; ++d) {
+                const float2 x =
+                    *reinterpret_cast<const float2*>(&sObs[d * ENVS + col]);
 #pragma unroll
-            for (int d = 0; d < DO; ++d) z = fmaf(o[d], sW0[d * H + k], z);
-            h0[k] = tanhf(z + sb0[k]);
-        }
-        float mu[NJ];
+                for (int u = 0; u < UNITS; ++u) {
+                    z[u][0] = fmaf(x.x, w0[u][d], z[u][0]);
+                    z[u][1] = fmaf(x.y, w0[u][d], z[u][1]);
+                }
+            }
 #pragma unroll
-        for (int m = 0; m < NJ; ++m) mu[m] = 0.f;
-#pragma unroll 1
-        for (int j = 0; j < H; j += 4) {
-            float z0 = 0.f, z1 = 0.f, z2 = 0.f, z3 = 0.f;
+            for (int u = 0; u < UNITS; ++u)
+                *reinterpret_cast<float2*>(
+                    &sH0[(j + u * (H / UNITS)) * ENVS + col]) =
+                    make_float2(tanhf(z[u][0] + bu0[u]),
+                                tanhf(z[u][1] + bu0[u]));
+            bar_sync(BAR_MLP, MLP_THREADS);
+#pragma unroll
+            for (int u = 0; u < UNITS; ++u) z[u][0] = z[u][1] = 0.f;
 #pragma unroll
             for (int k = 0; k < H; ++k) {
-                float4 w = *reinterpret_cast<const float4*>(&sW1[k * H + j]);
-                z0 = fmaf(h0[k], w.x, z0);
-                z1 = fmaf(h0[k], w.y, z1);
-                z2 = fmaf(h0[k], w.z, z2);
-                z3 = fmaf(h0[k], w.w, z3);
-            }
-            float a0 = tanhf(z0 + sb1[j]), a1 = tanhf(z1 + sb1[j + 1]);
-            float a2 = tanhf(z2 + sb1[j + 2]), a3 = tanhf(z3 + sb1[j + 3]);
+                const float2 x =
+                    *reinterpret_cast<const float2*>(&sH0[k * ENVS + col]);
 #pragma unroll
-            for (int m = 0; m < NJ; ++m) {
-                mu[m] = fmaf(a0, sW2[j * NJ + m], mu[m]);
-                mu[m] = fmaf(a1, sW2[(j + 1) * NJ + m], mu[m]);
-                mu[m] = fmaf(a2, sW2[(j + 2) * NJ + m], mu[m]);
-                mu[m] = fmaf(a3, sW2[(j + 3) * NJ + m], mu[m]);
+                for (int u = 0; u < UNITS; ++u) {
+                    z[u][0] = fmaf(x.x, w1[u][k], z[u][0]);
+                    z[u][1] = fmaf(x.y, w1[u][k], z[u][1]);
+                }
             }
-        }
-
-        float z[NJ];
-        if (eps != nullptr) {
 #pragma unroll
-            for (int i = 0; i < NJ; ++i) z[i] = eps[((size_t)t * NJ + i) * N + e];
-        } else {
-            normals<NJ>(key, (uint32_t)e, (uint32_t)t, z);
+            for (int u = 0; u < UNITS; ++u)
+                *reinterpret_cast<float2*>(
+                    &sA[(j + u * (H / UNITS)) * ENVS + col]) =
+                    make_float2(tanhf(z[u][0] + bu1[u]),
+                                tanhf(z[u][1] + bu1[u]));
+            bar_arrive(BAR_ACT, THREADS);
+            if (t + 1 < T && (draws_z || draws_fresh))
+                draw<NJ, TERM>(c, key, e, t + 1, N, draws_z, eps, fq, fqd, ftgt,
+                               sZ[(t + 1) & 1] + slot,
+                               sFr[(t + 1) & 1] + slot);
         }
-        float tau[NJ];
-        float ctrl = 0.f;
+    } else {
+        // ------------------------------------------------- the state warp
+        const int part = lane / ENVS;
+        const bool writer = part == 0 && live;
+        float q[NJ], qd[NJ], sigma[NJ], bias2[NJ];
 #pragma unroll
         for (int i = 0; i < NJ; ++i) {
-            float a = (mu[i] + sb2[i]) + sigma[i] * z[i];
-            act[((size_t)t * NJ + i) * N + e] = a;
-            tau[i] = fminf(fmaxf(a, -c.torque_limit), c.torque_limit);
-            ctrl = (i == 0) ? tau[0] * tau[0] : ctrl + tau[i] * tau[i];
+            q[i] = q0[i * N + e];
+            qd[i] = qd0[i * N + e];
+            sigma[i] = expf(logstd[i]);
+            bias2[i] = b2[i];
         }
-
-        for (int s = 0; s < c.n_substeps; ++s) {
-            if (s > 0) fk<NJ>(c, q, f);
-            substep<NJ>(c, f, tau, q, qd);
+        float tgtx = tgt[e], tgty = tgt[N + e];
+        float w2[H];                     // W2's column `part` (action part)
+#pragma unroll
+        for (int k = 0; k < H; ++k) w2[k] = part < NJ ? W2[k * NJ + part] : 0.f;
+        Trig<NJ> g;
+        Fk<NJ> f;
+        float o[DO];
+        trig<NJ>(q, part, slot, g);
+        fk<NJ>(c, g, f);
+        observe<NJ>(c, g, qd, f, tgtx, tgty, o);
+        // (every part writes its env's row: the same value to one address)
+#pragma unroll
+        for (int d = 0; d < DO; ++d) sObs[d * ENVS + slot] = o[d];
+        bar_arrive(BAR_OBS, THREADS);
+        if (writer) {
+#pragma unroll
+            for (int d = 0; d < DO; ++d) obs[(size_t)d * N + e] = o[d];
         }
-        fk<NJ>(c, q, f);                  // reward at the post-step state
-        float dx = f.eex - tgtx, dy = f.eey - tgty;
-        const float dist2 = dx * dx + dy * dy;
-        rew[(size_t)t * N + e] = -(dist2 + c.ctrl_weight * ctrl);
-        if (TERM) {
-            const bool done = dist2 < c.done_dist2;
-            dones[(size_t)t * N + e] = done ? 1.f : 0.f;
-            if (done)
-                fresh_episode<NJ>(c, key, e, t, N, fq, fqd, ftgt, q, qd, tgtx,
-                                  tgty);
+        Factor<NJ> F;
+        factor<NJ>(c, f, qd, F);
+        for (int t = 0; t < T; ++t) {
+            bar_sync(BAR_ACT, THREADS);  // layer 1 and step t's normals
+            float sz[NJ];
+#pragma unroll
+            for (int i = 0; i < NJ; ++i)
+                sz[i] = sigma[i] * sZ[t & 1][i * ENVS + slot];
+            // policy mean W2^T h1 + b2 (h1: layer 1's tanh outputs): part
+            // m < NJ runs action m's chain, then every lane takes all NJ
+            float acc = 0.f;
+#pragma unroll
+            for (int jj = 0; jj < H; ++jj)
+                acc = fmaf(sA[jj * ENVS + slot], w2[jj], acc);
+            float a[NJ], tau[NJ];
+            float ctrl = 0.f;
+#pragma unroll
+            for (int i = 0; i < NJ; ++i) {
+                a[i] = (__shfl_sync(FULL, acc, i * ENVS + slot) + bias2[i])
+                     + sz[i];
+                tau[i] = fminf(fmaxf(a[i], -c.torque_limit), c.torque_limit);
+                ctrl = (i == 0) ? tau[0] * tau[0] : ctrl + tau[i] * tau[i];
+            }
+            solve_step<NJ>(c, F, tau, q, qd);
+            for (int s = 1; s < c.n_substeps; ++s) {
+                trig<NJ>(q, part, slot, g);
+                fk<NJ>(c, g, f);
+                factor<NJ>(c, f, qd, F);
+                solve_step<NJ>(c, F, tau, q, qd);
+            }
+            // the reward at the post-step state; its FK is the next step's
+            trig<NJ>(q, part, slot, g);
+            fk<NJ>(c, g, f);
+            const float dx = f.eex - tgtx, dy = f.eey - tgty;
+            const float dist2 = dx * dx + dy * dy;
+            const bool done = TERM && dist2 < c.done_dist2;
+            if (TERM && t + 1 < T && __any_sync(FULL, done)) {
+                // a done env starts step t's fresh episode; the other lanes
+                // recompute their own unchanged values
+                const float* fr = sFr[t & 1] + slot;
+#pragma unroll
+                for (int i = 0; i < NJ; ++i) {
+                    q[i] = done ? fr[i * ENVS] : q[i];
+                    qd[i] = done ? fr[(NJ + i) * ENVS] : qd[i];
+                }
+                tgtx = done ? fr[2 * NJ * ENVS] : tgtx;
+                tgty = done ? fr[(2 * NJ + 1) * ENVS] : tgty;
+                trig<NJ>(q, part, slot, g);
+                fk<NJ>(c, g, f);
+            }
+            if (t + 1 < T) {
+                observe<NJ>(c, g, qd, f, tgtx, tgty, o);
+#pragma unroll
+                for (int d = 0; d < DO; ++d) sObs[d * ENVS + slot] = o[d];
+                bar_arrive(BAR_OBS, THREADS);
+            }
+            // step t's outputs and step t + 1's observation leave while the
+            // MLP warps run step t + 1's policy
+            if (writer) {
+#pragma unroll
+                for (int i = 0; i < NJ; ++i)
+                    act[((size_t)t * NJ + i) * N + e] = a[i];
+                rew[(size_t)t * N + e] = -(dist2 + c.ctrl_weight * ctrl);
+                if (TERM) dones[(size_t)t * N + e] = done ? 1.f : 0.f;
+                if (t + 1 < T) {
+#pragma unroll
+                    for (int d = 0; d < DO; ++d)
+                        obs[((size_t)(t + 1) * DO + d) * N + e] = o[d];
+                }
+            }
+            if (t + 1 < T) factor<NJ>(c, f, qd, F);
         }
     }
 }
@@ -350,18 +587,47 @@ struct Args {
 };
 
 template <int NJ, bool TERM>
-cudaError_t launch(const Planar& c, const Args& a) {
-    dim3 grid((a.N + NT - 1) / NT);
-    rollout_kernel<NJ, TERM><<<grid, NT, 0, a.stream>>>(
-        c, a.q0, a.qd0, a.tgt, a.W0, a.b0, a.W1, a.b1, a.W2, a.b2, a.logstd,
-        a.eps, a.seed, a.fq, a.fqd, a.ftgt, a.obs, a.act, a.rew, a.dones,
-        a.N, a.T);
-    return cudaGetLastError();
-}
+struct Launch {
+    static cudaError_t run(const Planar& c, const Args& a) {
+        dim3 grid((a.N + ENVS - 1) / ENVS);
+        rollout_kernel<NJ, TERM><<<grid, THREADS, 0, a.stream>>>(
+            c, a.q0, a.qd0, a.tgt, a.W0, a.b0, a.W1, a.b1, a.W2, a.b2,
+            a.logstd, a.eps, a.seed, a.fq, a.fqd, a.ftgt, a.obs, a.act,
+            a.rew, a.dones, a.N, a.T);
+        return cudaGetLastError();
+    }
+    // resident blocks per SM, registers and local bytes per thread, static
+    // shared bytes per block, threads and envs per block
+    static cudaError_t occupancy(int* out) {
+        int blocks = 0;
+        cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, rollout_kernel<NJ, TERM>, THREADS, 0);
+        if (err != cudaSuccess) return err;
+        cudaFuncAttributes fa;
+        err = cudaFuncGetAttributes(&fa, rollout_kernel<NJ, TERM>);
+        if (err != cudaSuccess) return err;
+        out[0] = blocks;
+        out[1] = fa.numRegs;
+        out[2] = (int)fa.localSizeBytes;
+        out[3] = (int)fa.sharedSizeBytes;
+        out[4] = THREADS;
+        out[5] = ENVS;
+        return cudaSuccess;
+    }
+};
 
-template <int NJ>
-cudaError_t launch_term(const Planar& c, const Args& a, int terminating) {
-    return terminating ? launch<NJ, true>(c, a) : launch<NJ, false>(c, a);
+// The instantiations: n = 2 and 3, each terminating or not; anything else
+// is cudaErrorInvalidValue.
+template <typename Op>
+cudaError_t dispatch(int n_joints, int terminating, Op op) {
+    switch (n_joints) {
+        case 2:
+            return terminating ? op(Launch<2, true>{}) : op(Launch<2, false>{});
+        case 3:
+            return terminating ? op(Launch<3, true>{}) : op(Launch<3, false>{});
+        default:
+            return cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
@@ -407,12 +673,13 @@ extern "C" int trpo_rollout_launch(
     const Args a = {q0, qd0, tgt, W0, b0, W1, b1, W2, b2, logstd, eps, seed,
                     fq, fqd, ftgt, obs, act, rew, dones, N, T,
                     static_cast<cudaStream_t>(stream)};
-    switch (n) {
-        case 2:
-            return (int)launch_term<2>(c, a, terminating);
-        case 3:
-            return (int)launch_term<3>(c, a, terminating);
-        default:
-            return (int)cudaErrorInvalidValue;
-    }
+    return (int)dispatch(n, terminating,
+                         [&](auto inst) { return inst.run(c, a); });
+}
+
+// out: int[6], as Launch::occupancy fills it.
+extern "C" int trpo_rollout_occupancy(int n_joints, int terminating,
+                                      int* out) {
+    return (int)dispatch(n_joints, terminating,
+                         [&](auto inst) { return inst.occupancy(out); });
 }

@@ -7,8 +7,11 @@ centripetal bias, unrolled Cholesky, semi-implicit Euler, tanh-MLP policy,
 Gaussian action, torque clip, reward) and, when ``cfg.done_dist > 0``, the
 terminating branch: an env whose post-step end effector comes within
 ``done_dist`` of its target is flagged done and starts a fresh episode
-before the next step. One thread per env; see the source for what bounds
-it on the card and what its design does about that.
+before the next step. A block holds 8 envs in five warps: four compute
+the policy's hidden units across their lanes, one does each env's serial
+work; see the source for what bounds it on the card and what its design
+does about that. ``occupancy`` reports what the card makes of each
+instantiation.
 
 ``rollout`` is the wrapper: on CUDA tensors it launches the kernel (or
 raises), on CPU tensors it runs ``rollout_plain``, the same feature-first
@@ -40,7 +43,9 @@ HIDDEN = 64
 _SIG = {"trpo_rollout_launch":
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
         + [ctypes.c_void_p] * 19 + [ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_void_p]}
+                                    ctypes.c_void_p],
+        "trpo_rollout_occupancy": [ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p]}
 
 
 class PlanarConsts(NamedTuple):
@@ -319,9 +324,7 @@ def rollout(cfg, params, q0, qd0, tgt, eps=None, seed=None, fresh=None):
     if L != 3 or any(params[f"W{i}"].shape[1] != HIDDEN for i in range(2)):
         raise NotImplementedError(
             "the rollout kernel takes a (64, 64) tanh policy")
-    if n not in (2, 3):
-        raise NotImplementedError(
-            f"the planar rollout kernel is built for 2 and 3 joints, not {n}")
+    _check_joints(n)
     if (eps is None) == (seed is None):
         raise ValueError("pass exactly one of eps and seed")
     ins = dict(q0=q0.T, qd0=qd0.T, tgt=tgt[:, :2].T,
@@ -369,3 +372,28 @@ def rollout(cfg, params, q0, qd0, tgt, eps=None, seed=None, fresh=None):
 
 
 rollout.launches = 0
+
+
+def _check_joints(n: int) -> None:
+    if n not in (2, 3):
+        raise NotImplementedError(
+            f"the planar rollout kernel is built for 2 and 3 joints, not {n}")
+
+
+def occupancy(n: int, term: bool) -> dict:
+    """What the card makes of the instantiation for ``n`` joints,
+    terminating or not: resident blocks and warps per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
+    bytes per thread (the stack frame: spills, and the slow-path array of
+    the precise trig, which ``-Xptxas -v`` tells apart), static shared
+    bytes, threads and envs per block. Raises NotImplementedError for an
+    ``n`` it is not built for."""
+    _check_joints(n)
+    out = (ctypes.c_int * 6)()
+    err = build.library("rollout", _SIG).trpo_rollout_occupancy(
+        n, int(term), out)
+    build.check(err, "rollout kernel occupancy")
+    blocks, regs, local, static, threads, envs = out
+    return dict(blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32,
+                registers=regs, local_bytes=local, smem_static=static,
+                threads=threads, envs_per_block=envs)
