@@ -11,7 +11,8 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
    (``rollout_kernel.occupancy`` and the grid at c1's and c2's width; no
    spill stores, at least 128 blocks at c2), of each K4
    instantiation (resident blocks and warps per SM from
-   ``rollout3d_kernel.occupancy``; at least 16 warps) and of K6's two
+   ``rollout3d_kernel.occupancy``; at least 16 warps), of K3's at c1's and
+   c2's widths (``fvp_kernel.occupancy``) and of K6's two
    (``fvp_ff_kernel.occupancy``);
 2. c2 (3-link planar arm, 1024 envs x 100 steps):
    a. K1 rollout kernel against its plain version (eps mode: tight over
@@ -21,14 +22,20 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
       which is held against its plain version too);
    b. K2 moments kernel against its plain version (the Gram summed in
       fp64) on that batch, with the fp32 ``normal_eq_ff`` beside it;
-   c. K3 FVP kernel against the plain ``make_gn_fvp`` on c2's Fisher
-      subsample, and bit-identical repeat calls;
+   c. K3 FVP kernel (tensor cores) against its plain version and against
+      the statement of its plane products (``gn_fvp_split`` in
+      ``tests/test_torch_helpers.py``) on c2's Fisher subsample and on
+      c1's (the Fisher batch of K1's Philox batch at K1_SEED), and
+      bit-identical repeat calls;
    d. five full-width c2 training iterations through ``trpo.train.train``,
       with the launch counters showing every kernel of that path ran and
       no plain version did;
-   e. K1-K3 times (CUDA events) beside their bounds, plain versions and,
-      for K2, a library yardstick; K1 also at c1, and in microseconds
-      per dependent step;
+   e. K1-K3 times (CUDA events, queued behind a sleep of K1_LEAD_MS)
+      beside their bounds, plain versions and, for K2, a library
+      yardstick; K1 and K3 also at c1, K1 in microseconds per dependent
+      step; K3's bound is the tensor-core one (the fp32-FMA figure beside
+      it), and K6 on c2's (25, 12, 1024) fp32 subsample is timed as its
+      yardstick (K2's time without the lead printed beside);
 3. the 7-DoF configs, each at full width with bf16 storage: c3 (reach,
    4096 envs x 200 steps), c4 (reach with the obstacle penalty, 16,384
    envs, Fisher env stride 4) and c5 (reach, track and push tasks, a
@@ -83,8 +90,10 @@ power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import hashlib
+import importlib.util
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -115,6 +124,9 @@ K1_TIGHT_STEPS, K1_TIGHT_ATOL = 10, 1e-5
 K1_FULL_ATOL = 1e-2
 K2_REL = 1e-5
 K3_REL = 1e-5
+# K3 against the statement of its plane products (gn_fvp_split): one fp32
+# rounding per product, as tests/test_torch_fvp_bm_split.py holds it
+K3_SPLIT_REL = 1e-6
 K4_TIGHT_STEPS, K4_TIGHT_ATOL = 8, 1e-5
 # K4 runs at full width; its plain version (~50k small ops per step on the
 # card) runs on every (N / 4096)-th env of the same inputs (all of c3's):
@@ -358,12 +370,112 @@ def k4_ms(cfg, params, s0):
                    3, warmup=1)
 
 
-def k6_ms(params, sub, damping, v):
+def k6_ms(params, sub, damping, v, lead_ms=0.0):
     """3f's K6 time per launch: 20 CG calls fvp(v) on a Fisher subsample
-    after warm-up."""
+    after warm-up (behind ``lead_ms`` of sleep, ``cuda_ms``)."""
     from trpo_robot_control_tpu_torch.ops.cuda import fvp_ff_kernel as ffk
     fvp = ffk.make_gn_fvp_ff(params, sub, damping)
-    return cuda_ms(lambda: fvp(v), 20)
+    return cuda_ms(lambda: fvp(v), 20, lead_ms=lead_ms)
+
+
+def k3_setup(dev, cfg, seed):
+    """A planar phase's policy (``k1_setup``) and its Fisher subsample as
+    the trainer forms it from K1's Philox batch at K1_SEED: (params,
+    obs_fvp (B', do) fp32, the (T', do, N) view it was relaid from)."""
+    from trpo_robot_control_tpu_torch.ops.cuda import rollout_kernel as rk
+    params, s0, seed_k1 = k1_setup(dev, cfg, seed)
+    obs_ff = rk.rollout(cfg, params, s0.q, s0.qd, s0.tgt, seed=seed_k1)[0]
+    sub = obs_ff[::cfg.trpo.fvp_subsample]
+    return params, sub.permute(0, 2, 1).reshape(-1, cfg.obs_dim), sub
+
+
+def k3_ms(params, obs_fvp, damping, v):
+    """K3's time per launch: 50 CG calls fvp(v) on a Fisher subsample
+    after warm-up, queued behind K1_LEAD_MS of sleep (the wrapper's host
+    work takes about as long as the kernel)."""
+    from trpo_robot_control_tpu_torch.ops.fvp import make_gn_fvp
+    fvp = make_gn_fvp(params, obs_fvp, damping)
+    return cuda_ms(lambda: fvp(v), 50, lead_ms=K1_LEAD_MS)
+
+
+def k3_bound(B, do, da, P):
+    """K3's bound on B samples: the function's products, each counted once,
+    at the bf16 tensor-core peak (its three-plane split is its own cost,
+    not the work, as for K5 and K6), or its inputs read once (x, h0, h1, v
+    and the weights) and Fv written, whichever is larger; and the same
+    products at the fp32-FMA peak, labelled, beside it."""
+    H = 64
+    flops = 2.0 * (2 * do * H + 4 * H * H + 4 * H * da) * B
+    nbytes = 4.0 * (B * (do + 2 * H) + 3 * P)
+    return (bound_ms(flops, nbytes, peak_flops=PEAK_BF16_FLOPS),
+            bound_ms(flops, nbytes))
+
+
+def split_statement():
+    """``gn_fvp_split``, the PyTorch statement of K3's plane products, from
+    the checkout's ``tests/test_torch_helpers.py`` (numpy and torch only;
+    the torch thread count it sets is put back)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_helpers.py")
+    spec = importlib.util.spec_from_file_location("test_torch_helpers", path)
+    mod = importlib.util.module_from_spec(spec)
+    threads = torch.get_num_threads()
+    spec.loader.exec_module(mod)
+    torch.set_num_threads(threads)
+    return mod.gn_fvp_split
+
+
+def k3_check(tag, gen, params, obs_fvp, damping):
+    """K3 (``make_gn_fvp``) against its plain version within K3_REL and
+    against the statement of its plane products within K3_SPLIT_REL, for
+    10 v drawn from ``gen``, and bit-identical repeat calls. Returns
+    (record, fvp, hs, scale)."""
+    from trpo_robot_control_tpu_torch.models import policy
+    from trpo_robot_control_tpu_torch.ops.cuda import fvp_kernel as fk
+    from trpo_robot_control_tpu_torch.ops.fvp import make_gn_fvp
+    statement = split_statement()
+    B = obs_fvp.shape[0]
+    hs = fk.activations(params, obs_fvp)
+    scale = torch.exp(-2.0 * params["logstd"]) / B
+    P = policy.flatten(params).numel()
+    fvp = make_gn_fvp(params, obs_fvp, damping)
+    worst_rel = worst_abs = worst_split = 0.0
+    for _ in range(10):
+        v = torch.randn(P, generator=gen, device=obs_fvp.device)
+        f_k = fvp(v)
+        f_p = fk.gn_fvp_plain(params, obs_fvp, hs, scale, v, damping)
+        f_s = statement(params, obs_fvp, hs, v, damping)
+        worst_rel = max(worst_rel, float(torch.linalg.norm(f_k - f_p)
+                                         / torch.linalg.norm(f_p)))
+        worst_split = max(worst_split, float(torch.linalg.norm(f_k - f_s)
+                                             / torch.linalg.norm(f_s)))
+        worst_abs = max(worst_abs, float((f_k - f_p).abs().max()))
+        require(torch.equal(f_k, fvp(v)), f"{tag} K3 is not deterministic")
+    print(f"{tag} K3: B' = {B}, worst relative L2 err {worst_rel:.3e} from "
+          f"the plain version (bound {K3_REL}), {worst_split:.3e} from the "
+          f"statement of its plane products (bound {K3_SPLIT_REL}) over 10 "
+          "v; repeat calls bit-identical")
+    require(worst_rel <= K3_REL, f"{tag} K3 error {worst_rel}")
+    require(worst_split <= K3_SPLIT_REL,
+            f"{tag} K3 error {worst_split} from its statement")
+    return (dict(max_abs_err=worst_abs, max_rel_err=worst_rel,
+                 split_rel_err=worst_split), fvp, hs, scale)
+
+
+def k3_occupancy():
+    """What the card makes of K3's instantiations at c1's and c2's widths
+    (``fvp_kernel.occupancy``); each must be resident. Returns
+    {config: occupancy}."""
+    from trpo_robot_control_tpu_torch.configs import C1_REACHER2, C2_REACHER3
+    from trpo_robot_control_tpu_torch.ops.cuda import fvp_kernel as fk
+    out = {}
+    for tag, cfg in (("c1", C1_REACHER2), ("c2", C2_REACHER3)):
+        occ = fk.occupancy(cfg.obs_dim, cfg.arm.n_joints)
+        print(f"K3 occupancy [{tag}, do {cfg.obs_dim}, da "
+              f"{cfg.arm.n_joints}]: {occ}")
+        require(occ["blocks_per_sm"] >= 1, f"K3 {tag} does not fit an SM")
+        out[tag] = occ
+    return out
 
 
 def k4_term_ms(cfg, params, s0):
@@ -586,21 +698,20 @@ def k1_c1(dev):
 
 
 def c2_phases(dev):
-    """K1-K3 at c2 and c2 training; returns {kernel: record}."""
-    from trpo_robot_control_tpu_torch.configs import C2_REACHER3
+    """K1-K3 at c2 (and K1, K3 at c1) and c2 training; returns {kernel:
+    record}."""
+    from trpo_robot_control_tpu_torch.configs import C1_REACHER2, C2_REACHER3
     from trpo_robot_control_tpu_torch.envs import arm
     from trpo_robot_control_tpu_torch.models import policy
     from trpo_robot_control_tpu_torch.ops import cuda as kernels
     from trpo_robot_control_tpu_torch.ops.cuda import (fvp_kernel as fk,
                                                        moments_kernel as mk,
                                                        rollout_kernel as rk)
-    from trpo_robot_control_tpu_torch.ops.fvp import make_gn_fvp
     from trpo_robot_control_tpu_torch.ops.gae import gae
     from trpo_robot_control_tpu_torch.trpo.train import train
     cfg = C2_REACHER3
     T, N, n = cfg.horizon, cfg.n_envs, cfg.arm.n_joints
     do, da = cfg.obs_dim, n
-    H = cfg.trpo.hidden[0]
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = policy.init_params(gen, do, da, cfg.trpo.hidden,
@@ -655,28 +766,17 @@ def c2_phases(dev):
     gram_k, gram_p, tau = k2_check("c2", obs_ff, targets, cfg.horizon)
     rec["moments"] = dict(max_abs_err=float((gram_k - gram_p).abs().max()))
 
-    # ---- K3 FVP vs the plain make_gn_fvp on c2's Fisher subsample
+    # ---- K3 FVP vs its plain version and its plane products' statement
+    # on c2's Fisher subsample, then on c1's
     k = cfg.trpo.fvp_subsample
     obs_fvp = obs_ff[::k].permute(0, 2, 1).reshape(-1, do)
     B_sub = obs_fvp.shape[0]
-    hs = fk.activations(params, obs_fvp)
-    scale = torch.exp(-2.0 * params["logstd"]) / B_sub
     P = policy.flatten(params).numel()
-    fvp = make_gn_fvp(params, obs_fvp, cfg.trpo.cg_damping)
-    worst_rel, worst_abs = 0.0, 0.0
-    for _ in range(10):
-        v = torch.randn(P, generator=gen, device=dev)
-        fk_ = fvp(v)
-        fp_ = fk.gn_fvp_plain(params, obs_fvp, hs, scale, v,
-                              cfg.trpo.cg_damping)
-        worst_rel = max(worst_rel, float(torch.linalg.norm(fk_ - fp_)
-                                         / torch.linalg.norm(fp_)))
-        worst_abs = max(worst_abs, float((fk_ - fp_).abs().max()))
-        require(torch.equal(fk_, fvp(v)), "K3 is not deterministic")
-    print(f"K3: B' = {B_sub}, worst relative L2 err {worst_rel:.3e} over 10 v "
-          f"(bound {K3_REL}); repeat calls bit-identical")
-    require(worst_rel <= K3_REL, f"K3 error {worst_rel}")
-    rec["fvp"] = dict(max_abs_err=worst_abs)
+    rec["fvp"], fvp, hs, scale = k3_check("c2", gen, params, obs_fvp,
+                                          cfg.trpo.cg_damping)
+    params1, obs_fvp1, _ = k3_setup(dev, C1_REACHER2, 4)
+    rec1, fvp1, hs1, scale1 = k3_check("c1", gen, params1, obs_fvp1,
+                                       C1_REACHER2.trpo.cg_damping)
 
     # ---- five full-width c2 iterations through the trainer
     n_iters = 5
@@ -694,7 +794,12 @@ def c2_phases(dev):
                                              s0.tgt, eps), 2, warmup=1)
     b1 = k1_bound(cfg, P)
     rec["rollout"]["us_per_step"] = 1e3 * t_k1 / T
-    t_k2 = cuda_ms(lambda: mk.extended_gram(obs_ff, targets, tau), 50)
+    t_k2 = cuda_ms(lambda: mk.extended_gram(obs_ff, targets, tau), 50,
+                   lead_ms=K1_LEAD_MS)
+    t_k2_unled = cuda_ms(lambda: mk.extended_gram(obs_ff, targets, tau), 50)
+    print(f"c2 moments: {t_k2:.4f} ms/launch queued behind the lead, "
+          f"{t_k2_unled:.4f} without it")
+    rec["moments"]["ms_without_lead"] = t_k2_unled
     t_k2p = cuda_ms(lambda: mk.extended_gram_plain(obs_ff, targets, tau), 20)
     R = 2 * do + 5
     v_ext = torch.cat([obs_ff, obs_ff * obs_ff, targets[:, None, :],
@@ -704,12 +809,31 @@ def c2_phases(dev):
     b2 = bound_ms(2.0 * (R * (R + 1) // 2) * B + B * do,
                   4.0 * (B * (do + 1) + 4 * T + R * R))
     v = torch.randn(P, generator=gen, device=dev)
-    t_k3 = cuda_ms(lambda: fvp(v), 50)
+    t_k3 = cuda_ms(lambda: fvp(v), 50, lead_ms=K1_LEAD_MS)
     t_k3p = cuda_ms(lambda: fk.gn_fvp_plain(params, obs_fvp, hs, scale, v,
                                             cfg.trpo.cg_damping), 20)
-    fvp_macs = 2 * do * H + 4 * H * H + 4 * H * da
-    b3 = bound_ms(2.0 * fvp_macs * B_sub,
-                  4.0 * (B_sub * (do + 2 * H) + 3 * P))
+    b3, b3fma = k3_bound(B_sub, do, da, P)
+    t_k6 = k6_ms(params, obs_ff[::k], cfg.trpo.cg_damping, v,
+                 lead_ms=K1_LEAD_MS)
+    print(f"c2 fvp: tensor-core bound {b3[0]:.4f} ms ({b3[1]}), "
+          f"{100 * b3[0] / t_k3:.1f} % of it reached; fp32-FMA bound "
+          f"{b3fma[0]:.4f} ms ({b3fma[1]}); yardstick: K6 on the same "
+          f"(25, {do}, {N}) fp32 subsample {t_k6:.4f} ms/launch")
+    rec["fvp"].update(bound_fp32_fma_ms=b3fma[0], bound_share=b3[0] / t_k3,
+                      k6_on_c2_subsample_ms=t_k6)
+    P1 = policy.flatten(params1).numel()
+    v1 = torch.randn(P1, generator=gen, device=dev)
+    damp1 = C1_REACHER2.trpo.cg_damping
+    t1 = cuda_ms(lambda: fvp1(v1), 50, lead_ms=K1_LEAD_MS)
+    t1p = cuda_ms(lambda: fk.gn_fvp_plain(params1, obs_fvp1, hs1, scale1,
+                                          v1, damp1), 20)
+    b31, b31fma = k3_bound(obs_fvp1.shape[0], C1_REACHER2.obs_dim,
+                           C1_REACHER2.arm.n_joints, P1)
+    rec1.update(ms=t1, plain_ms=t1p, bound_ms=b31[0], bound_by=b31[1],
+                bound_fp32_fma_ms=b31fma[0], library_ms=None)
+    rec["fvp"]["at_c1"] = rec1
+    print(f"c1 fvp: {t1:.4f} ms/launch (bound {b31[0]:.4f} ms by "
+          f"{b31[1]}; fp32-FMA {b31fma[0]:.4f}), plain {t1p:.3f} ms")
     for name, ms, plain_ms, (bms, by), lib_ms in (
             ("rollout", t_k1, t_k1p, b1, None),
             ("moments", t_k2, t_k2p, b2, t_k2lib),
@@ -1386,6 +1510,7 @@ def main() -> int:
     print(build.ptxas_report())
     occupancy_k1 = k1_occupancy()
     occupancy = k4_occupancy()
+    occupancy_k3 = k3_occupancy()
     occupancy_k6 = k6_occupancy()
 
     from trpo_robot_control_tpu_torch.configs import (C3_FRANKA7,
@@ -1428,6 +1553,8 @@ def main() -> int:
             entry["occupancy"] = occupancy_k1
         if name == "rollout3d":
             entry["occupancy"] = occupancy
+        if name == "fvp":
+            entry["occupancy"] = occupancy_k3
         if name == "fvp_ff":
             entry["occupancy"] = occupancy_k6
         out.append(entry)

@@ -14,7 +14,7 @@ import torch
 
 from test_torch_helpers import (OBSTACLE_ON_ARM, PG_G_KEPT_REL,
                                 PG_MU_FP64_ATOL, env_inputs_np,
-                                gn_fvp_ff_split, pg_fp64_errors,
+                                gn_fvp_ff_split, gn_fvp_split, pg_fp64_errors,
                                 policy_params_np, surrogate_grad_fp64, t,
                                 tasks_np)
 from trpo_robot_control_tpu_torch import configs as pconfigs
@@ -96,17 +96,49 @@ def test_moments_kernel_matches_plain_on_card(cuda):
 
 
 @pytest.mark.cuda
-def test_fvp_kernel_matches_plain_on_card(cuda):
+@pytest.mark.parametrize("B, do, da", [
+    (3200, 9, 2),           # c1's Fisher batch: 25 tiles of 128
+    (25600, 12, 3),         # c2's: 200 tiles, two rounds on some blocks
+    (1000, 12, 3),          # a ragged last tile (104 samples)
+    (129, 12, 3),           # a last tile of one sample
+    (300, 27, 7),           # do > 16, da > 4: the other instantiations
+])
+def test_fvp_kernel_matches_plain_on_card(cuda, B, do, da):
+    """Against the plain version and against the statement of the
+    kernel's plane products (``gn_fvp_split``); repeat calls are
+    bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    pn = policy_params_np(np.random.RandomState(8), do, da)
+    pc = {k: t(v).to(cuda) for k, v in pn.items()}
+    obs = torch.randn(B, do, generator=g, device=cuda)
+    hs = fvp_kernel.activations(pc, obs)
+    scale = torch.exp(-2.0 * pc["logstd"]) / obs.shape[0]
+    v = torch.randn(sum(x.numel() for x in pc.values()), generator=g,
+                    device=cuda)
+    ws = fvp_kernel.workspace(pc, obs)
+    fk = fvp_kernel.gn_fvp(pc, obs, hs, scale, v, 0.1, ws)
+    fp = fvp_kernel.gn_fvp_plain(pc, obs, hs, scale, v, 0.1)
+    fs = gn_fvp_split(pc, obs, hs, v, 0.1)
+    assert float(torch.linalg.norm(fk - fp) / torch.linalg.norm(fp)) < 1e-5
+    assert float(torch.linalg.norm(fk - fs) / torch.linalg.norm(fs)) < 1e-6
+    assert torch.equal(fk, fvp_kernel.gn_fvp(pc, obs, hs, scale, v, 0.1, ws))
+    assert torch.equal(fk, fvp_kernel.gn_fvp(pc, obs, hs, scale, v, 0.1,
+                                             fvp_kernel.workspace(pc, obs)))
+
+
+@pytest.mark.cuda
+def test_fvp_kernel_refuses_misaligned_inputs(cuda):
+    """x, h0 and h1 are copied 16 bytes at a time: a contiguous view that
+    starts off a 16-byte boundary is refused before the launch."""
     pn = policy_params_np(np.random.RandomState(8), 12, 3)
     pc = {k: t(v).to(cuda) for k, v in pn.items()}
-    obs = torch.randn(1000, 12, device=cuda)
+    obs = torch.randn(257 * 12 + 1, device=cuda)[1:].view(257, 12)
     hs = fvp_kernel.activations(pc, obs)
     scale = torch.exp(-2.0 * pc["logstd"]) / obs.shape[0]
     v = torch.randn(sum(x.numel() for x in pc.values()), device=cuda)
-    fk = fvp_kernel.gn_fvp(pc, obs, hs, scale, v, 0.1)
-    fp = fvp_kernel.gn_fvp_plain(pc, obs, hs, scale, v, 0.1)
-    assert float(torch.linalg.norm(fk - fp) / torch.linalg.norm(fp)) < 1e-5
-    assert torch.equal(fk, fvp_kernel.gn_fvp(pc, obs, hs, scale, v, 0.1))
+    ws = fvp_kernel.workspace(pc, obs)
+    with pytest.raises(ValueError, match="16-byte"):
+        fvp_kernel.gn_fvp(pc, obs, hs, scale, v, 0.1, ws)
 
 
 def _exact(k_out, p_out, atol=0.0):

@@ -394,29 +394,19 @@ def pg_fp64_errors(ref, mu, g_masked):
     return over, float(torch.linalg.norm(f - f64) / torch.linalg.norm(f64))
 
 
-# K6's plane products (csrc/fvp_ff.cu): hi hi, then the five others that
-# hold fp32's 24 bits
+# The FVP kernels' plane products (csrc/fvp.cu, fvp_ff.cu): hi hi, then
+# the five others that hold fp32's 24 bits
 SIX_PAIRS = ((0, 0), (0, 1), (1, 0), (0, 2), (2, 0), (1, 1))
 
 
-def gn_fvp_ff_split(params, obs_sub_ff, v, damping, pairs=SIX_PAIRS,
-                    blocks=None):
-    """A PyTorch statement of K6's arithmetic, on the tensors' device.
-
-    Every 64-wide product takes its operands as the three bf16 planes of
-    ``pg_kernel.split3`` (a bf16 x is its own hi plane, the other two
-    zero) and sums the plane products ``pairs`` in fp64: hi hi on its own
-    and the others together, each rounded to fp32 where the kernel's
-    accumulators round, then added in fp32. The da-wide head runs in fp32.
-    Samples go in the kernel's tiles of one time step and
-    ``fvp_ff_kernel.TILE`` envs (padding gets u = 0); the weight gradients are per-tile sums, added in fp32 per
-    block over its tiles (block b takes tiles b, b + G, ...), and the
-    blocks' partials are summed in the reduce pass's order."""
-    from trpo_robot_control_tpu_torch.models import policy
-    from trpo_robot_control_tpu_torch.ops.cuda import fvp_ff_kernel
+def _plane_products(pairs):
+    """(planes, mm, tr) of the FVP kernels' split statements: ``planes``
+    splits an fp32 tensor into the three bf16 planes of
+    ``pg_kernel.split3`` (in fp64); ``mm(*terms)`` sums the plane products
+    ``pairs`` of each (A planes, B planes) term in fp64, hi hi on its own
+    and the others together, each rounded to fp32 where the kernels'
+    accumulators round, then added in fp32; ``tr`` transposes planes."""
     from trpo_robot_control_tpu_torch.ops.cuda.pg_kernel import split3
-    blocks = blocks or fvp_ff_kernel.MAX_BLOCKS
-    tile = fvp_ff_kernel.TILE
     rest = [pq for pq in pairs if pq != (0, 0)]
 
     def planes(x):
@@ -431,6 +421,56 @@ def gn_fvp_ff_split(params, obs_sub_ff, v, damping, pairs=SIX_PAIRS,
     def tr(ps):
         return [p.transpose(-1, -2) for p in ps]
 
+    return planes, mm, tr
+
+
+def _reduce_tiles(flat, blocks, v, damping):
+    """The kernels' sums over tiles: flat (tiles, Pg) per-tile gradients,
+    added in fp32 per block over its tiles (block b takes tiles b, b + G,
+    ...), the blocks' partials summed in the reduce pass's order (8
+    groups, blocks g, g + 8, ...), then the damping and the logstd block."""
+    n_tiles = flat.shape[0]
+    G = min(n_tiles, blocks)
+    part = []
+    for b in range(G):
+        tot = flat[b]
+        for i in range(b + G, n_tiles, G):
+            tot = tot + flat[i]
+        part.append(tot)
+    groups = []
+    for gi in range(8):
+        s = torch.zeros_like(flat[0])
+        for b in range(gi, G, 8):
+            s = s + part[b]
+        groups.append(s)
+    red = groups[0]
+    for s in groups[1:]:
+        red = red + s
+    Pg = red.shape[0]
+    return torch.cat([red + damping * v[:Pg],
+                      2.0 * v[Pg:] + damping * v[Pg:]])
+
+
+def _flat_grads(per_tile, n_tiles):
+    return torch.cat([per_tile[k].reshape(n_tiles, -1)
+                      for k in ("W0", "W1", "W2", "b0", "b1", "b2")], 1)
+
+
+def gn_fvp_ff_split(params, obs_sub_ff, v, damping, pairs=SIX_PAIRS,
+                    blocks=None):
+    """A PyTorch statement of K6's arithmetic, on the tensors' device.
+
+    Every 64-wide product takes its operands as the three bf16 planes of
+    ``pg_kernel.split3`` (a bf16 x is its own hi plane, the other two
+    zero) and sums the plane products ``pairs`` (``_plane_products``). The
+    da-wide head runs in fp32. Samples go in the kernel's tiles of one
+    time step and ``fvp_ff_kernel.TILE`` envs (padding gets u = 0); the
+    weight gradients are per-tile sums, summed as ``_reduce_tiles`` says."""
+    from trpo_robot_control_tpu_torch.models import policy
+    from trpo_robot_control_tpu_torch.ops.cuda import fvp_ff_kernel
+    blocks = blocks or fvp_ff_kernel.MAX_BLOCKS
+    tile = fvp_ff_kernel.TILE
+    planes, mm, tr = _plane_products(pairs)
     Ts, do, N = obs_sub_ff.shape
     nt = -(-N // tile)
     dev = obs_sub_ff.device
@@ -456,24 +496,49 @@ def gn_fvp_ff_split(params, obs_sub_ff, v, damping, pairs=SIX_PAIRS,
     per_tile = {"W0": mm((tr(xp), planes(g0))), "W1": mm((tr(h0p), g1p)),
                 "W2": h1.transpose(1, 2) @ u, "b0": g0.sum(1),
                 "b1": g1.sum(1), "b2": u.sum(1)}
-    flat = torch.cat([per_tile[k].reshape(Ts * nt, -1)
-                      for k in ("W0", "W1", "W2", "b0", "b1", "b2")], 1)
-    G = min(Ts * nt, blocks)
-    part = []
-    for b in range(G):
-        tot = flat[b]
-        for i in range(b + G, Ts * nt, G):
-            tot = tot + flat[i]
-        part.append(tot)
-    groups = []                # the reduce pass: 8 groups, blocks g, g + 8..
-    for gi in range(8):
-        s = torch.zeros_like(flat[0])
-        for b in range(gi, G, 8):
-            s = s + part[b]
-        groups.append(s)
-    red = groups[0]
-    for s in groups[1:]:
-        red = red + s
-    Pg = red.shape[0]
-    return torch.cat([red + damping * v[:Pg],
-                      2.0 * v[Pg:] + damping * v[Pg:]])
+    return _reduce_tiles(_flat_grads(per_tile, Ts * nt), blocks, v, damping)
+
+
+def gn_fvp_split(params, obs, hs, v, damping, pairs=SIX_PAIRS, blocks=None):
+    """A PyTorch statement of K3's arithmetic (``csrc/fvp.cu``), the
+    batch-major twin of ``gn_fvp_ff_split``, on the tensors' device.
+
+    The activations h0, h1 = ``hs`` are read as given, not recomputed. The
+    six 64-wide products (x dW0, dh0 W1 + h0 dW1, g1 W1^T, h0^T g1,
+    x^T g0) take their fp32 operands as three bf16 planes and sum the
+    plane products ``pairs`` (``_plane_products``); the da-wide head runs
+    in fp32. Samples go in the kernel's tiles of ``fvp_kernel.TILE``
+    (padding gets x = h0 = h1 = 0 and u = 0); the weight gradients are
+    per-tile sums, summed as ``_reduce_tiles`` says over the kernel's grid
+    of at most ``fvp_kernel.MAX_BLOCKS`` blocks."""
+    from trpo_robot_control_tpu_torch.models import policy
+    from trpo_robot_control_tpu_torch.ops.cuda import fvp_kernel
+    blocks = blocks or fvp_kernel.MAX_BLOCKS
+    tile = fvp_kernel.TILE
+    planes, mm, tr = _plane_products(pairs)
+    B, do = obs.shape
+    nt = -(-B // tile)
+    dev = obs.device
+
+    def padded(a):
+        out = torch.zeros(nt * tile, a.shape[1], device=dev)
+        out[:B] = a.float()
+        return out.reshape(nt, tile, a.shape[1])
+
+    x, h0, h1 = padded(obs), padded(hs[0]), padded(hs[1])
+    mask = padded(torch.ones(B, 1, device=dev))
+    p, t = params, policy.unflatten(v, params)
+    scale = torch.exp(-2.0 * p["logstd"]) / B
+    xp, h0p = planes(x), planes(h0)
+    w1 = planes(p["W1"])
+    dh0 = (1.0 - h0 * h0) * (mm((xp, planes(t["W0"]))) + t["b0"])
+    dh1 = (1.0 - h1 * h1) * (mm((planes(dh0), w1), (h0p, planes(t["W1"])))
+                             + t["b1"])
+    u = (dh1 @ p["W2"] + h1 @ t["W2"] + t["b2"]) * scale * mask
+    g1 = (u @ p["W2"].T) * (1.0 - h1 * h1)
+    g1p = planes(g1)
+    g0 = mm((g1p, tr(w1))) * (1.0 - h0 * h0)
+    per_tile = {"W0": mm((tr(xp), planes(g0))), "W1": mm((tr(h0p), g1p)),
+                "W2": h1.transpose(1, 2) @ u, "b0": g0.sum(1),
+                "b1": g1.sum(1), "b2": u.sum(1)}
+    return _reduce_tiles(_flat_grads(per_tile, nt), blocks, v, damping)

@@ -26,7 +26,8 @@
 // Fv. Its eight 64-wide products run on the tensor cores (mma.sync
 // m16n8k16, bf16 in, fp32 accumulate) and stay exact to fp32: every fp32
 // operand is split into three bf16 planes, w = hi + mid + lo exactly
-// (pg_kernel.split3 states the split), and a product of two fp32 operands
+// (pg_kernel.split3 states the split, fvp_tile.cuh holds it for both FVP
+// kernels), and a product of two fp32 operands
 // is the sum of the six plane products hi hi, hi mid, mid hi, hi lo,
 // lo hi, mid mid; the three dropped terms are below 2^-24 relative, one
 // fp32 rounding. A bf16-stored x is its own hi plane, so x W0, x dW0 and
@@ -121,28 +122,18 @@ __device__ __forceinline__ float load_f32(const bf16* p) {
     return __bfloat162float(*p);
 }
 
-// w = hi + mid + lo exactly (pg_kernel.split3 states the same split)
-__device__ __forceinline__ void split3(float w, bf16 (&p)[PL]) {
-    p[0] = __float2bfloat16_rn(w);
-    const float r = w - __bfloat162float(p[0]);
-    p[1] = __float2bfloat16_rn(r);
-    p[2] = __float2bfloat16_rn(r - __bfloat162float(p[1]));
-}
-
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-    return (uint32_t)__bfloat16_as_ushort(lo) |
-           ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
+using fvp_tile::split3;
+using fvp_tile::split_pair;
+using fvp_tile::zero;
 
 // the planes of the pair (v0, v1) at p + q plane, q = 0, 1, 2
 __device__ __forceinline__ void store_planes2(bf16* p, int plane, float v0,
                                               float v1) {
-    bf16 a[PL], b[PL];
-    split3(v0, a);
-    split3(v1, b);
+    uint32_t r[PL];
+    split_pair(v0, v1, r[0], r[1], r[2]);
 #pragma unroll
     for (int q = 0; q < PL; ++q)
-        *reinterpret_cast<uint32_t*>(p + q * plane) = pack2(a[q], b[q]);
+        *reinterpret_cast<uint32_t*>(p + q * plane) = r[q];
 }
 
 // the fp32 pair that the planes at p + q plane sum to
@@ -171,14 +162,6 @@ __device__ __forceinline__ void plane_mma(float (&hi)[4], float (&ml)[4],
     if (BP > 2) mma_bf16(ml, a[0], b[2][0], b[2][1], false);
     if (AP > 2) mma_bf16(ml, a[2], b[0][0], b[0][1], false);
     if (AP > 1 && BP > 1) mma_bf16(ml, a[1], b[1][0], b[1][1], false);
-}
-
-template <int R, int C>
-__device__ __forceinline__ void zero(float (&a)[R][C]) {
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < C; ++j) a[i][j] = 0.f;
 }
 
 // B registers of n8 tile h from an x4 load covering 16 samples: loads

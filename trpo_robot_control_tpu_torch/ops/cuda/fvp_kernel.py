@@ -5,7 +5,13 @@ Replaces ``make_pallas_gn_fvp`` in
 over batch-major samples (forward tangent through the tanh MLP,
 u = dmu * inv_var / B, reverse accumulation of J^T u), with the hidden
 activations computed once per update by ``activations``. The TPU kernel's
-sample-pair packing is a matrix-unit trick and is not carried over.
+sample-pair packing is a matrix-unit trick and is not carried over. The
+64-wide products run on the tensor cores and stay exact to fp32: every
+fp32 operand is split into three bf16 planes as ``pg_kernel.split3`` does
+and the six plane products that hold fp32's 24 bits are summed, as in the
+feature-first kernel. W1's planes are split once per update, with the
+scratch every call reuses (``workspace``); v's W0 and W1 blocks once per
+call ahead of the kernel.
 
 ``gn_fvp`` is the wrapper: the CUDA kernel on CUDA tensors (or it raises),
 ``gn_fvp_plain`` on CPU tensors. Both return the damped product
@@ -22,12 +28,16 @@ from . import build
 from ...models import policy
 
 HIDDEN = 64
-MAX_BLOCKS = 256    # fixed, so the reduction order does not depend on the card
-TILE = 64           # samples per tile (csrc/fvp.cu: S)
+# fixed, so the reduction order does not depend on the card: one block (8
+# warps, ~206 KB of shared memory) on each of an H100's 132 SMs
+MAX_BLOCKS = 132
+TILE = 128          # samples per tile, 16 a warp (csrc/fvp.cu: TS)
 
-_SIG = {"trpo_fvp_launch": [ctypes.c_void_p] * 9
+_SIG = {"trpo_fvp_launch": [ctypes.c_void_p] * 10
         + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
-                                ctypes.c_void_p]}
+                                ctypes.c_void_p],
+        "trpo_fvp_split_launch": [ctypes.c_void_p] * 3,
+        "trpo_fvp_occupancy": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
 
 
 def activations(params, obs):
@@ -71,7 +81,35 @@ def gn_fvp_math(params, obs, hs, scale, v, damping: float):
 gn_fvp_plain.calls = 0
 
 
-def gn_fvp(params, obs, hs, scale, v, damping: float):
+def workspace(params, obs):
+    """The device buffers every CG call of an update shares: W1's three
+    bf16 planes (3, 64, 64), split here once for every launch, and the
+    scratch for v's planes and the per-block partials; None for CPU tensors
+    (the plain version needs none)."""
+    W1 = params["W1"]
+    if not obs.is_cuda:
+        return None
+    if W1.shape != (HIDDEN, HIDDEN) or W1.dtype != torch.float32 \
+            or not W1.is_contiguous() or W1.device != obs.device:
+        raise NotImplementedError("the FVP kernel takes a (64, 64) tanh "
+                                  "policy with contiguous fp32 weights")
+    B, do = obs.shape
+    da = params["logstd"].shape[0]
+    Pg = do * HIDDEN + HIDDEN * HIDDEN + HIDDEN * da + 2 * HIDDEN + da
+    w1p = torch.empty(3, HIDDEN, HIDDEN, dtype=torch.bfloat16,
+                      device=W1.device)
+    err = build.library("fvp", _SIG).trpo_fvp_split_launch(
+        build.ptr(W1), build.ptr(w1p), build.stream_handle(W1.device))
+    build.check(err, "FVP kernel's weight split")
+    vplanes = torch.empty(3 * (do + HIDDEN) * HIDDEN, dtype=torch.bfloat16,
+                          device=obs.device)
+    partial = torch.empty(min(-(-B // TILE), MAX_BLOCKS) * Pg,
+                          device=obs.device)
+    return w1p, vplanes, partial
+
+
+def gn_fvp(params, obs, hs, scale, v, damping: float, ws):
+    """The damped Fv for a flat v; ``ws``: ``workspace(params, obs)``."""
     if not obs.is_cuda:
         return gn_fvp_plain(params, obs, hs, scale, v, damping)
     B, do = obs.shape
@@ -85,23 +123,43 @@ def gn_fvp(params, obs, hs, scale, v, damping: float):
     Pg = P - da
     if P != do * HIDDEN + HIDDEN * HIDDEN + HIDDEN * da + 2 * HIDDEN + 2 * da:
         raise ValueError(f"v has {P} entries, not the policy's parameter count")
-    ins = (obs, hs[0], hs[1], params["W1"], params["W2"], scale, v)
-    for x in ins:
+    for x in (obs, hs[0], hs[1], params["W2"], scale, v):
         if x.dtype != torch.float32 or x.device != obs.device \
                 or not x.is_contiguous():
             raise ValueError("FVP kernel inputs must be contiguous fp32 "
                              f"tensors on {obs.device}")
+    # the kernel copies x and h0 16 bytes at a time and reads h1 by pairs
+    if any(x.data_ptr() % 16 for x in (obs, hs[0], hs[1])):
+        raise ValueError("FVP kernel inputs x, h0, h1 must start on a "
+                         "16-byte boundary")
     n_blocks = min(-(-B // TILE), MAX_BLOCKS)
-    partial = torch.empty(n_blocks * Pg, device=obs.device)
+    w1p, vplanes, partial = ws
+    if vplanes.numel() != 3 * (do + HIDDEN) * HIDDEN \
+            or partial.numel() != n_blocks * Pg:
+        raise ValueError("the FVP workspace was made for another shape")
     out = torch.empty_like(v)
     lib = build.library("fvp", _SIG)
-    err = lib.trpo_fvp_launch(*(build.ptr(x) for x in ins),
-                              build.ptr(partial), build.ptr(out), B, do, da,
-                              float(damping), n_blocks,
-                              build.stream_handle(obs.device))
+    err = lib.trpo_fvp_launch(
+        *(build.ptr(x) for x in (obs, hs[0], hs[1], w1p, params["W2"], scale,
+                                 v, vplanes, partial, out)),
+        B, do, da, float(damping), n_blocks, build.stream_handle(obs.device))
     build.check(err, "FVP kernel")
     gn_fvp.launches += 1
     return out
 
 
 gn_fvp.launches = 0
+
+
+def occupancy(do: int, da: int) -> dict:
+    """What the card makes of the kernel's instantiation for obs_dim ``do``
+    and act_dim ``da``: resident blocks and warps per SM, registers and
+    local (spill) bytes per thread, dynamic and static shared bytes per
+    block."""
+    out = (ctypes.c_int * 6)()
+    err = build.library("fvp", _SIG).trpo_fvp_occupancy(do, da, out)
+    build.check(err, "FVP kernel occupancy")
+    blocks, regs, local, dyn, static, threads = out
+    return dict(blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32,
+                registers=regs, local_bytes=local, smem_dynamic=dyn,
+                smem_static=static, threads=threads)
