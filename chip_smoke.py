@@ -5,11 +5,12 @@
 Needs one CUDA card; exits non-zero, and prints no result, without one.
 Drives the port (``trpo_robot_control_tpu_torch``) only:
 
-1. names the card and builds the six CUDA kernels from ``ops/cuda/csrc``;
-   prints every kernel's ``-Xptxas -v`` lines (K4's for each
-   instantiation), then what the card makes of each K1 instantiation
+1. names the card and builds the six CUDA kernels from ``ops/cuda/csrc``
+   (the two rollouts one library per joint count, 1-8); prints every
+   kernel's ``-Xptxas -v`` lines (K4's for each instantiation), then what
+   the card makes of each K1 instantiation at c1's and c2's joint counts
    (``rollout_kernel.occupancy`` and the grid at c1's and c2's width; no
-   spill stores, at least 128 blocks at c2), of each K4
+   spill stores at 1-3 joints, at least 128 blocks at c2), of each K4
    instantiation (resident blocks and warps per SM from
    ``rollout3d_kernel.occupancy``; at least 16 warps), of K3's at c1's and
    c2's widths (``fvp_kernel.occupancy``) and of K6's two
@@ -79,16 +80,36 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
       launch counts as in 2d / 3e, no plain version, early dones > 0;
    e. the TERM kernels' times beside their bounds, and in turns with the
       same instantiation without a done, the non-terminating kernel and
-      TERM at four times the done distance (what the resets cost).
+      TERM at four times the done distance (what the resets cost);
+5. c5-planar3 (``c5_planar3``: c5's task mix on a 3-link planar arm,
+   65,536 envs x 200 steps, a 15-wide observation, K4 at 3 joints):
+   phase 3 with K4 held exactly (0.0 with fp32 stores, 0 ulps from the
+   rounded plain output with bf16, over the whole horizon), then phase 4
+   at done_dist C5_DONE_DIST, whose Philox resets must put every fresh
+   target in the plane (z exactly 0) at a uniform angle;
+6. c2-bf16 (``c2_bf16``): K1's bf16 stores 0 ulps from the rounded plain
+   output in eps mode and, TERM, in fresh-state mode; K2-bf16 at do 12
+   and K3 on the fp32 relayout against their plain versions; five
+   training iterations (K1, K2, K3 x 10, no plain version); K1-bf16's
+   time beside its bound;
+7. every joint count (``other_n_phases``): K1 at 1-8 links and K4 at 1-8
+   joints with each (task families, obstacle) pair, fp32 and bf16 stores,
+   terminating or not, on 1024 envs x 10 steps against their plain
+   versions (0.0, 0 ulps), with each instantiation's occupancy; and K1 at
+   8 links timed at c2's width (``k1_n8_record``).
 
 The last lines are the kernels' JSON record (c2/c3 figures at the top
-level of each entry, c4/c5 ones under ``at_c4``/``at_c5``, K2's bf16
-mode under ``bf16_mode_c3/c4/c5``, and the terminating instantiations as
-``rollout_term`` (c2) and ``rollout3d_term`` (c5)), the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+level of each entry, c4/c5/c5-planar3 ones under ``at_c4``/``at_c5``/
+``at_c5_planar3``, K2's bf16 mode under ``bf16_mode_c3/c4/c5/c5_planar3``
+and, at c2, ``bf16_mode_c2`` (K1's and K2's), K3 on c2-bf16 under
+``at_c2_bf16``, every joint count under ``other_n`` (K1 at 8 links timed
+under ``at_n8``), and the terminating instantiations as ``rollout_term``
+(c2) and ``rollout3d_term`` (c5, c5-planar3 under ``at_c5_planar3``)),
+the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import importlib.util
 import json
@@ -152,6 +173,8 @@ K6_REL = 1e-5
 # Early termination at full width: c2 and c5 with these done distances
 # (the one the JAX tests use for a 7-DoF arm at c5).
 C2_DONE_DIST, C5_DONE_DIST = 0.1, 0.05
+# Phase 7: each joint count's short launches
+OTHER_N_ENVS, OTHER_N_STEPS = 1024, 10
 # Fresh states read back from the next observation: q through atan2 of
 # its cos/sin rows, qd through the observation's scale, the target as
 # (target - ee) + ee with ee from the plain FK; each within this of the
@@ -247,7 +270,7 @@ def sha256(*tensors) -> str:
 
 
 def k4_setup(dev, cfg, seed):
-    """The 7-DoF phases' generator, policy and initial states: (gen,
+    """The 3-D kernel phases' generator, policy and initial states: (gen,
     params, s0), drawn in this order from ``seed``."""
     from trpo_robot_control_tpu_torch.envs import arm
     from trpo_robot_control_tpu_torch.models import policy
@@ -265,59 +288,89 @@ def k1_setup(dev, cfg, seed):
     return params, s0, torch.tensor(K1_SEED, dtype=torch.int64, device=dev)
 
 
-def k1_ms(cfg, params, s0, seed):
+def store_kw(store_dtype):
+    """The rollout wrappers' store argument, left out for fp32 stores (so
+    that these helpers also drive a tree that predates bf16 stores in K1)."""
+    return {} if store_dtype == torch.float32 else dict(
+        store_dtype=store_dtype)
+
+
+def k1_ms(cfg, params, s0, seed, store_dtype=torch.float32):
     """K1's time per launch in Philox mode: 20 launches after warm-up,
     queued behind K1_LEAD_MS of sleep."""
     from trpo_robot_control_tpu_torch.ops.cuda import rollout_kernel as rk
+    kw = store_kw(store_dtype)
     return cuda_ms(lambda: rk.rollout(cfg, params, s0.q, s0.qd, s0.tgt,
-                                      seed=seed), 20, lead_ms=K1_LEAD_MS)
+                                      seed=seed, **kw), 20,
+                   lead_ms=K1_LEAD_MS)
 
 
-def k1_digest(cfg, params, s0, seed):
+def k1_digest(cfg, params, s0, seed, store_dtype=torch.float32):
     """SHA-256 of K1's Philox batch (obs, act, rew and, when the config
     terminates, dones) at ``seed``."""
     from trpo_robot_control_tpu_torch.ops.cuda import rollout_kernel as rk
-    return sha256(*rk.rollout(cfg, params, s0.q, s0.qd, s0.tgt, seed=seed))
+    return sha256(*rk.rollout(cfg, params, s0.q, s0.qd, s0.tgt, seed=seed,
+                              **store_kw(store_dtype)))
 
 
-def k1_bound(cfg, P):
+def k1_bound(cfg, P, store_dtype=torch.float32):
     """K1's bound at ``cfg``: the policy MLP's FLOPs over the fp32 peak or
-    every input read and output written once (the done flags too when the
-    config terminates), whichever is larger."""
+    every input read and output written once (obs and actions in
+    ``store_dtype``, the done flags too when the config terminates),
+    whichever is larger."""
     T, N, n = cfg.horizon, cfg.n_envs, cfg.arm.n_joints
     do, H = cfg.obs_dim, cfg.trpo.hidden[0]
     B = T * N
-    rows = do + n + (2 if cfg.done_dist > 0.0 else 1)
+    es = torch.finfo(store_dtype).bits // 8
+    rows = 2 if cfg.done_dist > 0.0 else 1
     return bound_ms(2.0 * (do * H + H * H + H * n) * B,
-                    4.0 * (B * rows + N * (2 * n + 2) + P))
+                    es * B * (do + n)
+                    + 4.0 * (B * rows + N * (2 * n + 2) + P))
+
+
+def k1_spills():
+    """K1's spill-store bytes per instantiation, {joints: [bytes, ...]},
+    from the ``-Xptxas -v`` report (four instantiations a joint count);
+    requires none at 1-3 joints (c1, c2 and their bf16 and TERM
+    instantiations among them) and prints the others'."""
+    from trpo_robot_control_tpu_torch.ops.cuda import build
+    report = build.ptxas_report().splitlines()
+    out = {}
+    for n in build.JOINT_COUNTS:
+        lines = [ln for ln in report
+                 if ln.startswith(f"{build.lib_name('rollout', n)}: ")]
+        out[n] = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                             "\n".join(lines))]
+    print(f"K1 spill stores per instantiation (bytes), by joint count: {out}")
+    for n in (1, 2, 3):
+        require(len(out[n]) == 4 and not any(out[n]),
+                f"K1 spills at {n} joints: {out[n]}")
+    return out
 
 
 def k1_occupancy():
-    """What the card makes of K1's four instantiations
-    (``rollout_kernel.occupancy``) and the grid of each at its config's
-    width (c1 for 2 joints, c2 for 3); requires no spill store in the
-    ``-Xptxas -v`` report, a resident block and at least 128 blocks at c2.
-    Returns {instantiation: occupancy}."""
+    """What the card makes of K1's instantiations at c1's and c2's joint
+    counts, terminating or not, fp32 and bf16 stores
+    (``rollout_kernel.occupancy``), and the grid of each at its config's
+    width (c1 for 2 joints, c2 for 3); requires no spill store at 1-3
+    joints (``k1_spills``), a resident block and at least 128 blocks at
+    c2. Returns {instantiation: occupancy}."""
     from trpo_robot_control_tpu_torch.configs import C1_REACHER2, C2_REACHER3
-    from trpo_robot_control_tpu_torch.ops.cuda import build
     from trpo_robot_control_tpu_torch.ops.cuda import rollout_kernel as rk
-    report = [ln for ln in build.ptxas_report().splitlines()
-              if ln.startswith("rollout: ")]
-    spills = [int(x) for x in
-              re.findall(r"(\d+) bytes spill stores", "\n".join(report))]
-    print(f"K1 spill stores per instantiation (bytes): {spills}")
-    require(len(spills) >= 4 and not any(spills), f"K1 spills {spills}")
+    k1_spills()
     out = {}
     for tag, cfg in (("c1", C1_REACHER2), ("c2", C2_REACHER3)):
         for term in (False, True):
-            name = f"{tag}{'-term' if term else ''}"
-            occ = rk.occupancy(cfg.arm.n_joints, term)
-            occ["grid_blocks"] = -(-cfg.n_envs // occ["envs_per_block"])
-            print(f"K1 occupancy [{name}, {cfg.n_envs} envs]: {occ}")
-            require(occ["blocks_per_sm"] >= 1, f"K1 {name}: {occ}")
-            require(tag != "c2" or occ["grid_blocks"] >= 128,
-                    f"K1 {name}: {occ['grid_blocks']} blocks")
-            out[name] = occ
+            for dt in (torch.float32, torch.bfloat16):
+                name = (f"{tag}{'-term' if term else ''}"
+                        f"{'-bf16' if dt == torch.bfloat16 else ''}")
+                occ = rk.occupancy(cfg.arm.n_joints, term, dt)
+                occ["grid_blocks"] = -(-cfg.n_envs // occ["envs_per_block"])
+                print(f"K1 occupancy [{name}, {cfg.n_envs} envs]: {occ}")
+                require(occ["blocks_per_sm"] >= 1, f"K1 {name}: {occ}")
+                require(tag != "c2" or occ["grid_blocks"] >= 128,
+                        f"K1 {name}: {occ['grid_blocks']} blocks")
+                out[name] = occ
     return out
 
 
@@ -345,6 +398,31 @@ def k4_occupancy():
     return out
 
 
+# The SM's shared memory and what the card keeps of it per block
+SM_SMEM, BLOCK_SMEM_RESERVED = 233472, 1024
+
+
+def k4_occupancy_of(name, cfg, dt):
+    """One K4 instantiation's occupancy (``rollout3d_kernel.occupancy``):
+    requires 16 resident warps per SM, or, where the block's shared memory
+    lets fewer blocks in, every block that fits (the reason printed)."""
+    from trpo_robot_control_tpu_torch.ops.cuda import rollout3d_kernel as r3
+    occ = r3.occupancy(cfg, dt)
+    fit = SM_SMEM // (occ["smem_dynamic"] + occ["smem_static"]
+                      + BLOCK_SMEM_RESERVED)
+    occ["blocks_smem_fits"] = fit
+    warps = occ["warps_per_sm"]
+    why = ""
+    if warps < 16:
+        why = (f" (below 16 warps: {fit} blocks of "
+               f"{occ['smem_dynamic'] + occ['smem_static']} B of shared "
+               f"memory fill the SM's {SM_SMEM} B)")
+    print(f"K4 occupancy [{name}]: {occ}{why}")
+    require(warps >= 16 or occ["blocks_per_sm"] >= fit,
+            f"K4 {name}: {warps} warps per SM, {fit} blocks fit")
+    return occ
+
+
 def k6_occupancy():
     """What the card makes of K6's bf16 and fp32 instantiations
     (``fvp_ff_kernel.occupancy``); each must be resident. Returns
@@ -360,7 +438,7 @@ def k6_occupancy():
 
 
 def k4_ms(cfg, params, s0):
-    """3f's K4 time per launch on a 7-DoF phase's inputs: Philox mode
+    """3f's K4 time per launch on a 3-D kernel phase's inputs: Philox mode
     with seed K4_SEED_T, bf16 stores."""
     from trpo_robot_control_tpu_torch.ops.cuda import rollout3d_kernel as r3
     seed = torch.tensor(K4_SEED_T, dtype=torch.int64, device=s0.q.device)
@@ -478,13 +556,13 @@ def k3_occupancy():
     return out
 
 
-def k4_term_ms(cfg, params, s0):
+def k4_term_ms(cfg, params, s0, tag="c5"):
     """4e's K4-term variants (``term_variant_ms``) on c5-term's inputs:
     Philox mode with seed K4_SEED_A, bf16 stores."""
     from trpo_robot_control_tpu_torch.ops.cuda import rollout3d_kernel as r3
     seed = torch.tensor(K4_SEED_A, dtype=torch.int64, device=s0.q.device)
     return term_variant_ms(
-        "c5 K4", lambda d: r3.rollout3d(cfg.replace(done_dist=d), params,
+        f"{tag} K4", lambda d: r3.rollout3d(cfg.replace(done_dist=d), params,
                                         s0.q, s0.qd, s0.tgt, s0.task,
                                         seed=seed,
                                         store_dtype=torch.bfloat16),
@@ -495,6 +573,14 @@ def bf16_ulp(x):
     """One bf16 unit in the last place of each element of x (fp32)."""
     e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
     return torch.pow(2.0, e - 7)
+
+
+def bf16_ulps(k16, p32):
+    """The largest |kernel - round(plain)| in bf16 ulps over pairs of a
+    kernel's bf16 stores and the plain version's fp32 outputs."""
+    return max(float(((k.float() - p.to(torch.bfloat16).float()).abs()
+                      / bf16_ulp(p.to(torch.bfloat16).float())).max())
+               for k, p in zip(k16, p32))
 
 
 def rel_l2(a, ref):
@@ -891,11 +977,13 @@ def k4_zero_flops_per_env_step(r3, cfg, s0):
     return c.n_substeps * (fused - split)
 
 
-def arm3d_phases(dev, cfg, seed):
-    """K4, K2-bf16, K5, K6 on a 7-DoF config and its training; returns
-    {kernel: record} for K4-K6 and the bf16-mode record of K2. K4 runs at
-    full width and is held against its plain version on ``K4_CHECK_ENVS``
-    envs spread over the batch by a stride."""
+def arm3d_phases(dev, cfg, seed, tag=None, exact=False):
+    """K4, K2-bf16, K5, K6 on a config of the 3-D kernel and its training;
+    returns {kernel: record} for K4-K6 and the bf16-mode record of K2. K4
+    runs at full width and is held against its plain version on
+    ``K4_CHECK_ENVS`` envs spread over the batch by a stride; with
+    ``exact`` its fp32 stores must equal the plain version's and its bf16
+    stores the plain version's rounded, over the whole horizon."""
     from trpo_robot_control_tpu_torch.envs import arm
     from trpo_robot_control_tpu_torch.models import baseline, policy
     from trpo_robot_control_tpu_torch.ops import cuda as kernels
@@ -905,7 +993,7 @@ def arm3d_phases(dev, cfg, seed):
                                                        rollout3d_kernel as r3)
     from trpo_robot_control_tpu_torch.ops.gae import gae
     from trpo_robot_control_tpu_torch.trpo.train import train
-    tag = cfg.name.split("_")[0]
+    tag = tag or cfg.name.split("_")[0]
     T, N, n = cfg.horizon, cfg.n_envs, cfg.arm.n_joints
     do, da = cfg.obs_dim, n
     H = cfg.trpo.hidden[0]
@@ -958,6 +1046,15 @@ def arm3d_phases(dev, cfg, seed):
     require(full16 <= K4_FULL_ATOL + 2.0 ** -8 * max(
         float(p.abs().max()) for p in p_out[:2]), f"{tag} K4 bf16 full "
         f"{full16}")
+    if exact:
+        ulps_full = bf16_ulps(k16, p_out[:2])
+        print(f"{tag} K4 exact: max |kernel - plain| {max(errs)} over {T} "
+              f"steps with fp32 stores (bound 0.0), max |kernel - "
+              f"round(plain)| {ulps_full} bf16 ulps with bf16 stores "
+              "(bound 0)")
+        require(max(errs) == 0.0 and ulps_full == 0.0,
+                f"{tag} K4 differs from its plain version: {errs}, "
+                f"{ulps_full} ulps")
     del k32, k16, p_out
     seed_a = torch.tensor(K4_SEED_A, dtype=torch.int64, device=dev)
     seed_b = torch.tensor([K4_SEED_A[0] + 1, K4_SEED_A[1]], dtype=torch.int64,
@@ -1360,23 +1457,26 @@ def c2_term_phases(dev):
         done_dist=cfg.done_dist, variants_ms=t, philox_sha256=digest)}
 
 
-def c5_term_phases(dev):
-    """K4's TERM instantiation at c5 with done_dist C5_DONE_DIST: fresh-state
-    mode against the plain version on every (N / K4_CHECK_ENVS)-th env,
-    bf16 stores, the no-done limit, Philox resets with the task redraw,
-    training and its time; returns {"rollout3d_term": record}."""
+def c5_term_phases(dev, base=None, tag="c5", seed=13):
+    """K4's TERM instantiation at c5 (or ``base``, a config of the 3-D
+    kernel with three task families) with done_dist C5_DONE_DIST:
+    fresh-state mode against the plain version on every (N /
+    K4_CHECK_ENVS)-th env, bf16 stores, the no-done limit, Philox resets
+    with the task redraw (a planar arm's fresh targets in the z = 0 plane
+    at a uniform angle), training and its time; returns
+    {"rollout3d_term": record}."""
     from trpo_robot_control_tpu_torch.configs import C5_MULTITASK
     from trpo_robot_control_tpu_torch.envs import arm
     from trpo_robot_control_tpu_torch.models import policy
     from trpo_robot_control_tpu_torch.ops import cuda as kernels
     from trpo_robot_control_tpu_torch.ops.cuda import rollout3d_kernel as r3
     from trpo_robot_control_tpu_torch.trpo.train import train
-    cfg = C5_MULTITASK.replace(done_dist=C5_DONE_DIST)
+    cfg = (base or C5_MULTITASK).replace(done_dist=C5_DONE_DIST)
     T, N, n = cfg.horizon, cfg.n_envs, cfg.arm.n_joints
     do, da = cfg.obs_dim, n
     bf16 = torch.bfloat16
     c = r3.arm3d_consts(cfg)
-    gen, params, s0 = k4_setup(dev, cfg, 13)
+    gen, params, s0 = k4_setup(dev, cfg, seed)
     P = policy.flatten(params).numel()
     eps = torch.randn(T, N, n, generator=gen, device=dev)
     fresh = arm.fresh_episodes(cfg, gen, N)
@@ -1390,7 +1490,7 @@ def c5_term_phases(dev):
                        fresh=fresh, store_dtype=bf16)
     all_early = int(k32[3][:-1].sum())
     require(torch.equal(k16[2], k32[2]) and torch.equal(k16[3], k32[3]),
-            "c5 K4-term: bf16 stores changed rewards or done flags")
+            f"{tag} K4-term: bf16 stores changed rewards or done flags")
     k32 = tuple(x[..., ::stride] for x in k32)
     k16 = tuple(x[..., ::stride] for x in k16[:2])
     st = arm.EnvState(*(x[::stride] for x in s0))
@@ -1402,21 +1502,19 @@ def c5_term_phases(dev):
                                eps[:, ::stride], fr)
     torch.cuda.synchronize()
     t_p = 1e3 * (time.perf_counter() - t0)
-    print(f"c5 K4-term fresh-state mode on {N} envs ({all_early} early "
+    print(f"{tag} K4-term fresh-state mode on {N} envs ({all_early} early "
           f"dones), plain version on every {stride}-th ({Nc} envs):")
-    err, _ = check_fresh_state_mode("c5 K4-term", k32, p_out)
-    ulps = max(float(((k.float() - p.to(bf16).float()).abs()
-                      / bf16_ulp(p.to(bf16).float())).max())
-               for k, p in zip(k16, p_out[:2]))
-    print(f"c5 K4-term bf16 stores: max |kernel - round(plain)| {ulps} bf16 "
-          f"ulps (obs, act) over {T} steps (bound 0)")
-    require(ulps == 0.0, f"c5 K4-term bf16 stores {ulps} ulps")
+    err, _ = check_fresh_state_mode(f"{tag} K4-term", k32, p_out)
+    ulps = bf16_ulps(k16, p_out[:2])
+    print(f"{tag} K4-term bf16 stores: max |kernel - round(plain)| {ulps} "
+          f"bf16 ulps (obs, act) over {T} steps (bound 0)")
+    require(ulps == 0.0, f"{tag} K4-term bf16 stores {ulps} ulps")
     del k32, k16, p_out
 
     # ---- the limit of no done (bf16 stores, as the trainer runs)
     seed = torch.tensor(K4_SEED_A, dtype=torch.int64, device=dev)
     check_no_done_limit(
-        "c5 K4-term",
+        f"{tag} K4-term",
         r3.rollout3d(cfg.replace(done_dist=0.0), params, s0.q, s0.qd, s0.tgt,
                      s0.task, seed=seed, store_dtype=bf16),
         r3.rollout3d(cfg.replace(done_dist=1e-9), params, s0.q, s0.qd,
@@ -1425,8 +1523,8 @@ def c5_term_phases(dev):
     # ---- Philox resets (fp32 stores) read back from the next observation
     batch = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt, s0.task, seed=seed)
     digest = sha256(*batch)
-    print(f"c5 K4-term Philox batch (seed {K4_SEED_A}, fp32 stores) SHA-256 "
-          f"{digest}")
+    print(f"{tag} K4-term Philox batch (seed {K4_SEED_A}, fp32 stores) "
+          f"SHA-256 {digest}")
     obs, dones = batch[0], batch[3]
     del batch
     early = int(dones[:-1].sum())
@@ -1437,21 +1535,35 @@ def c5_term_phases(dev):
     qd = o[:, 2 * n:3 * n] / c.qd_obs_scale
     ee = r3._fk3(c, list(cq.T), list(sq.T))[3]
     tgt = torch.stack([o[:, 3 * n + i] + ee[i] for i in range(3)], dim=1)
-    check_reset_ranges("c5 K4-term", c, q, qd, torch.linalg.norm(tgt, dim=1))
+    check_reset_ranges(f"{tag} K4-term", c, q, qd,
+                       torch.linalg.norm(tgt, dim=1))
     z_min = float(tgt[:, 2].min())
     onehot = o[:, 3 * n + 3:]
     counts = onehot.sum(0)
     K = onehot.shape[0]
     sig = math.sqrt(K * (1.0 / 3) * (2.0 / 3))
-    print(f"c5 K4-term Philox resets: {early} early dones; min target z "
+    print(f"{tag} K4-term Philox resets: {early} early dones; min target z "
           f"{z_min:+.6f}; fresh task counts {counts.tolist()} (expected "
           f"{K / 3:.1f} each, 4 sigma {4 * sig:.1f})")
-    require(z_min >= -RESET_TOL, f"c5 fresh target z {z_min}")
+    if c.planar:
+        # the plane's targets: z exactly 0 (the next observation's z row,
+        # target z less the planar FK's exact 0), the angle uniform
+        z_abs = float(tgt[:, 2].abs().max())
+        ang = torch.atan2(tgt[:, 1], tgt[:, 0]).double()
+        cm, sm = float(torch.cos(ang).mean()), float(torch.sin(ang).mean())
+        asig = math.sqrt(0.5 / ang.numel())
+        print(f"{tag} K4-term planar resets: max |target z| {z_abs} (bound "
+              f"0.0); mean cos, sin of the target angle {cm:+.4f}, "
+              f"{sm:+.4f} (4 sigma {4 * asig:.4f})")
+        require(z_abs == 0.0, f"{tag} fresh target z {z_abs}")
+        require(abs(cm) <= 4 * asig and abs(sm) <= 4 * asig,
+                f"{tag} fresh target angle mean cos {cm}, sin {sm}")
+    require(z_min >= -RESET_TOL, f"{tag} fresh target z {z_min}")
     require(bool(((onehot == 0) | (onehot == 1)).all())
             and bool((onehot.sum(1) == 1).all()),
-            "c5 fresh task one-hot is not one-hot")
+            f"{tag} fresh task one-hot is not one-hot")
     require(all(abs(float(x) - K / 3) <= 4 * sig for x in counts),
-            f"c5 fresh task counts {counts.tolist()}")
+            f"{tag} fresh task counts {counts.tolist()}")
     del o, dones
 
     # ---- five full-width iterations through the trainer
@@ -1475,12 +1587,12 @@ def c5_term_phases(dev):
     done1 = torch.ones(1, dtype=torch.bool, device=dev)
     per_reset = elementwise_flops(lambda: r3.start_fresh(
         c, done1, [x[0] for x in one], q1, qd1, tg1, s0.task[:1]))
-    t = k4_term_ms(cfg, params, s0)
+    t = k4_term_ms(cfg, params, s0, tag)
     t_k = t["term"]
     nbytes = B * ((do + da) * 2 + 4 + 4) + 4.0 * (N * (2 * n + 4) + P)
     bms, by = bound_ms((per_step - zero) * B + per_reset * early, nbytes)
     fused = bound_ms(per_step * B + per_reset * early, nbytes)[0]
-    print(f"c5 rollout3d_term: {t_k:.4f} ms/launch (bound {bms:.4f} ms by "
+    print(f"{tag} rollout3d_term: {t_k:.4f} ms/launch (bound {bms:.4f} ms by "
           f"{by}; {per_step - zero:.1f} FLOP per env-step, the fused "
           f"sweep's {per_step:.1f} less its structural zeros, and "
           f"{per_reset} per reset, {early} resets; the fused sweep's bound "
@@ -1491,6 +1603,269 @@ def c5_term_phases(dev):
         plain_ms=t_p, bound_ms=bms, bound_by=by, library_ms=None,
         bound_fused_ms=fused, plain_envs=Nc, done_dist=cfg.done_dist,
         variants_ms=t, philox_sha256=digest)}
+
+
+def c5_planar3():
+    """c5's task mix on a 3-link planar arm at c5's full width: the JAX
+    package's ``tests/test_multitask.py`` C5_SMALL (``C5_MULTITASK`` with
+    ``planar_arm(3)`` and ``CostSpec(ctrl_weight=0.01)``) at 65,536 envs x
+    200 steps. Its 15-wide observation routes it to K4 at 3 joints."""
+    from trpo_robot_control_tpu_torch.configs import (C5_MULTITASK, CostSpec,
+                                                      planar_arm)
+    return C5_MULTITASK.replace(name="c5_planar3", arm=planar_arm(3),
+                                cost=CostSpec(ctrl_weight=0.01))
+
+
+def c2_bf16():
+    """c2 with bf16 storage: K1's bf16 stores into K2-bf16 (do 12) and K3
+    on the fp32 relayout of the Fisher subsample."""
+    from trpo_robot_control_tpu_torch.configs import C2_REACHER3
+    return C2_REACHER3.replace(name="c2_bf16", trpo=dataclasses.replace(
+        C2_REACHER3.trpo, ff_store_dtype="bf16"))
+
+
+def k1_exact(tag, k_out, p_out, k16=None):
+    """K1 against its plain version on the same inputs: max |kernel -
+    plain| = 0.0 (identical done flags where there are any) and, given the
+    bf16 stores' batch, obs and actions 0 ulps from the rounded plain
+    output with rewards and done flags unchanged. Returns the max error."""
+    errs = [float((k - p).abs().max()) for k, p in zip(k_out, p_out)]
+    ulps = None if k16 is None else bf16_ulps(k16[:2], p_out[:2])
+    print(f"{tag}: max |kernel - plain| (obs, act, rew[, dones]) {errs} "
+          f"over {p_out[0].shape[0]} steps (bound 0.0)"
+          + ("" if k16 is None else f"; bf16 stores {ulps} ulps from the "
+             "rounded plain output (bound 0)"))
+    require(max(errs) == 0.0, f"{tag}: kernel differs from plain: {errs}")
+    if k16 is not None:
+        require(ulps == 0.0 and all(torch.equal(a, b) for a, b in
+                                    zip(k16[2:], k_out[2:])),
+                f"{tag}: bf16 stores {ulps} ulps, or other outputs moved")
+    return max(errs)
+
+
+def c2_bf16_phases(dev):
+    """c2 with bf16 storage (``c2_bf16``): K1's bf16 stores 0 ulps from the
+    rounded plain output in eps mode and, TERM, in fresh-state mode; the
+    Philox batch's SHA-256; K2-bf16 at do 12 and K3 on the fp32 relayout
+    against their plain versions; five full-width training iterations
+    (K1, K2 once and K3 ten times per update, no plain version); K1-bf16's
+    time beside its bound. Returns {kernel: record}."""
+    from trpo_robot_control_tpu_torch.envs import arm
+    from trpo_robot_control_tpu_torch.models import policy
+    from trpo_robot_control_tpu_torch.ops import cuda as kernels
+    from trpo_robot_control_tpu_torch.ops.cuda import rollout_kernel as rk
+    from trpo_robot_control_tpu_torch.ops.gae import gae
+    from trpo_robot_control_tpu_torch.trpo.train import train
+    cfg = c2_bf16()
+    T, N, n = cfg.horizon, cfg.n_envs, cfg.arm.n_joints
+    bf16 = torch.bfloat16
+    gen, params, s0 = k4_setup(dev, cfg, 20)
+    P = policy.flatten(params).numel()
+    eps = torch.randn(T, N, n, generator=gen, device=dev)
+    k32 = rk.rollout(cfg, params, s0.q, s0.qd, s0.tgt, eps=eps)
+    k16 = rk.rollout(cfg, params, s0.q, s0.qd, s0.tgt, eps=eps,
+                     store_dtype=bf16)
+    p_out = rk.rollout_plain(cfg, params, s0.q, s0.qd, s0.tgt, eps)
+    err = k1_exact("c2-bf16 K1 eps mode", k32, p_out, k16)
+    cfg_t = cfg.replace(done_dist=C2_DONE_DIST)
+    fresh = arm.fresh_episodes(cfg_t, gen, N)
+    kt32 = rk.rollout(cfg_t, params, s0.q, s0.qd, s0.tgt, eps=eps,
+                      fresh=fresh)
+    kt16 = rk.rollout(cfg_t, params, s0.q, s0.qd, s0.tgt, eps=eps,
+                      fresh=fresh, store_dtype=bf16)
+    pt = rk.rollout_plain(cfg_t, params, s0.q, s0.qd, s0.tgt, eps, fresh)
+    check_fresh_state_mode("c2-bf16 K1-term", kt32, pt)
+    k1_exact("c2-bf16 K1-term fresh-state mode", kt32, pt, kt16)
+    del k32, k16, p_out, kt32, kt16, pt
+    seed = torch.tensor(K1_SEED, dtype=torch.int64, device=dev)
+    digest = k1_digest(cfg, params, s0, seed, bf16)
+    print(f"c2-bf16 K1 Philox batch (seed {K1_SEED}, bf16 stores) SHA-256 "
+          f"{digest}")
+    obs_ff, act_ff, rew_ff = rk.rollout(cfg, params, s0.q, s0.qd, s0.tgt,
+                                        seed=seed, store_dtype=bf16)
+    require(obs_ff.dtype == bf16 and act_ff.dtype == bf16
+            and rew_ff.dtype == torch.float32, "c2-bf16 K1 store types")
+    rec = {"rollout": dict(max_abs_err=err, philox_sha256=digest)}
+
+    # ---- K2 bf16 mode (do 12) and K3 on the fp32 relayout
+    targets = gae(rew_ff, torch.zeros_like(rew_ff), cfg.trpo.gamma,
+                  cfg.trpo.lam, time_axis=0)
+    gram_k, gram_p, tau = k2_check("c2-bf16", obs_ff, targets, cfg.horizon)
+    from trpo_robot_control_tpu_torch.ops.cuda import moments_kernel as mk
+    require(torch.equal(gram_k, mk.extended_gram(obs_ff, targets, tau)),
+            "c2-bf16 K2 bf16 mode is not deterministic")
+    rec["moments"] = dict(max_abs_err=float((gram_k - gram_p).abs().max()))
+    k = cfg.trpo.fvp_subsample
+    obs_fvp = obs_ff[::k].permute(0, 2, 1).reshape(-1, cfg.obs_dim).float()
+    rec["fvp"] = k3_check("c2-bf16", gen, params, obs_fvp,
+                          cfg.trpo.cg_damping)[0]
+
+    # ---- five full-width iterations through the trainer
+    n_iters = 5
+    launches, ms_upd = train_checked(
+        cfg, n_iters, kernels,
+        {"rollout": n_iters, "moments": n_iters,
+         "fvp": n_iters * cfg.trpo.cg_iters, "rollout3d": 0, "pg": 0,
+         "fvp_ff": 0}, train)
+
+    # ---- K1-bf16's time beside its bound and the fp32 stores' time
+    t_k = k1_ms(cfg, params, s0, seed, bf16)
+    t_32 = k1_ms(cfg, params, s0, seed)
+    t_p = cuda_ms(lambda: rk.rollout_plain(cfg, params, s0.q, s0.qd, s0.tgt,
+                                           eps), 2, warmup=1)
+    bms, by = k1_bound(cfg, P, bf16)
+    print(f"c2-bf16 rollout: {t_k:.4f} ms/launch, {1e3 * t_k / T:.3f} us per "
+          f"step (bound {bms:.4f} ms by {by}); fp32 stores {t_32:.4f} ms; "
+          f"plain {t_p:.3f} ms, {launches['rollout'] // n_iters} "
+          "launch(es)/update")
+    rec["rollout"].update(launches=launches["rollout"], ms=t_k, plain_ms=t_p,
+                          bound_ms=bms, bound_by=by, library_ms=None,
+                          us_per_step=1e3 * t_k / T, fp32_stores_ms=t_32,
+                          ms_per_update=ms_upd)
+    rec["moments"]["launches"] = launches["moments"]
+    rec["fvp"]["launches"] = launches["fvp"]
+    return rec
+
+
+def brief(occ):
+    """An occupancy's blocks and warps per SM, registers and local bytes."""
+    return {k: occ[k] for k in ("blocks_per_sm", "warps_per_sm", "registers",
+                                "local_bytes")}
+
+
+def median_distance(obs, n):
+    """The median over envs of |target - ee| at step 1 of a batch's obs
+    (T, do, N) of an n-joint arm (rows 3n .. 3n + 2)."""
+    return float(torch.linalg.norm(obs[1, 3 * n:3 * n + 3].float(),
+                                   dim=0).median())
+
+
+def nj_arms(n):
+    """The arms phase 7 runs at ``n`` joints: ``planar_arm(n)`` and a
+    spatial arm with gravity, the first n of ``franka_like_arm``'s joints
+    1-6 (joint 1 at joint 0's origin) followed by its joints 1 and 2
+    again, with its links 1-6, 0 and 1."""
+    from trpo_robot_control_tpu_torch.configs import (franka_like_arm,
+                                                      planar_arm)
+    fr = franka_like_arm()
+    first = dataclasses.replace(fr.joints[1], pos=fr.joints[0].pos)
+    joints = ((first,) + fr.joints[2:] + fr.joints[1:3])[:n]
+    links = (fr.links[1:] + fr.links[:2])[:n]
+    return planar_arm(n), dataclasses.replace(fr, joints=joints, links=links)
+
+
+def other_n_phases(dev):
+    """Phase 7: every joint count of K1 (planar arms; fp32 and bf16 stores,
+    terminating or not) and of K4 (each of the six (task families,
+    obstacle) pairs: the planar arm with the obstacle off, the spatial arm
+    with it on; fp32 and bf16 stores, terminating or not), each launched in
+    eps mode (TERM in fresh-state mode, done_dist the median distance to
+    the target at step 1, so that about half the envs are done early) on
+    OTHER_N_ENVS envs x OTHER_N_STEPS steps and held to its plain version:
+    0.0 with fp32 stores, 0 ulps from the rounded plain output with bf16;
+    with each instantiation's occupancy. Returns {"rollout": {n: record},
+    "rollout3d": {n: {pair: record}}}."""
+    from trpo_robot_control_tpu_torch.configs import (C2_REACHER3,
+                                                      C4_FRANKA7_OBSTACLE,
+                                                      C5_MULTITASK)
+    from trpo_robot_control_tpu_torch.envs import arm
+    from trpo_robot_control_tpu_torch.ops.cuda import build
+    from trpo_robot_control_tpu_torch.ops.cuda import rollout3d_kernel as r3
+    from trpo_robot_control_tpu_torch.ops.cuda import rollout_kernel as rk
+    N, T = OTHER_N_ENVS, OTHER_N_STEPS
+    bf16 = torch.bfloat16
+    spills = k1_spills()
+    out = {"rollout": {}, "rollout3d": {}}
+    for n in build.JOINT_COUNTS:
+        planar, spatial = nj_arms(n)
+        # ---- K1
+        cfg = C2_REACHER3.replace(arm=planar, n_envs=N, horizon=T)
+        gen, params, s0 = k4_setup(dev, cfg, 100 + n)
+        eps = torch.randn(T, N, n, generator=gen, device=dev)
+        kw = (params, s0.q, s0.qd, s0.tgt)
+        k_out = rk.rollout(cfg, *kw, eps=eps)
+        err = k1_exact(f"n={n} K1", k_out, rk.rollout_plain(cfg, *kw, eps),
+                       rk.rollout(cfg, *kw, eps=eps, store_dtype=bf16))
+        cfg_t = cfg.replace(done_dist=median_distance(k_out[0], n))
+        fresh = arm.fresh_episodes(cfg_t, gen, N)
+        kt = rk.rollout(cfg_t, *kw, eps=eps, fresh=fresh)
+        pt = rk.rollout_plain(cfg_t, *kw, eps, fresh)
+        _, early = check_fresh_state_mode(f"n={n} K1-term", kt, pt)
+        k1_exact(f"n={n} K1-term", kt, pt,
+                 rk.rollout(cfg_t, *kw, eps=eps, fresh=fresh,
+                            store_dtype=bf16))
+        occ = {}
+        for term in (False, True):
+            for dt in (torch.float32, bf16):
+                name = (f"{'term' if term else 'plain'}-"
+                        f"{'bf16' if dt == bf16 else 'fp32'}")
+                o = rk.occupancy(n, term, dt)
+                print(f"K1 occupancy [n={n}, {name}]: {o}")
+                require(o["blocks_per_sm"] >= 1, f"K1 n={n} {name}: {o}")
+                occ[name] = brief(o)
+        out["rollout"][n] = dict(max_abs_err=err, term_early_dones=early,
+                                 spill_stores=spills[n], occupancy=occ)
+        # ---- K4, each pair
+        out["rollout3d"][n] = {}
+        for n_tasks in r3.TASK_FAMILIES:
+            for obstacle in (False, True):
+                pair = f"tasks{n_tasks}-{'obstacle' if obstacle else 'free'}"
+                a = spatial if obstacle else planar
+                cost = (C4_FRANKA7_OBSTACLE.cost if obstacle
+                        else C5_MULTITASK.cost)
+                if obstacle:     # beside the base column, active from step 0
+                    cost = dataclasses.replace(cost,
+                                               obstacle_center=(0.0, 0.0, 0.3))
+                cfg = C5_MULTITASK.replace(arm=a, cost=cost, n_tasks=n_tasks,
+                                           n_envs=N, horizon=T)
+                gen, params, s0 = k4_setup(dev, cfg, 200 + 10 * n + n_tasks)
+                eps = torch.randn(T, N, n, generator=gen, device=dev)
+                kw = (params, s0.q, s0.qd, s0.tgt, s0.task)
+                tag = f"n={n} K4 {pair}"
+                k_out = r3.rollout3d(cfg, *kw, eps=eps)
+                err = k1_exact(tag, k_out, r3.rollout3d_plain(cfg, *kw, eps),
+                               r3.rollout3d(cfg, *kw, eps=eps,
+                                            store_dtype=bf16))
+                cfg_t = cfg.replace(done_dist=median_distance(k_out[0], n))
+                fresh = arm.fresh_episodes(cfg_t, gen, N)
+                kt = r3.rollout3d(cfg_t, *kw, eps=eps, fresh=fresh)
+                pt = r3.rollout3d_plain(cfg_t, *kw, eps, fresh)
+                _, early = check_fresh_state_mode(f"{tag}-term", kt, pt)
+                k1_exact(f"{tag}-term", kt, pt,
+                         r3.rollout3d(cfg_t, *kw, eps=eps, fresh=fresh,
+                                      store_dtype=bf16))
+                occ = {}
+                for c_, term in ((cfg, "plain"), (cfg_t, "term")):
+                    for dt in (torch.float32, bf16):
+                        name = f"{term}-{'bf16' if dt == bf16 else 'fp32'}"
+                        occ[name] = brief(k4_occupancy_of(
+                            f"n={n} {pair} {name}", c_, dt))
+                out["rollout3d"][n][pair] = dict(
+                    max_abs_err=err, term_early_dones=early, occupancy=occ)
+    return out
+
+
+def k1_n8_record(dev):
+    """K1 at 8 links at c2's width and depth (1024 envs x 100 steps),
+    Philox mode: its time beside its bound and its plain version's."""
+    from trpo_robot_control_tpu_torch.configs import C2_REACHER3
+    from trpo_robot_control_tpu_torch.models import policy
+    from trpo_robot_control_tpu_torch.ops.cuda import rollout_kernel as rk
+    cfg = C2_REACHER3.replace(arm=nj_arms(8)[0])
+    T, N, n = cfg.horizon, cfg.n_envs, cfg.arm.n_joints
+    gen, params, s0 = k4_setup(dev, cfg, 8)
+    seed = torch.tensor(K1_SEED, dtype=torch.int64, device=dev)
+    eps = torch.randn(T, N, n, generator=gen, device=dev)
+    ms = k1_ms(cfg, params, s0, seed)
+    plain_ms = cuda_ms(lambda: rk.rollout_plain(cfg, params, s0.q, s0.qd,
+                                                s0.tgt, eps), 1, warmup=1)
+    bms, by = k1_bound(cfg, policy.flatten(params).numel())
+    print(f"n=8 rollout at c2's width: {ms:.4f} ms/launch, "
+          f"{1e3 * ms / T:.3f} us per step (bound {bms:.4f} ms by {by}), "
+          f"plain {plain_ms:.3f} ms")
+    return dict(ms=ms, us_per_step=1e3 * ms / T, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=None, n_envs=N,
+                horizon=T)
 
 
 def main() -> int:
@@ -1531,6 +1906,19 @@ def main() -> int:
     rec.update(c5_term_phases(dev))
     print(f"c5 termination phases done at "
           f"{time.perf_counter() - t_start:.1f} s")
+    p3 = c5_planar3()
+    more["c5_planar3"] = arm3d_phases(dev, p3, seed=5, tag="c5_planar3",
+                                      exact=True)
+    print(f"c5-planar3 phases done at {time.perf_counter() - t_start:.1f} s")
+    p3_term = c5_term_phases(dev, p3, tag="c5_planar3", seed=14)
+    print(f"c5-planar3 termination phases done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+    c2b = c2_bf16_phases(dev)
+    print(f"c2-bf16 phases done at {time.perf_counter() - t_start:.1f} s")
+    other_n = other_n_phases(dev)
+    n8 = k1_n8_record(dev)
+    print(f"phases at every joint count done at "
+          f"{time.perf_counter() - t_start:.1f} s")
     out = []
     for name in ("rollout", "moments", "fvp", "rollout3d", "pg", "fvp_ff",
                  "rollout_term", "rollout3d_term"):
@@ -1551,8 +1939,17 @@ def main() -> int:
                 entry[("bf16_mode_" if key != name else "at_") + tag] = r[key]
         if name == "rollout":
             entry["occupancy"] = occupancy_k1
+            entry.update(bf16_mode_c2=c2b["rollout"], at_n8=n8,
+                         other_n=other_n["rollout"])
+        if name == "moments":
+            entry["bf16_mode_c2"] = c2b["moments"]
+        if name == "fvp":
+            entry["at_c2_bf16"] = c2b["fvp"]
+        if name == "rollout3d_term":
+            entry["at_c5_planar3"] = p3_term["rollout3d_term"]
         if name == "rollout3d":
             entry["occupancy"] = occupancy
+            entry["other_n"] = other_n["rollout3d"]
         if name == "fvp":
             entry["occupancy"] = occupancy_k3
         if name == "fvp_ff":

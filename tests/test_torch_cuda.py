@@ -68,15 +68,18 @@ def test_rollout_kernel_matches_plain_on_card(cuda, name, N):
 
 @pytest.mark.cuda
 def test_rollout_kernel_has_no_spills_and_fills_the_card(cuda):
-    """Every instantiation (2 and 3 joints, terminating or not) compiles
-    with no spill store and keeps its five-warp block resident, and c2's
-    1024 envs make a grid of at least 128 blocks."""
-    occ = [rollout_kernel.occupancy(n, term) for n in (2, 3)
-           for term in (False, True)]
+    """Every instantiation at 1-3 joints (terminating or not, fp32 or bf16
+    stores) compiles with no spill store; those at 2 and 3 keep their
+    five-warp block resident, and c2's 1024 envs make a grid of at least
+    128 blocks."""
+    occ = [rollout_kernel.occupancy(n, term, dt) for n in (2, 3)
+           for term in (False, True)
+           for dt in (torch.float32, torch.bfloat16)]
+    libs = tuple(f"{build.lib_name('rollout', n)}: " for n in (1, 2, 3))
     report = "\n".join(ln for ln in build.ptxas_report().splitlines()
-                       if ln.startswith("rollout: "))
+                       if ln.startswith(libs))
     spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", report)]
-    assert len(spills) >= 4 and not any(spills), report
+    assert len(spills) == 12 and not any(spills), report
     for o in occ:
         assert o["blocks_per_sm"] >= 1 and o["warps_per_sm"] >= 5, o
         assert -(-pconfigs.C2_REACHER3.n_envs // o["envs_per_block"]) >= 128, o
@@ -221,16 +224,83 @@ def test_rollout3d_kernel_keeps_two_blocks_per_sm(cuda, name):
 
 @pytest.mark.cuda
 def test_rollout3d_kernel_refuses_a_pair_it_has_no_instantiation_for(cuda):
-    """Three task families with the obstacle term: the launcher's dispatch
-    has no such instantiation, and the wrapper says so."""
-    cfg = pconfigs.C5_MULTITASK.replace(horizon=2)
-    cfg = cfg.replace(cost=dataclasses.replace(cfg.cost, obstacle_weight=1.0))
-    pn = policy_params_np(np.random.RandomState(16), cfg.obs_dim, 7)
+    """Nine joints (past the update kernels' 32 observation features,
+    ROADMAP B3) and four task families: the kernel has no such
+    instantiation, and the wrapper says so before it launches."""
+    cfg = pconfigs.C5_MULTITASK.replace(arm=pconfigs.planar_arm(9),
+                                        horizon=2)
+    pn = policy_params_np(np.random.RandomState(16), cfg.obs_dim, 9)
     pc = {k: t(v).to(cuda) for k, v in pn.items()}
     ins = [t(x).to(cuda) for x in env_inputs_np(cfg, 32, seed=17)]
     task = torch.tensor(tasks_np(cfg, 32, seed=18), device=cuda)
-    with pytest.raises(NotImplementedError, match="no instantiation"):
+    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
         rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task, eps=ins[3])
+    with pytest.raises(NotImplementedError, match="task families"):
+        rollout3d_kernel.occupancy(pconfigs.C5_MULTITASK.replace(n_tasks=4))
+
+
+# K4 at 3 joints, each (task families, obstacle) pair on a planar arm (the
+# obstacle sphere on its second joint origin, active from the first step)
+PAIRS = [(n_tasks, obstacle) for n_tasks in (1, 2, 3)
+         for obstacle in (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tasks,obstacle", PAIRS)
+def test_rollout3d_kernel_at_three_joints_matches_plain_on_card(
+        cuda, n_tasks, obstacle):
+    """c5-planar3's arm with each pair: eps mode 0.0 from the plain version
+    with fp32 stores and the rounded fp32 output with bf16 stores; the
+    terminating instantiation in fresh-state mode with the same done flags
+    and trajectories."""
+    cost = pconfigs.CostSpec(ctrl_weight=0.01,
+                             obstacle_weight=1.0 if obstacle else 0.0,
+                             obstacle_center=(0.5, 0.0, 0.0))
+    cfg = pconfigs.C5_MULTITASK.replace(arm=pconfigs.planar_arm(3),
+                                        cost=cost, n_tasks=n_tasks,
+                                        horizon=16)
+    N = 300
+    pn = policy_params_np(np.random.RandomState(25), cfg.obs_dim, 3)
+    pc = {k: t(v).to(cuda) for k, v in pn.items()}
+    s, eps, _ = _term_inputs(cfg, N, 26, cuda)
+    k_out = rollout3d_kernel.rollout3d(cfg, pc, s.q, s.qd, s.tgt, s.task,
+                                       eps=eps)
+    _exact(k_out, rollout3d_kernel.rollout3d_plain(cfg, pc, s.q, s.qd, s.tgt,
+                                                   s.task, eps))
+    k16 = rollout3d_kernel.rollout3d(cfg, pc, s.q, s.qd, s.tgt, s.task,
+                                     eps=eps, store_dtype=torch.bfloat16)
+    for a, b in zip(k16[:2], k_out[:2]):
+        assert torch.equal(a, b.to(torch.bfloat16))
+    term = cfg.replace(done_dist=0.4)
+    s, eps, fresh = _term_inputs(term, N, 27, cuda)
+    k_out = rollout3d_kernel.rollout3d(term, pc, s.q, s.qd, s.tgt, s.task,
+                                       eps=eps, fresh=fresh)
+    p_out = rollout3d_kernel.rollout3d_plain(term, pc, s.q, s.qd, s.tgt,
+                                             s.task, eps, fresh)
+    assert torch.equal(k_out[3], p_out[3]) and bool(k_out[3][:-1].any())
+    _exact(k_out[:3], p_out[:3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("links", [4, 8])
+def test_rollout_kernel_more_links_and_bf16_match_plain_on_card(cuda, links):
+    """K1 at 4 and 8 links (two action chains per state-warp part at 8):
+    0.0 from the plain version with fp32 stores, and bf16 stores the fp32
+    output rounded once, rewards unchanged."""
+    cfg = pconfigs.C2_REACHER3.replace(arm=pconfigs.planar_arm(links),
+                                       horizon=10)
+    N = 256
+    pn = policy_params_np(np.random.RandomState(28), cfg.obs_dim, links)
+    pc = {k: t(v).to(cuda) for k, v in pn.items()}
+    ins = [t(x).to(cuda) for x in env_inputs_np(cfg, N, seed=29)]
+    k_out = rollout_kernel.rollout(cfg, pc, *ins[:3], eps=ins[3])
+    _exact(k_out, rollout_kernel.rollout_plain(cfg, pc, *ins[:3], ins[3]))
+    k16 = rollout_kernel.rollout(cfg, pc, *ins[:3], eps=ins[3],
+                                 store_dtype=torch.bfloat16)
+    for a, b in zip(k16[:2], k_out[:2]):
+        assert a.dtype == torch.bfloat16 and torch.equal(
+            a, b.to(torch.bfloat16))
+    assert torch.equal(k16[2], k_out[2])
 
 
 # (T, do, N): c3/c4's do 24 and c5's 27 (7 column blocks), 30 (8) and

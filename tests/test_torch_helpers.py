@@ -249,24 +249,29 @@ def done_mismatch(d_port, d_jax, obs_port, obs_jax, rows, done_dist):
 
 def check_against_jax(name, N, T, done_dist, seed, atol_obs, atol_rew,
                       params_np=None):
-    """The port's terminating plain rollout (K1's or K4's) on the draws of
-    JAX's terminating rollout of config ``name`` from ``PRNGKey(seed)``
-    with ``params_np`` (default: ``policy_params_np`` of ``seed``):
-    identical done flags before the last step, at least one of them set,
-    and obs, act, rew within the given tolerances. Returns (early dones,
-    JAX config, port config, params, JAX batch)."""
+    """The port's terminating plain rollout (K1's or K4's, as the port's
+    rollout function routes the config) on the draws of JAX's terminating
+    rollout of config ``name`` (a name of both packages' ``CONFIGS``, or a
+    (JAX config, port config) pair) from ``PRNGKey(seed)`` with
+    ``params_np`` (default: ``policy_params_np`` of ``seed``): identical
+    done flags before the last step, at least one of them set, and obs,
+    act, rew within the given tolerances. Returns (early dones, JAX
+    config, port config, params, JAX batch)."""
     from trpo_robot_control_tpu.configs import CONFIGS as JCONFIGS
     from trpo_robot_control_tpu_torch.configs import CONFIGS as PCONFIGS
+    from trpo_robot_control_tpu_torch.envs.arm import _planar_route
     from trpo_robot_control_tpu_torch.ops.cuda import rollout3d_kernel as r3
     from trpo_robot_control_tpu_torch.ops.cuda import rollout_kernel as rk
-    jcfg = JCONFIGS[name].replace(n_envs=N, horizon=T, done_dist=done_dist)
-    pcfg = PCONFIGS[name].replace(n_envs=N, horizon=T, done_dist=done_dist)
+    jbase, pbase = ((JCONFIGS[name], PCONFIGS[name]) if isinstance(name, str)
+                    else name)
+    jcfg = jbase.replace(n_envs=N, horizon=T, done_dist=done_dist)
+    pcfg = pbase.replace(n_envs=N, horizon=T, done_dist=done_dist)
     pn = params_np if params_np is not None else policy_params_np(
         np.random.RandomState(seed), jcfg.obs_dim, jcfg.arm.n_joints)
     bj, s0, eps, fresh = jax_terminating(jcfg, pn, seed)
     pt = {k: t(v) for k, v in pn.items()}
     q0, qd0, tgt, task = torch_state(s0)
-    if jcfg.arm.n_joints < 7:
+    if _planar_route(pcfg):
         out = rk.rollout(pcfg, pt, q0, qd0, tgt, eps=t(eps),
                          fresh=torch_state(fresh))
     else:

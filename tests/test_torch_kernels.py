@@ -1,8 +1,9 @@
 """The port's three kernels against the JAX package: on the CPU each
 wrapper runs its plain PyTorch version, which is held against the Pallas
 kernel in interpret mode and against its JAX twin on the same numpy
-inputs. ``test_torch_cuda.py`` holds each CUDA kernel against its plain
-version on the card."""
+inputs (the planar rollout at 1-8 links, and with bf16 stores).
+``test_torch_cuda.py`` holds each CUDA kernel against its plain version on
+the card."""
 import numpy as np
 import pytest
 import torch
@@ -11,14 +12,15 @@ from jax.flatten_util import ravel_pytree
 
 from test_torch_helpers import (env_inputs_np, j, jax_batch, n,
                                 policy_params_np, t)
-from trpo_robot_control_tpu.configs import C1_REACHER2, C2_REACHER3
+from trpo_robot_control_tpu.configs import (C1_REACHER2, C2_REACHER3,
+                                            planar_arm)
 from trpo_robot_control_tpu.models import baseline as jbase
 from trpo_robot_control_tpu.ops.fvp import make_gn_fvp as j_make_gn_fvp
 from trpo_robot_control_tpu.ops.pallas.fvp_kernel import make_pallas_gn_fvp
 from trpo_robot_control_tpu.ops.pallas.moments_kernel import \
     pallas_baseline_moments
-from trpo_robot_control_tpu.ops.pallas.rollout_kernel import \
-    rollout_reference
+from trpo_robot_control_tpu.ops.pallas.rollout_kernel import (
+    pallas_rollout, rollout_reference)
 from trpo_robot_control_tpu_torch import configs as pconfigs
 from trpo_robot_control_tpu_torch.ops import cuda as kernels
 from trpo_robot_control_tpu_torch.ops.cuda import (moments_kernel,
@@ -26,15 +28,58 @@ from trpo_robot_control_tpu_torch.ops.cuda import (moments_kernel,
 from trpo_robot_control_tpu_torch.ops.fvp import make_gn_fvp as p_make_gn_fvp
 
 
-@pytest.mark.parametrize("name", ["c1_reacher2", "c2_reacher3"])
+def _planar_cfgs(name, **kw):
+    """A config name, or ``planarN``: c2 with ``planar_arm(N)``, in both
+    packages."""
+    if name.startswith("planar"):
+        links = int(name[len("planar"):])
+        return (C2_REACHER3.replace(arm=planar_arm(links), **kw),
+                pconfigs.C2_REACHER3.replace(arm=pconfigs.planar_arm(links),
+                                             **kw))
+    return ({"c1_reacher2": C1_REACHER2, "c2_reacher3": C2_REACHER3}[name]
+            .replace(**kw), pconfigs.CONFIGS[name].replace(**kw))
+
+
+# Arms whose fp32 rollouts part within a few steps: at 4 and 8 links the
+# mass matrix is ill-conditioned enough that two fp32 operation orders
+# drift past 1e-5 (JAX's own fp32 rollout is as far from an fp64
+# evaluation as the port's, 1.7e-4 at 8 links after one step), so these
+# cases hold the same function in fp64.
+FP64_CASES = ("planar4", "planar8")
+
+
+@pytest.mark.parametrize("name", ["c1_reacher2", "c2_reacher3", "planar1",
+                                  "planar4", "planar8"])
 def test_rollout_plain_matches_pallas_and_reference(name):
-    jcfg = {"c1_reacher2": C1_REACHER2, "c2_reacher3": C2_REACHER3}[name] \
-        .replace(horizon=10)
-    pcfg = pconfigs.CONFIGS[name].replace(horizon=10)
+    """The plain version against the Pallas kernel in interpret mode and
+    ``rollout_reference`` within 1e-5; at FP64_CASES the plain version in
+    float64 against ``rollout_reference`` under ``jax.enable_x64`` (the
+    Pallas kernel is fp32 only)."""
+    jcfg, pcfg = _planar_cfgs(name, horizon=10)
     N = 128
     pn = policy_params_np(np.random.RandomState(0), jcfg.obs_dim,
                           jcfg.arm.n_joints)
     q0, qd0, tgt, eps = env_inputs_np(jcfg, N, seed=1)
+    if name in FP64_CASES:
+        import jax
+        import jax.numpy as jnp
+        with jax.enable_x64(True):
+            ref = rollout_reference(
+                jcfg, {k: jnp.asarray(v, jnp.float64) for k, v in pn.items()},
+                *(jnp.asarray(x, jnp.float64) for x in (q0, qd0, tgt, eps)))
+            ref = {k: np.asarray(v) for k, v in ref.items()}
+        assert ref["obs"].dtype == np.float64
+        mine = rollout_kernel.rollout_plain(
+            pcfg, {k: torch.tensor(v, dtype=torch.float64)
+                   for k, v in pn.items()},
+            *(torch.tensor(x, dtype=torch.float64)
+              for x in (q0, qd0, tgt, eps)))
+        for key, x, order in (("obs", mine[0], (2, 0, 1)),
+                              ("actions", mine[1], (2, 0, 1))):
+            np.testing.assert_allclose(n(x.permute(*order)), ref[key],
+                                       atol=1e-5, err_msg=key)
+        np.testing.assert_allclose(n(mine[2].T), ref["rewards"], atol=1e-5)
+        return
     pal = jax_batch(jcfg, pn, q0, qd0, tgt, eps)
     ref = rollout_reference(jcfg, {k: j(v) for k, v in pn.items()}, j(q0),
                             j(qd0), j(tgt), j(eps))
@@ -55,11 +100,39 @@ def test_rollout_plain_matches_pallas_and_reference(name):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("n", [1, 4, 7])
+def test_rollout_bf16_stores_match_pallas():
+    """c2 with bf16 stores: the plain version's obs and actions within one
+    bf16 ulp of ``pallas_rollout(store_dtype=bf16)`` in interpret mode, and
+    0 ulps from its own fp32 output rounded once; rewards stay fp32."""
+    import jax.numpy as jnp
+    jcfg, pcfg = _planar_cfgs("c2_reacher3", horizon=10)
+    N = 128
+    pn = policy_params_np(np.random.RandomState(6), jcfg.obs_dim, 3)
+    q0, qd0, tgt, eps = env_inputs_np(jcfg, N, seed=7)
+    pal = pallas_rollout(jcfg, {k: j(v) for k, v in pn.items()}, 0,
+                         n_envs=N, eps=j(eps), block_b=128, interpret=True,
+                         q0=j(q0), qd0=j(qd0), tgt=j(tgt),
+                         store_dtype=jnp.bfloat16)
+    pt = {k: t(v) for k, v in pn.items()}
+    b16 = rollout_kernel.rollout(pcfg, pt, t(q0), t(qd0), t(tgt), eps=t(eps),
+                                 store_dtype=torch.bfloat16)
+    f32 = rollout_kernel.rollout(pcfg, pt, t(q0), t(qd0), t(tgt), eps=t(eps))
+    for key, mine, own in (("obs_ff", b16[0], f32[0]),
+                           ("actions_ff", b16[1], f32[1])):
+        assert mine.dtype == torch.bfloat16
+        assert torch.equal(mine, own.to(torch.bfloat16)), key
+        ref = np.asarray(pal[key].astype(jnp.float32))
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), 2.0 ** -126)))
+                      - 7)
+        assert (np.abs(n(mine.float()) - ref) / ulp).max() <= 1.0, key
+    assert b16[2].dtype == torch.float32 and torch.equal(b16[2], f32[2])
+
+
+@pytest.mark.parametrize("n", [0, 9, 12])
 def test_rollout_occupancy_refuses_joint_counts_it_is_not_built_for(n):
-    """The planar kernel has instantiations for 2 and 3 joints only;
+    """The planar kernel has instantiations for 1-8 joints only;
     ``occupancy`` says so before it builds or loads anything."""
-    with pytest.raises(NotImplementedError, match="2 and 3 joints"):
+    with pytest.raises(NotImplementedError, match="1-8 joints"):
         rollout_kernel.occupancy(n, False)
 
 

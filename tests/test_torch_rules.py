@@ -119,7 +119,8 @@ def test_unported_paths_raise():
     from trpo_robot_control_tpu_torch.configs import (C1_REACHER2,
                                                       C3_FRANKA7,
                                                       C4_FRANKA7_OBSTACLE,
-                                                      C5_MULTITASK)
+                                                      C5_MULTITASK,
+                                                      planar_arm)
     from trpo_robot_control_tpu_torch.envs.arm import make_rollout_fn
     from trpo_robot_control_tpu_torch.trpo.train import init_state
     from trpo_robot_control_tpu_torch.trpo.update import trpo_update
@@ -128,9 +129,12 @@ def test_unported_paths_raise():
     make_rollout_fn(C5_MULTITASK)
     make_rollout_fn(C3_FRANKA7.replace(done_dist=0.05))     # slice 4
     make_rollout_fn(C1_REACHER2.replace(done_dist=0.05))
-    with pytest.raises(NotImplementedError, match="bf16"):
-        make_rollout_fn(C1_REACHER2.replace(trpo=dataclasses.replace(
-            C1_REACHER2.trpo, ff_store_dtype="bf16")))
+    make_rollout_fn(C1_REACHER2.replace(trpo=dataclasses.replace(
+        C1_REACHER2.trpo, ff_store_dtype="bf16")))
+    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
+        make_rollout_fn(C1_REACHER2.replace(arm=planar_arm(9)))
+    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
+        make_rollout_fn(C5_MULTITASK.replace(arm=planar_arm(9)))
     with pytest.raises(NotImplementedError, match="MLP baseline"):
         init_state(C1_REACHER2.replace(trpo=dataclasses.replace(
             C1_REACHER2.trpo, baseline="mlp")), device="cpu")
@@ -140,3 +144,42 @@ def test_unported_paths_raise():
         trpo_update(C1_REACHER2, st.params, st.w, batch)
     with pytest.raises(NotImplementedError, match="data parallelism"):
         trpo_update(C1_REACHER2, st.params, st.w, batch, axis_name="data")
+
+
+@pytest.mark.parametrize("path", ["c5-planar3", "c2-bf16", "planar5"])
+def test_rollout_fn_takes_planar_task_mixes_bf16_and_more_links(path):
+    """c5's task mix on a 3-link planar arm goes to the 3-D kernel (bf16
+    stores, a 15-wide observation with the task one-hot), c2 with bf16
+    storage to the planar kernel's bf16 stores, a 5-link planar reacher to
+    the planar kernel; each returns the batch's keys and store types."""
+    from trpo_robot_control_tpu_torch.configs import (C2_REACHER3,
+                                                      C5_MULTITASK, CostSpec,
+                                                      planar_arm)
+    from trpo_robot_control_tpu_torch.envs.arm import (_planar_route,
+                                                       make_rollout_fn)
+    from trpo_robot_control_tpu_torch.models import policy
+    cfg, planar, store = {
+        "c5-planar3": (C5_MULTITASK.replace(arm=planar_arm(3),
+                                            cost=CostSpec(ctrl_weight=0.01)),
+                       False, torch.bfloat16),
+        "c2-bf16": (C2_REACHER3.replace(trpo=dataclasses.replace(
+            C2_REACHER3.trpo, ff_store_dtype="bf16")), True, torch.bfloat16),
+        "planar5": (C2_REACHER3.replace(arm=planar_arm(5)), True,
+                    torch.float32)}[path]
+    cfg = cfg.replace(n_envs=16, horizon=4)
+    assert _planar_route(cfg) == planar
+    gen = torch.Generator().manual_seed(0)
+    n = cfg.arm.n_joints
+    params = policy.init_params(gen, cfg.obs_dim, n, cfg.trpo.hidden,
+                                cfg.trpo.logstd_init)
+    batch = make_rollout_fn(cfg)(params, gen)
+    assert set(batch) == {"obs", "actions", "rewards", "obs_ff",
+                          "actions_ff", "rewards_ff"}
+    assert batch["obs_ff"].shape == (4, cfg.obs_dim, 16)
+    assert batch["actions_ff"].shape == (4, n, 16)
+    assert batch["obs_ff"].dtype == store == batch["actions_ff"].dtype
+    assert batch["rewards_ff"].dtype == torch.float32
+    if path == "c5-planar3":
+        assert cfg.obs_dim == 15
+        onehot = batch["obs_ff"][:, -3:].float()
+        assert bool((onehot.sum(1) == 1).all())

@@ -10,7 +10,9 @@ clock (each ends in the stats' device-to-host copy), then profiles another
 time of each ``trpo/...`` layer range and the device time of the kernels
 it launched, the device time of the busiest kernels, and the device's
 busy and idle shares of the profiled wall time, and the peak device memory
-allocated over the timed iterations. Needs a CUDA card.
+allocated over the timed iterations. Needs a CUDA card. ``profile(cfg,
+iters)`` does the same for a config that is not in ``CONFIGS`` (such as
+``C5_MULTITASK.replace(arm=planar_arm(3), ...)``), from a script.
 """
 from __future__ import annotations
 
@@ -29,18 +31,25 @@ def main(argv=None):
                          "the config's, 0 = fixed horizon)")
     args = ap.parse_args(argv)
 
+    from ..configs import CONFIGS
+    cfg = CONFIGS[args.config]
+    if args.done_dist is not None:
+        cfg = cfg.replace(done_dist=args.done_dist)
+    profile(cfg, args.iters)
+
+
+def profile(cfg, iters: int = 5):
+    """Profile ``iters`` training iterations of ``cfg`` on the card, as the
+    module's docstring sets out."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
 
-    from ..configs import CONFIGS
     from ..device import resolve
     from ..trpo.train import init_state, make_train_step, stats_to_host
 
     dev = resolve(None)
-    cfg = CONFIGS[args.config]
-    if args.done_dist is not None:
-        cfg = cfg.replace(done_dist=args.done_dist)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
@@ -61,22 +70,23 @@ def main(argv=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    run(args.iters)
+    run(iters)
     torch.cuda.synchronize()
-    ms = 1e3 * (time.perf_counter() - t0) / args.iters
+    ms = 1e3 * (time.perf_counter() - t0) / iters
     print(f"unprofiled: {ms:.3f} ms per iteration ({1e3 / ms:.2f} it/s); "
           f"peak device memory allocated "
           f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB")
     if early[-1] is not None:
         print(f"early dones per iteration: {[int(x) for x in early]}")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA],
+                       acc_events=True) as prof:
         t0 = time.perf_counter()
-        run(args.iters)
+        run(iters)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    per = 1.0 / args.iters
+    per = 1.0 / iters
     print(f"profiled: {1e-3 * wall_us * per:.3f} ms per iteration")
     host = {e.key: e.cpu_time_total for e in prof.key_averages()
             if e.key.startswith("trpo/") and e.device_type == DeviceType.CPU}

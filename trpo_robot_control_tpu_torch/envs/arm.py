@@ -3,15 +3,18 @@
 Task families (c5): 0 reach (static target), 1 track (the target orbits
 world z at ``cost.track_omega``), 2 push (reach, and match the end
 effector's velocity to ``push_speed`` towards the target); c4 adds the
-obstacle sphere penalty. The 3-D rollout kernel scores all of them.
+obstacle sphere penalty. The 3-D rollout kernel scores all of them, for
+spatial and planar arms alike.
 
 ``reset`` draws the initial states, targets and task families from the
 same distributions as the reference, from a ``torch.Generator``; the
 random streams differ from JAX's, so the tests share batches and action
 noise instead. ``make_rollout_fn`` resolves the fused rollout kernel as
 the reference does: planar, gravity-free, single-task arms without the
-obstacle term take the planar kernel (K1, fp32 storage), every other arm
-the 3-D RNEA kernel (K4, fp32 or bf16 storage).
+obstacle term take the planar kernel (K1), every other arm, planar ones
+with task terms, the obstacle or gravity included, the 3-D RNEA kernel
+(K4); both store obs and actions in the config's ``ff_store_dtype``
+(fp32 or bf16) and take 1-8 joints.
 
 Early termination (``cfg.done_dist > 0``): an env whose post-step end
 effector comes within ``done_dist`` of its target is flagged done and
@@ -47,8 +50,10 @@ def _planar_route(cfg) -> bool:
 def _check_ported(cfg) -> None:
     if _planar_route(cfg):
         rollout_kernel.planar_consts(cfg)
+        rollout_kernel.check_joints(cfg.arm.n_joints,
+                                    "planar rollout kernel")
     else:
-        rollout3d_kernel.arm3d_consts(cfg)
+        rollout3d_kernel.check_instantiated(rollout3d_kernel.arm3d_consts(cfg))
 
 
 def reset(cfg, gen: torch.Generator, n_envs: int) -> EnvState:
@@ -105,10 +110,6 @@ def make_rollout_fn(cfg):
     planar = _planar_route(cfg)
     store = {"f32": torch.float32, "bf16": torch.bfloat16}[
         cfg.trpo.ff_store_dtype]
-    if planar and store != torch.float32:
-        raise NotImplementedError(
-            "bf16 storage in the planar rollout kernel comes with a later "
-            "slice of the port")
 
     def fn(params, gen: torch.Generator, n_envs=None):
         N = cfg.n_envs if n_envs is None else n_envs
@@ -125,7 +126,8 @@ def make_rollout_fn(cfg):
                 fresh = fresh_episodes(cfg, gen, N)
         if planar:
             out = rollout_kernel.rollout(cfg, params, s.q, s.qd, s.tgt,
-                                         eps=eps, seed=seed, fresh=fresh)
+                                         eps=eps, seed=seed, fresh=fresh,
+                                         store_dtype=store)
         else:
             out = rollout3d_kernel.rollout3d(cfg, params, s.q, s.qd, s.tgt,
                                              s.task, eps=eps, seed=seed,

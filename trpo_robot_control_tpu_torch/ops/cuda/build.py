@@ -4,11 +4,15 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 -fPIC`` into ``build/torch_kernels/lib<name>-<hash>.so`` at the root of the
 checkout (the hash covers the source, the headers it includes from
-``csrc/`` and the flags, so an edited source or header rebuilds). The
-first call to ``library`` builds every missing library, one ``nvcc`` per
-source, all started together, and keeps each compiler's
-``-Xptxas -v`` report (registers, shared memory, spills) beside it.
-Nothing is built when this module is imported.
+``csrc/`` and the flags, so an edited source or header rebuilds). The two
+rollout sources build one library per joint count,
+``lib<name>_nj<n>-<hash>.so`` with ``-DTRPO_NJ=<n>``, n in
+``JOINT_COUNTS``, so that each ``nvcc`` compiles one count's
+instantiations. The first call to ``library`` builds every missing
+library that takes no joint count and the one asked for, one ``nvcc``
+each, all started together; ``build_all`` builds every library so. Each
+compiler's ``-Xptxas -v`` report (registers, shared memory, spills) is
+kept beside its library. Nothing is built when this module is imported.
 """
 from __future__ import annotations
 
@@ -25,6 +29,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("rollout", "moments", "fvp", "rollout3d", "pg", "fvp_ff")
+# the sources built once per joint count, and the counts
+PER_JOINT = ("rollout", "rollout3d")
+JOINT_COUNTS = tuple(range(1, 9))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # The rollouts' dynamics round every multiply and add as PyTorch's separate
@@ -49,8 +56,20 @@ def _nvcc() -> str:
     return found
 
 
+def lib_name(source: str, n_joints: int | None = None) -> str:
+    """The library of ``source``; a per-joint source's for ``n_joints``."""
+    return source if n_joints is None else f"{source}_nj{n_joints}"
+
+
+# every library: name -> (source, joint count or None)
+LIBS = {lib_name(s, n): (s, n) for s in SOURCES
+        for n in (JOINT_COUNTS if s in PER_JOINT else (None,))}
+
+
 def _flags(name: str) -> tuple:
-    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+    src, n = LIBS[name]
+    return (NVCC_FLAGS + EXTRA_FLAGS.get(src, ())
+            + ((f"-DTRPO_NJ={n}",) if n else ()))
 
 
 def _sources(name: str) -> bytes:
@@ -69,26 +88,27 @@ def _sources(name: str) -> bytes:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(_sources(name)
+    digest = hashlib.sha256(_sources(LIBS[name][0])
                             + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
-def build_all() -> float:
-    """Compile every missing library in parallel; returns the seconds."""
+def build_all(names=LIBS) -> float:
+    """Compile every missing library of ``names`` in parallel; returns the
+    seconds."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = []
     try:
-        for name in SOURCES:
+        for name in names:
             so = _target(name)
             if so.exists():
                 continue
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
             log = open(so.with_suffix(".log"), "w")
             cmd = [nvcc, *_flags(name), "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
+                   str(CSRC / f"{LIBS[name][0]}.cu")]
             procs.append((name, so, tmp, log,
                           subprocess.Popen(cmd, stdout=log,
                                            stderr=subprocess.STDOUT)))
@@ -113,14 +133,16 @@ def build_all() -> float:
 
 
 def library(name: str, signatures: dict) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu`` (built on first use), with
+    """The loaded library ``name`` (``lib_name``; built on first use), with
     ``argtypes`` set from ``signatures`` {function: [ctypes types]}; every
     entry point returns a cudaError_t as int."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            if not all(_target(n).exists() for n in SOURCES):
-                build_all()
+            wanted = [n for n, (_, nj) in LIBS.items()
+                      if n == name or nj is None]
+            if not all(_target(n).exists() for n in wanted):
+                build_all(wanted)
             lib = ctypes.CDLL(str(_target(name)))
             for fn, argtypes in signatures.items():
                 getattr(lib, fn).argtypes = argtypes
@@ -132,7 +154,7 @@ def library(name: str, signatures: dict) -> ctypes.CDLL:
 def ptxas_report() -> str:
     """The ``-Xptxas -v`` lines of every built library."""
     lines = []
-    for name in SOURCES:
+    for name in LIBS:
         log = _target(name).with_suffix(".log")
         if log.exists():
             lines += [f"{name}: {ln.strip()}" for ln in log.read_text().splitlines()

@@ -1,8 +1,11 @@
 // Fused planar-arm rollout: the whole horizon in one launch.
 //
 // Replaces `pallas_rollout` (trpo_robot_control_tpu/ops/pallas/
-// rollout_kernel.py:490, its pallas_call at :594; body `_rollout_kernel`,
-// fp32-storage mode). Per env step: forward kinematics, the closed-form
+// rollout_kernel.py:490, its pallas_call at :594; body `_rollout_kernel`)
+// for 1-8 links, with obs and actions stored in fp32 or, as its
+// store_dtype=bf16 does, in bf16 (rounded once at the store; the
+// trajectory, rewards and done flags stay fp32). Per env step: forward
+// kinematics, the closed-form
 // planar mass matrix and centripetal bias, an unrolled Cholesky solve,
 // semi-implicit Euler over n_substeps, the tanh-MLP policy mean, a Gaussian
 // action (caller-supplied eps, or Philox4x32-10 + paired Box-Muller), the
@@ -38,8 +41,10 @@
 //   FRESH_WARP the next step's fresh episodes: neither depends on the state.
 // - the state warp does each env's serial work once (lane = part * ENVS +
 //   env; its four parts hold the same state): the mean over the 64 layer-1
-//   outputs (part m runs action m's chain, with W2's column m in
-//   registers), the action, the solve and Euler step, FK, the reward, the
+//   outputs (part m runs the chains of actions m and m + 4, with W2's
+//   column m in registers when there are at most four actions, else both
+//   columns read from shared memory), the action, the solve and Euler
+//   step, FK, the reward, the
 //   done test and the reset, the observation. Its parts split the trig of
 //   FK and the observation (cos and sin of q_i and of the cumulative
 //   angles, a sincosf each, which gives cosf's and sinf's bits) and trade
@@ -59,14 +64,22 @@
 // 32-byte sector. Built with -fmad=false (the dynamics round every
 // multiply and add as PyTorch's separate elementwise ops do); the policy
 // uses explicit fmaf. The two units' weights (about 150 registers) leave
-// room for one block per SM, all that c1 and c2 need.
+// room for one block per SM, all that c1 and c2 need. At NJ >= 4 the state
+// warp's unrolled Cholesky (O(NJ^3) terms in registers) and the MLP
+// threads' wider W0 columns may spill; `-Xptxas -v` reports it.
+//
+// Instantiations: one library per joint count, built with -DTRPO_NJ=<n>
+// (n = 1..8, ops/cuda/build.py), each terminating or not, each with fp32
+// or bf16 stores.
 //
 // C interface (ctypes); returns cudaGetLastError() after the launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "philox.cuh"
+#include "store.cuh"
 
 namespace {
 
@@ -373,7 +386,7 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
     asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
 }
 
-template <int NJ, bool TERM>
+template <int NJ, bool TERM, typename Out>
 __global__ void __launch_bounds__(THREADS, 1) rollout_kernel(
     Planar c, const float* __restrict__ q0, const float* __restrict__ qd0,
     const float* __restrict__ tgt, const float* __restrict__ W0,
@@ -382,19 +395,22 @@ __global__ void __launch_bounds__(THREADS, 1) rollout_kernel(
     const float* __restrict__ b2, const float* __restrict__ logstd,
     const float* __restrict__ eps, const int64_t* __restrict__ seed,
     const float* __restrict__ fq, const float* __restrict__ fqd,
-    const float* __restrict__ ftgt, float* __restrict__ obs,
-    float* __restrict__ act, float* __restrict__ rew,
+    const float* __restrict__ ftgt, Out* __restrict__ obs,
+    Out* __restrict__ act, float* __restrict__ rew,
     float* __restrict__ dones, int N, int T) {
-    static_assert(NJ <= PARTS, "one state-warp part per action");
     static_assert(GROUP == 2 && MLP_THREADS == 128, "four MLP warps of float2");
     constexpr int DO = 3 * NJ + 3;
     constexpr int NF = 2 * NJ + 2;       // a fresh episode: q, qd, target
+    // actions per state-warp part: part m runs actions m + r PARTS
+    constexpr int APP = (NJ + PARTS - 1) / PARTS;
     // per-env arrays are (row, env of the block)
     __shared__ __align__(16) float sObs[DO * ENVS];
     __shared__ __align__(16) float sH0[H * ENVS];
     __shared__ __align__(16) float sA[H * ENVS];
     __shared__ float sZ[2][NJ * ENVS];   // by step parity
     __shared__ float sFr[2][NF * ENVS];
+    // W2 as (unit, action slot m + r PARTS), zero past NJ, when APP > 1
+    __shared__ float sW2[APP > 1 ? H * APP * PARTS : 1];
     if (T <= 0) return;
 
     const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -485,9 +501,18 @@ __global__ void __launch_bounds__(THREADS, 1) rollout_kernel(
             bias2[i] = b2[i];
         }
         float tgtx = tgt[e], tgty = tgt[N + e];
-        float w2[H];                     // W2's column `part` (action part)
+        float w2[APP > 1 ? 1 : H];       // W2's column `part` (action part)
+        if constexpr (APP == 1) {
 #pragma unroll
-        for (int k = 0; k < H; ++k) w2[k] = part < NJ ? W2[k * NJ + part] : 0.f;
+            for (int k = 0; k < H; ++k)
+                w2[k] = part < NJ ? W2[k * NJ + part] : 0.f;
+        } else {
+            for (int i = lane; i < H * APP * PARTS; i += 32) {
+                const int k = i / (APP * PARTS), m = i % (APP * PARTS);
+                sW2[i] = m < NJ ? W2[k * NJ + m] : 0.f;
+            }
+            __syncwarp();
+        }
         Trig<NJ> g;
         Fk<NJ> f;
         float o[DO];
@@ -500,7 +525,8 @@ __global__ void __launch_bounds__(THREADS, 1) rollout_kernel(
         bar_arrive(BAR_OBS, THREADS);
         if (writer) {
 #pragma unroll
-            for (int d = 0; d < DO; ++d) obs[(size_t)d * N + e] = o[d];
+            for (int d = 0; d < DO; ++d)
+                obs[(size_t)d * N + e] = store_cast<Out>(o[d]);
         }
         Factor<NJ> F;
         factor<NJ>(c, f, qd, F);
@@ -511,16 +537,30 @@ __global__ void __launch_bounds__(THREADS, 1) rollout_kernel(
             for (int i = 0; i < NJ; ++i)
                 sz[i] = sigma[i] * sZ[t & 1][i * ENVS + slot];
             // policy mean W2^T h1 + b2 (h1: layer 1's tanh outputs): part
-            // m < NJ runs action m's chain, then every lane takes all NJ
-            float acc = 0.f;
+            // m runs the chains of actions m + r PARTS < NJ, then every
+            // lane takes all NJ
+            float acc[APP];
 #pragma unroll
-            for (int jj = 0; jj < H; ++jj)
-                acc = fmaf(sA[jj * ENVS + slot], w2[jj], acc);
+            for (int r = 0; r < APP; ++r) acc[r] = 0.f;
+#pragma unroll
+            for (int jj = 0; jj < H; ++jj) {
+                const float hj = sA[jj * ENVS + slot];
+                if constexpr (APP == 1) {
+                    acc[0] = fmaf(hj, w2[jj], acc[0]);
+                } else {
+#pragma unroll
+                    for (int r = 0; r < APP; ++r)
+                        acc[r] = fmaf(
+                            hj, sW2[jj * APP * PARTS + part + r * PARTS],
+                            acc[r]);
+                }
+            }
             float a[NJ], tau[NJ];
             float ctrl = 0.f;
 #pragma unroll
             for (int i = 0; i < NJ; ++i) {
-                a[i] = (__shfl_sync(FULL, acc, i * ENVS + slot) + bias2[i])
+                a[i] = (__shfl_sync(FULL, acc[i / PARTS],
+                                    (i % PARTS) * ENVS + slot) + bias2[i])
                      + sz[i];
                 tau[i] = fminf(fmaxf(a[i], -c.torque_limit), c.torque_limit);
                 ctrl = (i == 0) ? tau[0] * tau[0] : ctrl + tau[i] * tau[i];
@@ -563,13 +603,14 @@ __global__ void __launch_bounds__(THREADS, 1) rollout_kernel(
             if (writer) {
 #pragma unroll
                 for (int i = 0; i < NJ; ++i)
-                    act[((size_t)t * NJ + i) * N + e] = a[i];
+                    act[((size_t)t * NJ + i) * N + e] = store_cast<Out>(a[i]);
                 rew[(size_t)t * N + e] = -(dist2 + c.ctrl_weight * ctrl);
                 if (TERM) dones[(size_t)t * N + e] = done ? 1.f : 0.f;
                 if (t + 1 < T) {
 #pragma unroll
                     for (int d = 0; d < DO; ++d)
-                        obs[((size_t)(t + 1) * DO + d) * N + e] = o[d];
+                        obs[((size_t)(t + 1) * DO + d) * N + e] =
+                            store_cast<Out>(o[d]);
                 }
             }
             if (t + 1 < T) factor<NJ>(c, f, qd, F);
@@ -581,19 +622,21 @@ struct Args {
     const float *q0, *qd0, *tgt, *W0, *b0, *W1, *b1, *W2, *b2, *logstd, *eps;
     const int64_t* seed;
     const float *fq, *fqd, *ftgt;
-    float *obs, *act, *rew, *dones;
+    void *obs, *act;
+    float *rew, *dones;
     int N, T;
     cudaStream_t stream;
 };
 
-template <int NJ, bool TERM>
+template <int NJ, bool TERM, typename Out>
 struct Launch {
     static cudaError_t run(const Planar& c, const Args& a) {
         dim3 grid((a.N + ENVS - 1) / ENVS);
-        rollout_kernel<NJ, TERM><<<grid, THREADS, 0, a.stream>>>(
+        rollout_kernel<NJ, TERM, Out><<<grid, THREADS, 0, a.stream>>>(
             c, a.q0, a.qd0, a.tgt, a.W0, a.b0, a.W1, a.b1, a.W2, a.b2,
-            a.logstd, a.eps, a.seed, a.fq, a.fqd, a.ftgt, a.obs, a.act,
-            a.rew, a.dones, a.N, a.T);
+            a.logstd, a.eps, a.seed, a.fq, a.fqd, a.ftgt,
+            static_cast<Out*>(a.obs), static_cast<Out*>(a.act), a.rew,
+            a.dones, a.N, a.T);
         return cudaGetLastError();
     }
     // resident blocks per SM, registers and local bytes per thread, static
@@ -601,10 +644,10 @@ struct Launch {
     static cudaError_t occupancy(int* out) {
         int blocks = 0;
         cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &blocks, rollout_kernel<NJ, TERM>, THREADS, 0);
+            &blocks, rollout_kernel<NJ, TERM, Out>, THREADS, 0);
         if (err != cudaSuccess) return err;
         cudaFuncAttributes fa;
-        err = cudaFuncGetAttributes(&fa, rollout_kernel<NJ, TERM>);
+        err = cudaFuncGetAttributes(&fa, rollout_kernel<NJ, TERM, Out>);
         if (err != cudaSuccess) return err;
         out[0] = blocks;
         out[1] = fa.numRegs;
@@ -616,18 +659,24 @@ struct Launch {
     }
 };
 
-// The instantiations: n = 2 and 3, each terminating or not; anything else
-// is cudaErrorInvalidValue.
+#ifndef TRPO_NJ
+#error "build with -DTRPO_NJ=<joints> (1..8), one library per joint count"
+#endif
+static_assert(TRPO_NJ >= 1 && TRPO_NJ <= NJ_MAX, "TRPO_NJ out of range");
+
+template <bool TERM, typename Op>
+cudaError_t with_store(int store_bf16, Op op) {
+    return store_bf16 ? op(Launch<TRPO_NJ, TERM, __nv_bfloat16>{})
+                      : op(Launch<TRPO_NJ, TERM, float>{});
+}
+
+// The instantiations of this library: n = TRPO_NJ, terminating or not,
+// fp32 or bf16 stores; another joint count is cudaErrorInvalidValue.
 template <typename Op>
-cudaError_t dispatch(int n_joints, int terminating, Op op) {
-    switch (n_joints) {
-        case 2:
-            return terminating ? op(Launch<2, true>{}) : op(Launch<2, false>{});
-        case 3:
-            return terminating ? op(Launch<3, true>{}) : op(Launch<3, false>{});
-        default:
-            return cudaErrorInvalidValue;
-    }
+cudaError_t dispatch(int n_joints, int terminating, int store_bf16, Op op) {
+    if (n_joints != TRPO_NJ) return cudaErrorInvalidValue;
+    return terminating ? with_store<true>(store_bf16, op)
+                       : with_store<false>(store_bf16, op);
 }
 
 }  // namespace
@@ -638,14 +687,15 @@ cudaError_t dispatch(int n_joints, int terminating, Op op) {
 // eps: (T, n, N) or NULL for Philox mode with seed: int64[2] on the device.
 // terminating != 0 takes the TERM instantiation, which writes dones (T, N)
 // and takes the fresh episodes from fq/fqd (T, n, N) and ftgt (T, 2, N),
-// or from Philox when fq is NULL.
+// or from Philox when fq is NULL. obs (T, 3n+3, N) and act (T, n, N) are
+// bf16 when store_bf16 != 0, else fp32; rew and dones fp32.
 extern "C" int trpo_rollout_launch(
     const float* consts, int n_substeps, int n_joints, int terminating,
-    const float* q0, const float* qd0, const float* tgt, const float* W0,
+    int store_bf16, const float* q0, const float* qd0, const float* tgt, const float* W0,
     const float* b0, const float* W1, const float* b1, const float* W2,
     const float* b2, const float* logstd, const float* eps,
     const int64_t* seed, const float* fq, const float* fqd,
-    const float* ftgt, float* obs, float* act, float* rew, float* dones,
+    const float* ftgt, void* obs, void* act, float* rew, float* dones,
     int N, int T, void* stream) {
     Planar c;
     const int n = n_joints;
@@ -673,13 +723,13 @@ extern "C" int trpo_rollout_launch(
     const Args a = {q0, qd0, tgt, W0, b0, W1, b1, W2, b2, logstd, eps, seed,
                     fq, fqd, ftgt, obs, act, rew, dones, N, T,
                     static_cast<cudaStream_t>(stream)};
-    return (int)dispatch(n, terminating,
+    return (int)dispatch(n, terminating, store_bf16,
                          [&](auto inst) { return inst.run(c, a); });
 }
 
 // out: int[6], as Launch::occupancy fills it.
 extern "C" int trpo_rollout_occupancy(int n_joints, int terminating,
-                                      int* out) {
-    return (int)dispatch(n_joints, terminating,
+                                      int store_bf16, int* out) {
+    return (int)dispatch(n_joints, terminating, store_bf16,
                          [&](auto inst) { return inst.occupancy(out); });
 }

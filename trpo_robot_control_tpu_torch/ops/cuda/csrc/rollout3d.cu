@@ -1,13 +1,13 @@
-// Fused rollout of a 7-DoF spatial arm with gravity: the whole horizon in
-// one launch.
+// Fused rollout of a spatial arm of 1-8 joints, with gravity, or of a
+// planar arm with task terms: the whole horizon in one launch.
 //
 // Replaces `pallas_rollout3d` / `_rollout3d_kernel` in
 // trpo_robot_control_tpu/ops/pallas/rollout3d_kernel.py (fp32 or bf16
 // storage). Per env step: forward kinematics from exact
 // sincosf, the observation (with the task one-hot when NTASKS > 1), the
 // tanh-MLP policy mean, a Gaussian action (caller eps, or Philox4x32-10 +
-// paired Box-Muller), the torque clip, then per substep the 7 mass-matrix
-// columns and the gravity/Coriolis bias as 8 world-frame RNEA passes, a
+// paired Box-Muller), the torque clip, then per substep the NJ mass-matrix
+// columns and the gravity/Coriolis bias as NJ + 1 world-frame RNEA passes, a
 // regularised Cholesky solve and a semi-implicit Euler step, and
 // `_score_step`'s reward at the post-step state (whose FK is the next
 // step's pre-step FK: the same q gives the same numbers): the track
@@ -18,7 +18,8 @@
 // post-step end effector is within done_dist of the (rotated) target and
 // gives it a fresh episode: q and qd uniform in +-noise, the target at a
 // uniform radius in [rmin, rmax] along a normalised 3-normal with z >= 0
-// (Box-Muller), and with several families a task floor(u n_tasks); drawn
+// (Box-Muller), or for a planar arm at a uniform angle in the z = 0 plane,
+// and with several families a task floor(u n_tasks); drawn
 // from Philox with counter (env, t, block, 1), the action normals' being
 // (env, t, block, 0), or read from caller-supplied fresh states. The task
 // terms and TERM are template switches, so the reach-only non-terminating
@@ -27,14 +28,14 @@
 // What bounds it on an H100: neither bytes (54 MB written at c3, 16 us)
 // nor FLOPs (~10 GFLOP of MLP plus the dynamics, ~0.5 ms at 67 TFLOP/s)
 // but the 200 dependent steps of each env: per substep a chain of FK ->
-// RNEA bias pass -> 7x7 Cholesky -> solve -> Euler step -> sincosf, and per
+// RNEA bias pass -> NJxNJ Cholesky -> solve -> Euler step -> sincosf, and per
 // step two 64-wide MLP layers whose weights reach every lane as
 // shared-memory broadcasts (each returns a weight to all 32 lanes, so the
 // load-return path bounds the MLP); and instruction fetch, since one warp
 // alone runs most of that chain's code.
 //
 // Design: warp roles. A block holds 32 envs (one per lane, so every
-// feature-first store is a 128-byte row) and NJ + 1 = 8 warps:
+// feature-first store is a 128-byte row) and NJ + 1 warps (8 at NJ = 7):
 // - the state warp (warp NJ) keeps each env's target and task in
 //   registers and its q and qd in shared memory, and alone does the
 //   env's serial work once: the FK, the bias pass (real velocity,
@@ -47,8 +48,9 @@
 //   joints before j vanishes, so the pass starts at joint j, carries no
 //   w terms, and below j only carries the force's moment down to the
 //   joints whose torques column j needs (tau_i, i <= j). The column
-//   warps also run the policy MLP (units split 9/9/9/9/9/9/10, warp m
-//   forms action m), the sincosf of the new q (warp j: joint j) and, in
+//   warps also run the policy MLP (units split as evenly as they go, at
+//   NJ = 7 9/9/9/9/9/9/10, at NJ = 3 21/21/22; warp m forms action m),
+//   the sincosf of the new q (warp j: joint j) and, in
 //   Philox mode, the next step's action normals (warp NJ - 1, while the
 //   state warp finishes the step).
 // Shared memory carries the rest: per joint R, p, axis and the pass-
@@ -62,8 +64,17 @@
 // bias pass, column passes) are rolled, with their per-joint carries in
 // shared memory: unrolled, the code outgrew the instruction cache, and the
 // state warp, whose code no other warp shares, stalled on instruction
-// fetch. At under 128 registers two blocks (16 warps) fit on an SM, so
-// one block's idle column warps leave the issue slots to the other's.
+// fetch. The launch bounds ask for as many resident blocks as make 16
+// warps an SM, or as many as the block's shared memory lets in where that
+// is fewer (`min_blocks`): at NJ = 7 and 8 two blocks (16 and 18 warps,
+// under 128 registers), at NJ = 3 three (12 warps; four would need 252 KB
+// of the SM's 228), so one block's idle column warps leave the issue
+// slots to the others'.
+//
+// Instantiations: one library per joint count, built with -DTRPO_NJ=<n>
+// (n = 1..8, ops/cuda/build.py), each holding the six (task families,
+// obstacle) pairs (1, 2 or 3 families, obstacle off or on), each
+// terminating or not, each with fp32 or bf16 stores.
 //
 // Numerics: built with -fmad=false so every multiply and add rounds as
 // PyTorch's separate elementwise ops do in the plain version; the
@@ -86,12 +97,13 @@
 #include <stdint.h>
 
 #include "philox.cuh"
+#include "store.cuh"
 
 namespace {
 
 constexpr int H = 64;          // hidden width (both layers)
 constexpr int ENVS = 32;       // envs per block, one per lane
-constexpr int NJ_MAX = 7;
+constexpr int NJ_MAX = 8;
 constexpr int FR = 24;         // floats per joint frame in shared memory
 // frame fields: R (row-major), p, axis s, r = p_i - p_{i-1}, d = R com,
 // cwd = (p + d) - p
@@ -116,9 +128,11 @@ struct Arm3D {
     float track_cos, track_sin, push_speed, push_weight, obstacle_weight,
         obstacle_radius, obstacle_center[3];
     // termination: done_dist^2 (rounded to fp32 once) and the reset
-    // distributions' q0_noise, qd0_noise, rmin, rmax
+    // distributions' q0_noise, qd0_noise, rmin, rmax; a planar arm's fresh
+    // targets lie in the z = 0 plane
     float done_dist2, q0_noise, qd0_noise, rmin, rmax;
     int n_substeps;
+    bool planar;
 };
 
 struct V3 {
@@ -318,17 +332,6 @@ __device__ __forceinline__ void sincos_rows(const float* q, float* cs) {
     }
 }
 
-template <typename Out>
-__device__ __forceinline__ Out store_cast(float x);
-template <>
-__device__ __forceinline__ float store_cast<float>(float x) {
-    return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 store_cast<__nv_bfloat16>(float x) {
-    return __float2bfloat16_rn(x);
-}
-
 // The reward of one env at the post-step state: -(|ee - tgt|^2 + ctrl_weight
 // sum tau^2), minus the push penalty for task 2 and the obstacle penalty,
 // in the plain version's operation order; p and axis from the frames, qd
@@ -373,8 +376,8 @@ __device__ __forceinline__ float score(const Arm3D& c, const float* fr,
 // The fresh episode of a done env: fq/fqd (T, NJ, N), ftgt (T, 3, N) and
 // ftask (T, N) from the caller, or, when fq is NULL, uniforms from Philox
 // with counter (env, t, block, 1): q_i = u[i], qd_i = u[NJ + i], radius
-// u[2 NJ], the direction's Box-Muller pairs u[2 NJ + 1 .. 2 NJ + 4], task
-// u[2 NJ + 5].
+// u[2 NJ], the direction's Box-Muller pairs u[2 NJ + 1 .. 2 NJ + 4] (a
+// planar arm's angle 2 pi u[2 NJ + 1]), task u[2 NJ + 5].
 template <int NJ, int NTASKS>
 __device__ __forceinline__ void fresh_episode(
     const Arm3D& c, uint2 key, int e, int t, int N,
@@ -411,6 +414,12 @@ __device__ __forceinline__ void fresh_episode(
     const float r = c.rmin + (c.rmax - c.rmin) * u[2 * NJ];
     constexpr float TWO_PI = 6.283185307179586f;
     float s, cs;
+    if (c.planar) {
+        sincosf(TWO_PI * u[2 * NJ + 1], &s, &cs);
+        tgt = {r * cs, r * s, 0.f};
+        if (NTASKS > 1) task = (int)(u[2 * NJ + 5] * (float)NTASKS);
+        return;
+    }
     const float g1 = sqrtf(-2.f * logf(u[2 * NJ + 1]))
                    * cosf(TWO_PI * u[2 * NJ + 2]);
     const float bm = sqrtf(-2.f * logf(u[2 * NJ + 3]));
@@ -466,6 +475,21 @@ struct Smem {
                   "weight slices stay 16-byte aligned");
 };
 
+// Resident blocks the launch bounds ask for: enough for 16 warps an SM,
+// or as many as the SM's 228 KB of shared memory hold (1 KB of it kept
+// per block) where that is fewer; at least one.
+template <int NJ, int DO>
+__host__ __device__ constexpr int min_blocks() {
+    constexpr int want = (16 + NJ) / (NJ + 1);
+    constexpr int fit = (int)(233472 / (Smem<NJ, DO>::BYTES + 1024));
+    return want < fit ? want : (fit > 0 ? fit : 1);
+}
+
+template <int NJ, int NTASKS>
+__host__ __device__ constexpr int obs_dim() {
+    return 3 * NJ + 3 + (NTASKS > 1 ? NTASKS : 0);
+}
+
 // U hidden units of one layer for this lane: z_u = sum_d in[d] W[d][u]
 // (fmaf in d order; in is (d, lane)) from the warp's padded weight slice
 // (row stride STRIDE), then tanh(z + b) to out (unit, lane) for the warp's
@@ -493,7 +517,9 @@ __device__ __forceinline__ void layer_units(const float* in, const float* W,
 }
 
 template <int NJ, int NTASKS, bool OBST, bool TERM, typename Out>
-__global__ void __launch_bounds__((NJ + 1) * ENVS, 2) rollout3d_kernel(
+__global__ void __launch_bounds__((NJ + 1) * ENVS,
+                                  min_blocks<NJ, obs_dim<NJ, NTASKS>()>())
+rollout3d_kernel(
     Arm3D c, const float* __restrict__ q0, const float* __restrict__ qd0,
     const float* __restrict__ tgt0, const int* __restrict__ task0,
     const float* __restrict__ W0,
@@ -508,7 +534,7 @@ __global__ void __launch_bounds__((NJ + 1) * ENVS, 2) rollout3d_kernel(
     constexpr int NW = NJ + 1;
     constexpr int NT = NW * ENVS;
     constexpr int NCT = NJ * ENVS;       // column warps' threads
-    constexpr int DO = 3 * NJ + 3 + (NTASKS > 1 ? NTASKS : 0);
+    constexpr int DO = obs_dim<NJ, NTASKS>();
     using L = Smem<NJ, DO>;
     constexpr int UPAD = L::UPAD;
     extern __shared__ float smem[];
@@ -780,8 +806,7 @@ template <int NJ, int NTASKS, bool OBST, bool TERM, typename Out_>
 struct Inst {
     using Out = Out_;
     static constexpr int THREADS = (NJ + 1) * ENVS;
-    static constexpr size_t SMEM =
-        Smem<NJ, 3 * NJ + 3 + (NTASKS > 1 ? NTASKS : 0)>::BYTES;
+    static constexpr size_t SMEM = Smem<NJ, obs_dim<NJ, NTASKS>()>::BYTES;
     static auto kernel() {
         return &rollout3d_kernel<NJ, NTASKS, OBST, TERM, Out>;
     }
@@ -793,28 +818,43 @@ cudaError_t with_store(int store_bf16, Op op) {
                       : op(Inst<NJ, NTASKS, OBST, TERM, float>{});
 }
 
-// The instantiations: n = 7 with (n_tasks, obstacle) in {(1, 0), (1, 1),
-// (3, 0)} (c3, c4, c5), each terminating or not, each with fp32 or bf16
-// stores; anything else is cudaErrorNotSupported.
+template <int NJ, int NTASKS, bool OBST, typename Op>
+cudaError_t with_term(int terminating, int store_bf16, Op op) {
+    return terminating ? with_store<NJ, NTASKS, OBST, true>(store_bf16, op)
+                       : with_store<NJ, NTASKS, OBST, false>(store_bf16, op);
+}
+
+template <int NJ, int NTASKS, typename Op>
+cudaError_t with_obstacle(int obstacle, int terminating, int store_bf16,
+                          Op op) {
+    return obstacle ? with_term<NJ, NTASKS, true>(terminating, store_bf16, op)
+                    : with_term<NJ, NTASKS, false>(terminating, store_bf16, op);
+}
+
+#ifndef TRPO_NJ
+#error "build with -DTRPO_NJ=<joints> (1..8), one library per joint count"
+#endif
+static_assert(TRPO_NJ >= 1 && TRPO_NJ <= NJ_MAX, "TRPO_NJ out of range");
+
+// The instantiations of this library: n = TRPO_NJ with 1, 2 or 3 task
+// families, the obstacle term off or on, each terminating or not, each
+// with fp32 or bf16 stores. Another joint count is cudaErrorInvalidValue,
+// another number of task families cudaErrorNotSupported.
 template <typename Op>
 cudaError_t dispatch(int n_joints, int n_tasks, int obstacle, int terminating,
                      int store_bf16, Op op) {
-    if (n_joints != 7) return cudaErrorInvalidValue;
-    constexpr int NJ = 7;
-    const bool term = terminating != 0;
-    if (n_tasks == 1 && !obstacle && !term)
-        return with_store<NJ, 1, false, false>(store_bf16, op);
-    if (n_tasks == 1 && obstacle && !term)
-        return with_store<NJ, 1, true, false>(store_bf16, op);
-    if (n_tasks == 3 && !obstacle && !term)
-        return with_store<NJ, 3, false, false>(store_bf16, op);
-    if (n_tasks == 1 && !obstacle && term)
-        return with_store<NJ, 1, false, true>(store_bf16, op);
-    if (n_tasks == 1 && obstacle && term)
-        return with_store<NJ, 1, true, true>(store_bf16, op);
-    if (n_tasks == 3 && !obstacle && term)
-        return with_store<NJ, 3, false, true>(store_bf16, op);
-    return cudaErrorNotSupported;
+    if (n_joints != TRPO_NJ) return cudaErrorInvalidValue;
+    constexpr int NJ = TRPO_NJ;
+    switch (n_tasks) {
+        case 1:
+            return with_obstacle<NJ, 1>(obstacle, terminating, store_bf16, op);
+        case 2:
+            return with_obstacle<NJ, 2>(obstacle, terminating, store_bf16, op);
+        case 3:
+            return with_obstacle<NJ, 3>(obstacle, terminating, store_bf16, op);
+        default:
+            return cudaErrorNotSupported;
+    }
 }
 
 template <typename I>
@@ -831,7 +871,7 @@ cudaError_t set_smem() {
 // damping, h = dt / n_substeps, torque_limit, qd_limit, qd_obs_scale,
 // ctrl_weight, chol_reg, cos and sin of track_omega * dt, push_speed,
 // push_weight, obstacle_weight, obstacle_radius, obstacle_center[3],
-// done_dist^2, q0_noise, qd0_noise, rmin, rmax.
+// done_dist^2, q0_noise, qd0_noise, rmin, rmax, planar (0 or 1).
 // q0/qd0 (n, N), tgt (3, N), task (N) int32 (read when n_tasks > 1);
 // eps (T, n, N) or NULL for Philox mode with seed: int64[2] on the device.
 // terminating != 0 takes the TERM instantiation, which writes dones (T, N)
@@ -839,8 +879,9 @@ cudaError_t set_smem() {
 // and ftask (T, N) int32, or from Philox when fq is NULL.
 // obs (T, 3n+3 (+ n_tasks when > 1), N) and act (T, n, N) are bf16 when
 // store_bf16 != 0, else fp32; rew (T, N) fp32. Instantiated as `dispatch`
-// lists; any other combination returns cudaErrorNotSupported, which the
-// wrapper raises as NotImplementedError.
+// lists; another joint count returns cudaErrorInvalidValue, another number
+// of task families cudaErrorNotSupported (the wrapper raises both as
+// NotImplementedError before it launches).
 extern "C" int trpo_rollout3d_launch(
     const float* consts, int n_joints, int n_substeps, int n_tasks,
     int obstacle, int terminating, int store_bf16, const float* q0,
@@ -850,8 +891,8 @@ extern "C" int trpo_rollout3d_launch(
     const int64_t* seed, const float* fq, const float* fqd,
     const float* ftgt, const int* ftask, void* obs, void* act, float* rew,
     float* dones, int N, int T, void* stream) {
-    if (n_joints != 7) return (int)cudaErrorInvalidValue;
-    constexpr int NJ = 7;
+    if (n_joints != TRPO_NJ) return (int)cudaErrorInvalidValue;
+    constexpr int NJ = TRPO_NJ;
     Arm3D c;
     const float* s = consts;
     for (int i = 0; i < NJ; ++i)
@@ -884,6 +925,7 @@ extern "C" int trpo_rollout3d_launch(
     c.qd0_noise = s[19];
     c.rmin = s[20];
     c.rmax = s[21];
+    c.planar = s[22] != 0.f;
     c.n_substeps = n_substeps;
     const Args a = {q0, qd0, tgt, task, W0, b0, W1, b1, W2, b2, logstd, eps,
                     seed, fq, fqd, ftgt, ftask, obs, act, rew, dones, N, T,

@@ -1,4 +1,4 @@
-"""K4: fused rollout of a spatial (7-DoF) arm (``csrc/rollout3d.cu``).
+"""K4: fused rollout of an arm of 1-8 joints (``csrc/rollout3d.cu``).
 
 Replaces ``pallas_rollout3d`` in
 ``trpo_robot_control_tpu/ops/pallas/rollout3d_kernel.py``: per step FK,
@@ -12,9 +12,13 @@ task's velocity penalty and the obstacle sphere penalty; and, when
 ``cfg.done_dist > 0``, the terminating branch: an env whose post-step
 end effector is within ``done_dist`` of its (rotated) target is flagged
 done and starts a fresh episode (state, target and, with several
-families, task) before the next step. See the source for what bounds it
-on the card and its warp roles: one state warp does each env's serial
-work, seven column warps run mass-matrix passes specialised to what is
+families, task) before the next step. It takes any arm, spatial or
+planar (a planar arm's fresh targets lie in the z = 0 plane, as
+``envs/arm.py:reset`` draws them), with 1, 2 or 3 task families and the
+obstacle term on or off; it is built for ``JOINT_COUNTS`` (one library
+per count; past them, ROADMAP B3). See the source for what bounds it on
+the card and its warp roles: one state warp does each env's serial work,
+one column warp per joint runs mass-matrix passes specialised to what is
 not structurally zero (``mass_bias_split`` states them in PyTorch) and
 the policy MLP; ``occupancy`` reports what the card makes of each
 instantiation.
@@ -42,13 +46,12 @@ import torch
 
 from . import build
 from ...envs.rigid_body import ArmConstants
-from .rollout_kernel import check_fresh, done_dist2, fresh_feature_first
+from .rollout_kernel import (JOINT_COUNTS, _policy_mean, check_fresh,
+                             check_joints, check_store, done_dist2,
+                             fresh_feature_first)
 
 HIDDEN = 64
-N_JOINTS = 7        # the kernel is instantiated for 7-DoF arms
-# trpo_rollout3d_launch's answer to a (task families, obstacle) pair it
-# has no instantiation for (cudaErrorNotSupported)
-NOT_INSTANTIATED = 801
+TASK_FAMILIES = (1, 2, 3)   # reach; reach and track; reach, track and push
 
 _SIG = {"trpo_rollout3d_launch":
         [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 21
@@ -82,12 +85,14 @@ class Arm3DConsts(NamedTuple):
     obstacle_radius: float
     obstacle_center: tuple
     # early termination and the reset distributions, as in PlanarConsts
-    # (the target direction is a normalised 3-normal with z >= 0)
+    # (the target direction is a normalised 3-normal with z >= 0, or for a
+    # planar arm an angle in the z = 0 plane)
     done_dist: float = 0.0
     q0_noise: float = 0.0
     qd0_noise: float = 0.0
     rmin: float = 0.0
     rmax: float = 0.0
+    planar: bool = False
 
 
 def arm3d_consts(cfg, chol_reg: float = 1e-6) -> Arm3DConsts:
@@ -123,7 +128,8 @@ def arm3d_consts(cfg, chol_reg: float = 1e-6) -> Arm3DConsts:
         done_dist=float(cfg.done_dist), q0_noise=float(spec.q0_noise),
         qd0_noise=float(spec.qd0_noise),
         rmin=float(spec.target_rmin_frac * spec.reach),
-        rmax=float(spec.target_rmax_frac * spec.reach))
+        rmax=float(spec.target_rmax_frac * spec.reach),
+        planar=bool(c.planar))
 
 
 # ------------------------------------------------------- plain version
@@ -410,15 +416,6 @@ def _chol_solve3(c: Arm3DConsts, M, rhs):
     return x
 
 
-def _policy_mean(params, obs):
-    """obs (do, N) -> mu (da, N)."""
-    L = sum(1 for k in params if k.startswith("W"))
-    h = obs
-    for i in range(L - 1):
-        h = torch.tanh(params[f"W{i}"].T @ h + params[f"b{i}"][:, None])
-    return params[f"W{L - 1}"].T @ h + params[f"b{L - 1}"][:, None]
-
-
 def track_target(c: Arm3DConsts, tgt, task):
     """The track task's target orbits world z by track_omega * dt each
     step, before it is scored; the other tasks keep theirs."""
@@ -575,7 +572,8 @@ def _consts_array(c: Arm3DConsts):
              c.qd_limit, c.qd_obs_scale, c.ctrl_weight, c.chol_reg,
              c.track_cos, c.track_sin, c.push_speed, c.push_weight,
              c.obstacle_weight, c.obstacle_radius, *c.obstacle_center,
-             done_dist2(c), c.q0_noise, c.qd0_noise, c.rmin, c.rmax]
+             done_dist2(c), c.q0_noise, c.qd0_noise, c.rmin, c.rmax,
+             float(c.planar)]
     return (ctypes.c_float * len(vals))(*vals)
 
 
@@ -589,9 +587,7 @@ def rollout3d(cfg, params, q0, qd0, tgt, task, eps=None, seed=None,
     c = arm3d_consts(cfg)
     term = c.done_dist > 0.0
     check_fresh(term, eps, fresh)
-    if store_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(
-            f"store_dtype must be fp32 or bf16, not {store_dtype}")
+    check_store(store_dtype)
     if not q0.is_cuda:
         if eps is None:
             raise ValueError("Philox noise runs only in the CUDA kernel; "
@@ -609,9 +605,7 @@ def rollout3d(cfg, params, q0, qd0, tgt, task, eps=None, seed=None,
     if params["W0"].shape[0] != do:
         raise ValueError(f"W0 takes {params['W0'].shape[0]} inputs, the "
                          f"observation has {do}")
-    if n != N_JOINTS:
-        raise NotImplementedError(
-            f"the 3-D rollout kernel is built for {N_JOINTS} joints, not {n}")
+    check_instantiated(c)
     if (eps is None) == (seed is None):
         raise ValueError("pass exactly one of eps and seed")
     ins = dict(q0=q0.T, qd0=qd0.T, tgt=tgt.T,
@@ -645,7 +639,7 @@ def rollout3d(cfg, params, q0, qd0, tgt, task, eps=None, seed=None,
     rew = torch.empty(T, N, device=dev)
     dones = torch.empty(T, N, device=dev) if term else None
     opt = lambda x: build.ptr(x) if x is not None else ctypes.c_void_p(None)
-    lib = build.library("rollout3d", _SIG)
+    lib = build.library(build.lib_name("rollout3d", n), _SIG)
     err = lib.trpo_rollout3d_launch(
         _consts_array(c), n, c.n_substeps, c.n_tasks,
         int(c.obstacle_weight > 0.0), int(term),
@@ -655,11 +649,6 @@ def rollout3d(cfg, params, q0, qd0, tgt, task, eps=None, seed=None,
         eps_p, seed_p, *(opt(x) for x in fresh_ff), build.ptr(obs),
         build.ptr(act), build.ptr(rew), opt(dones), N, T,
         build.stream_handle(dev))
-    if err == NOT_INSTANTIATED:
-        raise NotImplementedError(
-            f"the 3-D rollout kernel has no instantiation for {c.n_tasks} "
-            f"task families with obstacle={c.obstacle_weight > 0.0} (see "
-            "trpo_rollout3d_launch in csrc/rollout3d.cu)")
     build.check(err, "3-D rollout kernel")
     rollout3d.launches += 1
     return (obs, act, rew, dones) if term else (obs, act, rew)
@@ -668,19 +657,30 @@ def rollout3d(cfg, params, q0, qd0, tgt, task, eps=None, seed=None,
 rollout3d.launches = 0
 
 
+def check_instantiated(c: Arm3DConsts) -> None:
+    """Raises NotImplementedError for an arm or task mix the kernel has no
+    instantiation for: past ``JOINT_COUNTS`` (ROADMAP B3) or outside
+    ``TASK_FAMILIES``."""
+    check_joints(c.n, "3-D rollout kernel")
+    if c.n_tasks not in TASK_FAMILIES:
+        raise NotImplementedError(
+            f"the 3-D rollout kernel scores {TASK_FAMILIES} task families, "
+            f"not {c.n_tasks}")
+
+
 def occupancy(cfg, store_dtype=torch.float32) -> dict:
     """What the card makes of the kernel instantiation ``cfg`` and
     ``store_dtype`` launch: resident blocks and warps per SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
     (spill) bytes per thread, dynamic and static shared bytes per block."""
     c = arm3d_consts(cfg)
+    check_instantiated(c)
+    check_store(store_dtype)
     out = (ctypes.c_int * 6)()
-    err = build.library("rollout3d", _SIG).trpo_rollout3d_occupancy(
+    err = build.library(build.lib_name("rollout3d", c.n),
+                        _SIG).trpo_rollout3d_occupancy(
         c.n, c.n_tasks, int(c.obstacle_weight > 0.0), int(c.done_dist > 0.0),
         int(store_dtype == torch.bfloat16), out)
-    if err == NOT_INSTANTIATED:
-        raise NotImplementedError("the 3-D rollout kernel has no such "
-                                  "instantiation")
     build.check(err, "3-D rollout kernel occupancy")
     blocks, regs, local, dyn, static, threads = out
     return dict(blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32,

@@ -2,7 +2,8 @@
 
 Replaces ``pallas_rollout`` in
 ``trpo_robot_control_tpu/ops/pallas/rollout_kernel.py``: the whole horizon
-of a planar single-task arm in one launch (FK, closed-form mass matrix and
+of a planar single-task arm of 1-8 links in one launch (FK, closed-form
+mass matrix and
 centripetal bias, unrolled Cholesky, semi-implicit Euler, tanh-MLP policy,
 Gaussian action, torque clip, reward) and, when ``cfg.done_dist > 0``, the
 terminating branch: an env whose post-step end effector comes within
@@ -16,7 +17,11 @@ instantiation.
 ``rollout`` is the wrapper: on CUDA tensors it launches the kernel (or
 raises), on CPU tensors it runs ``rollout_plain``, the same feature-first
 math in plain PyTorch. Outputs keep the kernel's (T, d, N) layout, which
-is what the update consumes.
+is what the update consumes; obs and actions are stored in
+``store_dtype`` (fp32 or bf16, rounded once at the store: the trajectory
+stays fp32), rewards and done flags in fp32. The kernel is built for
+``JOINT_COUNTS`` (one library per count); past them, the observation
+outgrows the update kernels' 32 features (ROADMAP B3).
 
 Noise: ``eps`` (T, N, n) from the caller gives an exact comparison with
 the plain version and with the JAX reference; without it the kernel draws
@@ -39,13 +44,13 @@ import torch
 from . import build
 
 HIDDEN = 64
+JOINT_COUNTS = build.JOINT_COUNTS
 
 _SIG = {"trpo_rollout_launch":
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        [ctypes.c_void_p] + [ctypes.c_int] * 4
         + [ctypes.c_void_p] * 19 + [ctypes.c_int, ctypes.c_int,
                                     ctypes.c_void_p],
-        "trpo_rollout_occupancy": [ctypes.c_int, ctypes.c_int,
-                                   ctypes.c_void_p]}
+        "trpo_rollout_occupancy": [ctypes.c_int] * 3 + [ctypes.c_void_p]}
 
 
 class PlanarConsts(NamedTuple):
@@ -209,12 +214,19 @@ def _chol_solve(c: PlanarConsts, M, rhs):
 
 
 def _policy_mean(params, obs):
-    """obs (do, N) -> mu (da, N)."""
+    """obs (do, N) -> mu (da, N). A one-action head is multiplied as two
+    rows, the second zero, so that on the card it takes the matrix
+    product's FMA chain over the hidden units in order, as the rollout
+    kernels sum it, and not a matrix-vector product's order."""
     L = sum(1 for k in params if k.startswith("W"))
     h = obs
     for i in range(L - 1):
         h = torch.tanh(params[f"W{i}"].T @ h + params[f"b{i}"][:, None])
-    return params[f"W{L - 1}"].T @ h + params[f"b{L - 1}"][:, None]
+    W, b = params[f"W{L - 1}"], params[f"b{L - 1}"]
+    if W.shape[1] == 1:
+        return (torch.cat([W, torch.zeros_like(W)], dim=1).T @ h)[:1] \
+            + b[:, None]
+    return W.T @ h + b[:, None]
 
 
 def rollout_plain(cfg, params, q0, qd0, tgt, eps, fresh=None):
@@ -295,6 +307,22 @@ def fresh_feature_first(fresh, T, N, n, dev, width):
             for x in (q, qd, tgt[..., :width])]
 
 
+def check_joints(n: int, what: str) -> None:
+    """Raises NotImplementedError for a joint count ``what`` (a kernel) is
+    not built for."""
+    if n not in JOINT_COUNTS:
+        raise NotImplementedError(
+            f"the {what} is built for {JOINT_COUNTS[0]}-{JOINT_COUNTS[-1]} "
+            f"joints, not {n}; past {JOINT_COUNTS[-1]} the observation "
+            "outgrows the update kernels' 32 features (ROADMAP B3)")
+
+
+def check_store(store_dtype) -> None:
+    if store_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(
+            f"store_dtype must be fp32 or bf16, not {store_dtype}")
+
+
 def check_fresh(term: bool, eps, fresh) -> None:
     if not term and fresh is not None:
         raise ValueError("fresh episodes belong to a terminating config")
@@ -303,19 +331,23 @@ def check_fresh(term: bool, eps, fresh) -> None:
                          "eps, and draws them with the Philox seed")
 
 
-def rollout(cfg, params, q0, qd0, tgt, eps=None, seed=None, fresh=None):
+def rollout(cfg, params, q0, qd0, tgt, eps=None, seed=None, fresh=None,
+            store_dtype=torch.float32):
     """Fused rollout: q0/qd0 (N, n), tgt (N, 3), and either eps (T, N, n)
     (with ``fresh`` when the config terminates) or seed (int64 (2,) on the
-    device) -> obs_ff (T, do, N), act_ff (T, n, N), rew_ff (T, N) and,
-    when ``cfg.done_dist > 0``, dones (T, N), all fp32."""
+    device) -> obs_ff (T, do, N) and act_ff (T, n, N) in ``store_dtype``,
+    rew_ff (T, N) fp32 and, when ``cfg.done_dist > 0``, dones (T, N)
+    fp32."""
     c = planar_consts(cfg)
     term = c.done_dist > 0.0
     check_fresh(term, eps, fresh)
+    check_store(store_dtype)
     if not q0.is_cuda:
         if eps is None:
             raise ValueError("Philox noise runs only in the CUDA kernel; "
                              "pass eps on the CPU")
-        return rollout_plain(cfg, params, q0, qd0, tgt, eps, fresh)
+        out = rollout_plain(cfg, params, q0, qd0, tgt, eps, fresh)
+        return (out[0].to(store_dtype), out[1].to(store_dtype)) + out[2:]
     N, n = q0.shape
     T = cfg.horizon
     do = 3 * n + 3
@@ -324,7 +356,7 @@ def rollout(cfg, params, q0, qd0, tgt, eps=None, seed=None, fresh=None):
     if L != 3 or any(params[f"W{i}"].shape[1] != HIDDEN for i in range(2)):
         raise NotImplementedError(
             "the rollout kernel takes a (64, 64) tanh policy")
-    _check_joints(n)
+    check_joints(n, "planar rollout kernel")
     if (eps is None) == (seed is None):
         raise ValueError("pass exactly one of eps and seed")
     ins = dict(q0=q0.T, qd0=qd0.T, tgt=tgt[:, :2].T,
@@ -347,8 +379,8 @@ def rollout(cfg, params, q0, qd0, tgt, eps=None, seed=None, fresh=None):
     fresh_ff = [None] * 3
     if fresh is not None:
         fresh_ff = fresh_feature_first(fresh, T, N, n, dev, 2)
-    obs = torch.empty(T, do, N, device=dev)
-    act = torch.empty(T, n, N, device=dev)
+    obs = torch.empty(T, do, N, device=dev, dtype=store_dtype)
+    act = torch.empty(T, n, N, device=dev, dtype=store_dtype)
     rew = torch.empty(T, N, device=dev)
     dones = torch.empty(T, N, device=dev) if term else None
     consts = list(c.l) + list(c.lc) + list(c.m) + list(c.iz) + [
@@ -357,9 +389,10 @@ def rollout(cfg, params, q0, qd0, tgt, eps=None, seed=None, fresh=None):
         c.q0_noise, c.qd0_noise, c.rmin, c.rmax]
     consts_arr = (ctypes.c_float * len(consts))(*consts)
     opt = lambda x: build.ptr(x) if x is not None else ctypes.c_void_p(None)
-    lib = build.library("rollout", _SIG)
+    lib = build.library(build.lib_name("rollout", n), _SIG)
     err = lib.trpo_rollout_launch(
         consts_arr, c.n_substeps, n, int(term),
+        int(store_dtype == torch.bfloat16),
         *(build.ptr(ins[k]) for k in ("q0", "qd0", "tgt", "W0", "b0", "W1",
                                       "b1", "W2", "b2", "logstd")),
         opt(eps_ff), seed_p,
@@ -374,24 +407,21 @@ def rollout(cfg, params, q0, qd0, tgt, eps=None, seed=None, fresh=None):
 rollout.launches = 0
 
 
-def _check_joints(n: int) -> None:
-    if n not in (2, 3):
-        raise NotImplementedError(
-            f"the planar rollout kernel is built for 2 and 3 joints, not {n}")
-
-
-def occupancy(n: int, term: bool) -> dict:
+def occupancy(n: int, term: bool, store_dtype=torch.float32) -> dict:
     """What the card makes of the instantiation for ``n`` joints,
-    terminating or not: resident blocks and warps per SM
+    terminating or not, with ``store_dtype`` stores: resident blocks and
+    warps per SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
     bytes per thread (the stack frame: spills, and the slow-path array of
     the precise trig, which ``-Xptxas -v`` tells apart), static shared
     bytes, threads and envs per block. Raises NotImplementedError for an
     ``n`` it is not built for."""
-    _check_joints(n)
+    check_joints(n, "planar rollout kernel")
+    check_store(store_dtype)
     out = (ctypes.c_int * 6)()
-    err = build.library("rollout", _SIG).trpo_rollout_occupancy(
-        n, int(term), out)
+    err = build.library(build.lib_name("rollout", n),
+                        _SIG).trpo_rollout_occupancy(
+        n, int(term), int(store_dtype == torch.bfloat16), out)
     build.check(err, "rollout kernel occupancy")
     blocks, regs, local, static, threads, envs = out
     return dict(blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32,
