@@ -6,7 +6,8 @@ Needs one CUDA card; exits non-zero, and prints no result, without one.
 Drives the port (``trpo_robot_control_tpu_torch``) only:
 
 1. names the card and builds the six CUDA kernels from ``ops/cuda/csrc``
-   (the two rollouts one library per joint count, 1-8); prints every
+   (the two rollouts one library per joint count, 1-8, and K4 at 7
+   joints, K5 and K6 one library per policy shape of phase 8); prints every
    kernel's ``-Xptxas -v`` lines (K4's for each instantiation), then what
    the card makes of each K1 instantiation at c1's and c2's joint counts
    (``rollout_kernel.occupancy`` and the grid at c1's and c2's width; no
@@ -96,14 +97,26 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
    joints with each (task families, obstacle) pair, fp32 and bf16 stores,
    terminating or not, on 1024 envs x 10 steps against their plain
    versions (0.0, 0 ulps), with each instantiation's occupancy; and K1 at
-   8 links timed at c2's width (``k1_n8_record``).
+   8 links timed at c2's width (``k1_n8_record``);
+8. policy shapes other than (64, 64) on the 7-DoF path: at each of
+   ``POLICY_SHAPES`` (1-3 hidden layers; ``policy_shape_checks``) K4 at
+   c3's and c5's observation on 4096 envs x 200 steps, fp32 and bf16
+   stores, 0.0 and 0 ulps from its plain version on every 16th env; K5
+   in both modes against the fp64 evaluation of its function; K6 against
+   its plain version at e = 1 and e = 8; then phase 3 with K4 held exactly
+   over the whole horizon on c3-baselines32 (``c3_baselines32``: OpenAI
+   Baselines' (32, 32) policy) and c3-deep3 (``c3_deep3``: (64, 64, 64)),
+   each trained five full-width iterations (K4, K2, K5 once and K6 ten
+   times per update, no plain version) and timed.
 
 The last lines are the kernels' JSON record (c2/c3 figures at the top
 level of each entry, c4/c5/c5-planar3 ones under ``at_c4``/``at_c5``/
-``at_c5_planar3``, K2's bf16 mode under ``bf16_mode_c3/c4/c5/c5_planar3``
+``at_c5_planar3``/``at_c3_baselines32``/``at_c3_deep3``, K2's bf16 mode
+under ``bf16_mode_c3/c4/c5/...``
 and, at c2, ``bf16_mode_c2`` (K1's and K2's), K3 on c2-bf16 under
 ``at_c2_bf16``, every joint count under ``other_n`` (K1 at 8 links timed
-under ``at_n8``), and the terminating instantiations as ``rollout_term``
+under ``at_n8``), phase 8's shape checks of K4-K6 under
+``policy_shapes``, and the terminating instantiations as ``rollout_term``
 (c2) and ``rollout3d_term`` (c5, c5-planar3 under ``at_c5_planar3``)),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -182,6 +195,20 @@ OTHER_N_ENVS, OTHER_N_STEPS = 1024, 10
 RESET_TOL = 1e-5
 
 
+# Phase 8: the policy shapes the TPU's packed kernels take on the 7-DoF
+# path (the JAX package's test shapes, Baselines' (32, 32), a 3-layer
+# one), each held at kernel level on SHAPE_ENVS envs, K4's plain version on
+# every SHAPE_STRIDE-th
+POLICY_SHAPES = ((32,), (32, 32), (48, 40), (33, 57), (64,), (64, 64, 64))
+SHAPE_ENVS, SHAPE_STRIDE = 4096, 16
+# K6 against its plain version at each shape, relative L2 (the (64, 64)
+# kernel's bound is K6_REL; it measured <= 2.3e-7)
+K6_SHAPE_REL = {hidden: 1e-6 for hidden in POLICY_SHAPES}
+# K5's fp32 mode against the fp64 evaluation of its (unrounded) function:
+# mu's largest error, g's relative L2
+PG_FP32_MU_ATOL, PG_FP32_G_REL = 1e-5, 1e-5
+
+
 # Philox-mode seeds of the K4 digests and timings (phases 3a, 3f, 4)
 K4_SEED_A, K4_SEED_T = (4242, 17), (7, 7)
 # Philox-mode seed of the K1 digests at c1, c2 and c2-term (phases 2a, 4c)
@@ -230,6 +257,28 @@ def bound_ms(flops: float, nbytes: float, peak_flops=PEAK_FP32_FLOPS):
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def mlp_macs(do, hidden, da) -> int:
+    """Multiply-adds of the policy MLP's forward pass at one sample."""
+    widths = [do, *hidden, da]
+    return sum(a * b for a, b in zip(widths, widths[1:]))
+
+
+def surrogate_grad_macs(do, hidden, da) -> int:
+    """K5's function at one sample, each product counted once: the forward
+    pass, gW and the back-propagated cotangent of every layer but the
+    first, gW0 (2 do H + 3 H H + 3 H da at (H, H))."""
+    inner = sum(a * b for a, b in zip(hidden, hidden[1:]))
+    return 2 * do * hidden[0] + 3 * inner + 3 * hidden[-1] * da
+
+
+def fvp_ff_macs(do, hidden, da) -> int:
+    """K6's function at one sample, each product counted once: the
+    recomputed forward pass and its tangent, the reverse accumulation
+    (3 do H + 5 H H + 4 H da at (H, H))."""
+    inner = sum(a * b for a, b in zip(hidden, hidden[1:]))
+    return 3 * do * hidden[0] + 5 * inner + 4 * hidden[-1] * da
 
 
 def elementwise_flops(fn) -> int:
@@ -587,18 +636,21 @@ def rel_l2(a, ref):
     return float(torch.linalg.norm(a.double() - ref) / torch.linalg.norm(ref))
 
 
-def pg_fp64(params, obs_ff, act_ff, adv_ff, B):
+def pg_fp64(params, obs_ff, act_ff, adv_ff, B, rounding=True):
     """K5's bf16-mode function in fp64 on a time slice of a batch of B
     samples (a copy of ``tests/test_torch_helpers.surrogate_grad_fp64``,
     the gradient flat in ``policy.flatten``'s order):
-    h0, h1, g1, g0 rounded to bf16 where the port rounds them. A rounding
-    is ambiguous where an fp32 value within PG_AMBIG_ULPS fp32 roundings of
-    its terms' magnitude may round to the other bf16 neighbour. Returns mu,
-    mu_slack (how far ambiguous h0/h1 roundings may move mu), kept (the
+    every h_l and g_l rounded to bf16 where the port rounds them (any
+    depth). A rounding is ambiguous where an fp32 value within
+    PG_AMBIG_ULPS fp32 roundings of its terms' magnitude may round to the
+    other bf16 neighbour. With ``rounding`` off, K5's fp32-mode function:
+    no rounding, none ambiguous. Returns mu, mu_slack (how far ambiguous
+    h_l roundings may move mu), kept (the
     samples with no ambiguous rounding), and the gradient over all samples
     and over the kept ones."""
     p = {k: v.double() for k, v in params.items()}
     ab = {k: v.abs() for k, v in p.items()}
+    L = sum(1 for k in p if k.startswith("W")) - 1
     T, _, N = obs_ff.shape
     x, a, adv = obs_ff.double(), act_ff.double(), adv_ff.double()[:, None]
 
@@ -609,43 +661,44 @@ def pg_fp64(params, obs_ff, act_ff, adv_ff, B):
         return torch.einsum("io,ton->tin", W, c)
 
     def rnd(v):
-        return v.float().to(torch.bfloat16).double()
+        return v.float().to(torch.bfloat16).double() if rounding else v
 
     eps = PG_AMBIG_ULPS * 2.0 ** -24
     hs, spread = [], torch.zeros_like(x)
     amb = torch.zeros(T, N, dtype=torch.bool, device=x.device)
     h = x
-    for i in range(2):
+    for i in range(L):
         v = torch.tanh(fwd(p[f"W{i}"], h) + p[f"b{i}"][:, None])
         dz = fwd(ab[f"W{i}"], spread)
         e = eps * ((1 - v * v) * (fwd(ab[f"W{i}"], h.abs())
                                   + ab[f"b{i}"][:, None]) + v.abs()) \
             + (1 - (v.abs() - dz).clamp(min=0) ** 2) * dz
         h = rnd(v)
-        spread = torch.maximum(rnd(v + e) - h, h - rnd(v - e))
+        spread = torch.maximum(rnd(v + e) - h, h - rnd(v - e)) if rounding \
+            else torch.zeros_like(h)
         amb |= (spread > 0).any(1)
         hs.append(h)
-    mu = fwd(p["W2"], h) + p["b2"][:, None]
-    mu_slack = fwd(ab["W2"], spread)
+    mu = fwd(p[f"W{L}"], h) + p[f"b{L}"][:, None]
+    mu_slack = fwd(ab[f"W{L}"], spread)
     inv_var = torch.exp(-2 * p["logstd"])[:, None]
     z = (a - mu) * torch.exp(-p["logstd"])[:, None]
     ct = adv * (a - mu) * inv_var / B
-    mag = adv.abs() * inv_var / B * (fwd(ab["W2"], h.abs())
-                                     + ab["b2"][:, None] + (a - mu).abs())
+    mag = adv.abs() * inv_var / B * (fwd(ab[f"W{L}"], h.abs())
+                                     + ab[f"b{L}"][:, None] + (a - mu).abs())
     cts = [ct]
-    for l in (2, 1):
+    for l in range(L, 0, -1):
         d = 1 - hs[l - 1] ** 2
         v = bwd(p[f"W{l}"], ct) * d
         e = eps * (d * bwd(ab[f"W{l}"], mag) + v.abs())
-        amb |= (rnd(v + e) != rnd(v - e)).any(1)
+        if rounding:
+            amb |= (rnd(v + e) != rnd(v - e)).any(1)
         ct = rnd(v)
         mag = ct.abs()
         cts.append(ct)
 
     def grads(m):
         g = {"logstd": (adv * m * (z * z - 1)).sum((0, 2)) / B}
-        for l, c, h_in in ((2, cts[0], hs[1]), (1, cts[1], hs[0]),
-                           (0, cts[2], x)):
+        for l, c, h_in in zip(range(L, -1, -1), cts, hs[::-1] + [x]):
             g[f"W{l}"] = torch.einsum("tin,ton->io", h_in, c * m)
             g[f"b{l}"] = (c * m).sum((0, 2))
         return torch.cat([g[k].reshape(-1) for k in sorted(g)])
@@ -655,7 +708,7 @@ def pg_fp64(params, obs_ff, act_ff, adv_ff, B):
                 g_kept=grads(kept.double()[:, None]))
 
 
-def pg_fp64_batch(params, obs_ff, act_ff, adv, mus):
+def pg_fp64_batch(params, obs_ff, act_ff, adv, mus, rounding=True):
     """``pg_fp64`` over the whole batch in time slices of about 2^20
     samples: the flat fp64 gradient over all and over the kept samples,
     the kept mask (T, N) and its share, and for each mu of ``mus`` the
@@ -666,7 +719,8 @@ def pg_fp64_batch(params, obs_ff, act_ff, adv, mus):
                mu_over={k: -math.inf for k in mus})
     for t0 in range(0, T, step):
         sl = slice(t0, t0 + step)
-        r = pg_fp64(params, obs_ff[sl], act_ff[sl], adv[sl], T * N)
+        r = pg_fp64(params, obs_ff[sl], act_ff[sl], adv[sl], T * N,
+                    rounding)
         out["g"] = out["g"] + r["g"]
         out["g_kept"] = out["g_kept"] + r["g_kept"]
         out["kept"].append(r["kept"])
@@ -996,7 +1050,7 @@ def arm3d_phases(dev, cfg, seed, tag=None, exact=False):
     tag = tag or cfg.name.split("_")[0]
     T, N, n = cfg.horizon, cfg.n_envs, cfg.arm.n_joints
     do, da = cfg.obs_dim, n
-    H = cfg.trpo.hidden[0]
+    hidden = cfg.trpo.hidden
     bf16 = torch.bfloat16
     gen, params, s0 = k4_setup(dev, cfg, seed)
     P = policy.flatten(params).numel()
@@ -1115,7 +1169,8 @@ def arm3d_phases(dev, cfg, seed, tag=None, exact=False):
     rel_g = float(torch.linalg.norm(fg_k - fg_p) / torch.linalg.norm(fg_p))
     err_mu = float((mu_k - mu_p).abs().max())
     rel_lp = float(((lp_k - lp_p).abs() / lp_p.abs().clamp_min(1e-6)).max())
-    print(f"{tag} K5: rel L2 err g {rel_g:.3e} (bound {K5_REL}), max |mu "
+    print(f"{tag} K5: rel L2 err g {rel_g:.3e} (bound {K5_REL} at (64, "
+          f"64), see below), max |mu "
           f"err| {err_mu:.3e} (bound {K5_MU_ATOL}), max rel logp err "
           f"{rel_lp:.3e} (bound {K5_LOGP_REL})")
     # both fp32 sum orders against the fp64 evaluation with the same bf16
@@ -1124,10 +1179,11 @@ def arm3d_phases(dev, cfg, seed, tag=None, exact=False):
     ref = pg_fp64_batch(params, obs_ff, act_ff, adv,
                         dict(kernel=mu_k, plain=mu_p))
     adv_kept = adv * ref["kept"]
-    far = {}
+    far, kept_g = {}, {}
     for name, fn, g_all in (("kernel", pk.surrogate_grad, fg_k),
                             ("plain", pk.surrogate_grad_plain, fg_p)):
-        g_kept = policy.flatten(fn(params, obs_ff, act_ff, adv_kept)[0])
+        g_kept = kept_g[name] = policy.flatten(
+            fn(params, obs_ff, act_ff, adv_kept)[0])
         far[name] = (ref["mu_over"][name], rel_l2(g_all, ref["g"]),
                      rel_l2(g_kept, ref["g_kept"]))
         print(f"{tag} K5 {name} vs fp64 evaluation: mu beyond its slack "
@@ -1139,8 +1195,19 @@ def arm3d_phases(dev, cfg, seed, tag=None, exact=False):
     require(far["kernel"][0] <= PG_MU_FP64_ATOL
             and far["kernel"][2] <= PG_G_KEPT_REL,
             f"{tag} K5 against the fp64 evaluation {far['kernel']}")
-    require(rel_g <= K5_REL and err_mu <= K5_MU_ATOL
-            and rel_lp <= K5_LOGP_REL,
+    # the kernel against the plain version: on the samples with unambiguous
+    # roundings, where the two compute the same function up to fp32 sums,
+    # and, for the (64, 64) policy, on every sample as since PR 7. A
+    # deeper policy carries more bf16 roundings a sample (at (64, 64, 64)
+    # 64 % of c3's samples have an ambiguous one, which either sum order
+    # may round to the other neighbour), so there only the first holds.
+    rel_g_kept = rel_l2(kept_g["kernel"], kept_g["plain"].double())
+    print(f"{tag} K5 kernel vs plain on the samples with unambiguous "
+          f"roundings: rel L2 g {rel_g_kept:.3e} (bound {PG_G_KEPT_REL})")
+    require(rel_g_kept <= PG_G_KEPT_REL, f"{tag} K5 error on the samples "
+            f"with unambiguous roundings {rel_g_kept}")
+    require((rel_g <= K5_REL or tuple(hidden) != (64, 64))
+            and err_mu <= K5_MU_ATOL and rel_lp <= K5_LOGP_REL,
             f"{tag} K5 error {rel_g}, {err_mu}, {rel_lp}")
     del mu_p, lp_p
     again = pk.surrogate_grad(params, obs_ff, act_ff, adv)
@@ -1183,7 +1250,7 @@ def arm3d_phases(dev, cfg, seed, tag=None, exact=False):
     per_step = k4_flops_per_env_step(r3, cfg, params, s0, eps, s0.task)
     print(f"{tag} K4 work per env-step, counted from the plain version: "
           f"{per_step:.1f} FLOP (the policy MLP's "
-          f"{2 * (do * H + H * H + H * da)} included)")
+          f"{2 * mlp_macs(do, hidden, da)} included)")
     t_k4 = k4_ms(cfg, params, s0)
     state_floats = 2 * n + 3 + (cfg.n_tasks > 1)      # q0, qd0, tgt, task
     k4_bytes = B * ((do + da) * 2 + 4) + 4.0 * (N * state_floats + P)
@@ -1196,7 +1263,7 @@ def arm3d_phases(dev, cfg, seed, tag=None, exact=False):
     # keep two)
     zero = k4_zero_flops_per_env_step(r3, cfg, s0)
     need = per_step - zero
-    mlp = 2 * (do * H + H * H + H * da)
+    mlp = 2 * mlp_macs(do, hidden, da)
     b4 = bound_ms(need * B, k4_bytes)
     b4fused = bound_ms(per_step * B, k4_bytes)
     ceiling = (need / 2) / ((need - mlp) + mlp / 2)
@@ -1236,7 +1303,7 @@ def arm3d_phases(dev, cfg, seed, tag=None, exact=False):
     # the MLP's products, each counted once (the kernel's three-plane split
     # of the weights is its own cost, not the work), at the bf16
     # tensor-core peak; the fp32-FMA figure is kept beside it, labelled
-    pg_macs = 2 * do * H + 3 * H * H + 3 * H * da
+    pg_macs = surrogate_grad_macs(do, hidden, da)
     pg_bytes = B * ((do + da) * 2 + 4 + 4 * da + 4) + 4.0 * 2 * P
     b5 = bound_ms(2.0 * pg_macs * B, pg_bytes, peak_flops=PEAK_BF16_FLOPS)
     b5fma = bound_ms(2.0 * pg_macs * B, pg_bytes)
@@ -1254,7 +1321,7 @@ def arm3d_phases(dev, cfg, seed, tag=None, exact=False):
     # labelled. Bytes: the subsample read once in its storage dtype, v, the
     # weights and Fv. The strided view's reads come in 32-byte sectors:
     # printed as a note, not as the bound.
-    ff_macs = 3 * do * H + 5 * H * H + 4 * H * da
+    ff_macs = fvp_ff_macs(do, hidden, da)
     es = sub.element_size()
     ff_bytes = es * B_sub * do + 4.0 * 3 * P
     b6 = bound_ms(2.0 * ff_macs * B_sub, ff_bytes, peak_flops=PEAK_BF16_FLOPS)
@@ -1624,6 +1691,135 @@ def c2_bf16():
         C2_REACHER3.trpo, ff_store_dtype="bf16"))
 
 
+def c3_baselines32():
+    """c3 with OpenAI Baselines' TRPO policy, ``MlpPolicy(hid_size=32,
+    num_hid_layers=2)`` with tanh (baselines/trpo_mpi/run_mujoco.py)."""
+    from trpo_robot_control_tpu_torch.configs import C3_FRANKA7
+    return C3_FRANKA7.replace(name="c3_baselines32", trpo=dataclasses.replace(
+        C3_FRANKA7.trpo, hidden=(32, 32)))
+
+
+def c3_deep3():
+    """c3 with three 64-wide hidden layers, the JAX package's 3-layer test
+    shape (tests/test_pallas_fvp.py)."""
+    from trpo_robot_control_tpu_torch.configs import C3_FRANKA7
+    return C3_FRANKA7.replace(name="c3_deep3", trpo=dataclasses.replace(
+        C3_FRANKA7.trpo, hidden=(64, 64, 64)))
+
+
+def phase8_libs():
+    """The libraries phase 8 runs beyond the default ones: K4 at 7 joints,
+    K5 and K6, at every shape of POLICY_SHAPES."""
+    from trpo_robot_control_tpu_torch.ops.cuda import build
+    return [build.lib_name(src, 7 if src == "rollout3d" else None, hidden)
+            for hidden in POLICY_SHAPES
+            for src in ("rollout3d", "pg", "fvp_ff")]
+
+
+def policy_shape_checks(dev):
+    """Phase 8a: K4, K5 and K6 at every shape of POLICY_SHAPES. K4 in eps
+    mode on SHAPE_ENVS envs x 200 steps at c3's observation (do 24) and at
+    c5's (do 27, three task families), fp32 and bf16 stores, against its
+    plain version on every SHAPE_STRIDE-th env over the whole horizon
+    (0.0 and 0 ulps); K5 on c3's batch in both modes against the fp64
+    evaluation of its function (bf16 mode with its rounding points, as
+    phase 3c holds it at (64, 64); fp32 mode unrounded); K6 against its
+    plain version on the Fisher subsample obs_ff[::8, :, ::e], e = 1 on
+    c3's batch and e = 8 on c5's, within K6_SHAPE_REL; with K4's and K6's
+    occupancy at each shape. Returns {kernel: {shape: record}}."""
+    from trpo_robot_control_tpu_torch.configs import C3_FRANKA7, C5_MULTITASK
+    from trpo_robot_control_tpu_torch.envs import arm
+    from trpo_robot_control_tpu_torch.models import policy
+    from trpo_robot_control_tpu_torch.ops.cuda import (fvp_ff_kernel as ffk,
+                                                       pg_kernel as pk,
+                                                       rollout3d_kernel as r3)
+    bf16 = torch.bfloat16
+    out = {"rollout3d": {}, "pg": {}, "fvp_ff": {}}
+    for hidden in POLICY_SHAPES:
+        key = "x".join(map(str, hidden))
+        r4, r5, r6 = {}, {}, {}
+        for tag, base, e in (("c3", C3_FRANKA7, 1), ("c5", C5_MULTITASK, 8)):
+            cfg = base.replace(n_envs=SHAPE_ENVS, trpo=dataclasses.replace(
+                base.trpo, hidden=hidden))
+            T, N, n = cfg.horizon, cfg.n_envs, cfg.arm.n_joints
+            gen, params, s0 = k4_setup(dev, cfg, 20)
+            eps = torch.randn(T, N, n, generator=gen, device=dev)
+            k32 = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt, s0.task,
+                               eps=eps)
+            k16 = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt, s0.task,
+                               eps=eps, store_dtype=bf16)
+            st = arm.EnvState(*(x[::SHAPE_STRIDE] for x in s0))
+            p_out = r3.rollout3d_plain(cfg, params, st.q, st.qd, st.tgt,
+                                       st.task, eps[:, ::SHAPE_STRIDE])
+            errs = [float((k[..., ::SHAPE_STRIDE] - p).abs().max())
+                    for k, p in zip(k32, p_out)]
+            ulps = bf16_ulps([x[..., ::SHAPE_STRIDE] for x in k16[:2]],
+                             p_out[:2])
+            print(f"{key} {tag} K4 eps mode on {N} envs x {T} steps, plain "
+                  f"version on every {SHAPE_STRIDE}-th: max |kernel - "
+                  f"plain| (obs, act, rew) {errs} with fp32 stores (bound "
+                  f"0.0), {ulps} bf16 ulps from the rounded plain output "
+                  "with bf16 stores (bound 0)")
+            require(max(errs) == 0.0 and ulps == 0.0
+                    and torch.equal(k16[2], k32[2]),
+                    f"{key} {tag} K4 differs from its plain version: "
+                    f"{errs}, {ulps} ulps")
+            occ = r3.occupancy(cfg, bf16, hidden=hidden)
+            print(f"{key} {tag} K4 occupancy [bf16]: {occ}")
+            require(occ["blocks_per_sm"] >= 1, f"{key} K4 does not fit an SM")
+            r4[tag] = dict(max_abs_err=max(errs), bf16_ulps=ulps,
+                           plain_envs=st.q.shape[0], occupancy=brief(occ))
+            del p_out
+            if tag == "c3":
+                adv = torch.randn(T, N, generator=gen, device=dev)
+                for mode, obs, act in (("fp32", *k32[:2]),
+                                       ("bf16", *k16[:2])):
+                    rounding = mode == "bf16"
+                    g_k, mu_k, _ = pk.surrogate_grad(params, obs, act, adv)
+                    ref = pg_fp64_batch(params, obs, act, adv,
+                                        dict(kernel=mu_k), rounding=rounding)
+                    g_kept = policy.flatten(pk.surrogate_grad(
+                        params, obs, act, adv * ref["kept"])[0])
+                    mu_over = ref["mu_over"]["kernel"]
+                    g_rel = rel_l2(g_kept, ref["g_kept"])
+                    mu_b, g_b = ((PG_MU_FP64_ATOL, PG_G_KEPT_REL) if rounding
+                                 else (PG_FP32_MU_ATOL, PG_FP32_G_REL))
+                    print(f"{key} K5 {mode} mode vs the fp64 evaluation: mu "
+                          f"beyond its slack {mu_over:.3e} (bound {mu_b}), "
+                          f"rel L2 g on the {ref['kept_share']:.3f} of "
+                          f"samples with unambiguous roundings {g_rel:.3e} "
+                          f"(bound {g_b})")
+                    require(mu_over <= mu_b and g_rel <= g_b,
+                            f"{key} K5 {mode} against the fp64 evaluation: "
+                            f"{mu_over}, {g_rel}")
+                    r5[mode] = dict(mu_over_slack=mu_over, g_rel_l2=g_rel,
+                                    kept_share=ref["kept_share"])
+                    del ref, g_k, mu_k
+            sub = k16[0][::8, :, ::e]
+            P = policy.flatten(params).numel()
+            fvp = ffk.make_gn_fvp_ff(params, sub, cfg.trpo.cg_damping)
+            worst = 0.0
+            for _ in range(3):
+                v = torch.randn(P, generator=gen, device=dev)
+                f_k = fvp(v)
+                f_p = ffk.gn_fvp_ff_plain(params, sub, v, cfg.trpo.cg_damping)
+                worst = max(worst, float(torch.linalg.norm(f_k - f_p)
+                                         / torch.linalg.norm(f_p)))
+                require(torch.equal(f_k, fvp(v)),
+                        f"{key} K6 is not deterministic")
+            occ6 = ffk.occupancy(bf16, hidden)
+            print(f"{key} K6 on obs_ff[::8, :, ::{e}] (B' = "
+                  f"{sub.shape[0] * sub.shape[2]}): worst relative L2 err "
+                  f"{worst:.3e} over 3 v (bound {K6_SHAPE_REL[hidden]}); "
+                  f"occupancy {occ6}")
+            require(worst <= K6_SHAPE_REL[hidden], f"{key} K6 error {worst}")
+            r6[f"e{e}"] = dict(rel_l2=worst, occupancy=brief(occ6),
+                               tile=occ6["tile"])
+            del k32, k16, sub
+        out["rollout3d"][key], out["pg"][key], out["fvp_ff"][key] = r4, r5, r6
+    return out
+
+
 def k1_exact(tag, k_out, p_out, k16=None):
     """K1 against its plain version on the same inputs: max |kernel -
     plain| = 0.0 (identical done flags where there are any) and, given the
@@ -1881,7 +2077,9 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    print(f"build: {build.build_all():.1f} s")
+    libs = [n for n, (_, _, hidden) in build.LIBS.items() if hidden is None]
+    libs += phase8_libs()
+    print(f"build: {build.build_all(libs):.1f} s ({len(libs)} libraries)")
     print(build.ptxas_report())
     occupancy_k1 = k1_occupancy()
     occupancy = k4_occupancy()
@@ -1919,6 +2117,12 @@ def main() -> int:
     n8 = k1_n8_record(dev)
     print(f"phases at every joint count done at "
           f"{time.perf_counter() - t_start:.1f} s")
+    shapes = policy_shape_checks(dev)
+    for cfg, seed in ((c3_baselines32(), 6), (c3_deep3(), 7)):
+        more[cfg.name] = arm3d_phases(dev, cfg, seed, tag=cfg.name,
+                                      exact=True)
+    print(f"policy-shape phases done at "
+          f"{time.perf_counter() - t_start:.1f} s")
     out = []
     for name in ("rollout", "moments", "fvp", "rollout3d", "pg", "fvp_ff",
                  "rollout_term", "rollout3d_term"):
@@ -1954,6 +2158,8 @@ def main() -> int:
             entry["occupancy"] = occupancy_k3
         if name == "fvp_ff":
             entry["occupancy"] = occupancy_k6
+        if name in shapes:
+            entry["policy_shapes"] = shapes[name]
         out.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))

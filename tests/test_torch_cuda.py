@@ -340,9 +340,13 @@ def test_moments_kernel_bf16_matches_plain_on_card(cuda, T, do, N):
     (torch.bfloat16, 6, 27, 200), (torch.bfloat16, 16, 27, 4096 + 40),
     (torch.bfloat16, 16, 24, 4096 + 37)])
 def test_pg_kernel_matches_plain_on_card(cuda, dtype, T, do, N):
+    _check_pg(cuda, dtype, T, do, N, (64, 64))
+
+
+def _check_pg(cuda, dtype, T, do, N, hidden):
     g = torch.Generator(device=cuda).manual_seed(2)
     da = 7
-    pn = policy_params_np(np.random.RandomState(11), do, da)
+    pn = policy_params_np(np.random.RandomState(11), do, da, hidden)
     pc = {k: t(v).to(cuda) for k, v in pn.items()}
     obs = torch.randn(T, do, N, generator=g, device=cuda).to(dtype)
     act = (0.5 * torch.randn(T, da, N, generator=g, device=cuda)).to(dtype)
@@ -399,6 +403,94 @@ def test_fvp_ff_kernel_matches_plain_on_card(cuda, do, e, dtype, T, N):
     assert float(torch.linalg.norm(fk - fp) / torch.linalg.norm(fp)) < 1e-5
     assert float(torch.linalg.norm(fk - fs) / torch.linalg.norm(fs)) < 1e-6
     assert torch.equal(fk, fvp_ff_kernel.make_gn_fvp_ff(pc, sub, 0.1)(v))
+
+
+# ROADMAP B3's policy shapes on the 7-DoF path: the JAX package's own test
+# shapes, OpenAI Baselines' (32, 32) and a 3-layer one
+SHAPES = [(32,), (32, 32), (48, 40), (33, 57), (64,), (64, 64, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", SHAPES)
+@pytest.mark.parametrize("name", ["c3_franka7", "c5_multitask"])
+def test_rollout3d_kernel_policy_shapes_match_plain_on_card(cuda, name,
+                                                            hidden):
+    """K4 at every policy shape, c3's and c5's observation: 0.0 from the
+    plain version, bf16 stores its rounding."""
+    cfg = pconfigs.CONFIGS[name].replace(horizon=8)
+    N = 300
+    pn = policy_params_np(np.random.RandomState(21), cfg.obs_dim, 7, hidden)
+    pc = {k: t(v).to(cuda) for k, v in pn.items()}
+    ins = [t(x).to(cuda) for x in env_inputs_np(cfg, N, seed=22)]
+    task = torch.tensor(tasks_np(cfg, N, seed=23), device=cuda)
+    k_out = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task, eps=ins[3])
+    p_out = rollout3d_kernel.rollout3d_plain(cfg, pc, *ins[:3], task, ins[3])
+    _exact(k_out, p_out)
+    k16 = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task, eps=ins[3],
+                                     store_dtype=torch.bfloat16)
+    for a, b in zip(k16[:2], k_out[:2]):
+        assert torch.equal(a, b.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pg_kernel_policy_shapes_on_card(cuda, dtype, hidden):
+    """K5 at every policy shape, both modes: a ragged last tile and
+    several tiles per block."""
+    _check_pg(cuda, dtype, 16, 27, 4096 + 40, hidden)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,dtype", [
+    (hidden, torch.bfloat16) for hidden in SHAPES] + [
+    ((33, 57), torch.float32),
+    ((64, 64, 64), torch.float32)])     # tiles of 32, x single-buffered
+@pytest.mark.parametrize("e", [1, 8])
+def test_fvp_ff_kernel_policy_shapes_match_plain_on_card(cuda, e, hidden,
+                                                         dtype):
+    """K6 at every policy shape on c3's (e = 1) and c5's (e = 8) kind of
+    subsample, against the plain version; fp32 storage at two shapes."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    pn = policy_params_np(np.random.RandomState(24), 27, 7, hidden)
+    pc = {k: t(v).to(cuda) for k, v in pn.items()}
+    obs = torch.randn(80, 27, 1000 * e, generator=g, device=cuda).to(dtype)
+    sub = obs[::8, :, ::e]
+    v = torch.randn(sum(x.numel() for x in pc.values()), generator=g,
+                    device=cuda)
+    fk = fvp_ff_kernel.make_gn_fvp_ff(pc, sub, 0.1)(v)
+    fp = fvp_ff_kernel.gn_fvp_ff_plain(pc, sub, v, 0.1)
+    assert float(torch.linalg.norm(fk - fp) / torch.linalg.norm(fp)) < 1e-6
+    assert torch.equal(fk, fvp_ff_kernel.make_gn_fvp_ff(pc, sub, 0.1)(v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [(32, 32, 32, 32), (65,), (64, 65)])
+def test_policy_kernels_refuse_shapes_past_b3(cuda, hidden):
+    """Four hidden layers or a layer of 65 units: K4, K5 and K6 raise,
+    naming ROADMAP B3, before they build or launch anything."""
+    cfg = pconfigs.C3_FRANKA7.replace(horizon=2)
+    pn = policy_params_np(np.random.RandomState(25), cfg.obs_dim, 7, hidden)
+    pc = {k: t(v).to(cuda) for k, v in pn.items()}
+    ins = [t(x).to(cuda) for x in env_inputs_np(cfg, 32, seed=26)]
+    task = torch.zeros(32, dtype=torch.int32, device=cuda)
+    obs = torch.randn(2, cfg.obs_dim, 64, device=cuda).to(torch.bfloat16)
+    act = torch.randn(2, 7, 64, device=cuda).to(torch.bfloat16)
+    adv = torch.randn(2, 64, device=cuda)
+    before = (rollout3d_kernel.rollout3d.launches,
+              pg_kernel.surrogate_grad.launches,
+              fvp_ff_kernel.gn_fvp_ff.launches, set(build.LIBS))
+    calls = [
+        lambda: rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task,
+                                           eps=ins[3]),
+        lambda: pg_kernel.surrogate_grad(pc, obs, act, adv),
+        lambda: fvp_ff_kernel.make_gn_fvp_ff(pc, obs, 0.1)]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="ROADMAP B3"):
+            call()
+    assert before == (rollout3d_kernel.rollout3d.launches,
+                      pg_kernel.surrogate_grad.launches,
+                      fvp_ff_kernel.gn_fvp_ff.launches, set(build.LIBS))
 
 
 def _term_inputs(cfg, N, seed, cuda):

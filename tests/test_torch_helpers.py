@@ -305,7 +305,8 @@ def surrogate_grad_fp64(params, obs_ff, act_ff, adv_ff, ulps=AMBIG_ULPS,
     bf16 storage) evaluated in fp64, on the tensors' device, with what an
     fp32 implementation may differ from it by.
 
-    h0, h1, g1 and g0 are rounded to bf16 where the port rounds them. An
+    Every hidden activation h_l and back-propagated cotangent g_l is
+    rounded to bf16 where the port rounds it (any depth). An
     fp32 implementation's value before such a rounding may be off from
     this one by ``ulps`` fp32 roundings of the terms' magnitude (sum of
     |terms|, through tanh's slope); where the bf16 roundings of the two
@@ -313,9 +314,9 @@ def surrogate_grad_fp64(params, obs_ff, act_ff, adv_ff, ulps=AMBIG_ULPS,
     bf16 neighbour is right. Returns a dict:
 
     - ``mu``, ``g`` (a tree like the port's): the fp64 values;
-    - ``mu_slack`` (T, da, N): how far mu may move through ambiguous h0
-      and h1 roundings (|W2|^T of each h1's spread, with h0's spread
-      carried into h1's interval). An fp32 mu is within mu_slack plus its
+    - ``mu_slack`` (T, da, N): how far mu may move through ambiguous h_l
+      roundings (|W_L|^T of each last h's spread, with every earlier
+      layer's spread carried into the next one's interval). An fp32 mu is within mu_slack plus its
       own sums' error of ``mu``;
     - ``kept`` (T, N) bool: samples with no ambiguous rounding;
     - ``g_kept``: ``g`` over the kept samples only, which is what an fp32
@@ -324,6 +325,7 @@ def surrogate_grad_fp64(params, obs_ff, act_ff, adv_ff, ulps=AMBIG_ULPS,
     ``B`` is the whole batch's T * N where the call gets a slice of it."""
     p = {k: v.double() for k, v in params.items()}
     ab = {k: v.abs() for k, v in p.items()}
+    L = sum(1 for k in p if k.startswith("W")) - 1
     T, _, N = obs_ff.shape
     B = B or T * N
     x, a, adv = obs_ff.double(), act_ff.double(), adv_ff.double()[:, None]
@@ -341,7 +343,7 @@ def surrogate_grad_fp64(params, obs_ff, act_ff, adv_ff, ulps=AMBIG_ULPS,
     hs, spread = [], torch.zeros_like(x)
     amb = torch.zeros(T, N, dtype=torch.bool, device=x.device)
     h = x
-    for i in range(2):
+    for i in range(L):
         v = torch.tanh(fwd(p[f"W{i}"], h) + p[f"b{i}"][:, None])
         dz = fwd(ab[f"W{i}"], spread)
         e = eps * ((1 - v * v) * (fwd(ab[f"W{i}"], h.abs())
@@ -351,15 +353,15 @@ def surrogate_grad_fp64(params, obs_ff, act_ff, adv_ff, ulps=AMBIG_ULPS,
         spread = torch.maximum(rnd(v + e) - h, h - rnd(v - e))
         amb |= (spread > 0).any(1)
         hs.append(h)
-    mu = fwd(p["W2"], h) + p["b2"][:, None]
-    mu_slack = fwd(ab["W2"], spread)
+    mu = fwd(p[f"W{L}"], h) + p[f"b{L}"][:, None]
+    mu_slack = fwd(ab[f"W{L}"], spread)
     inv_var = torch.exp(-2 * p["logstd"])[:, None]
     z = (a - mu) * torch.exp(-p["logstd"])[:, None]
     ct = adv * (a - mu) * inv_var / B
-    mag = adv.abs() * inv_var / B * (fwd(ab["W2"], h.abs())
-                                     + ab["b2"][:, None] + (a - mu).abs())
+    mag = adv.abs() * inv_var / B * (fwd(ab[f"W{L}"], h.abs())
+                                     + ab[f"b{L}"][:, None] + (a - mu).abs())
     cts = [ct]
-    for l in (2, 1):
+    for l in range(L, 0, -1):
         d = 1 - hs[l - 1] ** 2
         v = bwd(p[f"W{l}"], ct) * d
         e = eps * (d * bwd(ab[f"W{l}"], mag) + v.abs())
@@ -370,8 +372,7 @@ def surrogate_grad_fp64(params, obs_ff, act_ff, adv_ff, ulps=AMBIG_ULPS,
 
     def grads(m):
         g = {"logstd": (adv * m * (z * z - 1)).sum((0, 2)) / B}
-        for l, c, h_in in ((2, cts[0], hs[1]), (1, cts[1], hs[0]),
-                           (0, cts[2], x)):
+        for l, c, h_in in zip(range(L, -1, -1), cts, hs[::-1] + [x]):
             g[f"W{l}"] = torch.einsum("tin,ton->io", h_in, c * m)
             g[f"b{l}"] = (c * m).sum((0, 2))
         return g

@@ -8,9 +8,14 @@ checkout (the hash covers the source, the headers it includes from
 rollout sources build one library per joint count,
 ``lib<name>_nj<n>-<hash>.so`` with ``-DTRPO_NJ=<n>``, n in
 ``JOINT_COUNTS``, so that each ``nvcc`` compiles one count's
-instantiations. The first call to ``library`` builds every missing
-library that takes no joint count and the one asked for, one ``nvcc``
-each, all started together; ``build_all`` builds every library so. Each
+instantiations. The three sources whose kernels run the policy MLP
+(``PER_SHAPE``) build, for a policy other than the default (64, 64) one,
+one library per hidden shape, ``lib<name>[_nj<n>]_h<w0>x<w1>...`` with
+``-DTRPO_H0=<w0> -DTRPO_H1=<w1> ...`` (``csrc/policy_shape.cuh``): a run builds
+only its own policy's. The first call to ``library`` builds every missing
+default library that takes no joint count and the one asked for, one
+``nvcc`` each, all started together; ``build_all`` builds the default
+libraries, and any others it is given, so. Each
 compiler's ``-Xptxas -v`` report (registers, shared memory, spills) is
 kept beside its library. Nothing is built when this module is imported.
 """
@@ -32,6 +37,12 @@ SOURCES = ("rollout", "moments", "fvp", "rollout3d", "pg", "fvp_ff")
 # the sources built once per joint count, and the counts
 PER_JOINT = ("rollout", "rollout3d")
 JOINT_COUNTS = tuple(range(1, 9))
+# the sources built once per policy shape other than DEFAULT_HIDDEN, and
+# what they take: 1-3 hidden layers of widths 1-64 (ROADMAP B3 for more)
+PER_SHAPE = ("rollout3d", "pg", "fvp_ff")
+DEFAULT_HIDDEN = (64, 64)
+MAX_DEPTH = 3
+MAX_WIDTH = 64
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # The rollouts' dynamics round every multiply and add as PyTorch's separate
@@ -56,20 +67,59 @@ def _nvcc() -> str:
     return found
 
 
-def lib_name(source: str, n_joints: int | None = None) -> str:
-    """The library of ``source``; a per-joint source's for ``n_joints``."""
-    return source if n_joints is None else f"{source}_nj{n_joints}"
+def hidden_shape(params, what: str) -> tuple:
+    """The hidden widths of ``params``' tanh MLP ({W0..WL}); raises
+    NotImplementedError, naming ROADMAP B3, for a policy the kernel
+    ``what`` is not built for: past ``MAX_DEPTH`` hidden layers or
+    ``MAX_WIDTH`` units a layer."""
+    L = sum(1 for k in params if k.startswith("W")) - 1
+    hidden = tuple(int(params[f"W{i}"].shape[1]) for i in range(L))
+    if not 1 <= L <= MAX_DEPTH or max(hidden) > MAX_WIDTH:
+        raise NotImplementedError(
+            f"the {what} takes 1-{MAX_DEPTH} hidden layers of 1-{MAX_WIDTH} "
+            f"units, not {hidden} (ROADMAP B3)")
+    return hidden
 
 
-# every library: name -> (source, joint count or None)
-LIBS = {lib_name(s, n): (s, n) for s in SOURCES
+def policy_args(weights, hidden: tuple) -> tuple:
+    """The C entry points' policy arguments: the hidden widths as an int
+    array and their count, and a host array of the device pointers W0, b0,
+    ..., W_L, b_L, logstd from ``weights`` (contiguous fp32 tensors kept
+    alive by the caller)."""
+    keys = [f"{w}{l}" for l in range(len(hidden) + 1) for w in "Wb"]
+    ptrs = (ctypes.c_void_p * (len(keys) + 1))(
+        *(weights[k].data_ptr() for k in keys + ["logstd"]))
+    return (ctypes.c_int * len(hidden))(*hidden), len(hidden), ptrs
+
+
+def lib_name(source: str, n_joints: int | None = None,
+             hidden: tuple = DEFAULT_HIDDEN) -> str:
+    """The library of ``source``; a per-joint source's for ``n_joints``, a
+    per-shape source's for the hidden widths ``hidden`` (registered in
+    ``LIBS`` on first use)."""
+    name = source if n_joints is None else f"{source}_nj{n_joints}"
+    hidden = tuple(hidden)
+    if hidden == DEFAULT_HIDDEN:
+        return name
+    if source not in PER_SHAPE:
+        raise ValueError(f"{source} is built for {DEFAULT_HIDDEN} only")
+    name += "_h" + "x".join(map(str, hidden))
+    LIBS.setdefault(name, (source, n_joints, hidden))
+    return name
+
+
+# every library: name -> (source, joint count or None, hidden widths or
+# None for DEFAULT_HIDDEN); the default ones, and others as lib_name
+# registers them
+LIBS = {lib_name(s, n): (s, n, None) for s in SOURCES
         for n in (JOINT_COUNTS if s in PER_JOINT else (None,))}
 
 
 def _flags(name: str) -> tuple:
-    src, n = LIBS[name]
+    src, n, hidden = LIBS[name]
     return (NVCC_FLAGS + EXTRA_FLAGS.get(src, ())
-            + ((f"-DTRPO_NJ={n}",) if n else ()))
+            + ((f"-DTRPO_NJ={n}",) if n else ())
+            + tuple(f"-DTRPO_H{i}={w}" for i, w in enumerate(hidden or ())))
 
 
 def _sources(name: str) -> bytes:
@@ -93,9 +143,11 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
-def build_all(names=LIBS) -> float:
-    """Compile every missing library of ``names`` in parallel; returns the
-    seconds."""
+def build_all(names=None) -> float:
+    """Compile every missing library of ``names`` (the default libraries
+    when None) in parallel; returns the seconds."""
+    if names is None:
+        names = [n for n, (_, _, hidden) in LIBS.items() if hidden is None]
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -139,8 +191,8 @@ def library(name: str, signatures: dict) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            wanted = [n for n, (_, nj) in LIBS.items()
-                      if n == name or nj is None]
+            wanted = [n for n, (_, nj, hidden) in LIBS.items()
+                      if n == name or (nj is None and hidden is None)]
             if not all(_target(n).exists() for n in wanted):
                 build_all(wanted)
             lib = ctypes.CDLL(str(_target(name)))

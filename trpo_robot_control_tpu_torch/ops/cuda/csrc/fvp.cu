@@ -801,8 +801,9 @@ extern "C" int trpo_fvp_launch(const float* X, const float* h0,
                       : launch<2, 8>(X, h0, h1, w1p, Vp, W2, scale, v, partial,
                                      B, DO, DA, n_blocks, st);
     if (err != cudaSuccess) return (int)err;
-    return (int)fvp_tile::reduce(partial, v, out, n_blocks, DO, DA, damping,
-                                 st);
+    const int Pg = DO * H + H * H + H * DA + 2 * H + DA;
+    return (int)fvp_tile::reduce(partial, v, out, n_blocks, Pg, Pg + DA,
+                                 damping, st);
 }
 
 // What the card makes of the instantiation for (do, da): out[0] resident

@@ -16,7 +16,6 @@
 // this header builds the same code.
 namespace fvp_tile {
 
-constexpr int H = 64;          // hidden width (both layers)
 constexpr int NT = 256;        // threads per block of the reduce pass
 constexpr int RED_OUT = 32;
 constexpr int RED_GROUPS = NT / RED_OUT;
@@ -80,12 +79,11 @@ __global__ void __launch_bounds__(NT) reduce_kernel(
     }
 }
 
-// Launches reduce_kernel over the P = Pg + DA entries of v.
+// Launches reduce_kernel over the P entries of v: the Pg of the weight
+// gradient (every block's partial), then the da of logstd.
 inline cudaError_t reduce(const float* partial, const float* v, float* out,
-                          int n_blocks, int DO, int DA, float damping,
+                          int n_blocks, int Pg, int P, float damping,
                           cudaStream_t st) {
-    const int Pg = DO * H + H * H + H * DA + 2 * H + DA;
-    const int P = Pg + DA;
     reduce_kernel<<<(P + RED_OUT - 1) / RED_OUT, NT, 0, st>>>(
         partial, v, out, n_blocks, Pg, P, damping);
     return cudaGetLastError();

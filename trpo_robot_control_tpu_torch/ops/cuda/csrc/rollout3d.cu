@@ -29,10 +29,10 @@
 // nor FLOPs (~10 GFLOP of MLP plus the dynamics, ~0.5 ms at 67 TFLOP/s)
 // but the 200 dependent steps of each env: per substep a chain of FK ->
 // RNEA bias pass -> NJxNJ Cholesky -> solve -> Euler step -> sincosf, and per
-// step two 64-wide MLP layers whose weights reach every lane as
-// shared-memory broadcasts (each returns a weight to all 32 lanes, so the
-// load-return path bounds the MLP); and instruction fetch, since one warp
-// alone runs most of that chain's code.
+// step the MLP's hidden layers (two 64-wide at c3-c5) whose weights reach
+// every lane as shared-memory broadcasts (each returns a weight to all 32
+// lanes, so the load-return path bounds the MLP); and instruction fetch,
+// since one warp alone runs most of that chain's code.
 //
 // Design: warp roles. A block holds 32 envs (one per lane, so every
 // feature-first store is a 128-byte row) and NJ + 1 warps (8 at NJ = 7):
@@ -48,9 +48,10 @@
 //   joints before j vanishes, so the pass starts at joint j, carries no
 //   w terms, and below j only carries the force's moment down to the
 //   joints whose torques column j needs (tau_i, i <= j). The column
-//   warps also run the policy MLP (units split as evenly as they go, at
-//   NJ = 7 9/9/9/9/9/9/10, at NJ = 3 21/21/22; warp m forms action m),
-//   the sincosf of the new q (warp j: joint j) and, in
+//   warps also run the policy MLP, layer by layer (each layer's units
+//   split as evenly as they go, 64 at NJ = 7 9/9/9/9/9/9/10, at NJ = 3
+//   21/21/22; warp m forms action m), through two activation buffers
+//   used in turn, the sincosf of the new q (warp j: joint j) and, in
 //   Philox mode, the next step's action normals (warp NJ - 1, while the
 //   state warp finishes the step).
 // Shared memory carries the rest: per joint R, p, axis and the pass-
@@ -74,13 +75,18 @@
 // Instantiations: one library per joint count, built with -DTRPO_NJ=<n>
 // (n = 1..8, ops/cuda/build.py), each holding the six (task families,
 // obstacle) pairs (1, 2 or 3 families, obstacle off or on), each
-// terminating or not, each with fp32 or bf16 stores.
+// terminating or not, each with fp32 or bf16 stores; and per policy
+// shape, -DTRPO_H<l> (policy_shape.cuh: 1-3 hidden layers of 1-64 units,
+// (64, 64) without it). Every layer's weights stay in shared memory: a
+// third 64-wide layer adds 21 KB a block at NJ = 7, so one block fits an
+// SM there instead of two.
 //
 // Numerics: built with -fmad=false so every multiply and add rounds as
 // PyTorch's separate elementwise ops do in the plain version; the
 // Cholesky pivots use 1.0f / sqrtf (correctly rounded, as 1 / torch.sqrt
 // is), and the push term divides by |d| + 1e-6 as the plain version does;
-// the policy MLP uses explicit fmaf in d / k order. Arm constants arrive
+// the policy MLP uses explicit fmaf in d / k order at every layer, the
+// order of the plain version's matrix products. Arm constants arrive
 // as kernel arguments already rounded to float32, and products with the
 // zero and unit entries of the fixed transforms give the same numbers as
 // the plain version's sparse folding of them. The specialised passes
@@ -97,11 +103,14 @@
 #include <stdint.h>
 
 #include "philox.cuh"
+#include "policy_shape.cuh"
 #include "store.cuh"
 
 namespace {
 
-constexpr int H = 64;          // hidden width (both layers)
+using policy_shape::Hidden;
+using policy_shape::NL;
+using policy_shape::Weights;
 constexpr int ENVS = 32;       // envs per block, one per lane
 constexpr int NJ_MAX = 8;
 constexpr int FR = 24;         // floats per joint frame in shared memory
@@ -439,26 +448,48 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
 }
 
 // Shared-memory layout in floats (dynamic shared memory; every per-env
-// array is (row, lane)). The layer weights are padded per column warp:
-// slot (w, u), u < UPAD, holds unit first(w) + u, with first(w) = w H /
-// NJ, or 0 beyond the warp's units; UPAD rounds the most units a warp
-// takes (UMAX) up to 16 bytes. The frames have a joint slot NJ whose r
-// stays 0, the last joint's child offset.
+// array is (row, lane)). Hidden layer l's weights and bias are padded per
+// column warp: slot (w, u), u < upad(l), holds unit first(w) + u, with
+// first(w) = w H_l / NJ, or 0 beyond the warp's units; upad rounds the
+// most units a warp takes (umax) up to 16 bytes. Layer l's block is its
+// in(l) weight rows of slots(l) floats and then its bias row, the layers'
+// blocks one after another. The frames have a joint slot NJ whose r stays
+// 0, the last joint's child offset.
+template <int DO>
+__host__ __device__ constexpr int layer_in(int l) {
+    return l == 0 ? DO : Hidden::width(l - 1);
+}
+template <int NJ>
+__host__ __device__ constexpr int umax(int l) {
+    return (Hidden::width(l) + NJ - 1) / NJ;
+}
+template <int NJ>
+__host__ __device__ constexpr int upad(int l) {
+    return (umax<NJ>(l) + 3) / 4 * 4;
+}
+template <int NJ>
+__host__ __device__ constexpr int slots(int l) {
+    return NJ * upad<NJ>(l);
+}
+// offset of hidden layer l's block (l = NL: the end of the last one)
+template <int NJ, int DO>
+__host__ __device__ constexpr int layer_off(int l) {
+    int off = 0;
+    for (int m = 0; m < l; ++m)
+        off += (layer_in<DO>(m) + 1) * slots<NJ>(m);
+    return off;
+}
+
 template <int NJ, int DO>
 struct Smem {
-    static constexpr int UMAX = (H + NJ - 1) / NJ;
-    static constexpr int UPAD = (UMAX + 3) / 4 * 4;
-    static constexpr int SLOTS = NJ * UPAD;
-    static constexpr int W1 = 0;
-    static constexpr int W0 = W1 + H * SLOTS;
-    static constexpr int B0 = W0 + DO * SLOTS;
-    static constexpr int B1 = B0 + SLOTS;
-    static constexpr int W2 = B1 + SLOTS;
-    static constexpr int B2 = W2 + H * NJ;
+    static constexpr int HL = Hidden::width(NL - 1);   // the head's inputs
+    static constexpr int W2 = layer_off<NJ, DO>(NL);   // the head (HL, NJ)
+    static constexpr int B2 = W2 + HL * NJ;
     static constexpr int OBS = B2 + ((NJ + 7) / 8) * 8;
+    // activations of the even and the odd hidden layers
     static constexpr int H0 = OBS + DO * ENVS;
-    static constexpr int H1 = H0 + H * ENVS;
-    static constexpr int Z = H1 + H * ENVS;
+    static constexpr int H1 = H0 + Hidden::widest() * ENVS;
+    static constexpr int Z = H1 + (NL > 1 ? Hidden::widest() * ENVS : 0);
     static constexpr int ACT = Z + NJ * ENVS;
     static constexpr int FRAME = ACT + NJ * ENVS;
     static constexpr int M = FRAME + (NJ + 1) * FR * ENVS;
@@ -471,7 +502,7 @@ struct Smem {
     static constexpr int AS = BIAS + NJ * ENVS;
     static constexpr int END = AS + 3 * (NJ * (NJ + 1) / 2) * ENVS;
     static constexpr size_t BYTES = END * sizeof(float);
-    static_assert(SLOTS % 4 == 0 && (DO * SLOTS) % 4 == 0,
+    static_assert(slots<NJ>(0) % 4 == 0 && W2 % 4 == 0,
                   "weight slices stay 16-byte aligned");
 };
 
@@ -516,17 +547,47 @@ __device__ __forceinline__ void layer_units(const float* in, const float* W,
     for (int u = 0; u < cnt; ++u) o[u * ENVS] = tanhf(o[u * ENVS] + b[u]);
 }
 
+// Hidden layer l's weights and bias into their padded block.
+template <int NJ, int DO, int NT, int l>
+__device__ __forceinline__ void stage_layer(const Weights& p, float* smem) {
+    constexpr int Hl = Hidden::width(l), IN = layer_in<DO>(l);
+    constexpr int S = slots<NJ>(l), UP = upad<NJ>(l);
+    float* blk = smem + layer_off<NJ, DO>(l);
+    for (int i = threadIdx.x; i < (IN + 1) * S; i += NT) {
+        const int row = i / S, w = (i % S) / UP, u = i % UP;
+        const int first = w * Hl / NJ, cnt = (w + 1) * Hl / NJ - first;
+        float v = 0.f;
+        if (u < cnt) {
+            const int k = first + u;
+            v = row < IN ? p.W[l][row * Hl + k] : p.b[l][k];
+        }
+        blk[i] = v;
+    }
+}
+
+// Hidden layer l for column warp j: layer 0 reads the observation, layer
+// l > 0 the buffer layer l - 1 wrote; even layers write H0, odd ones H1.
+template <int NJ, int DO, int l>
+__device__ __forceinline__ void mlp_layer(const float* smem, const float* sObs,
+                                          float* sH0, float* sH1, int j,
+                                          int lane) {
+    constexpr int Hl = Hidden::width(l), IN = layer_in<DO>(l);
+    constexpr int S = slots<NJ>(l), UP = upad<NJ>(l);
+    const float* blk = smem + layer_off<NJ, DO>(l);
+    const int first = j * Hl / NJ, cnt = (j + 1) * Hl / NJ - first;
+    layer_units<umax<NJ>(l), IN, S>(
+        l == 0 ? sObs : (l % 2 ? sH0 : sH1), blk + j * UP,
+        blk + IN * S + j * UP, first, cnt, l % 2 ? sH1 : sH0, lane);
+}
+
 template <int NJ, int NTASKS, bool OBST, bool TERM, typename Out>
 __global__ void __launch_bounds__((NJ + 1) * ENVS,
                                   min_blocks<NJ, obs_dim<NJ, NTASKS>()>())
 rollout3d_kernel(
     Arm3D c, const float* __restrict__ q0, const float* __restrict__ qd0,
     const float* __restrict__ tgt0, const int* __restrict__ task0,
-    const float* __restrict__ W0,
-    const float* __restrict__ b0, const float* __restrict__ W1,
-    const float* __restrict__ b1, const float* __restrict__ W2,
-    const float* __restrict__ b2, const float* __restrict__ logstd,
-    const float* __restrict__ eps, const int64_t* __restrict__ seed,
+    Weights pol, const float* __restrict__ eps,
+    const int64_t* __restrict__ seed,
     const float* __restrict__ fq, const float* __restrict__ fqd,
     const float* __restrict__ ftgt, const int* __restrict__ ftask,
     Out* __restrict__ obs, Out* __restrict__ act, float* __restrict__ rew,
@@ -536,36 +597,21 @@ rollout3d_kernel(
     constexpr int NCT = NJ * ENVS;       // column warps' threads
     constexpr int DO = obs_dim<NJ, NTASKS>();
     using L = Smem<NJ, DO>;
-    constexpr int UPAD = L::UPAD;
     extern __shared__ float smem[];
-    float* sW1 = smem + L::W1;
-    float* sW0 = smem + L::W0;
-    float* sb0 = smem + L::B0;
-    float* sb1 = smem + L::B1;
     float* sW2 = smem + L::W2;
     float* sb2 = smem + L::B2;
     float* sObs = smem + L::OBS;
     float* sH0 = smem + L::H0;
     float* sH1 = smem + L::H1;
+    const float* sHL = (NL - 1) % 2 ? sH1 : sH0;    // the head's inputs
     float* sZ = smem + L::Z;
     float* sAct = smem + L::ACT;
     float* sM = smem + L::M;
-    for (int i = threadIdx.x; i < (H + DO + 2) * L::SLOTS; i += NT) {
-        const int row = i / L::SLOTS, w = (i % L::SLOTS) / UPAD;
-        const int u = i % UPAD;
-        const int first = w * H / NJ, cnt = (w + 1) * H / NJ - first;
-        float v = 0.f;
-        if (u < cnt) {
-            const int k = first + u;
-            if (row < H) v = W1[row * H + k];
-            else if (row < H + DO) v = W0[(row - H) * H + k];
-            else if (row == H + DO) v = b0[k];
-            else v = b1[k];
-        }
-        smem[i] = v;                     // W1, W0, b0, b1 are contiguous
-    }
-    for (int i = threadIdx.x; i < H * NJ; i += NT) sW2[i] = W2[i];
-    if (threadIdx.x < NJ) sb2[threadIdx.x] = b2[threadIdx.x];
+    stage_layer<NJ, DO, NT, 0>(pol, smem);
+    if constexpr (NL > 1) stage_layer<NJ, DO, NT, 1>(pol, smem);
+    if constexpr (NL > 2) stage_layer<NJ, DO, NT, 2>(pol, smem);
+    for (int i = threadIdx.x; i < L::HL * NJ; i += NT) sW2[i] = pol.W[NL][i];
+    if (threadIdx.x < NJ) sb2[threadIdx.x] = pol.b[NL][threadIdx.x];
 
     const int lane = threadIdx.x % ENVS;
     const int wid = threadIdx.x / ENVS;
@@ -718,8 +764,7 @@ rollout3d_kernel(
     } else {
         // ------------------------------------------------ a column warp
         const int j = wid;
-        const float sigma = expf(logstd[j]);
-        const int first = j * H / NJ, cnt = (j + 1) * H / NJ - first;
+        const float sigma = expf(pol.logstd[j]);
         float* as = smem + L::AS + 3 * (j * NJ - j * (j - 1) / 2) * ENVS
                   + lane;
         // the action normals, drawn by the last column warp a step ahead
@@ -745,19 +790,21 @@ rollout3d_kernel(
                             obs[((size_t)t * DO + d) * N + e] =
                                 store_cast<Out>(sObs[d * ENVS + lane]);
                     }
-                    layer_units<L::UMAX, DO, L::SLOTS>(
-                        sObs, sW0 + j * UPAD, sb0 + j * UPAD, first, cnt, sH0,
-                        lane);
+                    mlp_layer<NJ, DO, 0>(smem, sObs, sH0, sH1, j, lane);
                     bar_sync(BAR_MLP, NCT);
-                    layer_units<L::UMAX, H, L::SLOTS>(
-                        sH0, sW1 + j * UPAD, sb1 + j * UPAD, first, cnt, sH1,
-                        lane);
-                    bar_sync(BAR_MLP, NCT);
+                    if constexpr (NL > 1) {
+                        mlp_layer<NJ, DO, 1>(smem, sObs, sH0, sH1, j, lane);
+                        bar_sync(BAR_MLP, NCT);
+                    }
+                    if constexpr (NL > 2) {
+                        mlp_layer<NJ, DO, 2>(smem, sObs, sH0, sH1, j, lane);
+                        bar_sync(BAR_MLP, NCT);
+                    }
                     // action j: mean, noise, store
                     float mu = 0.f;
 #pragma unroll 8
-                    for (int k = 0; k < H; ++k)
-                        mu = fmaf(sH1[k * ENVS + lane], sW2[k * NJ + j], mu);
+                    for (int k = 0; k < L::HL; ++k)
+                        mu = fmaf(sHL[k * ENVS + lane], sW2[k * NJ + j], mu);
                     const float zn = (eps != nullptr)
                                          ? eps[((size_t)t * NJ + j) * N + e]
                                          : sZ[j * ENVS + lane];
@@ -791,7 +838,8 @@ rollout3d_kernel(
 struct Args {
     const float *q0, *qd0, *tgt;
     const int* task;
-    const float *W0, *b0, *W1, *b1, *W2, *b2, *logstd, *eps;
+    Weights pol;
+    const float* eps;
     const int64_t* seed;
     const float *fq, *fqd, *ftgt;
     const int* ftask;
@@ -877,6 +925,10 @@ cudaError_t set_smem() {
 // terminating != 0 takes the TERM instantiation, which writes dones (T, N)
 // fp32 and takes the fresh episodes from fq/fqd (T, n, N), ftgt (T, 3, N)
 // and ftask (T, N) int32, or from Philox when fq is NULL.
+// hidden (n_hidden ints, host): the policy's hidden widths, which must be
+// this library's (policy_shape.cuh), else cudaErrorInvalidValue; weights (host
+// array of device pointers): W0, b0, ..., W_L, b_L, L = n_hidden (W_l
+// (in, out) row-major), then logstd (n).
 // obs (T, 3n+3 (+ n_tasks when > 1), N) and act (T, n, N) are bf16 when
 // store_bf16 != 0, else fp32; rew (T, N) fp32. Instantiated as `dispatch`
 // lists; another joint count returns cudaErrorInvalidValue, another number
@@ -884,15 +936,16 @@ cudaError_t set_smem() {
 // NotImplementedError before it launches).
 extern "C" int trpo_rollout3d_launch(
     const float* consts, int n_joints, int n_substeps, int n_tasks,
-    int obstacle, int terminating, int store_bf16, const float* q0,
-    const float* qd0, const float* tgt, const int* task, const float* W0,
-    const float* b0, const float* W1, const float* b1, const float* W2,
-    const float* b2, const float* logstd, const float* eps,
+    int obstacle, int terminating, int store_bf16, const int* hidden,
+    int n_hidden, const float* q0, const float* qd0, const float* tgt,
+    const int* task, const float* const* weights, const float* eps,
     const int64_t* seed, const float* fq, const float* fqd,
     const float* ftgt, const int* ftask, void* obs, void* act, float* rew,
     float* dones, int N, int T, void* stream) {
-    if (n_joints != TRPO_NJ) return (int)cudaErrorInvalidValue;
+    if (n_joints != TRPO_NJ || !policy_shape::same_shape(hidden, n_hidden))
+        return (int)cudaErrorInvalidValue;
     constexpr int NJ = TRPO_NJ;
+    const Weights pol = policy_shape::weights_of(weights);
     Arm3D c;
     const float* s = consts;
     for (int i = 0; i < NJ; ++i)
@@ -927,8 +980,8 @@ extern "C" int trpo_rollout3d_launch(
     c.rmax = s[21];
     c.planar = s[22] != 0.f;
     c.n_substeps = n_substeps;
-    const Args a = {q0, qd0, tgt, task, W0, b0, W1, b1, W2, b2, logstd, eps,
-                    seed, fq, fqd, ftgt, ftask, obs, act, rew, dones, N, T,
+    const Args a = {q0, qd0, tgt, task, pol, eps, seed, fq, fqd, ftgt, ftask,
+                    obs, act, rew, dones, N, T,
                     static_cast<cudaStream_t>(stream)};
     return (int)dispatch(
         n_joints, n_tasks, obstacle, terminating, store_bf16,
@@ -938,8 +991,8 @@ extern "C" int trpo_rollout3d_launch(
             if (err != cudaSuccess) return err;
             dim3 grid((a.N + ENVS - 1) / ENVS);
             I::kernel()<<<grid, I::THREADS, I::SMEM, a.stream>>>(
-                c, a.q0, a.qd0, a.tgt, a.task, a.W0, a.b0, a.W1, a.b1, a.W2,
-                a.b2, a.logstd, a.eps, a.seed, a.fq, a.fqd, a.ftgt, a.ftask,
+                c, a.q0, a.qd0, a.tgt, a.task, a.pol, a.eps, a.seed, a.fq,
+                a.fqd, a.ftgt, a.ftask,
                 static_cast<typename I::Out*>(a.obs),
                 static_cast<typename I::Out*>(a.act), a.rew, a.dones, a.N,
                 a.T);

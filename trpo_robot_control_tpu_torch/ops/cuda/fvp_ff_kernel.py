@@ -7,7 +7,9 @@ the strided subsample obs_ff[::k, :, ::e] (T', do, N') in place, through
 its time and env strides and in its storage dtype, recomputes the two
 hidden activations, and runs the forward tangent and the reverse
 accumulation. The logstd block 2 v and the damping are added in the
-kernel's reduce pass. The 64-wide products run on the tensor cores and
+kernel's reduce pass. It takes any tanh policy of 1-3 hidden layers of
+1-64 units (one library per policy shape other than (64, 64); past them,
+ROADMAP B3). The hidden layers' products run on the tensor cores and
 stay exact to fp32: the kernel splits every fp32 operand (weights, v,
 activations, fp32-stored obs) into three bf16 planes as
 ``pg_kernel.split3`` does and sums the six plane products that hold
@@ -29,14 +31,15 @@ from . import build
 from .fvp_kernel import activations, gn_fvp_math
 from ...models import policy
 
-HIDDEN = 64
 # fixed, so the reduction order does not depend on the card: one block (188
-# KB of shared memory) on each of an H100's 132 SMs
+# KB of shared memory at (64, 64)) on each of an H100's 132 SMs
 MAX_BLOCKS = 132
-TILE = 64           # samples per tile (csrc/fvp_ff.cu: TS)
+TILE = 64           # samples per tile (csrc/fvp_ff.cu: TS; 32 where the
+                    # policy's planes leave no room for 64, ``occupancy``)
 
 _SIG = {"trpo_fvp_ff_launch": [ctypes.c_void_p] + [ctypes.c_longlong] * 3
-        + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+        + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+        + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         "trpo_fvp_ff_occupancy": [ctypes.c_int, ctypes.c_void_p]}
 
@@ -58,10 +61,7 @@ gn_fvp_ff_plain.calls = 0
 def _check(params, obs_sub_ff):
     Ts, do, N = obs_sub_ff.shape
     da = params["logstd"].shape[0]
-    if policy.n_layers(params) != 3 or any(
-            params[f"W{i}"].shape[1] != HIDDEN for i in range(2)):
-        raise NotImplementedError(
-            "the FVP kernel takes a (64, 64) tanh policy")
+    build.hidden_shape(params, "feature-first FVP kernel")
     if do > 32 or da > 8:
         raise NotImplementedError("the FVP kernel takes obs_dim <= 32, "
                                   "act_dim <= 8")
@@ -71,7 +71,7 @@ def _check(params, obs_sub_ff):
         raise ValueError("the Fisher subsample must be a strided view with "
                          "positive strides")
     dev = obs_sub_ff.device
-    for k in ("W0", "b0", "W1", "b1", "W2", "logstd"):
+    for k in sorted(params):
         x = params[k]
         if x.dtype != torch.float32 or x.device != dev \
                 or not x.is_contiguous():
@@ -88,15 +88,15 @@ def gn_fvp_ff(params, obs_sub_ff, scale, v, damping: float):
             or v.dtype != torch.float32 or not v.is_contiguous():
         raise ValueError("v must be a contiguous fp32 vector of the policy's "
                          f"parameter count on {dev}")
+    hidden = build.hidden_shape(params, "feature-first FVP kernel")
     n_blocks = min(Ts * -(-N // TILE), MAX_BLOCKS)
     partial = torch.empty(n_blocks * (P - da), device=dev)
     out = torch.empty_like(v)
-    lib = build.library("fvp_ff", _SIG)
+    lib = build.library(build.lib_name("fvp_ff", hidden=hidden), _SIG)
     err = lib.trpo_fvp_ff_launch(
         build.ptr(obs_sub_ff), *obs_sub_ff.stride(),
-        *(build.ptr(x) for x in (params["W0"], params["b0"], params["W1"],
-                                 params["b1"], params["W2"], scale, v,
-                                 partial, out)),
+        *build.policy_args(params, hidden),
+        *(build.ptr(x) for x in (scale, v, partial, out)),
         Ts, do, da, N, float(damping), n_blocks,
         int(obs_sub_ff.dtype == torch.bfloat16), build.stream_handle(dev))
     build.check(err, "feature-first FVP kernel")
@@ -119,15 +119,18 @@ def make_gn_fvp_ff(params, obs_sub_ff, damping: float):
     return lambda v: gn_fvp_ff(params, obs_sub_ff, scale, v, damping)
 
 
-def occupancy(store_dtype=torch.bfloat16) -> dict:
+def occupancy(store_dtype=torch.bfloat16, hidden=build.DEFAULT_HIDDEN
+              ) -> dict:
     """What the card makes of the kernel for a subsample stored in
-    ``store_dtype``: resident blocks and warps per SM, registers and local
-    (spill) bytes per thread, dynamic and static shared bytes per block."""
-    out = (ctypes.c_int * 6)()
-    err = build.library("fvp_ff", _SIG).trpo_fvp_ff_occupancy(
+    ``store_dtype`` and a policy of ``hidden`` widths: resident blocks and
+    warps per SM, registers and local (spill) bytes per thread, dynamic
+    and static shared bytes per block, samples a tile."""
+    out = (ctypes.c_int * 7)()
+    err = build.library(build.lib_name("fvp_ff", hidden=hidden),
+                        _SIG).trpo_fvp_ff_occupancy(
         int(store_dtype == torch.bfloat16), out)
     build.check(err, "feature-first FVP kernel occupancy")
-    blocks, regs, local, dyn, static, threads = out
+    blocks, regs, local, dyn, static, threads, tile = out
     return dict(blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32,
                 registers=regs, local_bytes=local, smem_dynamic=dyn,
-                smem_static=static, threads=threads)
+                smem_static=static, threads=threads, tile=tile)

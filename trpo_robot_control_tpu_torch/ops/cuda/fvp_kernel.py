@@ -92,7 +92,8 @@ def workspace(params, obs):
     if W1.shape != (HIDDEN, HIDDEN) or W1.dtype != torch.float32 \
             or not W1.is_contiguous() or W1.device != obs.device:
         raise NotImplementedError("the FVP kernel takes a (64, 64) tanh "
-                                  "policy with contiguous fp32 weights")
+                                  "policy with contiguous fp32 weights "
+                                  "(other shapes: ROADMAP B3)")
     B, do = obs.shape
     da = params["logstd"].shape[0]
     Pg = do * HIDDEN + HIDDEN * HIDDEN + HIDDEN * da + 2 * HIDDEN + da
@@ -115,7 +116,8 @@ def gn_fvp(params, obs, hs, scale, v, damping: float, ws):
     B, do = obs.shape
     da = params["logstd"].shape[0]
     if len(hs) != 2 or any(h.shape != (B, HIDDEN) for h in hs):
-        raise NotImplementedError("the FVP kernel takes a (64, 64) tanh policy")
+        raise NotImplementedError("the FVP kernel takes a (64, 64) tanh "
+                                  "policy (other shapes: ROADMAP B3)")
     if do > 32 or da > 8:
         raise NotImplementedError("the FVP kernel takes obs_dim <= 32, "
                                   "act_dim <= 8")

@@ -9,7 +9,9 @@ logp (T, N). The TPU kernel's lane-pair packing, block-diagonal weights,
 ones-row bias fold and accumulator rotation are matrix-unit tricks and are
 not carried over.
 
-In bf16 mode (c3-c5) the products run on the tensor cores and stay exact
+It takes any tanh policy of 1-3 hidden layers of 1-64 units (one library
+per policy shape other than (64, 64); past them, ROADMAP B3). In bf16 mode
+(c3-c5) the products run on the tensor cores and stay exact
 against the fp32 weights: the kernel's prologue splits each weight into
 three bf16 planes as ``split3`` does, so a bf16 activation times the three
 planes is the fp32 product (the TPU kernel rounds its weights to bf16
@@ -29,14 +31,13 @@ import torch
 from . import build
 from ...models import policy
 
-HIDDEN = 64
 # fixed, so the reduction order does not depend on the card: two blocks on
 # each of an H100's 132 SMs
 MAX_BLOCKS = 264
 TILE = 64           # samples per tile, both modes (csrc/pg.cu: S, TS)
 
-_SIG = {"trpo_pg_launch": [ctypes.c_void_p] * 14
-        + [ctypes.c_int] * 6 + [ctypes.c_void_p]}
+_SIG = {"trpo_pg_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int]
+        + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]}
 
 
 def split3(w):
@@ -69,10 +70,7 @@ def surrogate_grad(params, obs_ff, act_ff, adv_ff):
         return surrogate_grad_plain(params, obs_ff, act_ff, adv_ff)
     T, do, N = obs_ff.shape
     da = act_ff.shape[1]
-    if policy.n_layers(params) != 3 or any(
-            params[f"W{i}"].shape[1] != HIDDEN for i in range(2)):
-        raise NotImplementedError(
-            "the surrogate-gradient kernel takes a (64, 64) tanh policy")
+    hidden = build.hidden_shape(params, "surrogate-gradient kernel")
     if do > 32 or da > 8:
         raise NotImplementedError("the surrogate-gradient kernel takes "
                                   "obs_dim <= 32, act_dim <= 8")
@@ -84,7 +82,7 @@ def surrogate_grad(params, obs_ff, act_ff, adv_ff):
               ("act_ff", act_ff, dt, (T, da, N)),
               ("adv_ff", adv_ff, torch.float32, (T, N))] + [
         (k, params[k], torch.float32, tuple(params[k].shape))
-        for k in ("W0", "b0", "W1", "b1", "W2", "b2", "logstd")]
+        for k in sorted(params)]
     for name, x, want, shape in checks:
         if (x.dtype != want or x.device != dev or tuple(x.shape) != shape
                 or not x.is_contiguous()):
@@ -96,12 +94,11 @@ def surrogate_grad(params, obs_ff, act_ff, adv_ff):
     g = torch.empty(P, device=dev)
     mu = torch.empty(T, da, N, device=dev)
     logp = torch.empty(T, N, device=dev)
-    lib = build.library("pg", _SIG)
+    lib = build.library(build.lib_name("pg", hidden=hidden), _SIG)
     err = lib.trpo_pg_launch(
-        *(build.ptr(x) for x in (obs_ff, act_ff, adv_ff, params["W0"],
-                                 params["b0"], params["W1"], params["b1"],
-                                 params["W2"], params["b2"], params["logstd"],
-                                 mu, logp, partial, g)),
+        *(build.ptr(x) for x in (obs_ff, act_ff, adv_ff)),
+        *build.policy_args(params, hidden),
+        *(build.ptr(x) for x in (mu, logp, partial, g)),
         T, do, da, N, n_blocks, int(dt == torch.bfloat16),
         build.stream_handle(dev))
     build.check(err, "surrogate-gradient kernel")

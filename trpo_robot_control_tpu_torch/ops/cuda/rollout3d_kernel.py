@@ -15,13 +15,14 @@ done and starts a fresh episode (state, target and, with several
 families, task) before the next step. It takes any arm, spatial or
 planar (a planar arm's fresh targets lie in the z = 0 plane, as
 ``envs/arm.py:reset`` draws them), with 1, 2 or 3 task families and the
-obstacle term on or off; it is built for ``JOINT_COUNTS`` (one library
-per count; past them, ROADMAP B3). See the source for what bounds it on
-the card and its warp roles: one state warp does each env's serial work,
-one column warp per joint runs mass-matrix passes specialised to what is
-not structurally zero (``mass_bias_split`` states them in PyTorch) and
-the policy MLP; ``occupancy`` reports what the card makes of each
-instantiation.
+obstacle term on or off, and any tanh policy of 1-3 hidden layers of
+1-64 units; it is built for ``JOINT_COUNTS`` (one library per count, and
+per policy shape other than (64, 64); past them, ROADMAP B3). See the
+source for what bounds it on the card and its warp roles: one state warp
+does each env's serial work, one column warp per joint runs mass-matrix
+passes specialised to what is not structurally zero (``mass_bias_split``
+states them in PyTorch) and the policy MLP; ``occupancy`` reports what
+the card makes of each instantiation.
 
 ``rollout3d`` is the wrapper: on CUDA tensors it launches the kernel (or
 raises), on CPU tensors it runs ``rollout3d_plain``, the same component
@@ -50,11 +51,11 @@ from .rollout_kernel import (JOINT_COUNTS, _policy_mean, check_fresh,
                              check_joints, check_store, done_dist2,
                              fresh_feature_first)
 
-HIDDEN = 64
 TASK_FAMILIES = (1, 2, 3)   # reach; reach and track; reach, track and push
 
 _SIG = {"trpo_rollout3d_launch":
-        [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 21
+        [ctypes.c_void_p] + [ctypes.c_int] * 6
+        + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 15
         + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         "trpo_rollout3d_occupancy": [ctypes.c_int] * 5 + [ctypes.c_void_p]}
 
@@ -598,19 +599,14 @@ def rollout3d(cfg, params, q0, qd0, tgt, task, eps=None, seed=None,
     T = cfg.horizon
     do = cfg.obs_dim
     dev = q0.device
-    L = sum(1 for k in params if k.startswith("W"))
-    if L != 3 or any(params[f"W{i}"].shape[1] != HIDDEN for i in range(2)):
-        raise NotImplementedError(
-            "the 3-D rollout kernel takes a (64, 64) tanh policy")
+    hidden = build.hidden_shape(params, "3-D rollout kernel")
     if params["W0"].shape[0] != do:
         raise ValueError(f"W0 takes {params['W0'].shape[0]} inputs, the "
                          f"observation has {do}")
     check_instantiated(c)
     if (eps is None) == (seed is None):
         raise ValueError("pass exactly one of eps and seed")
-    ins = dict(q0=q0.T, qd0=qd0.T, tgt=tgt.T,
-               **{k: params[k] for k in ("W0", "b0", "W1", "b1", "W2", "b2",
-                                         "logstd")})
+    ins = dict(q0=q0.T, qd0=qd0.T, tgt=tgt.T, **params)
     ins = {k: v.to(torch.float32).contiguous() for k, v in ins.items()}
     ins["task"] = task.to(torch.int32).contiguous()
     if ins["task"].shape != (N,):
@@ -639,14 +635,14 @@ def rollout3d(cfg, params, q0, qd0, tgt, task, eps=None, seed=None,
     rew = torch.empty(T, N, device=dev)
     dones = torch.empty(T, N, device=dev) if term else None
     opt = lambda x: build.ptr(x) if x is not None else ctypes.c_void_p(None)
-    lib = build.library(build.lib_name("rollout3d", n), _SIG)
+    lib = build.library(build.lib_name("rollout3d", n, hidden), _SIG)
+    hid, n_hid, weights = build.policy_args(ins, hidden)
     err = lib.trpo_rollout3d_launch(
         _consts_array(c), n, c.n_substeps, c.n_tasks,
         int(c.obstacle_weight > 0.0), int(term),
-        int(store_dtype == torch.bfloat16),
-        *(build.ptr(ins[k]) for k in ("q0", "qd0", "tgt", "task", "W0", "b0",
-                                      "W1", "b1", "W2", "b2", "logstd")),
-        eps_p, seed_p, *(opt(x) for x in fresh_ff), build.ptr(obs),
+        int(store_dtype == torch.bfloat16), hid, n_hid,
+        *(build.ptr(ins[k]) for k in ("q0", "qd0", "tgt", "task")),
+        weights, eps_p, seed_p, *(opt(x) for x in fresh_ff), build.ptr(obs),
         build.ptr(act), build.ptr(rew), opt(dones), N, T,
         build.stream_handle(dev))
     build.check(err, "3-D rollout kernel")
@@ -668,16 +664,18 @@ def check_instantiated(c: Arm3DConsts) -> None:
             f"not {c.n_tasks}")
 
 
-def occupancy(cfg, store_dtype=torch.float32) -> dict:
-    """What the card makes of the kernel instantiation ``cfg`` and
-    ``store_dtype`` launch: resident blocks and warps per SM
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
-    (spill) bytes per thread, dynamic and static shared bytes per block."""
+def occupancy(cfg, store_dtype=torch.float32, hidden=build.DEFAULT_HIDDEN
+              ) -> dict:
+    """What the card makes of the kernel instantiation ``cfg``,
+    ``store_dtype`` and the policy's ``hidden`` widths launch: resident
+    blocks and warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    registers and local (spill) bytes per thread, dynamic and static shared
+    bytes per block."""
     c = arm3d_consts(cfg)
     check_instantiated(c)
     check_store(store_dtype)
     out = (ctypes.c_int * 6)()
-    err = build.library(build.lib_name("rollout3d", c.n),
+    err = build.library(build.lib_name("rollout3d", c.n, hidden),
                         _SIG).trpo_rollout3d_occupancy(
         c.n, c.n_tasks, int(c.obstacle_weight > 0.0), int(c.done_dist > 0.0),
         int(store_dtype == torch.bfloat16), out)

@@ -355,7 +355,8 @@ def rollout(cfg, params, q0, qd0, tgt, eps=None, seed=None, fresh=None,
     L = sum(1 for k in params if k.startswith("W"))
     if L != 3 or any(params[f"W{i}"].shape[1] != HIDDEN for i in range(2)):
         raise NotImplementedError(
-            "the rollout kernel takes a (64, 64) tanh policy")
+            "the rollout kernel takes a (64, 64) tanh policy (other "
+            "shapes: ROADMAP B3)")
     check_joints(n, "planar rollout kernel")
     if (eps is None) == (seed is None):
         raise ValueError("pass exactly one of eps and seed")

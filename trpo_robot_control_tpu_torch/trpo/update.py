@@ -5,7 +5,8 @@ values -> GAE -> whitening -> baseline moments (K2) -> ridge fit ->
 closed-form surrogate gradient (K5 at B >= 400k samples, else the plain
 form) -> CG on the damped GN-FVP over the Fisher subsample, every k-th time
 step of every e-th env (K6 on the feature-first subsample at B' >= 64k
-samples, else K3 on its batch-major relayout) -> step size from the CG
+samples, else K3 on its batch-major relayout; a policy wider than 64 takes
+the plain form and K3, as in JAX: ``kernel_routes``) -> step size from the CG
 invariant -> KL line search over the full batch or an env-strided
 subsample of it. The kernel gates are the JAX package's, on the global
 batch, and the CPU takes the same route through the plain versions. With
@@ -51,6 +52,37 @@ def _check_supported(cfg, batch, axis_name):
 # kernel, "xla" the plain form.
 SURRGRAD_MIN_B = 400_000
 FVP_FF_MIN_B = 64_000
+# The JAX package's width rule for its packed kernels (the half of
+# ``pg_kernel.tiles_ok`` there that is not TPU tile layout): the
+# observation, the action and every hidden layer at most this wide, else
+# the plain surrogate gradient and the batch-major FVP, even when the
+# config forces the kernels.
+PACKED_MAX_WIDTH = 64
+
+
+def packed_ok(params) -> bool:
+    """Whether every width of the policy fits the packed kernels (K5, K6)."""
+    L = policy.n_layers(params) - 1
+    widths = [params["W0"].shape[0], params[f"W{L}"].shape[1]] \
+        + [params[f"W{l}"].shape[1] for l in range(L)]
+    return max(widths) <= PACKED_MAX_WIDTH
+
+
+def kernel_routes(tr, params, T, N, sub_T, sub_N):
+    """The update's routes for a (T, ., N) batch and its (sub_T, ., sub_N)
+    Fisher subsample, decided as the JAX package's resolver decides them
+    (its trpo/update.py), with the port's gates: ``surrgrad`` "pallas" (K5)
+    or "xla" (``policy.surrogate_grad_ff``), ``fvp`` "ff" (K6 on the
+    feature-first subsample) or "bm" (K3 on its batch-major relayout)."""
+    sg = tr.surrgrad_impl
+    if sg == "auto":
+        sg = "pallas" if T * N >= SURRGRAD_MIN_B else "xla"
+    if sg == "pallas" and not packed_ok(params):
+        sg = "xla"
+    ff = (tr.fvp_subsample > 1 and tr.fvp_impl not in ("xla", "pallas_bm")
+          and packed_ok(params)
+          and (tr.fvp_impl == "pallas" or sub_T * sub_N >= FVP_FF_MIN_B))
+    return dict(surrgrad=sg, fvp="ff" if ff else "bm")
 
 
 def _eval_candidates(params, thetas, obs_ff, act_ff, adv, mu_old, logp_old,
@@ -115,11 +147,10 @@ def trpo_update(cfg, params, w, batch, axis_name=None,
         w_new = baseline.fit_normal(A, b_vec)
 
     # ---- 2) closed-form surrogate gradient at theta_old
+    k, e = tr.fvp_subsample, tr.fvp_env_subsample
+    routes = kernel_routes(tr, params, T, N, -(-T // k), -(-N // e))
     with record_function("trpo/surrogate_grad"):
-        sg = tr.surrgrad_impl
-        if sg == "auto":
-            sg = "pallas" if T * N >= SURRGRAD_MIN_B else "xla"
-        if sg == "pallas":
+        if routes["surrgrad"] == "pallas":
             g_tree, mu_old_ff, logp_old_ff = pg_kernel.surrogate_grad(
                 params, obs_ff, act_ff, adv)
         else:
@@ -134,7 +165,6 @@ def trpo_update(cfg, params, w, batch, axis_name=None,
     # T % k == 0; the env stride e (envs are i.i.d.) comes on top of it.
     # K6 reads that strided view in place; K3 takes it relaid to
     # (B / (k e), do) fp32.
-    k, e = tr.fvp_subsample, tr.fvp_env_subsample
     if k > 1 and T % k:
         raise ValueError("the feature-first fvp_subsample matches "
                          "obs_f[::k] only when horizon % fvp_subsample "
@@ -144,11 +174,8 @@ def trpo_update(cfg, params, w, batch, axis_name=None,
                          f"the strided env set is sharding-invariant; got "
                          f"N={N}, k={e}")
     sub = obs_ff[::k, :, ::e]
-    ff_fvp = k > 1 and tr.fvp_impl not in ("xla", "pallas_bm") and (
-        tr.fvp_impl == "pallas"
-        or sub.shape[0] * sub.shape[2] >= FVP_FF_MIN_B)
     with record_function("trpo/cg_fvp"):
-        if ff_fvp:
+        if routes["fvp"] == "ff":
             fvp = fvp_ff_kernel.make_gn_fvp_ff(params, sub, tr.cg_damping)
         else:
             obs_fvp = (sub.permute(0, 2, 1) if k > 1
