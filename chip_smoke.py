@@ -7,7 +7,8 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
 
 1. names the card and builds the six CUDA kernels from ``ops/cuda/csrc``
    (the two rollouts one library per joint count, 1-8, and K4 at 7
-   joints, K5 and K6 one library per policy shape of phase 8); prints every
+   joints, K5 and K6 one library per policy shape of phase 8, K1 at 3
+   links and K3 one per shape of phase 9); prints every
    kernel's ``-Xptxas -v`` lines (K4's for each instantiation), then what
    the card makes of each K1 instantiation at c1's and c2's joint counts
    (``rollout_kernel.occupancy`` and the grid at c1's and c2's width; no
@@ -107,7 +108,17 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
    over the whole horizon on c3-baselines32 (``c3_baselines32``: OpenAI
    Baselines' (32, 32) policy) and c3-deep3 (``c3_deep3``: (64, 64, 64)),
    each trained five full-width iterations (K4, K2, K5 once and K6 ten
-   times per update, no plain version) and timed.
+   times per update, no plain version) and timed;
+9. the same shapes on the planar path (``planar_shape_checks``): K1 at
+   c2's arm (1024 envs x 100 steps) in eps mode against its plain version
+   (fp32 stores within K1_TIGHT_ATOL over 10 steps and K1_FULL_ATOL over
+   the horizon, bf16 stores' ulps and TERM's fresh-state difference
+   printed, no spill store), K3 on c2's Fisher subsample and a c1-sized
+   one within K3_SHAPE_REL, with their occupancy; then c2-baselines32
+   (``c2_baselines32``: Baselines' (32, 32)) and c2-deep3 (``c2_deep3``:
+   (64, 64, 64)), each with its K1 digest, trained five full-width
+   iterations (K1, K2 once and K3 ten times per update, no K5/K6, no
+   plain version) and K1 and K3 timed (``c2_shape_phases``).
 
 The last lines are the kernels' JSON record (c2/c3 figures at the top
 level of each entry, c4/c5/c5-planar3 ones under ``at_c4``/``at_c5``/
@@ -116,7 +127,9 @@ under ``bf16_mode_c3/c4/c5/...``
 and, at c2, ``bf16_mode_c2`` (K1's and K2's), K3 on c2-bf16 under
 ``at_c2_bf16``, every joint count under ``other_n`` (K1 at 8 links timed
 under ``at_n8``), phase 8's shape checks of K4-K6 under
-``policy_shapes``, and the terminating instantiations as ``rollout_term``
+``policy_shapes`` (phase 9's of K1 and K3 too, the c2 paths under
+``at_c2_baselines32``/``at_c2_deep3``), and the terminating
+instantiations as ``rollout_term``
 (c2) and ``rollout3d_term`` (c5, c5-planar3 under ``at_c5_planar3``)),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -204,6 +217,9 @@ SHAPE_ENVS, SHAPE_STRIDE = 4096, 16
 # K6 against its plain version at each shape, relative L2 (the (64, 64)
 # kernel's bound is K6_REL; it measured <= 2.3e-7)
 K6_SHAPE_REL = {hidden: 1e-6 for hidden in POLICY_SHAPES}
+# Phase 9: K3 at each of POLICY_SHAPES, relative L2 (K6's bound above; the
+# (64, 64) kernel measured <= 3.2e-7)
+K3_SHAPE_REL = 1e-6
 # K5's fp32 mode against the fp64 evaluation of its (unrounded) function:
 # mu's largest error, g's relative L2
 PG_FP32_MU_ATOL, PG_FP32_G_REL = 1e-5, 1e-5
@@ -368,11 +384,11 @@ def k1_bound(cfg, P, store_dtype=torch.float32):
     ``store_dtype``, the done flags too when the config terminates),
     whichever is larger."""
     T, N, n = cfg.horizon, cfg.n_envs, cfg.arm.n_joints
-    do, H = cfg.obs_dim, cfg.trpo.hidden[0]
+    do = cfg.obs_dim
     B = T * N
     es = torch.finfo(store_dtype).bits // 8
     rows = 2 if cfg.done_dist > 0.0 else 1
-    return bound_ms(2.0 * (do * H + H * H + H * n) * B,
+    return bound_ms(2.0 * mlp_macs(do, cfg.trpo.hidden, n) * B,
                     es * B * (do + n)
                     + 4.0 * (B * rows + N * (2 * n + 2) + P))
 
@@ -525,15 +541,22 @@ def k3_ms(params, obs_fvp, damping, v):
     return cuda_ms(lambda: fvp(v), 50, lead_ms=K1_LEAD_MS)
 
 
-def k3_bound(B, do, da, P):
+def fvp_macs(do, hidden, da) -> int:
+    """K3's function at one sample, each product counted once: the forward
+    tangent and the reverse accumulation (2 do H + 4 H H + 4 H da at
+    (H, H))."""
+    inner = sum(a * b for a, b in zip(hidden, hidden[1:]))
+    return 2 * do * hidden[0] + 4 * inner + 4 * hidden[-1] * da
+
+
+def k3_bound(B, do, da, P, hidden=(64, 64)):
     """K3's bound on B samples: the function's products, each counted once,
     at the bf16 tensor-core peak (its three-plane split is its own cost,
-    not the work, as for K5 and K6), or its inputs read once (x, h0, h1, v
-    and the weights) and Fv written, whichever is larger; and the same
+    not the work, as for K5 and K6), or its inputs read once (x, the h_l,
+    v and the weights) and Fv written, whichever is larger; and the same
     products at the fp32-FMA peak, labelled, beside it."""
-    H = 64
-    flops = 2.0 * (2 * do * H + 4 * H * H + 4 * H * da) * B
-    nbytes = 4.0 * (B * (do + 2 * H) + 3 * P)
+    flops = 2.0 * fvp_macs(do, hidden, da) * B
+    nbytes = 4.0 * (B * (do + sum(hidden)) + 3 * P)
     return (bound_ms(flops, nbytes, peak_flops=PEAK_BF16_FLOPS),
             bound_ms(flops, nbytes))
 
@@ -1707,6 +1730,22 @@ def c3_deep3():
         C3_FRANKA7.trpo, hidden=(64, 64, 64)))
 
 
+def c2_baselines32():
+    """c2 with OpenAI Baselines' TRPO policy, ``MlpPolicy(hid_size=32,
+    num_hid_layers=2)`` with tanh (baselines/trpo_mpi/run_mujoco.py)."""
+    from trpo_robot_control_tpu_torch.configs import C2_REACHER3
+    return C2_REACHER3.replace(name="c2_baselines32", trpo=dataclasses.replace(
+        C2_REACHER3.trpo, hidden=(32, 32)))
+
+
+def c2_deep3():
+    """c2 with three 64-wide hidden layers, the JAX package's 3-layer test
+    shape (tests/test_pallas_fvp.py)."""
+    from trpo_robot_control_tpu_torch.configs import C2_REACHER3
+    return C2_REACHER3.replace(name="c2_deep3", trpo=dataclasses.replace(
+        C2_REACHER3.trpo, hidden=(64, 64, 64)))
+
+
 def phase8_libs():
     """The libraries phase 8 runs beyond the default ones: K4 at 7 joints,
     K5 and K6, at every shape of POLICY_SHAPES."""
@@ -1818,6 +1857,216 @@ def policy_shape_checks(dev):
             del k32, k16, sub
         out["rollout3d"][key], out["pg"][key], out["fvp_ff"][key] = r4, r5, r6
     return out
+
+
+def phase9_libs():
+    """The libraries phase 9 runs beyond the default ones: K1 at 3 links
+    and K3, at every shape of POLICY_SHAPES."""
+    from trpo_robot_control_tpu_torch.ops.cuda import build
+    return [build.lib_name(src, 3 if src == "rollout" else None, hidden)
+            for hidden in POLICY_SHAPES for src in ("rollout", "fvp")]
+
+
+def k3_shape_check(tag, gen, params, obs_fvp, damping, rel=K3_SHAPE_REL):
+    """K3 (``make_gn_fvp``) against its plain version within ``rel``
+    (relative L2) for 3 v drawn from ``gen``, repeat calls bit-identical;
+    returns the worst relative L2."""
+    from trpo_robot_control_tpu_torch.models import policy
+    from trpo_robot_control_tpu_torch.ops.cuda import fvp_kernel as fk
+    from trpo_robot_control_tpu_torch.ops.fvp import make_gn_fvp
+    B = obs_fvp.shape[0]
+    hs = fk.activations(params, obs_fvp)
+    scale = torch.exp(-2.0 * params["logstd"]) / B
+    fvp = make_gn_fvp(params, obs_fvp, damping)
+    worst = 0.0
+    for _ in range(3):
+        v = torch.randn(policy.flatten(params).numel(), generator=gen,
+                        device=obs_fvp.device)
+        f_k = fvp(v)
+        f_p = fk.gn_fvp_plain(params, obs_fvp, hs, scale, v, damping)
+        worst = max(worst, float(torch.linalg.norm(f_k - f_p)
+                                 / torch.linalg.norm(f_p)))
+        require(torch.equal(f_k, fvp(v)), f"{tag} K3 is not deterministic")
+    print(f"{tag} K3 on B' = {B} (do {obs_fvp.shape[1]}): worst relative L2 "
+          f"err {worst:.3e} over 3 v (bound {rel}); repeat calls "
+          "bit-identical")
+    require(worst <= rel, f"{tag} K3 error {worst}")
+    return worst
+
+
+def planar_shape_checks(dev):
+    """Phase 9a: K1 and K3 at every shape of POLICY_SHAPES. K1 at c2's arm
+    (3 links, 1024 envs x 100 steps) in eps mode against ``rollout_plain``:
+    fp32 stores within K1_TIGHT_ATOL over 10 steps and K1_FULL_ATOL over
+    the horizon (the maxima printed), bf16 stores the fp32 output rounded
+    once and their ulps from the rounded plain output printed, TERM's
+    fresh-state mode at done_dist C2_DONE_DIST (difference printed); with
+    each instantiation's occupancy and spill stores (none at 3 links). K3
+    on that batch's Fisher subsample (25,600 x 12) and on a c1-sized one
+    (3,200 x 9, da 2) within K3_SHAPE_REL of its plain version, with its
+    occupancy at both; K1's and K3's times at c2 (``k1_ms``, ``k3_ms``).
+    Returns {kernel: {shape: record}}."""
+    from trpo_robot_control_tpu_torch.configs import C2_REACHER3
+    from trpo_robot_control_tpu_torch.envs import arm
+    from trpo_robot_control_tpu_torch.models import policy
+    from trpo_robot_control_tpu_torch.ops.cuda import build
+    from trpo_robot_control_tpu_torch.ops.cuda import fvp_kernel as fk
+    from trpo_robot_control_tpu_torch.ops.cuda import rollout_kernel as rk
+    bf16 = torch.bfloat16
+    report = build.ptxas_report().splitlines()
+    out = {"rollout": {}, "fvp": {}}
+    for hidden in POLICY_SHAPES:
+        key = "x".join(map(str, hidden))
+        cfg = C2_REACHER3.replace(trpo=dataclasses.replace(
+            C2_REACHER3.trpo, hidden=hidden))
+        T, N, n = cfg.horizon, cfg.n_envs, cfg.arm.n_joints
+        gen, params, s0 = k4_setup(dev, cfg, 30)
+        eps = torch.randn(T, N, n, generator=gen, device=dev)
+        kw = (params, s0.q, s0.qd, s0.tgt)
+        k32 = rk.rollout(cfg, *kw, eps=eps)
+        k16 = rk.rollout(cfg, *kw, eps=eps, store_dtype=bf16)
+        p_out = rk.rollout_plain(cfg, *kw, eps)
+        errs10 = [float((k[:K1_TIGHT_STEPS] - p[:K1_TIGHT_STEPS]).abs().max())
+                  for k, p in zip(k32, p_out)]
+        errs = [float((k - p).abs().max()) for k, p in zip(k32, p_out)]
+        ulps = bf16_ulps(k16[:2], p_out[:2])
+        print(f"{key} c2 K1 eps mode on {N} envs: max |kernel - plain| (obs, "
+              f"act, rew) {errs10} over {K1_TIGHT_STEPS} steps (bound "
+              f"{K1_TIGHT_ATOL}), {errs} over {T} steps (bound "
+              f"{K1_FULL_ATOL}); bf16 stores {ulps} ulps from the rounded "
+              "plain output")
+        require(max(errs10) <= K1_TIGHT_ATOL and max(errs) <= K1_FULL_ATOL,
+                f"{key} K1 error {errs10}, {errs}")
+        require(all(torch.equal(a, b.to(bf16)) for a, b in
+                    zip(k16[:2], k32[:2])) and torch.equal(k16[2], k32[2]),
+                f"{key} K1 bf16 stores are not its fp32 output rounded")
+        cfg_t = cfg.replace(done_dist=C2_DONE_DIST)
+        fresh = arm.fresh_episodes(cfg_t, gen, N)
+        kt = rk.rollout(cfg_t, *kw, eps=eps, fresh=fresh)
+        pt = rk.rollout_plain(cfg_t, *kw, eps, fresh)
+        term_err = max(float((k - p).abs().max()) for k, p in zip(kt, pt))
+        early = int(kt[3][:-1].sum())
+        print(f"{key} c2 K1-term fresh-state mode: max |kernel - plain| "
+              f"{term_err} over {T} steps, {early} early dones (plain "
+              f"{int(pt[3][:-1].sum())})")
+        require(all(bool(torch.isfinite(x).all()) for x in kt),
+                f"{key} K1-term: non-finite output")
+        del k32, k16, p_out, kt, pt
+        lib = f"{build.lib_name('rollout', n, hidden)}: "
+        spills = [int(x) for x in re.findall(
+            r"(\d+) bytes spill stores",
+            "\n".join(ln for ln in report if ln.startswith(lib)))]
+        occ = {}
+        for term in (False, True):
+            for dt in (torch.float32, bf16):
+                name = (f"{'term' if term else 'plain'}-"
+                        f"{'bf16' if dt == bf16 else 'fp32'}")
+                o = rk.occupancy(n, term, dt, hidden)
+                print(f"{key} K1 occupancy [c2, {name}]: {o}")
+                require(o["blocks_per_sm"] >= 1, f"{key} K1 {name}: {o}")
+                occ[name] = brief(o)
+        print(f"{key} K1 spill stores per instantiation (bytes): {spills}")
+        require(len(spills) == 4 and not any(spills),
+                f"{key} K1 spills at 3 links: {spills}")
+        out["rollout"][key] = dict(max_abs_err=max(errs10),
+                                   max_abs_err_full=max(errs), bf16_ulps=ulps,
+                                   term_max_abs_err=term_err,
+                                   term_early_dones=early,
+                                   spill_stores=spills, occupancy=occ)
+        # ---- K3 on c2's Fisher subsample of a Philox batch, and c1-sized;
+        # K1's and K3's times at c2
+        seed_k1 = torch.tensor(K1_SEED, dtype=torch.int64, device=dev)
+        obs_ff = rk.rollout(cfg, *kw, seed=seed_k1)[0]
+        obs_fvp = obs_ff[::cfg.trpo.fvp_subsample].permute(0, 2, 1) \
+            .reshape(-1, cfg.obs_dim)
+        rel2 = k3_shape_check(f"{key} c2", gen, params, obs_fvp,
+                              cfg.trpo.cg_damping)
+        ms1 = k1_ms(cfg, params, s0, seed_k1)
+        ms3 = k3_ms(params, obs_fvp, cfg.trpo.cg_damping, torch.randn(
+            policy.flatten(params).numel(), generator=gen, device=dev))
+        print(f"{key} c2 K1 {ms1:.4f} ms/launch ({1e3 * ms1 / T:.3f} us a "
+              f"step), K3 {ms3:.4f} ms/launch")
+        out["rollout"][key].update(ms=ms1, us_per_step=1e3 * ms1 / T)
+        params1 = policy.init_params(gen, 9, 2, hidden,
+                                     cfg.trpo.logstd_init)
+        obs1 = torch.randn(3200, 9, generator=gen, device=dev)
+        rel1 = k3_shape_check(f"{key} c1-sized", gen, params1, obs1,
+                              cfg.trpo.cg_damping)
+        occ3 = {}
+        for tag, do, da in (("c2", 12, 3), ("c1", 9, 2)):
+            o = fk.occupancy(do, da, hidden)
+            print(f"{key} K3 occupancy [{tag}, do {do}, da {da}]: {o}")
+            require(o["blocks_per_sm"] >= 1, f"{key} K3 does not fit an SM")
+            occ3[tag] = brief(o) | {"tile": o["tile"]}
+        out["fvp"][key] = dict(rel_l2=rel2, rel_l2_c1=rel1, ms=ms3,
+                               occupancy=occ3)
+        del obs_ff, obs_fvp
+    return out
+
+
+def c2_shape_phases(dev, cfg, seed):
+    """Phase 9b: a c2 path at another policy shape (``c2_baselines32``,
+    ``c2_deep3``): the Philox batch's SHA-256 at K1_SEED; five full-width
+    training iterations (K1, K2 once and K3 ten times per update, no K5 or
+    K6, no plain version); K1 and K3 times beside their bounds, their
+    launches and their plain versions' times. Returns {kernel: record}."""
+    from trpo_robot_control_tpu_torch.models import policy
+    from trpo_robot_control_tpu_torch.ops import cuda as kernels
+    from trpo_robot_control_tpu_torch.ops.cuda import fvp_kernel as fk
+    from trpo_robot_control_tpu_torch.ops.cuda import rollout_kernel as rk
+    from trpo_robot_control_tpu_torch.trpo.train import train
+    tag = cfg.name
+    T, N, n = cfg.horizon, cfg.n_envs, cfg.arm.n_joints
+    do, da, hidden = cfg.obs_dim, n, cfg.trpo.hidden
+    params, s0, seed_k1 = k1_setup(dev, cfg, seed)
+    P = policy.flatten(params).numel()
+    digest = k1_digest(cfg, params, s0, seed_k1)
+    print(f"{tag} K1 Philox batch (seed {K1_SEED}) SHA-256 {digest}")
+
+    # ---- five full-width iterations through the trainer
+    n_iters = 5
+    launches, ms_upd = train_checked(
+        cfg, n_iters, kernels,
+        {"rollout": n_iters, "moments": n_iters,
+         "fvp": n_iters * cfg.trpo.cg_iters, "rollout3d": 0, "pg": 0,
+         "fvp_ff": 0}, train)
+
+    # ---- K1 and K3 beside their bounds and plain versions
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 100)
+    eps = torch.randn(T, N, n, generator=gen, device=dev)
+    t_k1 = k1_ms(cfg, params, s0, seed_k1)
+    t_k1p = cuda_ms(lambda: rk.rollout_plain(cfg, params, s0.q, s0.qd,
+                                             s0.tgt, eps), 2, warmup=1)
+    b1, by1 = k1_bound(cfg, P)
+    obs_ff = rk.rollout(cfg, params, s0.q, s0.qd, s0.tgt, seed=seed_k1)[0]
+    obs_fvp = obs_ff[::cfg.trpo.fvp_subsample].permute(0, 2, 1) \
+        .reshape(-1, do)
+    B_sub = obs_fvp.shape[0]
+    v = torch.randn(P, generator=gen, device=dev)
+    t_k3 = k3_ms(params, obs_fvp, cfg.trpo.cg_damping, v)
+    hs = fk.activations(params, obs_fvp)
+    scale = torch.exp(-2.0 * params["logstd"]) / B_sub
+    t_k3p = cuda_ms(lambda: fk.gn_fvp_plain(params, obs_fvp, hs, scale, v,
+                                            cfg.trpo.cg_damping), 20)
+    b3, b3fma = k3_bound(B_sub, do, da, P, hidden)
+    print(f"{tag} rollout: {t_k1:.4f} ms/launch, {1e3 * t_k1 / T:.3f} us per "
+          f"step (bound {b1:.4f} ms by {by1}), plain {t_k1p:.3f} ms, "
+          f"{launches['rollout'] // n_iters} launch(es)/update")
+    print(f"{tag} fvp: {t_k3:.4f} ms/launch (tensor-core bound {b3[0]:.4f} "
+          f"ms by {b3[1]}, {100 * b3[0] / t_k3:.1f} % of it reached; "
+          f"fp32-FMA {b3fma[0]:.4f}), plain {t_k3p:.3f} ms, "
+          f"{launches['fvp'] // n_iters} launch(es)/update")
+    return {"rollout": dict(
+                launches=launches["rollout"], max_abs_err=None, ms=t_k1,
+                plain_ms=t_k1p, bound_ms=b1, bound_by=by1, library_ms=None,
+                us_per_step=1e3 * t_k1 / T, philox_sha256=digest,
+                ms_per_update=ms_upd, hidden=list(hidden)),
+            "fvp": dict(
+                launches=launches["fvp"], ms=t_k3, plain_ms=t_k3p,
+                bound_ms=b3[0], bound_by=b3[1], bound_fp32_fma_ms=b3fma[0],
+                bound_share=b3[0] / t_k3, library_ms=None,
+                hidden=list(hidden))}
 
 
 def k1_exact(tag, k_out, p_out, k16=None):
@@ -2078,7 +2327,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     libs = [n for n, (_, _, hidden) in build.LIBS.items() if hidden is None]
-    libs += phase8_libs()
+    libs += phase8_libs() + phase9_libs()
     print(f"build: {build.build_all(libs):.1f} s ({len(libs)} libraries)")
     print(build.ptxas_report())
     occupancy_k1 = k1_occupancy()
@@ -2122,6 +2371,11 @@ def main() -> int:
         more[cfg.name] = arm3d_phases(dev, cfg, seed, tag=cfg.name,
                                       exact=True)
     print(f"policy-shape phases done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+    shapes.update(planar_shape_checks(dev))
+    for cfg, seed in ((c2_baselines32(), 8), (c2_deep3(), 9)):
+        more[cfg.name] = c2_shape_phases(dev, cfg, seed)
+    print(f"planar policy-shape phases done at "
           f"{time.perf_counter() - t_start:.1f} s")
     out = []
     for name in ("rollout", "moments", "fvp", "rollout3d", "pg", "fvp_ff",

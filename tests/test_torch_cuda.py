@@ -19,6 +19,7 @@ from test_torch_helpers import (OBSTACLE_ON_ARM, PG_G_KEPT_REL,
                                 tasks_np)
 from trpo_robot_control_tpu_torch import configs as pconfigs
 from trpo_robot_control_tpu_torch.models import policy
+from trpo_robot_control_tpu_torch.ops.fvp import make_gn_fvp
 from trpo_robot_control_tpu_torch.ops.cuda import (build, fvp_ff_kernel,
                                                    fvp_kernel,
                                                    moments_kernel, pg_kernel,
@@ -467,8 +468,9 @@ def test_fvp_ff_kernel_policy_shapes_match_plain_on_card(cuda, e, hidden,
 @pytest.mark.cuda
 @pytest.mark.parametrize("hidden", [(32, 32, 32, 32), (65,), (64, 65)])
 def test_policy_kernels_refuse_shapes_past_b3(cuda, hidden):
-    """Four hidden layers or a layer of 65 units: K4, K5 and K6 raise,
-    naming ROADMAP B3, before they build or launch anything."""
+    """Four hidden layers or a layer of 65 units: K4, K5 and K6 on the
+    7-DoF path and K1 and K3 on the planar one raise, naming ROADMAP B3,
+    before they build or launch anything."""
     cfg = pconfigs.C3_FRANKA7.replace(horizon=2)
     pn = policy_params_np(np.random.RandomState(25), cfg.obs_dim, 7, hidden)
     pc = {k: t(v).to(cuda) for k, v in pn.items()}
@@ -477,20 +479,109 @@ def test_policy_kernels_refuse_shapes_past_b3(cuda, hidden):
     obs = torch.randn(2, cfg.obs_dim, 64, device=cuda).to(torch.bfloat16)
     act = torch.randn(2, 7, 64, device=cuda).to(torch.bfloat16)
     adv = torch.randn(2, 64, device=cuda)
+    c2 = pconfigs.C2_REACHER3.replace(horizon=2)
+    pn2 = policy_params_np(np.random.RandomState(27), c2.obs_dim, 3, hidden)
+    pc2 = {k: t(v).to(cuda) for k, v in pn2.items()}
+    ins2 = [t(x).to(cuda) for x in env_inputs_np(c2, 32, seed=28)]
+    obs2 = torch.randn(256, c2.obs_dim, device=cuda)
     before = (rollout3d_kernel.rollout3d.launches,
               pg_kernel.surrogate_grad.launches,
-              fvp_ff_kernel.gn_fvp_ff.launches, set(build.LIBS))
+              fvp_ff_kernel.gn_fvp_ff.launches,
+              rollout_kernel.rollout.launches, fvp_kernel.gn_fvp.launches,
+              set(build.LIBS))
     calls = [
         lambda: rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task,
                                            eps=ins[3]),
         lambda: pg_kernel.surrogate_grad(pc, obs, act, adv),
-        lambda: fvp_ff_kernel.make_gn_fvp_ff(pc, obs, 0.1)]
+        lambda: fvp_ff_kernel.make_gn_fvp_ff(pc, obs, 0.1),
+        lambda: rollout_kernel.rollout(c2, pc2, *ins2[:3], eps=ins2[3]),
+        lambda: make_gn_fvp(pc2, obs2, 0.1)]
     for call in calls:
         with pytest.raises(NotImplementedError, match="ROADMAP B3"):
             call()
     assert before == (rollout3d_kernel.rollout3d.launches,
                       pg_kernel.surrogate_grad.launches,
-                      fvp_ff_kernel.gn_fvp_ff.launches, set(build.LIBS))
+                      fvp_ff_kernel.gn_fvp_ff.launches,
+                      rollout_kernel.rollout.launches,
+                      fvp_kernel.gn_fvp.launches, set(build.LIBS))
+
+
+# The planar path's policy shapes (K1, K3): SHAPES and two one-unit
+# layers, which the plain version multiplies as two rows
+PLANAR_SHAPES = SHAPES + [(1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", PLANAR_SHAPES)
+@pytest.mark.parametrize("name", ["c1_reacher2", "c2_reacher3"])
+def test_rollout_kernel_policy_shapes_match_plain_on_card(cuda, name,
+                                                          hidden):
+    """K1 at every policy shape, at c1's and c2's arm: 0.0 from the plain
+    version (N = 300 is not a multiple of the 8-env block), bf16 stores
+    its fp32 output rounded once, and TERM in fresh-state mode 0.0 with
+    the same done flags."""
+    cfg = pconfigs.CONFIGS[name].replace(horizon=10)
+    n, N = cfg.arm.n_joints, 300
+    pn = policy_params_np(np.random.RandomState(30), cfg.obs_dim, n, hidden)
+    pc = {k: t(v).to(cuda) for k, v in pn.items()}
+    ins = [t(x).to(cuda) for x in env_inputs_np(cfg, N, seed=31)]
+    k_out = rollout_kernel.rollout(cfg, pc, *ins[:3], eps=ins[3])
+    _exact(k_out, rollout_kernel.rollout_plain(cfg, pc, *ins[:3], ins[3]))
+    k16 = rollout_kernel.rollout(cfg, pc, *ins[:3], eps=ins[3],
+                                 store_dtype=torch.bfloat16)
+    for a, b in zip(k16[:2], k_out[:2]):
+        assert torch.equal(a, b.to(torch.bfloat16))
+    assert torch.equal(k16[2], k_out[2])
+    cfg_t = cfg.replace(horizon=30, done_dist=0.25)
+    s, eps, fresh = _term_inputs(cfg_t, N, 32, cuda)
+    kt = rollout_kernel.rollout(cfg_t, pc, s.q, s.qd, s.tgt, eps=eps,
+                                fresh=fresh)
+    pt = rollout_kernel.rollout_plain(cfg_t, pc, s.q, s.qd, s.tgt, eps,
+                                      fresh)
+    assert float(kt[3].sum()) > 0
+    _exact(kt, pt)
+
+
+@pytest.mark.cuda
+def test_rollout_kernel_deep_policy_has_no_spills(cuda):
+    """K1 at (64, 64, 64), the third layer's weights in shared memory, at
+    8 links (the widest observation and the largest state) compiles with
+    no spill store in any of its four instantiations and stays resident."""
+    hidden = (64, 64, 64)
+    occ = [rollout_kernel.occupancy(8, term, dt, hidden)
+           for term in (False, True) for dt in (torch.float32, torch.bfloat16)]
+    lib = f"{build.lib_name('rollout', 8, hidden)}: "
+    report = "\n".join(ln for ln in build.ptxas_report().splitlines()
+                       if ln.startswith(lib))
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", report)]
+    assert len(spills) == 4 and not any(spills), report
+    assert all(o["blocks_per_sm"] >= 1 for o in occ), occ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", PLANAR_SHAPES)
+@pytest.mark.parametrize("B, do, da", [
+    (3200, 9, 2),           # c1's Fisher batch
+    (1000, 12, 3),          # c2's widths, a ragged last tile
+    (300, 27, 7),           # do > 16, da > 4: the other instantiations
+])
+def test_fvp_kernel_policy_shapes_match_plain_on_card(cuda, B, do, da,
+                                                      hidden):
+    """K3 at every policy shape: within 1e-6 relative L2 of the plain
+    version, repeat calls bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(33)
+    pn = policy_params_np(np.random.RandomState(34), do, da, hidden)
+    pc = {k: t(v).to(cuda) for k, v in pn.items()}
+    obs = torch.randn(B, do, generator=g, device=cuda)
+    hs = fvp_kernel.activations(pc, obs)
+    scale = torch.exp(-2.0 * pc["logstd"]) / B
+    v = torch.randn(sum(x.numel() for x in pc.values()), generator=g,
+                    device=cuda)
+    fvp = make_gn_fvp(pc, obs, 0.1)
+    fk = fvp(v)
+    fp = fvp_kernel.gn_fvp_plain(pc, obs, hs, scale, v, 0.1)
+    assert float(torch.linalg.norm(fk - fp) / torch.linalg.norm(fp)) < 1e-6
+    assert torch.equal(fk, fvp(v))
 
 
 def _term_inputs(cfg, N, seed, cuda):

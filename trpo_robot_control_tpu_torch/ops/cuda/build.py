@@ -8,8 +8,9 @@ checkout (the hash covers the source, the headers it includes from
 rollout sources build one library per joint count,
 ``lib<name>_nj<n>-<hash>.so`` with ``-DTRPO_NJ=<n>``, n in
 ``JOINT_COUNTS``, so that each ``nvcc`` compiles one count's
-instantiations. The three sources whose kernels run the policy MLP
-(``PER_SHAPE``) build, for a policy other than the default (64, 64) one,
+instantiations. The five sources whose kernels run the policy MLP
+(``PER_SHAPE``: both rollouts, the surrogate gradient and both FVPs)
+build, for a policy other than the default (64, 64) one,
 one library per hidden shape, ``lib<name>[_nj<n>]_h<w0>x<w1>...`` with
 ``-DTRPO_H0=<w0> -DTRPO_H1=<w1> ...`` (``csrc/policy_shape.cuh``): a run builds
 only its own policy's. The first call to ``library`` builds every missing
@@ -39,7 +40,7 @@ PER_JOINT = ("rollout", "rollout3d")
 JOINT_COUNTS = tuple(range(1, 9))
 # the sources built once per policy shape other than DEFAULT_HIDDEN, and
 # what they take: 1-3 hidden layers of widths 1-64 (ROADMAP B3 for more)
-PER_SHAPE = ("rollout3d", "pg", "fvp_ff")
+PER_SHAPE = ("rollout", "fvp", "rollout3d", "pg", "fvp_ff")
 DEFAULT_HIDDEN = (64, 64)
 MAX_DEPTH = 3
 MAX_WIDTH = 64
@@ -73,8 +74,15 @@ def hidden_shape(params, what: str) -> tuple:
     ``what`` is not built for: past ``MAX_DEPTH`` hidden layers or
     ``MAX_WIDTH`` units a layer."""
     L = sum(1 for k in params if k.startswith("W")) - 1
-    hidden = tuple(int(params[f"W{i}"].shape[1]) for i in range(L))
-    if not 1 <= L <= MAX_DEPTH or max(hidden) > MAX_WIDTH:
+    return check_hidden(
+        tuple(int(params[f"W{i}"].shape[1]) for i in range(L)), what)
+
+
+def check_hidden(hidden: tuple, what: str) -> tuple:
+    """``hidden``, or NotImplementedError, naming ROADMAP B3, where the
+    kernel ``what`` is not built for it (``hidden_shape``'s rule)."""
+    hidden = tuple(hidden)
+    if not 1 <= len(hidden) <= MAX_DEPTH or max(hidden) > MAX_WIDTH:
         raise NotImplementedError(
             f"the {what} takes 1-{MAX_DEPTH} hidden layers of 1-{MAX_WIDTH} "
             f"units, not {hidden} (ROADMAP B3)")

@@ -1,9 +1,10 @@
 // The policy MLP's hidden widths, fixed per library: -DTRPO_H0=w0
 // [-DTRPO_H1=w1 [-DTRPO_H2=w2]] (1-3 hidden layers of 1-64 units;
 // ops/cuda/build.py builds one library per shape a run asks for), the JAX
-// package's default (64, 64) without them. The kernels that run the MLP (rollout3d.cu, pg.cu, fvp_ff.cu) take
-// the widths as compile-time constants, so the (64, 64) library compiles
-// the same code as before the shape became a parameter.
+// package's default (64, 64) without them. The kernels that run the MLP
+// (rollout.cu, fvp.cu, rollout3d.cu, pg.cu, fvp_ff.cu) take the widths as
+// compile-time constants, so the (64, 64) library compiles the same code
+// as before the shape became a parameter.
 #pragma once
 
 namespace policy_shape {

@@ -2,7 +2,9 @@
 //
 // Replaces `pallas_rollout` (trpo_robot_control_tpu/ops/pallas/
 // rollout_kernel.py:490, its pallas_call at :594; body `_rollout_kernel`)
-// for 1-8 links, with obs and actions stored in fp32 or, as its
+// for 1-8 links and any tanh policy of 1-3 hidden layers of 1-64 units
+// (policy_shape.cuh; the JAX package's (64, 64) without -DTRPO_H<l>), with
+// obs and actions stored in fp32 or, as its
 // store_dtype=bf16 does, in bf16 (rounded once at the store; the
 // trajectory, rewards and done flags stay fp32). Per env step: forward
 // kinematics, the closed-form
@@ -23,25 +25,33 @@
 // What bounds it on an H100: not bytes (6.6 MB written at c2, ~2 us) and
 // not FLOPs (~1 GFLOP of fp32 FMA, ~15 us at 67 TFLOP/s) but the T
 // dependent steps of each env, and how much of each step's latency the
-// SMs hide. One step's critical path is the policy (a DO-long and two
-// 64-long dependent fmaf chains: a layer-1 unit, then the mean over the 64
-// units; two tanhf) and then the dynamics that make the next observation
+// SMs hide. One step's critical path is the policy (a DO-long dependent
+// fmaf chain, a w_{l-1}-long one for each further hidden layer l, then the
+// mean over the last layer's w units; a tanhf a layer: at (64, 64) a
+// layer-1 unit's 64-long chain and the mean's) and then the dynamics that
+// make the next observation
 // (solve, Euler step, the trig of FK). c2's 1024 envs are ~8 per SM, so
 // the card has no other work to hide that latency behind.
 //
 // Design: a block holds ENVS = 8 envs (c2: 128 blocks, one per SM; c1: 8)
 // in five warps whose roles meet at named barriers (BAR_*):
 // - four MLP warps: MLP warp g takes the env pair g, and its lane j hidden
-//   units j and j + 32 of both layers: four independent chains a thread,
-//   each term's input one 8-byte shared-memory broadcast feeding four
-//   fmaf, the two units' weight columns in the thread's registers. h0 and
-//   layer 1's outputs go through shared memory. While the state warp runs
+//   units j and j + 32 of each layer where they exist (one unit at widths
+//   up to 32; at width 33 lanes 1-31 idle in the second): up to four
+//   independent chains a thread, each term's input one 8-byte
+//   shared-memory broadcast feeding four fmaf. The units' weight columns
+//   of layers 0 and 1 are in the thread's registers; a third layer's
+//   (two more 64-long columns would not fit 255 registers) in shared
+//   memory, a lane's columns side by side, read by the thread's own units.
+//   Each layer's outputs go through shared memory, one BAR_MLP round
+//   between layers. While the state warp runs
 //   the dynamics, the first ENVS lanes of warp NORMALS_WARP draw the next
 //   step's action normals (or fetch its eps) and, in TERM, those of warp
 //   FRESH_WARP the next step's fresh episodes: neither depends on the state.
 // - the state warp does each env's serial work once (lane = part * ENVS +
-//   env; its four parts hold the same state): the mean over the 64 layer-1
-//   outputs (part m runs the chains of actions m and m + 4, with W2's
+//   env; its four parts hold the same state): the mean over the last
+//   hidden layer's outputs (part m runs the chains of actions m and m + 4,
+//   with W_L's
 //   column m in registers when there are at most four actions, else both
 //   columns read from shared memory), the action, the solve and Euler
 //   step, FK, the reward, the
@@ -53,8 +63,9 @@
 //   while the MLP warps run its policy; FK of the post-step q serves the
 //   reward and the next step (again only after a reset). A step's stores
 //   leave after the observation has been handed over.
-// Every sum is one thread's fmaf chain in index order (layer 0 over d from
-// 0, layer 1 over k from 0, the mean over j from 0), with the precise
+// Every sum is one thread's fmaf chain in index order over the layer's
+// real width, no padded term added (layer 0 over d from 0, each further
+// layer over k from 0, the mean over j from 0), with the precise
 // tanhf, trig and rsqrtf, so the outputs are bit for bit those of one
 // thread per env. A tree reduction over lanes or a split chain would
 // change them. Tensor cores are no help: one step's layer-1 product at c2 is 64 x
@@ -64,12 +75,14 @@
 // 32-byte sector. Built with -fmad=false (the dynamics round every
 // multiply and add as PyTorch's separate elementwise ops do); the policy
 // uses explicit fmaf. The two units' weights (about 150 registers) leave
-// room for one block per SM, all that c1 and c2 need. At NJ >= 4 the state
+// room for one block per SM, all that c1 and c2 need; a third layer's
+// weights take 16 KB of shared memory at width 64. At NJ >= 4 the state
 // warp's unrolled Cholesky (O(NJ^3) terms in registers) and the MLP
 // threads' wider W0 columns may spill; `-Xptxas -v` reports it.
 //
 // Instantiations: one library per joint count, built with -DTRPO_NJ=<n>
-// (n = 1..8, ops/cuda/build.py), each terminating or not, each with fp32
+// (n = 1..8, ops/cuda/build.py) and, for a policy other than (64, 64),
+// per hidden shape (-DTRPO_H<l>), each terminating or not, each with fp32
 // or bf16 stores.
 //
 // C interface (ctypes); returns cudaGetLastError() after the launch.
@@ -79,16 +92,19 @@
 #include <stdint.h>
 
 #include "philox.cuh"
+#include "policy_shape.cuh"
 #include "store.cuh"
 
 namespace {
 
-constexpr int H = 64;          // hidden width (both layers)
+using policy_shape::Hidden;
+using policy_shape::NL;
+using policy_shape::Weights;
+
 constexpr int ENVS = 8;        // envs per block
-constexpr int UNITS = 2;       // hidden units per MLP thread: lane + u H / UNITS
 constexpr int GROUP = 2;       // envs per MLP thread (a float2 of each input)
 constexpr int PARTS = 32 / ENVS;                // state-warp lanes per env
-constexpr int MLP_THREADS = H * ENVS / (UNITS * GROUP);   // four warps
+constexpr int MLP_THREADS = 32 * ENVS / GROUP;  // four warps, a pair each
 constexpr int THREADS = MLP_THREADS + 32;       // and the state warp
 constexpr int NORMALS_WARP = 3, FRESH_WARP = 2;
 constexpr int NJ_MAX = 8;
@@ -99,6 +115,18 @@ constexpr int NJ_MAX = 8;
 // normals and fresh episodes)
 constexpr int BAR_OBS = 1, BAR_MLP = 2, BAR_ACT = 3;
 constexpr unsigned FULL = 0xffffffffu;
+
+// width of hidden layer l (1 for an l past the policy's, which only code
+// that NL leaves out names), and the units a lane of an MLP warp takes of
+// it: lane j units j + 32 u, u < units(l), where they exist
+__host__ __device__ constexpr int wid(int l) {
+    return l < NL ? Hidden::width(l) : 1;
+}
+__host__ __device__ constexpr int units(int l) { return (wid(l) + 31) / 32; }
+// whether unit k of layer l exists (always at widths of whole warps)
+__host__ __device__ constexpr bool unit_ok(int l, int k) {
+    return wid(l) % 32 == 0 || k < wid(l);
+}
 
 struct Planar {
     float l[NJ_MAX], lc[NJ_MAX], m[NJ_MAX], iz[NJ_MAX];
@@ -386,13 +414,63 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
     asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
 }
 
+// One hidden layer for an MLP thread: units j + 32 u (u < U) of its env
+// pair col, z = sum_d in[d] w(u, d) in d order from 0 (in: (row, env)),
+// then tanh(z + b) to out (unit, env) for the units that exist.
+// W(u, d) is the weight: the thread's registers, or shared memory.
+template <int l, int IN, int U, typename WF>
+__device__ __forceinline__ void mlp_layer(const float* in, const WF& W,
+                                          const float (&b)[U], float* out,
+                                          int j, int col) {
+    float z[U][GROUP];
+#pragma unroll
+    for (int u = 0; u < U; ++u) z[u][0] = z[u][1] = 0.f;
+#pragma unroll
+    for (int d = 0; d < IN; ++d) {
+        const float2 x = *reinterpret_cast<const float2*>(&in[d * ENVS + col]);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            const float w = W(u, d);
+            z[u][0] = fmaf(x.x, w, z[u][0]);
+            z[u][1] = fmaf(x.y, w, z[u][1]);
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+        const int k = j + 32 * u;
+        if (unit_ok(l, k))
+            *reinterpret_cast<float2*>(&out[k * ENVS + col]) =
+                make_float2(tanhf(z[u][0] + b[u]), tanhf(z[u][1] + b[u]));
+    }
+}
+
+// the weights of a layer an MLP thread holds in registers, w[u][d]
+template <int U, int IN>
+struct RegW {
+    const float (&w)[U][IN];
+    __device__ __forceinline__ float operator()(int u, int d) const {
+        return w[u][d];
+    }
+};
+// the third layer's weights in shared memory, (in, 32 U) with the units
+// of a lane's warp-wide column side by side: lane j's unit j + 32 u
+struct SmemW {
+    const float* w;
+    int j;
+    static constexpr int STRIDE = 32 * units(2);
+    __device__ __forceinline__ float operator()(int u, int d) const {
+        return w[d * STRIDE + j + 32 * u];
+    }
+};
+
 template <int NJ, bool TERM, typename Out>
 __global__ void __launch_bounds__(THREADS, 1) rollout_kernel(
     Planar c, const float* __restrict__ q0, const float* __restrict__ qd0,
-    const float* __restrict__ tgt, const float* __restrict__ W0,
-    const float* __restrict__ b0, const float* __restrict__ W1,
-    const float* __restrict__ b1, const float* __restrict__ W2,
-    const float* __restrict__ b2, const float* __restrict__ logstd,
+    const float* __restrict__ tgt, const float* __restrict__ W0p,
+    const float* __restrict__ b0, const float* __restrict__ W1p,
+    const float* __restrict__ b1, const float* __restrict__ W2p,
+    const float* __restrict__ b2, const float* __restrict__ W3p,
+    const float* __restrict__ b3, const float* __restrict__ logstd,
     const float* __restrict__ eps, const int64_t* __restrict__ seed,
     const float* __restrict__ fq, const float* __restrict__ fqd,
     const float* __restrict__ ftgt, Out* __restrict__ obs,
@@ -403,15 +481,29 @@ __global__ void __launch_bounds__(THREADS, 1) rollout_kernel(
     constexpr int NF = 2 * NJ + 2;       // a fresh episode: q, qd, target
     // actions per state-warp part: part m runs actions m + r PARTS
     constexpr int APP = (NJ + PARTS - 1) / PARTS;
+    // hidden widths; the last layer's outputs are the head's inputs
+    constexpr int W0 = wid(0), W1 = wid(1), WL = wid(NL - 1);
     // per-env arrays are (row, env of the block)
     __shared__ __align__(16) float sObs[DO * ENVS];
-    __shared__ __align__(16) float sH0[H * ENVS];
-    __shared__ __align__(16) float sA[H * ENVS];
+    // the outputs of hidden layer 0 and 1 where another layer follows,
+    // and the last one's
+    __shared__ __align__(16) float sH0[NL > 1 ? W0 * ENVS : 2];
+    __shared__ __align__(16) float sH1[NL > 2 ? W1 * ENVS : 2];
+    __shared__ __align__(16) float sA[WL * ENVS];
     __shared__ float sZ[2][NJ * ENVS];   // by step parity
     __shared__ float sFr[2][NF * ENVS];
-    // W2 as (unit, action slot m + r PARTS), zero past NJ, when APP > 1
-    __shared__ float sW2[APP > 1 ? H * APP * PARTS : 1];
+    // W_L as (unit, action slot m + r PARTS), zero past NJ, when APP > 1
+    __shared__ float sW2[APP > 1 ? WL * APP * PARTS : 1];
+    // a third hidden layer's weights (SmemW), zero past its width
+    __shared__ float sWx[NL > 2 ? W1 * SmemW::STRIDE : 1];
     if (T <= 0) return;
+    if constexpr (NL > 2) {
+        for (int i = threadIdx.x; i < W1 * SmemW::STRIDE; i += THREADS) {
+            const int d = i / SmemW::STRIDE, k = i % SmemW::STRIDE;
+            sWx[i] = k < wid(2) ? W2p[d * wid(2) + k] : 0.f;
+        }
+        __syncthreads();
+    }
 
     const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
     const int slot = lane % ENVS;
@@ -423,18 +515,40 @@ __global__ void __launch_bounds__(THREADS, 1) rollout_kernel(
 
     if (tid < MLP_THREADS) {
         // ------------------------------------------------- the MLP warps
-        const int j = tid % (H / UNITS);         // units j + u H / UNITS
-        const int col = GROUP * (tid / (H / UNITS));   // the pair's first env
-        float w0[UNITS][DO], w1[UNITS][H], bu0[UNITS], bu1[UNITS];
+        const int j = lane;                      // units j + 32 u
+        const int col = GROUP * warp;            // the pair's first env
+        // layers 0 and 1: the thread's units' weight columns in registers
+        // (zero for a unit past the width), a third layer's in sWx
+        constexpr int U0 = units(0), U1 = units(1), U2 = units(2);
+        constexpr int K1 = NL > 1 ? W0 : 1;      // layer 1's inputs
+        float w0[U0][DO], w1[U1][K1], bu0[U0], bu1[U1], bu2[U2];
+        // unit by unit: its layer-0 column, its layer-1 column, the biases
+        constexpr int UM = U0 > U1 ? U0 : U1;
 #pragma unroll
-        for (int u = 0; u < UNITS; ++u) {
-            const int k = j + u * (H / UNITS);
+        for (int u = 0; u < UM; ++u) {
+            const int k = j + 32 * u;
+            const int u0 = u < U0 ? u : U0 - 1, u1 = u < U1 ? u : U1 - 1;
+            const bool ok0 = u < U0 && unit_ok(0, k);
+            const bool ok1 = NL > 1 && u < U1 && unit_ok(1, k);
+            if (u < U0) {
 #pragma unroll
-            for (int d = 0; d < DO; ++d) w0[u][d] = W0[d * H + k];
+                for (int d = 0; d < DO; ++d)
+                    w0[u0][d] = ok0 ? W0p[d * W0 + k] : 0.f;
+            }
+            if (NL > 1 && u < U1) {
 #pragma unroll
-            for (int kk = 0; kk < H; ++kk) w1[u][kk] = W1[kk * H + k];
-            bu0[u] = b0[k];
-            bu1[u] = b1[k];
+                for (int kk = 0; kk < K1; ++kk)
+                    w1[u1][kk] = ok1 ? W1p[kk * W1 + k] : 0.f;
+            }
+            if (u < U0) bu0[u0] = ok0 ? b0[k] : 0.f;
+            if (NL > 1 && u < U1) bu1[u1] = ok1 ? b1[k] : 0.f;
+        }
+        if constexpr (NL > 2) {
+#pragma unroll
+            for (int u = 0; u < U2; ++u) {
+                const int k = j + 32 * u;
+                bu2[u] = unit_ok(2, k) ? b2[k] : 0.f;
+            }
         }
         const bool draws_z = warp == NORMALS_WARP && lane < ENVS;
         const bool draws_fresh = TERM && warp == FRESH_WARP && lane < ENVS;
@@ -443,45 +557,19 @@ __global__ void __launch_bounds__(THREADS, 1) rollout_kernel(
                            sZ[0] + slot, sFr[0] + slot);
         for (int t = 0; t < T; ++t) {
             bar_sync(BAR_OBS, THREADS);  // step t's observation is in sObs
-            // UNITS x GROUP chains a layer, each fmaf in input order from 0
-            float z[UNITS][GROUP];
-#pragma unroll
-            for (int u = 0; u < UNITS; ++u) z[u][0] = z[u][1] = 0.f;
-#pragma unroll
-            for (int d = 0; d < DO; ++d) {
-                const float2 x =
-                    *reinterpret_cast<const float2*>(&sObs[d * ENVS + col]);
-#pragma unroll
-                for (int u = 0; u < UNITS; ++u) {
-                    z[u][0] = fmaf(x.x, w0[u][d], z[u][0]);
-                    z[u][1] = fmaf(x.y, w0[u][d], z[u][1]);
-                }
+            // U x GROUP chains a layer, each fmaf in input order from 0;
+            // a BAR_MLP round between layers
+            mlp_layer<0, DO, U0>(sObs, RegW<U0, DO>{w0}, bu0,
+                                 NL > 1 ? sH0 : sA, j, col);
+            if constexpr (NL > 1) {
+                bar_sync(BAR_MLP, MLP_THREADS);
+                mlp_layer<1, K1, U1>(sH0, RegW<U1, K1>{w1}, bu1,
+                                     NL > 2 ? sH1 : sA, j, col);
             }
-#pragma unroll
-            for (int u = 0; u < UNITS; ++u)
-                *reinterpret_cast<float2*>(
-                    &sH0[(j + u * (H / UNITS)) * ENVS + col]) =
-                    make_float2(tanhf(z[u][0] + bu0[u]),
-                                tanhf(z[u][1] + bu0[u]));
-            bar_sync(BAR_MLP, MLP_THREADS);
-#pragma unroll
-            for (int u = 0; u < UNITS; ++u) z[u][0] = z[u][1] = 0.f;
-#pragma unroll
-            for (int k = 0; k < H; ++k) {
-                const float2 x =
-                    *reinterpret_cast<const float2*>(&sH0[k * ENVS + col]);
-#pragma unroll
-                for (int u = 0; u < UNITS; ++u) {
-                    z[u][0] = fmaf(x.x, w1[u][k], z[u][0]);
-                    z[u][1] = fmaf(x.y, w1[u][k], z[u][1]);
-                }
+            if constexpr (NL > 2) {
+                bar_sync(BAR_MLP, MLP_THREADS);
+                mlp_layer<2, W1, U2>(sH1, SmemW{sWx, j}, bu2, sA, j, col);
             }
-#pragma unroll
-            for (int u = 0; u < UNITS; ++u)
-                *reinterpret_cast<float2*>(
-                    &sA[(j + u * (H / UNITS)) * ENVS + col]) =
-                    make_float2(tanhf(z[u][0] + bu1[u]),
-                                tanhf(z[u][1] + bu1[u]));
             bar_arrive(BAR_ACT, THREADS);
             if (t + 1 < T && (draws_z || draws_fresh))
                 draw<NJ, TERM>(c, key, e, t + 1, N, draws_z, eps, fq, fqd, ftgt,
@@ -492,22 +580,26 @@ __global__ void __launch_bounds__(THREADS, 1) rollout_kernel(
         // ------------------------------------------------- the state warp
         const int part = lane / ENVS;
         const bool writer = part == 0 && live;
+        // the head (WL, NJ) and its bias: the weights after the last
+        // hidden layer's
+        const float* __restrict__ W2 = NL == 1 ? W1p : NL == 2 ? W2p : W3p;
+        const float* __restrict__ bh = NL == 1 ? b1 : NL == 2 ? b2 : b3;
         float q[NJ], qd[NJ], sigma[NJ], bias2[NJ];
 #pragma unroll
         for (int i = 0; i < NJ; ++i) {
             q[i] = q0[i * N + e];
             qd[i] = qd0[i * N + e];
             sigma[i] = expf(logstd[i]);
-            bias2[i] = b2[i];
+            bias2[i] = bh[i];
         }
         float tgtx = tgt[e], tgty = tgt[N + e];
-        float w2[APP > 1 ? 1 : H];       // W2's column `part` (action part)
+        float w2[APP > 1 ? 1 : WL];      // its column `part` (action part)
         if constexpr (APP == 1) {
 #pragma unroll
-            for (int k = 0; k < H; ++k)
+            for (int k = 0; k < WL; ++k)
                 w2[k] = part < NJ ? W2[k * NJ + part] : 0.f;
         } else {
-            for (int i = lane; i < H * APP * PARTS; i += 32) {
+            for (int i = lane; i < WL * APP * PARTS; i += 32) {
                 const int k = i / (APP * PARTS), m = i % (APP * PARTS);
                 sW2[i] = m < NJ ? W2[k * NJ + m] : 0.f;
             }
@@ -531,19 +623,19 @@ __global__ void __launch_bounds__(THREADS, 1) rollout_kernel(
         Factor<NJ> F;
         factor<NJ>(c, f, qd, F);
         for (int t = 0; t < T; ++t) {
-            bar_sync(BAR_ACT, THREADS);  // layer 1 and step t's normals
+            bar_sync(BAR_ACT, THREADS);  // the last layer, step t's normals
             float sz[NJ];
 #pragma unroll
             for (int i = 0; i < NJ; ++i)
                 sz[i] = sigma[i] * sZ[t & 1][i * ENVS + slot];
-            // policy mean W2^T h1 + b2 (h1: layer 1's tanh outputs): part
-            // m runs the chains of actions m + r PARTS < NJ, then every
-            // lane takes all NJ
+            // policy mean W_L^T h + b_L (h: the last hidden layer's tanh
+            // outputs): part m runs the chains of actions m + r PARTS < NJ,
+            // then every lane takes all NJ
             float acc[APP];
 #pragma unroll
             for (int r = 0; r < APP; ++r) acc[r] = 0.f;
 #pragma unroll
-            for (int jj = 0; jj < H; ++jj) {
+            for (int jj = 0; jj < WL; ++jj) {
                 const float hj = sA[jj * ENVS + slot];
                 if constexpr (APP == 1) {
                     acc[0] = fmaf(hj, w2[jj], acc[0]);
@@ -619,7 +711,9 @@ __global__ void __launch_bounds__(THREADS, 1) rollout_kernel(
 }
 
 struct Args {
-    const float *q0, *qd0, *tgt, *W0, *b0, *W1, *b1, *W2, *b2, *logstd, *eps;
+    const float *q0, *qd0, *tgt;
+    Weights pol;
+    const float* eps;
     const int64_t* seed;
     const float *fq, *fqd, *ftgt;
     void *obs, *act;
@@ -633,8 +727,9 @@ struct Launch {
     static cudaError_t run(const Planar& c, const Args& a) {
         dim3 grid((a.N + ENVS - 1) / ENVS);
         rollout_kernel<NJ, TERM, Out><<<grid, THREADS, 0, a.stream>>>(
-            c, a.q0, a.qd0, a.tgt, a.W0, a.b0, a.W1, a.b1, a.W2, a.b2,
-            a.logstd, a.eps, a.seed, a.fq, a.fqd, a.ftgt,
+            c, a.q0, a.qd0, a.tgt, a.pol.W[0], a.pol.b[0], a.pol.W[1],
+            a.pol.b[1], a.pol.W[2], a.pol.b[2], a.pol.W[3], a.pol.b[3],
+            a.pol.logstd, a.eps, a.seed, a.fq, a.fqd, a.ftgt,
             static_cast<Out*>(a.obs), static_cast<Out*>(a.act), a.rew,
             a.dones, a.N, a.T);
         return cudaGetLastError();
@@ -684,6 +779,10 @@ cudaError_t dispatch(int n_joints, int terminating, int store_bf16, Op op) {
 // consts (host array): l[n], lc[n], m[n], iz[n], damping, h, torque_limit,
 // qd_limit, qd_obs_scale, ctrl_weight, chol_reg, done_dist^2, q0_noise,
 // qd0_noise, rmin, rmax.
+// hidden (n_hidden ints, host): the policy's hidden widths, which must be
+// this library's (policy_shape.cuh), else cudaErrorInvalidValue; weights
+// (host array of device pointers): W0, b0, ..., W_L, b_L, L = n_hidden
+// (W_l (in, out) row-major), then logstd (n).
 // eps: (T, n, N) or NULL for Philox mode with seed: int64[2] on the device.
 // terminating != 0 takes the TERM instantiation, which writes dones (T, N)
 // and takes the fresh episodes from fq/fqd (T, n, N) and ftgt (T, 2, N),
@@ -691,15 +790,15 @@ cudaError_t dispatch(int n_joints, int terminating, int store_bf16, Op op) {
 // bf16 when store_bf16 != 0, else fp32; rew and dones fp32.
 extern "C" int trpo_rollout_launch(
     const float* consts, int n_substeps, int n_joints, int terminating,
-    int store_bf16, const float* q0, const float* qd0, const float* tgt, const float* W0,
-    const float* b0, const float* W1, const float* b1, const float* W2,
-    const float* b2, const float* logstd, const float* eps,
-    const int64_t* seed, const float* fq, const float* fqd,
+    int store_bf16, const int* hidden, int n_hidden, const float* q0,
+    const float* qd0, const float* tgt, const float* const* weights,
+    const float* eps, const int64_t* seed, const float* fq, const float* fqd,
     const float* ftgt, void* obs, void* act, float* rew, float* dones,
     int N, int T, void* stream) {
     Planar c;
     const int n = n_joints;
-    if (n < 1 || n > NJ_MAX) return (int)cudaErrorInvalidValue;
+    if (n < 1 || n > NJ_MAX || !policy_shape::same_shape(hidden, n_hidden))
+        return (int)cudaErrorInvalidValue;
     for (int i = 0; i < n; ++i) {
         c.l[i] = consts[i];
         c.lc[i] = consts[n + i];
@@ -720,7 +819,7 @@ extern "C" int trpo_rollout_launch(
     c.rmin = s[10];
     c.rmax = s[11];
     c.n_substeps = n_substeps;
-    const Args a = {q0, qd0, tgt, W0, b0, W1, b1, W2, b2, logstd, eps, seed,
+    const Args a = {q0, qd0, tgt, policy_shape::weights_of(weights), eps, seed,
                     fq, fqd, ftgt, obs, act, rew, dones, N, T,
                     static_cast<cudaStream_t>(stream)};
     return (int)dispatch(n, terminating, store_bf16,

@@ -4,14 +4,18 @@ Replaces ``make_pallas_gn_fvp`` in
 ``trpo_robot_control_tpu/ops/pallas/fvp_kernel.py``: per CG call, one pass
 over batch-major samples (forward tangent through the tanh MLP,
 u = dmu * inv_var / B, reverse accumulation of J^T u), with the hidden
-activations computed once per update by ``activations``. The TPU kernel's
-sample-pair packing is a matrix-unit trick and is not carried over. The
-64-wide products run on the tensor cores and stay exact to fp32: every
-fp32 operand is split into three bf16 planes as ``pg_kernel.split3`` does
-and the six plane products that hold fp32's 24 bits are summed, as in the
-feature-first kernel. W1's planes are split once per update, with the
-scratch every call reuses (``workspace``); v's W0 and W1 blocks once per
-call ahead of the kernel.
+activations computed once per update by ``activations``. It takes any
+tanh policy of 1-3 hidden layers of 1-64 units (``build.hidden_shape``;
+a policy other than the default (64, 64) builds a library of its own,
+past those it raises NotImplementedError, naming ROADMAP B3). The TPU
+kernel's sample-pair packing is a matrix-unit trick and is not carried
+over. The hidden layers' products run on the tensor cores and stay exact
+to fp32: every fp32 operand is split into three bf16 planes as
+``pg_kernel.split3`` does and the six plane products that hold fp32's 24
+bits are summed, as in the feature-first kernel. The hidden-to-hidden
+weights' planes are split once per update, with the scratch every call
+reuses (``workspace``); v's hidden-layer blocks once per call ahead of
+the kernel.
 
 ``gn_fvp`` is the wrapper: the CUDA kernel on CUDA tensors (or it raises),
 ``gn_fvp_plain`` on CPU tensors. Both return the damped product
@@ -27,16 +31,19 @@ import torch
 from . import build
 from ...models import policy
 
-HIDDEN = 64
-# fixed, so the reduction order does not depend on the card: one block (8
-# warps, ~206 KB of shared memory) on each of an H100's 132 SMs
+# fixed, so the reduction order does not depend on the card: one block on
+# each of an H100's 132 SMs
 MAX_BLOCKS = 132
-TILE = 128          # samples per tile, 16 a warp (csrc/fvp.cu: TS)
+# samples a tile at (64, 64): 16 a warp, 8 warps (csrc/fvp.cu: Pick; a
+# policy whose layout does not fit 8 warps' takes 4, ``tile``)
+TILE = 128
 
-_SIG = {"trpo_fvp_launch": [ctypes.c_void_p] * 10
-        + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
-                                ctypes.c_void_p],
-        "trpo_fvp_split_launch": [ctypes.c_void_p] * 3,
+_SIG = {"trpo_fvp_launch": [ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        "trpo_fvp_split_launch": [ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_void_p] * 3,
+        "trpo_fvp_tile": [ctypes.c_int, ctypes.c_int],
         "trpo_fvp_occupancy": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
 
 
@@ -81,69 +88,104 @@ def gn_fvp_math(params, obs, hs, scale, v, damping: float):
 gn_fvp_plain.calls = 0
 
 
+def _pad(w: int) -> int:
+    return -(-w // 16) * 16
+
+
+def plane_sizes(hidden: tuple, do: int) -> tuple:
+    """bf16 elements of the hidden-to-hidden weights' planes (each W_l's
+    three, zero-padded to multiples of 16) and of v's per-call planes
+    (dW0 (do, pad(w_0)) and each dW_l)."""
+    p = [_pad(w) for w in hidden]
+    inner = sum(a * b for a, b in zip(p, p[1:]))
+    return 3 * inner, 3 * (do * p[0] + inner)
+
+
+def _library(hidden):
+    return build.library(build.lib_name("fvp", None, hidden), _SIG)
+
+
+def tile(do: int, da: int, hidden: tuple = build.DEFAULT_HIDDEN) -> int:
+    """Samples a tile of the kernel for (do, da) and a policy of ``hidden``
+    widths: the unit of the grid, whose reduction order it fixes."""
+    ts = _library(hidden).trpo_fvp_tile(do, da)
+    if ts <= 0:
+        raise NotImplementedError("the FVP kernel takes obs_dim <= 32, "
+                                  "act_dim <= 8")
+    return ts
+
+
 def workspace(params, obs):
-    """The device buffers every CG call of an update shares: W1's three
-    bf16 planes (3, 64, 64), split here once for every launch, and the
-    scratch for v's planes and the per-block partials; None for CPU tensors
-    (the plain version needs none)."""
-    W1 = params["W1"]
+    """The device buffers every CG call of an update shares: the
+    hidden-to-hidden weights' three bf16 planes each, split here once for
+    every launch, and the scratch for v's planes and the per-block
+    partials; None for CPU tensors (the plain version needs none). Raises
+    NotImplementedError, naming ROADMAP B3, for a policy the kernel does
+    not take, before it builds anything."""
     if not obs.is_cuda:
         return None
-    if W1.shape != (HIDDEN, HIDDEN) or W1.dtype != torch.float32 \
-            or not W1.is_contiguous() or W1.device != obs.device:
-        raise NotImplementedError("the FVP kernel takes a (64, 64) tanh "
-                                  "policy with contiguous fp32 weights "
-                                  "(other shapes: ROADMAP B3)")
+    hidden = build.hidden_shape(params, "FVP kernel")
     B, do = obs.shape
     da = params["logstd"].shape[0]
-    Pg = do * HIDDEN + HIDDEN * HIDDEN + HIDDEN * da + 2 * HIDDEN + da
-    w1p = torch.empty(3, HIDDEN, HIDDEN, dtype=torch.bfloat16,
-                      device=W1.device)
-    err = build.library("fvp", _SIG).trpo_fvp_split_launch(
-        build.ptr(W1), build.ptr(w1p), build.stream_handle(W1.device))
+    for k, w in params.items():
+        if w.dtype != torch.float32 or not w.is_contiguous() \
+                or w.device != obs.device:
+            raise ValueError(f"the FVP kernel takes contiguous fp32 weights "
+                             f"on {obs.device}, not {k} {w.dtype} on "
+                             f"{w.device}")
+    ts = tile(do, da, hidden)
+    n_w, n_v = plane_sizes(hidden, do)
+    wplanes = torch.empty(max(n_w, 1), dtype=torch.bfloat16,
+                          device=obs.device)
+    err = _library(hidden).trpo_fvp_split_launch(
+        *build.policy_args(params, hidden), build.ptr(wplanes),
+        build.stream_handle(obs.device))
     build.check(err, "FVP kernel's weight split")
-    vplanes = torch.empty(3 * (do + HIDDEN) * HIDDEN, dtype=torch.bfloat16,
+    vplanes = torch.empty(n_v, dtype=torch.bfloat16, device=obs.device)
+    Pg = sum(w.numel() for w in params.values()) - da
+    partial = torch.empty(min(-(-B // ts), MAX_BLOCKS) * Pg,
                           device=obs.device)
-    partial = torch.empty(min(-(-B // TILE), MAX_BLOCKS) * Pg,
-                          device=obs.device)
-    return w1p, vplanes, partial
+    return hidden, ts, wplanes, vplanes, partial
 
 
 def gn_fvp(params, obs, hs, scale, v, damping: float, ws):
     """The damped Fv for a flat v; ``ws``: ``workspace(params, obs)``."""
     if not obs.is_cuda:
         return gn_fvp_plain(params, obs, hs, scale, v, damping)
+    hidden = build.hidden_shape(params, "FVP kernel")
     B, do = obs.shape
     da = params["logstd"].shape[0]
-    if len(hs) != 2 or any(h.shape != (B, HIDDEN) for h in hs):
-        raise NotImplementedError("the FVP kernel takes a (64, 64) tanh "
-                                  "policy (other shapes: ROADMAP B3)")
+    if len(hs) != len(hidden) or any(h.shape != (B, w)
+                                     for h, w in zip(hs, hidden)):
+        raise ValueError(f"hs must be the ({B}, w) activations of the "
+                         f"{hidden} policy")
     if do > 32 or da > 8:
         raise NotImplementedError("the FVP kernel takes obs_dim <= 32, "
                                   "act_dim <= 8")
     P = v.shape[0]
-    Pg = P - da
-    if P != do * HIDDEN + HIDDEN * HIDDEN + HIDDEN * da + 2 * HIDDEN + 2 * da:
+    if P != sum(w.numel() for w in params.values()):
         raise ValueError(f"v has {P} entries, not the policy's parameter count")
-    for x in (obs, hs[0], hs[1], params["W2"], scale, v):
+    for x in (obs, *hs, *params.values(), scale, v):
         if x.dtype != torch.float32 or x.device != obs.device \
                 or not x.is_contiguous():
             raise ValueError("FVP kernel inputs must be contiguous fp32 "
                              f"tensors on {obs.device}")
-    # the kernel copies x and h0 16 bytes at a time and reads h1 by pairs
-    if any(x.data_ptr() % 16 for x in (obs, hs[0], hs[1])):
-        raise ValueError("FVP kernel inputs x, h0, h1 must start on a "
-                         "16-byte boundary")
-    n_blocks = min(-(-B // TILE), MAX_BLOCKS)
-    w1p, vplanes, partial = ws
-    if vplanes.numel() != 3 * (do + HIDDEN) * HIDDEN \
-            or partial.numel() != n_blocks * Pg:
+    # the kernel copies x and h_0 .. h_{L-2} 16 bytes at a time and reads
+    # h_{L-1} by pairs
+    if any(x.data_ptr() % 16 for x in (obs, *hs)):
+        raise ValueError("FVP kernel inputs x, h must start on a 16-byte "
+                         "boundary")
+    ws_hidden, ts, wplanes, vplanes, partial = ws
+    n_blocks = min(-(-B // ts), MAX_BLOCKS)
+    if ws_hidden != hidden or vplanes.numel() != plane_sizes(hidden, do)[1] \
+            or partial.numel() != n_blocks * (P - da):
         raise ValueError("the FVP workspace was made for another shape")
     out = torch.empty_like(v)
-    lib = build.library("fvp", _SIG)
-    err = lib.trpo_fvp_launch(
-        *(build.ptr(x) for x in (obs, hs[0], hs[1], w1p, params["W2"], scale,
-                                 v, vplanes, partial, out)),
+    hid, n_hid, weights = build.policy_args(params, hidden)
+    hs_ptrs = (ctypes.c_void_p * len(hs))(*(h.data_ptr() for h in hs))
+    err = _library(hidden).trpo_fvp_launch(
+        hid, n_hid, weights, build.ptr(obs), hs_ptrs, build.ptr(wplanes),
+        *(build.ptr(x) for x in (scale, v, vplanes, partial, out)),
         B, do, da, float(damping), n_blocks, build.stream_handle(obs.device))
     build.check(err, "FVP kernel")
     gn_fvp.launches += 1
@@ -153,15 +195,18 @@ def gn_fvp(params, obs, hs, scale, v, damping: float, ws):
 gn_fvp.launches = 0
 
 
-def occupancy(do: int, da: int) -> dict:
-    """What the card makes of the kernel's instantiation for obs_dim ``do``
-    and act_dim ``da``: resident blocks and warps per SM, registers and
-    local (spill) bytes per thread, dynamic and static shared bytes per
-    block."""
-    out = (ctypes.c_int * 6)()
-    err = build.library("fvp", _SIG).trpo_fvp_occupancy(do, da, out)
+def occupancy(do: int, da: int, hidden: tuple = build.DEFAULT_HIDDEN
+              ) -> dict:
+    """What the card makes of the kernel's instantiation for obs_dim
+    ``do``, act_dim ``da`` and a policy of ``hidden`` widths: resident
+    blocks and warps per SM, registers and local (spill) bytes per thread,
+    dynamic and static shared bytes per block, threads and samples a
+    tile."""
+    hidden = build.check_hidden(hidden, "FVP kernel")
+    out = (ctypes.c_int * 7)()
+    err = _library(hidden).trpo_fvp_occupancy(do, da, out)
     build.check(err, "FVP kernel occupancy")
-    blocks, regs, local, dyn, static, threads = out
+    blocks, regs, local, dyn, static, threads, ts = out
     return dict(blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32,
                 registers=regs, local_bytes=local, smem_dynamic=dyn,
-                smem_static=static, threads=threads)
+                smem_static=static, threads=threads, tile=ts)

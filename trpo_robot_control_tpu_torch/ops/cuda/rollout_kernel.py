@@ -8,11 +8,14 @@ centripetal bias, unrolled Cholesky, semi-implicit Euler, tanh-MLP policy,
 Gaussian action, torque clip, reward) and, when ``cfg.done_dist > 0``, the
 terminating branch: an env whose post-step end effector comes within
 ``done_dist`` of its target is flagged done and starts a fresh episode
-before the next step. A block holds 8 envs in five warps: four compute
-the policy's hidden units across their lanes, one does each env's serial
-work; see the source for what bounds it on the card and what its design
-does about that. ``occupancy`` reports what the card makes of each
-instantiation.
+before the next step. It takes any tanh policy of 1-3 hidden layers of
+1-64 units (``build.hidden_shape``; a policy other than the default
+(64, 64) builds a library of its own, past those it raises
+NotImplementedError, naming ROADMAP B3). A block holds 8 envs in five
+warps: four compute the policy's hidden units across their lanes, one
+does each env's serial work; see the source for what bounds it on the
+card and what its design does about that. ``occupancy`` reports what the
+card makes of each instantiation.
 
 ``rollout`` is the wrapper: on CUDA tensors it launches the kernel (or
 raises), on CPU tensors it runs ``rollout_plain``, the same feature-first
@@ -43,13 +46,12 @@ import torch
 
 from . import build
 
-HIDDEN = 64
 JOINT_COUNTS = build.JOINT_COUNTS
 
 _SIG = {"trpo_rollout_launch":
         [ctypes.c_void_p] + [ctypes.c_int] * 4
-        + [ctypes.c_void_p] * 19 + [ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_void_p],
+        + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 13
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         "trpo_rollout_occupancy": [ctypes.c_int] * 3 + [ctypes.c_void_p]}
 
 
@@ -214,19 +216,22 @@ def _chol_solve(c: PlanarConsts, M, rhs):
 
 
 def _policy_mean(params, obs):
-    """obs (do, N) -> mu (da, N). A one-action head is multiplied as two
-    rows, the second zero, so that on the card it takes the matrix
-    product's FMA chain over the hidden units in order, as the rollout
-    kernels sum it, and not a matrix-vector product's order."""
+    """obs (do, N) -> mu (da, N). A one-unit layer (a one-action head, or
+    a hidden layer of width 1) is multiplied as two rows, the second zero,
+    so that on the card it takes the matrix product's FMA chain over its
+    inputs in order, as the rollout kernels sum it, and not a
+    matrix-vector product's order."""
+    def layer(W, b, h):
+        if W.shape[1] == 1:
+            return (torch.cat([W, torch.zeros_like(W)], dim=1).T @ h)[:1] \
+                + b[:, None]
+        return W.T @ h + b[:, None]
+
     L = sum(1 for k in params if k.startswith("W"))
     h = obs
     for i in range(L - 1):
-        h = torch.tanh(params[f"W{i}"].T @ h + params[f"b{i}"][:, None])
-    W, b = params[f"W{L - 1}"], params[f"b{L - 1}"]
-    if W.shape[1] == 1:
-        return (torch.cat([W, torch.zeros_like(W)], dim=1).T @ h)[:1] \
-            + b[:, None]
-    return W.T @ h + b[:, None]
+        h = torch.tanh(layer(params[f"W{i}"], params[f"b{i}"], h))
+    return layer(params[f"W{L - 1}"], params[f"b{L - 1}"], h)
 
 
 def rollout_plain(cfg, params, q0, qd0, tgt, eps, fresh=None):
@@ -352,17 +357,14 @@ def rollout(cfg, params, q0, qd0, tgt, eps=None, seed=None, fresh=None,
     T = cfg.horizon
     do = 3 * n + 3
     dev = q0.device
-    L = sum(1 for k in params if k.startswith("W"))
-    if L != 3 or any(params[f"W{i}"].shape[1] != HIDDEN for i in range(2)):
-        raise NotImplementedError(
-            "the rollout kernel takes a (64, 64) tanh policy (other "
-            "shapes: ROADMAP B3)")
+    hidden = build.hidden_shape(params, "planar rollout kernel")
     check_joints(n, "planar rollout kernel")
+    if params["W0"].shape[0] != do:
+        raise ValueError(f"W0 takes {params['W0'].shape[0]} inputs, the "
+                         f"observation has {do}")
     if (eps is None) == (seed is None):
         raise ValueError("pass exactly one of eps and seed")
-    ins = dict(q0=q0.T, qd0=qd0.T, tgt=tgt[:, :2].T,
-               **{k: params[k] for k in ("W0", "b0", "W1", "b1", "W2", "b2",
-                                         "logstd")})
+    ins = dict(q0=q0.T, qd0=qd0.T, tgt=tgt[:, :2].T, **params)
     ins = {k: v.to(torch.float32).contiguous() for k, v in ins.items()}
     for k, v in ins.items():
         if v.device != dev:
@@ -390,12 +392,12 @@ def rollout(cfg, params, q0, qd0, tgt, eps=None, seed=None, fresh=None,
         c.q0_noise, c.qd0_noise, c.rmin, c.rmax]
     consts_arr = (ctypes.c_float * len(consts))(*consts)
     opt = lambda x: build.ptr(x) if x is not None else ctypes.c_void_p(None)
-    lib = build.library(build.lib_name("rollout", n), _SIG)
+    lib = build.library(build.lib_name("rollout", n, hidden), _SIG)
+    hid, n_hid, weights = build.policy_args(ins, hidden)
     err = lib.trpo_rollout_launch(
         consts_arr, c.n_substeps, n, int(term),
-        int(store_dtype == torch.bfloat16),
-        *(build.ptr(ins[k]) for k in ("q0", "qd0", "tgt", "W0", "b0", "W1",
-                                      "b1", "W2", "b2", "logstd")),
+        int(store_dtype == torch.bfloat16), hid, n_hid,
+        *(build.ptr(ins[k]) for k in ("q0", "qd0", "tgt")), weights,
         opt(eps_ff), seed_p,
         *(opt(x) for x in fresh_ff),
         build.ptr(obs), build.ptr(act), build.ptr(rew), opt(dones), N, T,
@@ -408,19 +410,21 @@ def rollout(cfg, params, q0, qd0, tgt, eps=None, seed=None, fresh=None,
 rollout.launches = 0
 
 
-def occupancy(n: int, term: bool, store_dtype=torch.float32) -> dict:
+def occupancy(n: int, term: bool, store_dtype=torch.float32,
+              hidden=build.DEFAULT_HIDDEN) -> dict:
     """What the card makes of the instantiation for ``n`` joints,
-    terminating or not, with ``store_dtype`` stores: resident blocks and
-    warps per SM
+    terminating or not, with ``store_dtype`` stores and a policy of
+    ``hidden`` widths: resident blocks and warps per SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
     bytes per thread (the stack frame: spills, and the slow-path array of
     the precise trig, which ``-Xptxas -v`` tells apart), static shared
     bytes, threads and envs per block. Raises NotImplementedError for an
-    ``n`` it is not built for."""
+    ``n`` or a policy it is not built for."""
     check_joints(n, "planar rollout kernel")
     check_store(store_dtype)
+    hidden = build.check_hidden(hidden, "planar rollout kernel")
     out = (ctypes.c_int * 6)()
-    err = build.library(build.lib_name("rollout", n),
+    err = build.library(build.lib_name("rollout", n, hidden),
                         _SIG).trpo_rollout_occupancy(
         n, int(term), int(store_dtype == torch.bfloat16), out)
     build.check(err, "rollout kernel occupancy")

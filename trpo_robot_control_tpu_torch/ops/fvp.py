@@ -3,9 +3,9 @@
 
 F v = (1/B) sum_b J_b^T M J_b v + damping v, with J = d(mu, logstd)/dtheta
 and M = diag(1/sigma^2, 2I): one forward tangent and one reverse pass per
-call. The hidden activations, the bf16 planes of W1 that the kernel
-reads and its scratch are made once per update and reused by every CG
-call. Each call goes through the FVP kernel's wrapper
+call. The hidden activations, the bf16 planes of the hidden-to-hidden
+weights that the kernel reads and its scratch are made once per update
+and reused by every CG call. Each call goes through the FVP kernel's wrapper
 (``ops/cuda/fvp_kernel.py``), which launches the CUDA kernel on a GPU
 tensor and runs the plain PyTorch version of the same math on a CPU one.
 """
