@@ -8,7 +8,8 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
 1. names the card and builds the six CUDA kernels from ``ops/cuda/csrc``
    (the two rollouts one library per joint count, 1-8, and K4 at 7
    joints, K5 and K6 one library per policy shape of phase 8, K1 at 3
-   links and K3 one per shape of phase 9); prints every
+   links and K3 one per shape of phase 9, K1, K4 and K3 one per shape of
+   phase 10, all in one parallel pass); prints every
    kernel's ``-Xptxas -v`` lines (K4's for each instantiation), then what
    the card makes of each K1 instantiation at c1's and c2's joint counts
    (``rollout_kernel.occupancy`` and the grid at c1's and c2's width; no
@@ -118,7 +119,20 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
    (``c2_baselines32``: Baselines' (32, 32)) and c2-deep3 (``c2_deep3``:
    (64, 64, 64)), each with its K1 digest, trained five full-width
    iterations (K1, K2 once and K3 ten times per update, no K5/K6, no
-   plain version) and K1 and K3 timed (``c2_shape_phases``).
+   plain version) and K1 and K3 timed (``c2_shape_phases``);
+10. the unpacked policy forms, widths 65-128 (``wide_shape_checks`` at
+   each of ``WIDE_SHAPES``): K1 at c2's arm (fp32 within K1_TIGHT_ATOL /
+   K1_FULL_ATOL, bf16 stores, TERM printed, no spill store), K4 at c3's
+   arm and c5's observation on 4096 envs x 200 steps against its plain
+   version on every 16th env (0.0 and 0 ulps, or, where the plain
+   version's matrix product sums in another order, its step-0 actions in
+   the fmaf order and phase 3's bounds; TERM 0.0 at RLLAB), K3 on c2's,
+   a c1-sized and c3's fp32 Fisher batch (K3_SHAPE_REL); K1, K3 and K4
+   timed beside their bounds; then c3-rllab (``c3_rllab``: rllab's
+   (100, 50, 25) policy; K4, K2-bf16, the plain surrogate gradient and
+   K3 ten times per update on the fp32 relayout, as ``kernel_routes``
+   decides) through ``arm3d_phases`` and c2-rllab (``c2_rllab``) through
+   ``c2_shape_phases``, each trained five full-width iterations.
 
 The last lines are the kernels' JSON record (c2/c3 figures at the top
 level of each entry, c4/c5/c5-planar3 ones under ``at_c4``/``at_c5``/
@@ -128,7 +142,8 @@ and, at c2, ``bf16_mode_c2`` (K1's and K2's), K3 on c2-bf16 under
 ``at_c2_bf16``, every joint count under ``other_n`` (K1 at 8 links timed
 under ``at_n8``), phase 8's shape checks of K4-K6 under
 ``policy_shapes`` (phase 9's of K1 and K3 too, the c2 paths under
-``at_c2_baselines32``/``at_c2_deep3``), and the terminating
+``at_c2_baselines32``/``at_c2_deep3``), phase 10's under
+``wide_shapes`` and ``at_c3_rllab``/``at_c2_rllab``, and the terminating
 instantiations as ``rollout_term``
 (c2) and ``rollout3d_term`` (c5, c5-planar3 under ``at_c5_planar3``)),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -393,19 +408,24 @@ def k1_bound(cfg, P, store_dtype=torch.float32):
                     + 4.0 * (B * rows + N * (2 * n + 2) + P))
 
 
+def spill_stores(lib):
+    """Spill-store bytes per instantiation of library ``lib`` from its
+    ``-Xptxas -v`` report."""
+    from trpo_robot_control_tpu_torch.ops.cuda import build
+    lines = [ln for ln in build.ptxas_report().splitlines()
+             if ln.startswith(f"{lib}: ")]
+    return [int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                       "\n".join(lines))]
+
+
 def k1_spills():
     """K1's spill-store bytes per instantiation, {joints: [bytes, ...]},
     from the ``-Xptxas -v`` report (four instantiations a joint count);
     requires none at 1-3 joints (c1, c2 and their bf16 and TERM
     instantiations among them) and prints the others'."""
     from trpo_robot_control_tpu_torch.ops.cuda import build
-    report = build.ptxas_report().splitlines()
-    out = {}
-    for n in build.JOINT_COUNTS:
-        lines = [ln for ln in report
-                 if ln.startswith(f"{build.lib_name('rollout', n)}: ")]
-        out[n] = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
-                                             "\n".join(lines))]
+    out = {n: spill_stores(build.lib_name("rollout", n))
+           for n in build.JOINT_COUNTS}
     print(f"K1 spill stores per instantiation (bytes), by joint count: {out}")
     for n in (1, 2, 3):
         require(len(out[n]) == 4 and not any(out[n]),
@@ -561,10 +581,9 @@ def k3_bound(B, do, da, P, hidden=(64, 64)):
             bound_ms(flops, nbytes))
 
 
-def split_statement():
-    """``gn_fvp_split``, the PyTorch statement of K3's plane products, from
-    the checkout's ``tests/test_torch_helpers.py`` (numpy and torch only;
-    the torch thread count it sets is put back)."""
+def port_test_helpers():
+    """The checkout's ``tests/test_torch_helpers.py`` (numpy and torch
+    only; the torch thread count it sets is put back)."""
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                         "test_torch_helpers.py")
     spec = importlib.util.spec_from_file_location("test_torch_helpers", path)
@@ -572,7 +591,13 @@ def split_statement():
     threads = torch.get_num_threads()
     spec.loader.exec_module(mod)
     torch.set_num_threads(threads)
-    return mod.gn_fvp_split
+    return mod
+
+
+def split_statement():
+    """``gn_fvp_split``, the PyTorch statement of K3's plane products, from
+    the checkout's ``tests/test_torch_helpers.py``."""
+    return port_test_helpers().gn_fvp_split
 
 
 def k3_check(tag, gen, params, obs_fvp, damping):
@@ -1054,13 +1079,38 @@ def k4_zero_flops_per_env_step(r3, cfg, s0):
     return c.n_substeps * (fused - split)
 
 
+def k4_bound(r3, cfg, params, s0, per_step):
+    """K4's bound at ``cfg`` from its work per env-step (``per_step``,
+    ``k4_flops_per_env_step``): the operations the function needs, the
+    fused sweep's less its structural zeros, which the kernel's
+    specialised passes skip, or every input read and output written once
+    (bf16 stores), whichever is larger; the fused sweep's figure beside it;
+    and the share of the bound that -fmad=false leaves reachable (every
+    multiply and add of the dynamics is an instruction of its own, the
+    bound counts an FMA's two FLOPs per instruction, only the MLP's fmaf
+    keep two). Returns (bound, fused bound, zeros per env-step, share)."""
+    N, n = cfg.n_envs, cfg.arm.n_joints
+    do, da, B = cfg.obs_dim, n, cfg.horizon * cfg.n_envs
+    P = sum(x.numel() for x in params.values())
+    state_floats = 2 * n + 3 + (cfg.n_tasks > 1)      # q0, qd0, tgt, task
+    k4_bytes = B * ((do + da) * 2 + 4) + 4.0 * (N * state_floats + P)
+    zero = k4_zero_flops_per_env_step(r3, cfg, s0)
+    need = per_step - zero
+    mlp = 2 * mlp_macs(do, cfg.trpo.hidden, da)
+    return (bound_ms(need * B, k4_bytes), bound_ms(per_step * B, k4_bytes),
+            zero, (need / 2) / ((need - mlp) + mlp / 2))
+
+
 def arm3d_phases(dev, cfg, seed, tag=None, exact=False):
-    """K4, K2-bf16, K5, K6 on a config of the 3-D kernel and its training;
-    returns {kernel: record} for K4-K6 and the bf16-mode record of K2. K4
-    runs at full width and is held against its plain version on
-    ``K4_CHECK_ENVS`` envs spread over the batch by a stride; with
-    ``exact`` its fp32 stores must equal the plain version's and its bf16
-    stores the plain version's rounded, over the whole horizon."""
+    """K4, K2-bf16 and the update's routes (``kernel_routes``: K5 and K6,
+    or for a policy wider than 64 the plain surrogate gradient and K3 on
+    the fp32 relayout) on a config of the 3-D kernel and its training;
+    returns {kernel: record} for K4 and the routed kernels and the
+    bf16-mode record of K2. K4 runs at full width and is held against its
+    plain version on ``K4_CHECK_ENVS`` envs spread over the batch by a
+    stride; with ``exact`` its fp32 stores must equal the plain version's
+    and its bf16 stores the plain version's rounded, over the whole
+    horizon."""
     from trpo_robot_control_tpu_torch.envs import arm
     from trpo_robot_control_tpu_torch.models import baseline, policy
     from trpo_robot_control_tpu_torch.ops import cuda as kernels
@@ -1068,8 +1118,10 @@ def arm3d_phases(dev, cfg, seed, tag=None, exact=False):
                                                        moments_kernel as mk,
                                                        pg_kernel as pk,
                                                        rollout3d_kernel as r3)
+    from trpo_robot_control_tpu_torch.ops.cuda import fvp_kernel as fk
     from trpo_robot_control_tpu_torch.ops.gae import gae
     from trpo_robot_control_tpu_torch.trpo.train import train
+    from trpo_robot_control_tpu_torch.trpo.update import kernel_routes
     tag = tag or cfg.name.split("_")[0]
     T, N, n = cfg.horizon, cfg.n_envs, cfg.arm.n_joints
     do, da = cfg.obs_dim, n
@@ -1077,6 +1129,11 @@ def arm3d_phases(dev, cfg, seed, tag=None, exact=False):
     bf16 = torch.bfloat16
     gen, params, s0 = k4_setup(dev, cfg, seed)
     P = policy.flatten(params).numel()
+    k_sub, e_sub = cfg.trpo.fvp_subsample, cfg.trpo.fvp_env_subsample
+    routes = kernel_routes(cfg.trpo, params, T, N, -(-T // k_sub),
+                           -(-N // e_sub))
+    use_pg, use_ff = routes["surrgrad"] == "pallas", routes["fvp"] == "ff"
+    print(f"{tag} update routes: {routes}")
     rec = {}
 
     # ---- K4 3-D rollout at full width vs its plain version on every
@@ -1184,89 +1241,102 @@ def arm3d_phases(dev, cfg, seed, tag=None, exact=False):
         max_abs_err=float((gram_k - gram_p).abs().max()))
     del gram_p
 
-    # ---- K5 surrogate gradient vs its plain version
+    # ---- K5 surrogate gradient vs its plain version (its route only)
     adv = (targets - targets.mean()) / (targets.std() + 1e-8)
-    g_k, mu_k, lp_k = pk.surrogate_grad(params, obs_ff, act_ff, adv)
-    g_p, mu_p, lp_p = pk.surrogate_grad_plain(params, obs_ff, act_ff, adv)
-    fg_k, fg_p = policy.flatten(g_k), policy.flatten(g_p)
-    rel_g = float(torch.linalg.norm(fg_k - fg_p) / torch.linalg.norm(fg_p))
-    err_mu = float((mu_k - mu_p).abs().max())
-    rel_lp = float(((lp_k - lp_p).abs() / lp_p.abs().clamp_min(1e-6)).max())
-    print(f"{tag} K5: rel L2 err g {rel_g:.3e} (bound {K5_REL} at (64, "
-          f"64), see below), max |mu "
-          f"err| {err_mu:.3e} (bound {K5_MU_ATOL}), max rel logp err "
-          f"{rel_lp:.3e} (bound {K5_LOGP_REL})")
-    # both fp32 sum orders against the fp64 evaluation with the same bf16
-    # rounding points: mu beyond its slack, g in all and on the samples
-    # whose roundings are unambiguous (run again with the others' adv 0)
-    ref = pg_fp64_batch(params, obs_ff, act_ff, adv,
-                        dict(kernel=mu_k, plain=mu_p))
-    adv_kept = adv * ref["kept"]
-    far, kept_g = {}, {}
-    for name, fn, g_all in (("kernel", pk.surrogate_grad, fg_k),
-                            ("plain", pk.surrogate_grad_plain, fg_p)):
-        g_kept = kept_g[name] = policy.flatten(
-            fn(params, obs_ff, act_ff, adv_kept)[0])
-        far[name] = (ref["mu_over"][name], rel_l2(g_all, ref["g"]),
-                     rel_l2(g_kept, ref["g_kept"]))
-        print(f"{tag} K5 {name} vs fp64 evaluation: mu beyond its slack "
-              f"{far[name][0]:.3e} (bound {PG_MU_FP64_ATOL}), rel L2 g "
-              f"{far[name][1]:.3e}, on the {ref['kept_share']:.3f} of "
-              f"samples with unambiguous roundings {far[name][2]:.3e} "
-              f"(bound {PG_G_KEPT_REL})")
-    del ref, adv_kept
-    require(far["kernel"][0] <= PG_MU_FP64_ATOL
-            and far["kernel"][2] <= PG_G_KEPT_REL,
-            f"{tag} K5 against the fp64 evaluation {far['kernel']}")
-    # the kernel against the plain version: on the samples with unambiguous
-    # roundings, where the two compute the same function up to fp32 sums,
-    # and, for the (64, 64) policy, on every sample as since PR 7. A
-    # deeper policy carries more bf16 roundings a sample (at (64, 64, 64)
-    # 64 % of c3's samples have an ambiguous one, which either sum order
-    # may round to the other neighbour), so there only the first holds.
-    rel_g_kept = rel_l2(kept_g["kernel"], kept_g["plain"].double())
-    print(f"{tag} K5 kernel vs plain on the samples with unambiguous "
-          f"roundings: rel L2 g {rel_g_kept:.3e} (bound {PG_G_KEPT_REL})")
-    require(rel_g_kept <= PG_G_KEPT_REL, f"{tag} K5 error on the samples "
-            f"with unambiguous roundings {rel_g_kept}")
-    require((rel_g <= K5_REL or tuple(hidden) != (64, 64))
-            and err_mu <= K5_MU_ATOL and rel_lp <= K5_LOGP_REL,
-            f"{tag} K5 error {rel_g}, {err_mu}, {rel_lp}")
-    del mu_p, lp_p
-    again = pk.surrogate_grad(params, obs_ff, act_ff, adv)
-    require(torch.equal(policy.flatten(again[0]), fg_k)
-            and torch.equal(again[1], mu_k) and torch.equal(again[2], lp_k),
-            f"{tag} K5 is not deterministic")
-    print(f"{tag} K5: repeat calls bit-identical")
-    del again, mu_k, lp_k
-    rec["pg"] = dict(max_abs_err=float((fg_k - fg_p).abs().max()))
+    if use_pg:
+        g_k, mu_k, lp_k = pk.surrogate_grad(params, obs_ff, act_ff, adv)
+        g_p, mu_p, lp_p = pk.surrogate_grad_plain(params, obs_ff, act_ff, adv)
+        fg_k, fg_p = policy.flatten(g_k), policy.flatten(g_p)
+        rel_g = float(torch.linalg.norm(fg_k - fg_p) / torch.linalg.norm(fg_p))
+        err_mu = float((mu_k - mu_p).abs().max())
+        rel_lp = float(((lp_k - lp_p).abs()
+                        / lp_p.abs().clamp_min(1e-6)).max())
+        print(f"{tag} K5: rel L2 err g {rel_g:.3e} (bound {K5_REL} at (64, "
+              f"64), see below), max |mu "
+              f"err| {err_mu:.3e} (bound {K5_MU_ATOL}), max rel logp err "
+              f"{rel_lp:.3e} (bound {K5_LOGP_REL})")
+        # both fp32 sum orders against the fp64 evaluation with the same bf16
+        # rounding points: mu beyond its slack, g in all and on the samples
+        # whose roundings are unambiguous (run again with the others' adv 0)
+        ref = pg_fp64_batch(params, obs_ff, act_ff, adv,
+                            dict(kernel=mu_k, plain=mu_p))
+        adv_kept = adv * ref["kept"]
+        far, kept_g = {}, {}
+        for name, fn, g_all in (("kernel", pk.surrogate_grad, fg_k),
+                                ("plain", pk.surrogate_grad_plain, fg_p)):
+            g_kept = kept_g[name] = policy.flatten(
+                fn(params, obs_ff, act_ff, adv_kept)[0])
+            far[name] = (ref["mu_over"][name], rel_l2(g_all, ref["g"]),
+                         rel_l2(g_kept, ref["g_kept"]))
+            print(f"{tag} K5 {name} vs fp64 evaluation: mu beyond its slack "
+                  f"{far[name][0]:.3e} (bound {PG_MU_FP64_ATOL}), rel L2 g "
+                  f"{far[name][1]:.3e}, on the {ref['kept_share']:.3f} of "
+                  f"samples with unambiguous roundings {far[name][2]:.3e} "
+                  f"(bound {PG_G_KEPT_REL})")
+        del ref, adv_kept
+        require(far["kernel"][0] <= PG_MU_FP64_ATOL
+                and far["kernel"][2] <= PG_G_KEPT_REL,
+                f"{tag} K5 against the fp64 evaluation {far['kernel']}")
+        # the kernel against the plain version: on the samples with
+        # unambiguous roundings, where the two compute the same function up
+        # to fp32 sums, and, for the (64, 64) policy, on every sample (K5_REL,
+        # the bound of its first tensor-core version). A deeper policy
+        # carries more bf16 roundings a sample (at (64, 64, 64) 64 % of c3's
+        # samples have an ambiguous one, which either sum order may round to
+        # the other neighbour), so there only the first holds.
+        rel_g_kept = rel_l2(kept_g["kernel"], kept_g["plain"].double())
+        print(f"{tag} K5 kernel vs plain on the samples with unambiguous "
+              f"roundings: rel L2 g {rel_g_kept:.3e} (bound {PG_G_KEPT_REL})")
+        require(rel_g_kept <= PG_G_KEPT_REL, f"{tag} K5 error on the samples "
+                f"with unambiguous roundings {rel_g_kept}")
+        require((rel_g <= K5_REL or tuple(hidden) != (64, 64))
+                and err_mu <= K5_MU_ATOL and rel_lp <= K5_LOGP_REL,
+                f"{tag} K5 error {rel_g}, {err_mu}, {rel_lp}")
+        del mu_p, lp_p
+        again = pk.surrogate_grad(params, obs_ff, act_ff, adv)
+        require(torch.equal(policy.flatten(again[0]), fg_k)
+                and torch.equal(again[1], mu_k)
+                and torch.equal(again[2], lp_k),
+                f"{tag} K5 is not deterministic")
+        print(f"{tag} K5: repeat calls bit-identical")
+        del again, mu_k, lp_k
+        rec["pg"] = dict(max_abs_err=float((fg_k - fg_p).abs().max()))
 
-    # ---- K6 feature-first FVP vs its plain version on the subsample
+    # ---- K6 feature-first FVP vs its plain version on the subsample,
+    # or K3 on its fp32 relayout, as the update routes it
     k, e = cfg.trpo.fvp_subsample, cfg.trpo.fvp_env_subsample
     sub = obs_ff[::k, :, ::e]
     B_sub = sub.shape[0] * sub.shape[2]
-    fvp = ffk.make_gn_fvp_ff(params, sub, cfg.trpo.cg_damping)
-    worst_rel, worst_abs = 0.0, 0.0
-    for _ in range(10):
-        v = torch.randn(P, generator=gen, device=dev)
-        f_k = fvp(v)
-        f_p = ffk.gn_fvp_ff_plain(params, sub, v, cfg.trpo.cg_damping)
-        worst_rel = max(worst_rel, float(torch.linalg.norm(f_k - f_p)
-                                         / torch.linalg.norm(f_p)))
-        worst_abs = max(worst_abs, float((f_k - f_p).abs().max()))
-        require(torch.equal(f_k, fvp(v)), f"{tag} K6 is not deterministic")
-    print(f"{tag} K6 on obs_ff[::{k}, :, ::{e}]: B' = {B_sub}, worst "
-          f"relative L2 err {worst_rel:.3e} over 10 v (bound {K6_REL}); "
-          "repeat calls bit-identical")
-    require(worst_rel <= K6_REL, f"{tag} K6 error {worst_rel}")
-    rec["fvp_ff"] = dict(max_abs_err=worst_abs)
+    if use_ff:
+        fvp = ffk.make_gn_fvp_ff(params, sub, cfg.trpo.cg_damping)
+        worst_rel, worst_abs = 0.0, 0.0
+        for _ in range(10):
+            v = torch.randn(P, generator=gen, device=dev)
+            f_k = fvp(v)
+            f_p = ffk.gn_fvp_ff_plain(params, sub, v, cfg.trpo.cg_damping)
+            worst_rel = max(worst_rel, float(torch.linalg.norm(f_k - f_p)
+                                             / torch.linalg.norm(f_p)))
+            worst_abs = max(worst_abs, float((f_k - f_p).abs().max()))
+            require(torch.equal(f_k, fvp(v)), f"{tag} K6 is not deterministic")
+        print(f"{tag} K6 on obs_ff[::{k}, :, ::{e}]: B' = {B_sub}, worst "
+              f"relative L2 err {worst_rel:.3e} over 10 v (bound {K6_REL}); "
+              "repeat calls bit-identical")
+        require(worst_rel <= K6_REL, f"{tag} K6 error {worst_rel}")
+        rec["fvp_ff"] = dict(max_abs_err=worst_abs)
+    else:
+        obs_fvp = sub.permute(0, 2, 1).reshape(-1, do).float()
+        rec["fvp"] = dict(max_rel_err=k3_shape_check(
+            f"{tag} (fp32 relayout)", gen, params, obs_fvp,
+            cfg.trpo.cg_damping))
 
     # ---- five full-width iterations through the trainer
     n_iters = 5
-    launches, _ = train_checked(
+    launches, ms_upd = train_checked(
         cfg, n_iters, kernels,
-        {"rollout": 0, "moments": n_iters, "fvp": 0, "rollout3d": n_iters,
-         "pg": n_iters, "fvp_ff": n_iters * cfg.trpo.cg_iters}, train)
+        {"rollout": 0, "moments": n_iters,
+         "fvp": 0 if use_ff else n_iters * cfg.trpo.cg_iters,
+         "rollout3d": n_iters, "pg": n_iters if use_pg else 0,
+         "fvp_ff": n_iters * cfg.trpo.cg_iters if use_ff else 0}, train)
 
     # ---- kernel times beside bounds and plain versions
     B = T * N
@@ -1275,21 +1345,8 @@ def arm3d_phases(dev, cfg, seed, tag=None, exact=False):
           f"{per_step:.1f} FLOP (the policy MLP's "
           f"{2 * mlp_macs(do, hidden, da)} included)")
     t_k4 = k4_ms(cfg, params, s0)
-    state_floats = 2 * n + 3 + (cfg.n_tasks > 1)      # q0, qd0, tgt, task
-    k4_bytes = B * ((do + da) * 2 + 4) + 4.0 * (N * state_floats + P)
-    # the bound counts the operations the function needs: the fused
-    # sweep's less its structural zeros, which the kernel's specialised
-    # passes skip (the fused figure is kept beside it, labelled); and
-    # the share of it that -fmad=false leaves reachable (every multiply
-    # and add of the dynamics is an instruction of its own, the bound
-    # counts an FMA's two FLOPs per instruction, only the MLP's fmaf
-    # keep two)
-    zero = k4_zero_flops_per_env_step(r3, cfg, s0)
+    b4, b4fused, zero, ceiling = k4_bound(r3, cfg, params, s0, per_step)
     need = per_step - zero
-    mlp = 2 * mlp_macs(do, hidden, da)
-    b4 = bound_ms(need * B, k4_bytes)
-    b4fused = bound_ms(per_step * B, k4_bytes)
-    ceiling = (need / 2) / ((need - mlp) + mlp / 2)
     print(f"{tag} K4: {zero:.1f} of the fused sweep's {per_step:.1f} FLOP "
           f"per env-step ({100 * zero / per_step:.1f} %) are structural "
           f"zeros the kernel skips; bound on the {need:.1f} it needs "
@@ -1320,53 +1377,76 @@ def arm3d_phases(dev, cfg, seed, tag=None, exact=False):
           f"{b2fma[0]:.4f} ms ({b2fma[1]})")
     rec["moments_bf16"].update(bound_fp32_fma_ms=b2fma[0],
                                bound_share=b2[0] / t_k2)
-    t_k5 = cuda_ms(lambda: pk.surrogate_grad(params, obs_ff, act_ff, adv), 10)
-    t_k5p = cuda_ms(lambda: pk.surrogate_grad_plain(params, obs_ff, act_ff,
-                                                    adv), 3, warmup=1)
-    # the MLP's products, each counted once (the kernel's three-plane split
-    # of the weights is its own cost, not the work), at the bf16
-    # tensor-core peak; the fp32-FMA figure is kept beside it, labelled
-    pg_macs = surrogate_grad_macs(do, hidden, da)
-    pg_bytes = B * ((do + da) * 2 + 4 + 4 * da + 4) + 4.0 * 2 * P
-    b5 = bound_ms(2.0 * pg_macs * B, pg_bytes, peak_flops=PEAK_BF16_FLOPS)
-    b5fma = bound_ms(2.0 * pg_macs * B, pg_bytes)
-    print(f"{tag} pg: tensor-core bound {b5[0]:.4f} ms ({b5[1]}), "
-          f"{100 * b5[0] / t_k5:.1f} % of it reached; fp32-FMA bound "
-          f"{b5fma[0]:.4f} ms ({b5fma[1]})")
-    rec["pg"].update(bound_fp32_fma_ms=b5fma[0], bound_share=b5[0] / t_k5)
+    rows = [("rollout3d", t_k4, t_k4p, b4, None),
+            ("moments_bf16", t_k2, t_k2p, b2, t_k2lib)]
+    if use_pg:
+        t_k5 = cuda_ms(lambda: pk.surrogate_grad(params, obs_ff, act_ff,
+                                                 adv), 10)
+        t_k5p = cuda_ms(lambda: pk.surrogate_grad_plain(params, obs_ff, act_ff,
+                                                        adv), 3, warmup=1)
+        # the MLP's products, each counted once (the kernel's three-plane split
+        # of the weights is its own cost, not the work), at the bf16
+        # tensor-core peak; the fp32-FMA figure is kept beside it, labelled
+        pg_macs = surrogate_grad_macs(do, hidden, da)
+        pg_bytes = B * ((do + da) * 2 + 4 + 4 * da + 4) + 4.0 * 2 * P
+        b5 = bound_ms(2.0 * pg_macs * B, pg_bytes, peak_flops=PEAK_BF16_FLOPS)
+        b5fma = bound_ms(2.0 * pg_macs * B, pg_bytes)
+        print(f"{tag} pg: tensor-core bound {b5[0]:.4f} ms ({b5[1]}), "
+              f"{100 * b5[0] / t_k5:.1f} % of it reached; fp32-FMA bound "
+              f"{b5fma[0]:.4f} ms ({b5fma[1]})")
+        rec["pg"].update(bound_fp32_fma_ms=b5fma[0], bound_share=b5[0] / t_k5)
+        rows.append(("pg", t_k5, t_k5p, b5, None))
     v = torch.randn(P, generator=gen, device=dev)
-    t_k6 = k6_ms(params, sub, cfg.trpo.cg_damping, v)
-    t_k6p = cuda_ms(lambda: ffk.gn_fvp_ff_plain(params, sub, v,
-                                                cfg.trpo.cg_damping), 5)
-    # the function's products, each counted once, at the bf16 tensor-core
-    # peak (the kernel's three-plane split of its fp32 operands is its own
-    # cost, not the work, as for K5); the fp32-FMA figure beside it,
-    # labelled. Bytes: the subsample read once in its storage dtype, v, the
-    # weights and Fv. The strided view's reads come in 32-byte sectors:
-    # printed as a note, not as the bound.
-    ff_macs = fvp_ff_macs(do, hidden, da)
-    es = sub.element_size()
-    ff_bytes = es * B_sub * do + 4.0 * 3 * P
-    b6 = bound_ms(2.0 * ff_macs * B_sub, ff_bytes, peak_flops=PEAK_BF16_FLOPS)
-    b6fma = bound_ms(2.0 * ff_macs * B_sub, ff_bytes)
-    span = sub.stride(2) * es                  # bytes between two envs
-    sectors = (sub.shape[2] if span >= 32
-               else math.ceil(sub.shape[2] * span / 32))
-    sector_bytes = 32.0 * sectors * sub.shape[0] * do
-    print(f"{tag} fvp_ff: tensor-core bound {b6[0]:.4f} ms ({b6[1]}), "
-          f"{100 * b6[0] / t_k6:.1f} % of it reached; fp32-FMA bound "
-          f"{b6fma[0]:.4f} ms ({b6fma[1]}); note: the strided view "
-          f"(env stride {sub.stride(2)}, {es}-byte elements) reads "
-          f"{sector_bytes / 1e6:.1f} MB of 32-byte sectors, "
-          f"{1e3 * sector_bytes / PEAK_BYTES:.4f} ms at {PEAK_BYTES / 1e12} "
-          "TB/s")
-    rec["fvp_ff"].update(bound_fp32_fma_ms=b6fma[0], bound_share=b6[0] / t_k6,
-                         sector_read_mb=sector_bytes / 1e6)
-    for name, ms, plain_ms, (bms, by), lib_ms in (
-            ("rollout3d", t_k4, t_k4p, b4, None),
-            ("moments_bf16", t_k2, t_k2p, b2, t_k2lib),
-            ("pg", t_k5, t_k5p, b5, None),
-            ("fvp_ff", t_k6, t_k6p, b6, None)):
+    if use_ff:
+        t_k6 = k6_ms(params, sub, cfg.trpo.cg_damping, v)
+        t_k6p = cuda_ms(lambda: ffk.gn_fvp_ff_plain(params, sub, v,
+                                                    cfg.trpo.cg_damping), 5)
+        # the function's products, each counted once, at the bf16 tensor-core
+        # peak (the kernel's three-plane split of its fp32 operands is its own
+        # cost, not the work, as for K5); the fp32-FMA figure beside it,
+        # labelled. Bytes: the subsample read once in its storage dtype, v, the
+        # weights and Fv. The strided view's reads come in 32-byte sectors:
+        # printed as a note, not as the bound.
+        ff_macs = fvp_ff_macs(do, hidden, da)
+        es = sub.element_size()
+        ff_bytes = es * B_sub * do + 4.0 * 3 * P
+        b6 = bound_ms(2.0 * ff_macs * B_sub, ff_bytes,
+                      peak_flops=PEAK_BF16_FLOPS)
+        b6fma = bound_ms(2.0 * ff_macs * B_sub, ff_bytes)
+        span = sub.stride(2) * es                  # bytes between two envs
+        sectors = (sub.shape[2] if span >= 32
+                   else math.ceil(sub.shape[2] * span / 32))
+        sector_bytes = 32.0 * sectors * sub.shape[0] * do
+        print(f"{tag} fvp_ff: tensor-core bound {b6[0]:.4f} ms ({b6[1]}), "
+              f"{100 * b6[0] / t_k6:.1f} % of it reached; fp32-FMA bound "
+              f"{b6fma[0]:.4f} ms ({b6fma[1]}); note: the strided view "
+              f"(env stride {sub.stride(2)}, {es}-byte elements) reads "
+              f"{sector_bytes / 1e6:.1f} MB of 32-byte sectors, "
+              f"{1e3 * sector_bytes / PEAK_BYTES:.4f} ms at "
+              f"{PEAK_BYTES / 1e12} TB/s")
+        rec["fvp_ff"].update(bound_fp32_fma_ms=b6fma[0],
+                             bound_share=b6[0] / t_k6,
+                             sector_read_mb=sector_bytes / 1e6)
+        rows.append(("fvp_ff", t_k6, t_k6p, b6, None))
+    else:
+        # K3 on the fp32 relayout: its bound as in phase 2e, the
+        # function's products at the bf16 tensor-core peak (the wide
+        # form runs them on the CUDA cores; ROADMAP B4), the fp32-FMA
+        # figure beside it
+        t_k3 = k3_ms(params, obs_fvp, cfg.trpo.cg_damping, v)
+        hs = fk.activations(params, obs_fvp)
+        scale = torch.exp(-2.0 * params["logstd"]) / B_sub
+        t_k3p = cuda_ms(lambda: fk.gn_fvp_plain(
+            params, obs_fvp, hs, scale, v, cfg.trpo.cg_damping), 10)
+        del hs
+        b3, b3fma = k3_bound(B_sub, do, da, P, hidden)
+        print(f"{tag} fvp: tensor-core bound {b3[0]:.4f} ms ({b3[1]}), "
+              f"{100 * b3[0] / t_k3:.1f} % of it reached; fp32-FMA "
+              f"bound {b3fma[0]:.4f} ms ({b3fma[1]})")
+        rec["fvp"].update(bound_fp32_fma_ms=b3fma[0],
+                          bound_share=b3[0] / t_k3, hidden=list(hidden))
+        rows.append(("fvp", t_k3, t_k3p, b3, None))
+    for name, ms, plain_ms, (bms, by), lib_ms in rows:
         kname = "moments" if name == "moments_bf16" else name
         rec[name].update(launches=launches[kname], ms=ms, plain_ms=plain_ms,
                          bound_ms=bms, bound_by=by, library_ms=lib_ms)
@@ -1375,7 +1455,7 @@ def arm3d_phases(dev, cfg, seed, tag=None, exact=False):
               + (f" (on {Nc} envs, once)" if name == "rollout3d" else "")
               + (f", library {lib_ms:.4f} ms" if lib_ms is not None else "")
               + f", {launches[kname] // n_iters} launch(es)/update")
-    rec["rollout3d"]["plain_envs"] = Nc
+    rec["rollout3d"].update(plain_envs=Nc, ms_per_update=ms_upd)
     return rec
 
 
@@ -1913,7 +1993,6 @@ def planar_shape_checks(dev):
     from trpo_robot_control_tpu_torch.ops.cuda import fvp_kernel as fk
     from trpo_robot_control_tpu_torch.ops.cuda import rollout_kernel as rk
     bf16 = torch.bfloat16
-    report = build.ptxas_report().splitlines()
     out = {"rollout": {}, "fvp": {}}
     for hidden in POLICY_SHAPES:
         key = "x".join(map(str, hidden))
@@ -1952,10 +2031,7 @@ def planar_shape_checks(dev):
         require(all(bool(torch.isfinite(x).all()) for x in kt),
                 f"{key} K1-term: non-finite output")
         del k32, k16, p_out, kt, pt
-        lib = f"{build.lib_name('rollout', n, hidden)}: "
-        spills = [int(x) for x in re.findall(
-            r"(\d+) bytes spill stores",
-            "\n".join(ln for ln in report if ln.startswith(lib)))]
+        spills = spill_stores(build.lib_name("rollout", n, hidden))
         occ = {}
         for term in (False, True):
             for dt in (torch.float32, bf16):
@@ -2005,11 +2081,12 @@ def planar_shape_checks(dev):
 
 
 def c2_shape_phases(dev, cfg, seed):
-    """Phase 9b: a c2 path at another policy shape (``c2_baselines32``,
-    ``c2_deep3``): the Philox batch's SHA-256 at K1_SEED; five full-width
-    training iterations (K1, K2 once and K3 ten times per update, no K5 or
-    K6, no plain version); K1 and K3 times beside their bounds, their
-    launches and their plain versions' times. Returns {kernel: record}."""
+    """Phase 9b and 10b: a c2 path at another policy shape
+    (``c2_baselines32``, ``c2_deep3``, ``c2_rllab``): the Philox batch's
+    SHA-256 at K1_SEED; five full-width training iterations (K1, K2 once
+    and K3 ten times per update, no K5 or K6, no plain version); K1 and K3
+    times beside their bounds, their launches and their plain versions'
+    times. Returns {kernel: record}."""
     from trpo_robot_control_tpu_torch.models import policy
     from trpo_robot_control_tpu_torch.ops import cuda as kernels
     from trpo_robot_control_tpu_torch.ops.cuda import fvp_kernel as fk
@@ -2067,6 +2144,309 @@ def c2_shape_phases(dev, cfg, seed):
                 bound_ms=b3[0], bound_by=b3[1], bound_fp32_fma_ms=b3fma[0],
                 bound_share=b3[0] / t_k3, library_ms=None,
                 hidden=list(hidden))}
+
+
+# Phase 10: the unpacked policy forms, widths 65-128 (the TPU kernels'
+# `_policy_ff` and `_fvp_kernel`): one unit past the packed limit, JAX's
+# own unpacked test shape (tests/test_pallas_fvp.py), rllab's policy
+# (Duan et al. 2016; the GAE paper's 3-D robot policy) and the top of the
+# range, the layouts' worst case
+WIDE_SHAPES = ((65,), (96, 96), (100, 50, 25), (128, 128, 128))
+RLLAB = (100, 50, 25)
+# K4-term's fresh-state check at RLLAB: the done distance of the card
+# test of K4's TERM instantiations (tests/test_torch_cuda.py), at which
+# the checked envs of c3's batch finish early (at C5_DONE_DIST few do)
+K4_WIDE_DONE_DIST = 0.4
+
+
+def c3_rllab():
+    """c3 with rllab's policy: three tanh hidden layers of 100, 50 and 25
+    units (Duan et al. 2016, "Benchmarking Deep Reinforcement Learning for
+    Continuous Control"; Schulman et al. 2016's 3-D robot policy)."""
+    from trpo_robot_control_tpu_torch.configs import C3_FRANKA7
+    return C3_FRANKA7.replace(name="c3_rllab", trpo=dataclasses.replace(
+        C3_FRANKA7.trpo, hidden=RLLAB))
+
+
+def c2_rllab():
+    """c2 with rllab's (100, 50, 25) policy (``c3_rllab``)."""
+    from trpo_robot_control_tpu_torch.configs import C2_REACHER3
+    return C2_REACHER3.replace(name="c2_rllab", trpo=dataclasses.replace(
+        C2_REACHER3.trpo, hidden=RLLAB))
+
+
+def phase10_libs():
+    """The libraries phase 10 runs beyond the default ones: K1 at 3 links,
+    K4 at 7 joints and K3, at every shape of WIDE_SHAPES."""
+    from trpo_robot_control_tpu_torch.ops.cuda import build
+    return [build.lib_name(src, {"rollout": 3, "rollout3d": 7}.get(src),
+                           hidden)
+            for hidden in WIDE_SHAPES
+            for src in ("rollout", "rollout3d", "fvp")]
+
+
+def step0_fmaf_err(params, obs0, act0, eps0):
+    """max |act0 - the step-0 actions in the rollout kernels' fmaf order|:
+    obs0 (do, n), act0 (da, n), eps0 (n, da); the policy mean from
+    ``mean_fmaf`` (``tests/test_torch_helpers.py``)."""
+    L = sum(1 for k in params if k.startswith("W"))
+    mu = port_test_helpers().mean_fmaf(params, obs0)
+    want = (mu + params[f"b{L - 1}"][:, None]) \
+        + torch.exp(params["logstd"])[:, None] * eps0.T
+    return float((act0 - want).abs().max())
+
+
+def first_differing_step(k_act, p_act):
+    """The first step whose actions differ (T: none)."""
+    diff = (k_act - p_act).abs().amax(dim=(1, 2))
+    return int(torch.nonzero(diff).min()) if bool((diff > 0).any()) \
+        else k_act.shape[0]
+
+
+def k4_wide_check(key, tag, cfg, params, s0, eps):
+    """K4 at a wide shape against its plain version on every SHAPE_STRIDE-th
+    env (``policy_shape_checks``' rule). Where the two differ, the step-0
+    actions show whose sum order parts: the kernel's must equal those of
+    ``mean_fmaf`` (``tests/test_torch_helpers.py``: the MLP in the fmaf
+    order), and the output is then held to phase 3's bounds
+    (K4_TIGHT_ATOL over K4_TIGHT_STEPS, K4_FULL_ATOL over the horizon, bf16
+    within 1 ulp of the rounded plain output over K4_TIGHT_STEPS). Returns
+    its record."""
+    from trpo_robot_control_tpu_torch.envs import arm
+    from trpo_robot_control_tpu_torch.ops.cuda import rollout3d_kernel as r3
+    bf16 = torch.bfloat16
+    T, N = cfg.horizon, cfg.n_envs
+    k32 = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt, s0.task, eps=eps)
+    k16 = r3.rollout3d(cfg, params, s0.q, s0.qd, s0.tgt, s0.task, eps=eps,
+                       store_dtype=bf16)
+    require(all(torch.equal(a, b.to(bf16)) for a, b in zip(k16[:2], k32[:2]))
+            and torch.equal(k16[2], k32[2]),
+            f"{key} {tag} K4 bf16 stores are not its fp32 output rounded")
+    S = SHAPE_STRIDE
+    st = arm.EnvState(*(x[::S] for x in s0))
+    k32 = tuple(x[..., ::S] for x in k32)
+    k16 = tuple(x[..., ::S] for x in k16[:2])
+    p_out = r3.rollout3d_plain(cfg, params, st.q, st.qd, st.tgt, st.task,
+                               eps[:, ::S])
+    errs = [float((k - p).abs().max()) for k, p in zip(k32, p_out)]
+    ulps = bf16_ulps(k16, p_out[:2])
+    rec = dict(max_abs_err=max(errs), bf16_ulps=ulps, plain_envs=st.q.shape[0])
+    if max(errs) == 0.0:
+        print(f"{key} {tag} K4 eps mode on {N} envs x {T} steps, plain on "
+              f"every {S}-th: max |kernel - plain| (obs, act, rew) {errs} "
+              f"with fp32 stores, {ulps} bf16 ulps with bf16 stores (exact)")
+        require(ulps == 0.0, f"{key} {tag} K4 bf16 {ulps} ulps")
+        return rec
+    # where the orders part: the first step whose actions differ, and at
+    # step 0 the kernel's and the plain version's actions against the fmaf
+    # order's
+    first = first_differing_step(k32[1], p_out[1])
+    k_vs_f = step0_fmaf_err(params, k32[0][0], k32[1][0], eps[0, ::S])
+    p_vs_f = step0_fmaf_err(params, k32[0][0], p_out[1][0], eps[0, ::S])
+    W = K4_TIGHT_STEPS
+    errs_w = [float((k[:W] - p[:W]).abs().max()) for k, p in zip(k32, p_out)]
+    ulps_w = bf16_ulps([x[:W] for x in k16], [x[:W] for x in p_out[:2]])
+    print(f"{key} {tag} K4 eps mode on {N} envs x {T} steps, plain on every "
+          f"{S}-th: max |kernel - plain| (obs, act, rew) {errs_w} over {W} "
+          f"steps (bound {K4_TIGHT_ATOL}), {errs} over {T} (bound "
+          f"{K4_FULL_ATOL}); actions first differ at step {first}; step 0: "
+          f"kernel - fmaf-order statement {k_vs_f}, plain - statement "
+          f"{p_vs_f} (the plain version's matrix product sums in another "
+          f"order); bf16 stores {ulps_w} ulps over {W} steps (bound 1), "
+          f"{ulps} over {T}")
+    require(k_vs_f == 0.0, f"{key} {tag} K4 step 0 is not the fmaf order")
+    require(max(errs_w) <= K4_TIGHT_ATOL and max(errs) <= K4_FULL_ATOL
+            and ulps_w <= 1.0, f"{key} {tag} K4 error {errs_w}, {errs}, "
+            f"{ulps_w} ulps")
+    rec.update(max_abs_err_tight=max(errs_w), first_differing_step=first,
+               step0_kernel_vs_fmaf=k_vs_f, step0_plain_vs_fmaf=p_vs_f)
+    return rec
+
+
+def wide_shape_checks(dev):
+    """Phase 10a: K1, K4 and K3 at every shape of WIDE_SHAPES. K1 at c2's
+    arm (1024 envs x 100 steps) in eps mode against ``rollout_plain``
+    (fp32 stores within K1_TIGHT_ATOL over 10 steps and K1_FULL_ATOL over
+    the horizon, bf16 stores its fp32 output rounded, their ulps from the
+    rounded plain output and TERM's fresh-state difference printed, no
+    spill store); K4 at c3's arm (4096 envs x 200 steps; its time beside
+    its bound) and at c5's 27-wide observation, fp32 and bf16 stores, on
+    every SHAPE_STRIDE-th env (``k4_wide_check``), and at RLLAB also TERM
+    in fresh-state mode at done_dist K4_WIDE_DONE_DIST (0.0); K3 on c2's
+    Fisher subsample (25,600 x 12), a c1-sized one (3,200 x 9, da 2) and
+    c3's fp32 relayout (102,400 x 24, da 7) within K3_SHAPE_REL, repeat
+    calls bit-identical; each kernel's occupancy, K1's and K3's times at
+    c2 beside their bounds and plain versions (K1 and K4 at 8 joints and
+    the widest shape: ``tests/test_torch_cuda.py``'s spill check).
+    Returns {kernel: {shape: record}}."""
+    from trpo_robot_control_tpu_torch.configs import (C2_REACHER3,
+                                                      C3_FRANKA7,
+                                                      C5_MULTITASK)
+    from trpo_robot_control_tpu_torch.envs import arm
+    from trpo_robot_control_tpu_torch.models import policy
+    from trpo_robot_control_tpu_torch.ops.cuda import build
+    from trpo_robot_control_tpu_torch.ops.cuda import fvp_kernel as fk
+    from trpo_robot_control_tpu_torch.ops.cuda import rollout3d_kernel as r3
+    from trpo_robot_control_tpu_torch.ops.cuda import rollout_kernel as rk
+    bf16 = torch.bfloat16
+    out = {"rollout": {}, "rollout3d": {}, "fvp": {}}
+    widen = lambda base, hidden, **kw: base.replace(
+        trpo=dataclasses.replace(base.trpo, hidden=hidden), **kw)
+    for hidden in WIDE_SHAPES:
+        key = "x".join(map(str, hidden))
+        # ---- K1 at c2's arm
+        cfg = widen(C2_REACHER3, hidden)
+        T, N, n = cfg.horizon, cfg.n_envs, cfg.arm.n_joints
+        gen, params, s0 = k4_setup(dev, cfg, 40)
+        eps = torch.randn(T, N, n, generator=gen, device=dev)
+        kw = (params, s0.q, s0.qd, s0.tgt)
+        P = policy.flatten(params).numel()
+        k32 = rk.rollout(cfg, *kw, eps=eps)
+        k16 = rk.rollout(cfg, *kw, eps=eps, store_dtype=bf16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_out = rk.rollout_plain(cfg, *kw, eps)
+        torch.cuda.synchronize()
+        t_k1p = 1e3 * (time.perf_counter() - t0)
+        errs10 = [float((k[:K1_TIGHT_STEPS] - p[:K1_TIGHT_STEPS]).abs().max())
+                  for k, p in zip(k32, p_out)]
+        errs = [float((k - p).abs().max()) for k, p in zip(k32, p_out)]
+        ulps = bf16_ulps(k16[:2], p_out[:2])
+        print(f"{key} c2 K1 eps mode on {N} envs: max |kernel - plain| (obs, "
+              f"act, rew) {errs10} over {K1_TIGHT_STEPS} steps (bound "
+              f"{K1_TIGHT_ATOL}), {errs} over {T} steps (bound "
+              f"{K1_FULL_ATOL}); bf16 stores {ulps} ulps from the rounded "
+              "plain output")
+        require(max(errs10) <= K1_TIGHT_ATOL and max(errs) <= K1_FULL_ATOL,
+                f"{key} K1 error {errs10}, {errs}")
+        require(all(torch.equal(a, b.to(bf16)) for a, b in
+                    zip(k16[:2], k32[:2])) and torch.equal(k16[2], k32[2]),
+                f"{key} K1 bf16 stores are not its fp32 output rounded")
+        if max(errs) > 0.0:
+            # where the orders part (``k4_wide_check``)
+            k_vs_f = step0_fmaf_err(params, k32[0][0], k32[1][0], eps[0])
+            p_vs_f = step0_fmaf_err(params, k32[0][0], p_out[1][0], eps[0])
+            print(f"{key} c2 K1 actions first differ at step "
+                  f"{first_differing_step(k32[1], p_out[1])}; step 0: "
+                  f"kernel - fmaf-order statement {k_vs_f}, plain - "
+                  f"statement {p_vs_f}")
+            require(k_vs_f == 0.0, f"{key} K1 step 0 is not the fmaf order")
+        cfg_t = cfg.replace(done_dist=C2_DONE_DIST)
+        fresh = arm.fresh_episodes(cfg_t, gen, N)
+        kt = rk.rollout(cfg_t, *kw, eps=eps, fresh=fresh)
+        pt = rk.rollout_plain(cfg_t, *kw, eps, fresh)
+        term_err = max(float((k - p).abs().max()) for k, p in zip(kt, pt))
+        early = int(kt[3][:-1].sum())
+        print(f"{key} c2 K1-term fresh-state mode: max |kernel - plain| "
+              f"{term_err} over {T} steps, {early} early dones (plain "
+              f"{int(pt[3][:-1].sum())})")
+        require(all(bool(torch.isfinite(x).all()) for x in kt),
+                f"{key} K1-term: non-finite output")
+        del k32, k16, p_out, kt, pt
+        spills = spill_stores(build.lib_name("rollout", n, hidden))
+        o = rk.occupancy(n, False, hidden=hidden)
+        print(f"{key} K1 occupancy [c2]: {o}; spill stores per "
+              f"instantiation (bytes) {spills}")
+        require(len(spills) == 4 and not any(spills),
+                f"{key} K1 spills at 3 links: {spills}")
+        seed_k1 = torch.tensor(K1_SEED, dtype=torch.int64, device=dev)
+        ms1 = k1_ms(cfg, params, s0, seed_k1)
+        b1, by1 = k1_bound(cfg, P)
+        out["rollout"][key] = dict(
+            max_abs_err=max(errs10), max_abs_err_full=max(errs),
+            bf16_ulps=ulps, term_max_abs_err=term_err, term_early_dones=early,
+            spill_stores=spills, occupancy=brief(o) | {
+                "smem_dynamic": o["smem_dynamic"]},
+            ms=ms1, us_per_step=1e3 * ms1 / T, plain_ms=t_k1p, bound_ms=b1,
+            bound_by=by1)
+        # ---- K3 on c2's Fisher subsample of a Philox batch, c1-sized, and
+        # (below) c3's relayout
+        obs_ff = rk.rollout(cfg, *kw, seed=seed_k1)[0]
+        obs_fvp = obs_ff[::cfg.trpo.fvp_subsample].permute(0, 2, 1) \
+            .reshape(-1, cfg.obs_dim)
+        rel2 = k3_shape_check(f"{key} c2", gen, params, obs_fvp,
+                              cfg.trpo.cg_damping)
+        v = torch.randn(P, generator=gen, device=dev)
+        ms3 = k3_ms(params, obs_fvp, cfg.trpo.cg_damping, v)
+        B3 = obs_fvp.shape[0]
+        hs = fk.activations(params, obs_fvp)
+        scale = torch.exp(-2.0 * params["logstd"]) / B3
+        ms3p = cuda_ms(lambda: fk.gn_fvp_plain(params, obs_fvp, hs, scale, v,
+                                               cfg.trpo.cg_damping), 10)
+        b3, b3fma = k3_bound(B3, cfg.obs_dim, n, P, hidden)
+        print(f"{key} c2 K1 {ms1:.4f} ms/launch ({1e3 * ms1 / T:.3f} us a "
+              f"step; bound {b1:.4f} ms by {by1}, plain {t_k1p:.1f} ms), K3 "
+              f"{ms3:.4f} ms/launch (tensor-core bound {b3[0]:.4f} ms by "
+              f"{b3[1]}, fp32-FMA {b3fma[0]:.4f}; plain {ms3p:.4f} ms)")
+        del hs
+        params1 = policy.init_params(gen, 9, 2, hidden,
+                                     cfg.trpo.logstd_init)
+        obs1 = torch.randn(3200, 9, generator=gen, device=dev)
+        rel1 = k3_shape_check(f"{key} c1-sized", gen, params1, obs1,
+                              cfg.trpo.cg_damping)
+        del obs_ff, obs_fvp
+        # ---- K4 at c3's and c5's observation; K3 on c3's relayout
+        r4 = {}
+        for tag, base in (("c3", C3_FRANKA7), ("c5", C5_MULTITASK)):
+            cfg3 = widen(base, hidden, n_envs=SHAPE_ENVS)
+            T3, N3, n3 = cfg3.horizon, cfg3.n_envs, cfg3.arm.n_joints
+            gen3, params3, s3 = k4_setup(dev, cfg3, 41)
+            eps3 = torch.randn(T3, N3, n3, generator=gen3, device=dev)
+            r4[tag] = k4_wide_check(key, tag, cfg3, params3, s3, eps3)
+            o4 = r3.occupancy(cfg3, bf16, hidden=hidden)
+            print(f"{key} {tag} K4 occupancy [bf16]: {o4}")
+            require(o4["blocks_per_sm"] >= 1, f"{key} K4 does not fit an SM")
+            r4[tag]["occupancy"] = brief(o4) | {
+                "smem_dynamic": o4["smem_dynamic"]}
+            if tag == "c3":
+                t4 = k4_ms(cfg3, params3, s3)
+                b4, b4f, _, _ = k4_bound(r3, cfg3, params3, s3,
+                                         k4_flops_per_env_step(
+                                             r3, cfg3, params3, s3, eps3,
+                                             s3.task))
+                print(f"{key} c3 K4 {t4:.4f} ms/launch (bound {b4[0]:.4f} ms "
+                      f"by {b4[1]}, fused sweep {b4f[0]:.4f})")
+                r4[tag].update(ms=t4, bound_ms=b4[0], bound_by=b4[1],
+                               bound_fused_ms=b4f[0])
+                obs3 = r3.rollout3d(cfg3, params3, s3.q, s3.qd, s3.tgt,
+                                    s3.task, eps=eps3)[0]
+                k_sub = cfg3.trpo.fvp_subsample
+                obs_fvp3 = obs3[::k_sub].permute(0, 2, 1) \
+                    .reshape(-1, cfg3.obs_dim)
+                rel3 = k3_shape_check(f"{key} c3 (fp32 relayout)", gen3,
+                                      params3, obs_fvp3,
+                                      cfg3.trpo.cg_damping)
+                del obs3, obs_fvp3
+            if tag == "c3" and hidden == RLLAB:
+                cfg_t = cfg3.replace(done_dist=K4_WIDE_DONE_DIST)
+                fresh = arm.fresh_episodes(cfg_t, gen3, N3)
+                S = SHAPE_STRIDE
+                kt = tuple(x[..., ::S] for x in r3.rollout3d(
+                    cfg_t, params3, s3.q, s3.qd, s3.tgt, s3.task, eps=eps3,
+                    fresh=fresh))
+                st = arm.EnvState(*(x[::S] for x in s3))
+                pt = r3.rollout3d_plain(
+                    cfg_t, params3, st.q, st.qd, st.tgt, st.task,
+                    eps3[:, ::S], arm.EnvState(*(x[:, ::S] for x in fresh)))
+                err_t, early_t = check_fresh_state_mode(
+                    f"{key} c3 K4-term (done_dist {K4_WIDE_DONE_DIST})", kt,
+                    pt)
+                r4[tag].update(term_max_abs_err=err_t,
+                               term_early_dones=early_t)
+                del kt, pt
+        out["rollout3d"][key] = r4
+        occ3 = {}
+        for tag, do, da in (("c2", 12, 3), ("c1", 9, 2), ("c3", 24, 7)):
+            o3 = fk.occupancy(do, da, hidden)
+            print(f"{key} K3 occupancy [{tag}, do {do}, da {da}]: {o3}")
+            require(o3["blocks_per_sm"] >= 1, f"{key} K3 does not fit an SM")
+            occ3[tag] = brief(o3) | {"tile": o3["tile"],
+                                     "smem_dynamic": o3["smem_dynamic"]}
+        out["fvp"][key] = dict(rel_l2=rel2, rel_l2_c1=rel1, rel_l2_c3=rel3,
+                               ms=ms3, plain_ms=ms3p, bound_ms=b3[0],
+                               bound_by=b3[1], bound_fp32_fma_ms=b3fma[0],
+                               occupancy=occ3)
+    return out
 
 
 def k1_exact(tag, k_out, p_out, k16=None):
@@ -2327,7 +2707,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     libs = [n for n, (_, _, hidden) in build.LIBS.items() if hidden is None]
-    libs += phase8_libs() + phase9_libs()
+    libs += phase8_libs() + phase9_libs() + phase10_libs()
     print(f"build: {build.build_all(libs):.1f} s ({len(libs)} libraries)")
     print(build.ptxas_report())
     occupancy_k1 = k1_occupancy()
@@ -2377,6 +2757,10 @@ def main() -> int:
         more[cfg.name] = c2_shape_phases(dev, cfg, seed)
     print(f"planar policy-shape phases done at "
           f"{time.perf_counter() - t_start:.1f} s")
+    wide = wide_shape_checks(dev)
+    more["c3_rllab"] = arm3d_phases(dev, c3_rllab(), 15, tag="c3_rllab")
+    more["c2_rllab"] = c2_shape_phases(dev, c2_rllab(), 16)
+    print(f"wide policy phases done at {time.perf_counter() - t_start:.1f} s")
     out = []
     for name in ("rollout", "moments", "fvp", "rollout3d", "pg", "fvp_ff",
                  "rollout_term", "rollout3d_term"):
@@ -2414,6 +2798,8 @@ def main() -> int:
             entry["occupancy"] = occupancy_k6
         if name in shapes:
             entry["policy_shapes"] = shapes[name]
+        if name in wide:
+            entry["wide_shapes"] = wide[name]
         out.append(entry)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))

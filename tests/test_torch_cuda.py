@@ -468,19 +468,24 @@ def test_fvp_ff_kernel_policy_shapes_match_plain_on_card(cuda, e, hidden,
 @pytest.mark.cuda
 @pytest.mark.parametrize("hidden", [(32, 32, 32, 32), (65,), (64, 65)])
 def test_policy_kernels_refuse_shapes_past_b3(cuda, hidden):
-    """Four hidden layers or a layer of 65 units: K4, K5 and K6 on the
-    7-DoF path and K1 and K3 on the planar one raise, naming ROADMAP B3,
-    before they build or launch anything."""
+    """Four hidden layers or a layer past a kernel's cap raise, naming
+    ROADMAP B3, before anything is built or launched: K5 and K6 on the
+    7-DoF path at 65 units (their packed widths), K4 on it and K1 and K3
+    on the planar one at 129 (the same shape with each 65 made 129: their
+    unpacked forms take up to 128)."""
+    wide = tuple(129 if w == 65 else w for w in hidden)
     cfg = pconfigs.C3_FRANKA7.replace(horizon=2)
     pn = policy_params_np(np.random.RandomState(25), cfg.obs_dim, 7, hidden)
     pc = {k: t(v).to(cuda) for k, v in pn.items()}
+    pnw = policy_params_np(np.random.RandomState(25), cfg.obs_dim, 7, wide)
+    pcw = {k: t(v).to(cuda) for k, v in pnw.items()}
     ins = [t(x).to(cuda) for x in env_inputs_np(cfg, 32, seed=26)]
     task = torch.zeros(32, dtype=torch.int32, device=cuda)
     obs = torch.randn(2, cfg.obs_dim, 64, device=cuda).to(torch.bfloat16)
     act = torch.randn(2, 7, 64, device=cuda).to(torch.bfloat16)
     adv = torch.randn(2, 64, device=cuda)
     c2 = pconfigs.C2_REACHER3.replace(horizon=2)
-    pn2 = policy_params_np(np.random.RandomState(27), c2.obs_dim, 3, hidden)
+    pn2 = policy_params_np(np.random.RandomState(27), c2.obs_dim, 3, wide)
     pc2 = {k: t(v).to(cuda) for k, v in pn2.items()}
     ins2 = [t(x).to(cuda) for x in env_inputs_np(c2, 32, seed=28)]
     obs2 = torch.randn(256, c2.obs_dim, device=cuda)
@@ -490,7 +495,7 @@ def test_policy_kernels_refuse_shapes_past_b3(cuda, hidden):
               rollout_kernel.rollout.launches, fvp_kernel.gn_fvp.launches,
               set(build.LIBS))
     calls = [
-        lambda: rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task,
+        lambda: rollout3d_kernel.rollout3d(cfg, pcw, *ins[:3], task,
                                            eps=ins[3]),
         lambda: pg_kernel.surrogate_grad(pc, obs, act, adv),
         lambda: fvp_ff_kernel.make_gn_fvp_ff(pc, obs, 0.1),
@@ -506,6 +511,10 @@ def test_policy_kernels_refuse_shapes_past_b3(cuda, hidden):
                       fvp_kernel.gn_fvp.launches, set(build.LIBS))
 
 
+# ROADMAP B3's unpacked policy forms (K1, K4, K3 at 65-128 units): one unit
+# past the packed limit, JAX's own unpacked test shape, rllab's policy and
+# the top of the range
+WIDE_SHAPES = [(65,), (96, 96), (100, 50, 25), (128, 128, 128)]
 # The planar path's policy shapes (K1, K3): SHAPES and two one-unit
 # layers, which the plain version multiplies as two rows
 PLANAR_SHAPES = SHAPES + [(1, 1)]
@@ -559,7 +568,7 @@ def test_rollout_kernel_deep_policy_has_no_spills(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hidden", PLANAR_SHAPES)
+@pytest.mark.parametrize("hidden", PLANAR_SHAPES + WIDE_SHAPES)
 @pytest.mark.parametrize("B, do, da", [
     (3200, 9, 2),           # c1's Fisher batch
     (1000, 12, 3),          # c2's widths, a ragged last tile
@@ -672,3 +681,98 @@ def test_terminating_kernel_without_a_done_is_the_nonterminating_one(
     for a, b in zip(out[:3], base):
         assert torch.equal(a, b)
     assert not bool(out[3].any())
+
+
+def _exact_or_fmaf(pc, k_out, p_out, eps, atol=1e-5):
+    """A rollout kernel's wide form against its plain version on eps (T, N,
+    n): 0.0, or, where the plain version's matrix product sums in another
+    order (cuBLAS picks its kernel by shape), step 0's actions in the
+    kernel's fmaf order (``mean_fmaf``) and the rest within ``atol``:
+    chip_smoke.py's bounds, 1e-5 over 8-10 steps (K1_TIGHT_ATOL,
+    K4_TIGHT_ATOL) and 1e-2 over longer horizons (K1_FULL_ATOL), where
+    the two orders' roundings compound through the dynamics."""
+    from test_torch_helpers import mean_fmaf
+    errs = [float((k - p).abs().max()) for k, p in zip(k_out, p_out)]
+    if max(errs) == 0.0:
+        return
+    L = sum(1 for k in pc if k.startswith("W"))
+    act0 = (mean_fmaf(pc, k_out[0][0]) + pc[f"b{L - 1}"][:, None]) \
+        + torch.exp(pc["logstd"])[:, None] * eps[0].T
+    assert torch.equal(k_out[1][0], act0)
+    assert max(errs) <= atol, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", WIDE_SHAPES)
+@pytest.mark.parametrize("name", ["c1_reacher2", "c2_reacher3"])
+def test_rollout_kernel_wide_shapes_match_plain_on_card(cuda, name, hidden):
+    """K1's wide form at c1's and c2's arm (N = 300): the plain version's
+    output or, where that sums in another order, the fmaf order's at step
+    0 (``_exact_or_fmaf``), bf16 stores its fp32 output rounded once, and
+    TERM in fresh-state mode over 30 steps with the same done flags, held
+    the same way within the full-horizon bound."""
+    cfg = pconfigs.CONFIGS[name].replace(horizon=10)
+    n, N = cfg.arm.n_joints, 300
+    pn = policy_params_np(np.random.RandomState(30), cfg.obs_dim, n, hidden)
+    pc = {k: t(v).to(cuda) for k, v in pn.items()}
+    ins = [t(x).to(cuda) for x in env_inputs_np(cfg, N, seed=31)]
+    k_out = rollout_kernel.rollout(cfg, pc, *ins[:3], eps=ins[3])
+    _exact_or_fmaf(pc, k_out, rollout_kernel.rollout_plain(
+        cfg, pc, *ins[:3], ins[3]), ins[3])
+    k16 = rollout_kernel.rollout(cfg, pc, *ins[:3], eps=ins[3],
+                                 store_dtype=torch.bfloat16)
+    for a, b in zip(k16[:2], k_out[:2]):
+        assert torch.equal(a, b.to(torch.bfloat16))
+    assert torch.equal(k16[2], k_out[2])
+    cfg_t = cfg.replace(horizon=30, done_dist=0.25)
+    s, eps, fresh = _term_inputs(cfg_t, N, 32, cuda)
+    kt = rollout_kernel.rollout(cfg_t, pc, s.q, s.qd, s.tgt, eps=eps,
+                                fresh=fresh)
+    pt = rollout_kernel.rollout_plain(cfg_t, pc, s.q, s.qd, s.tgt, eps,
+                                      fresh)
+    assert float(kt[3].sum()) > 0 and torch.equal(kt[3], pt[3])
+    _exact_or_fmaf(pc, kt[:3], pt[:3], eps, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", WIDE_SHAPES)
+@pytest.mark.parametrize("name", ["c3_franka7", "c5_multitask"])
+def test_rollout3d_kernel_wide_shapes_match_plain_on_card(cuda, name,
+                                                          hidden):
+    """K4's wide form at c3's and c5's observation: the plain version's
+    output or, where that sums in another order, the fmaf order's at step
+    0 (``_exact_or_fmaf``); bf16 stores its fp32 output rounded."""
+    cfg = pconfigs.CONFIGS[name].replace(horizon=8)
+    N = 300
+    pn = policy_params_np(np.random.RandomState(35), cfg.obs_dim, 7, hidden)
+    pc = {k: t(v).to(cuda) for k, v in pn.items()}
+    ins = [t(x).to(cuda) for x in env_inputs_np(cfg, N, seed=36)]
+    task = torch.tensor(tasks_np(cfg, N, seed=37), device=cuda)
+    k_out = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task, eps=ins[3])
+    p_out = rollout3d_kernel.rollout3d_plain(cfg, pc, *ins[:3], task, ins[3])
+    _exact_or_fmaf(pc, k_out, p_out, ins[3])
+    k16 = rollout3d_kernel.rollout3d(cfg, pc, *ins[:3], task, eps=ins[3],
+                                     store_dtype=torch.bfloat16)
+    for a, b in zip(k16[:2], k_out[:2]):
+        assert torch.equal(a, b.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_wide_rollouts_have_no_spills(cuda):
+    """At the top of the range, (128, 128, 128), with the widest
+    observation and the largest state (8 links / joints): K1's four
+    instantiations and K4's 24 compile with no spill store and stay
+    resident."""
+    hidden = (128, 128, 128)
+    occ = [rollout_kernel.occupancy(8, term, dt, hidden)
+           for term in (False, True) for dt in (torch.float32, torch.bfloat16)]
+    cfg = pconfigs.C5_MULTITASK.replace(arm=pconfigs.planar_arm(8))
+    occ.append(rollout3d_kernel.occupancy(cfg, torch.bfloat16, hidden))
+    for src, count in (("rollout", 4), ("rollout3d", 24)):
+        lib = f"{build.lib_name(src, 8, hidden)}: "
+        report = "\n".join(ln for ln in build.ptxas_report().splitlines()
+                           if ln.startswith(lib))
+        spills = [int(x)
+                  for x in re.findall(r"(\d+) bytes spill stores", report)]
+        assert len(spills) == count and not any(spills), report
+    assert all(o["blocks_per_sm"] >= 1 for o in occ), occ

@@ -548,3 +548,22 @@ def gn_fvp_split(params, obs, hs, v, damping, pairs=SIX_PAIRS, blocks=None):
                 "W2": h1.transpose(1, 2) @ u, "b0": g0.sum(1),
                 "b1": g1.sum(1), "b2": u.sum(1)}
     return _reduce_tiles(_flat_grads(per_tile, nt), blocks, v, damping)
+
+
+def mean_fmaf(params, obs):
+    """The policy mean of obs (do, n) before the head's bias as the rollout
+    kernels sum it, on the tensors' device: each unit one fmaf chain over
+    its inputs in index order from 0 (every product exact in fp64, every
+    sum rounded to fp32 once), tanh(z + b) between layers. A matrix
+    product may sum in another order (cuBLAS picks its kernel by shape),
+    so where a kernel and its plain version part, this says whose order
+    the kernel's step-0 actions follow."""
+    L = sum(1 for k in params if k.startswith("W"))
+    h = obs.float()
+    for l in range(L):
+        W = params[f"W{l}"].double()
+        z = torch.zeros(W.shape[1], h.shape[1], device=h.device)
+        for d in range(W.shape[0]):
+            z = (z.double() + W[d][:, None] * h[d].double()[None, :]).float()
+        h = torch.tanh(z + params[f"b{l}"][:, None]) if l < L - 1 else z
+    return h

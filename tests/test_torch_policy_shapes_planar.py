@@ -159,11 +159,12 @@ def test_routes_keep_c2_on_k3(hidden):
     assert routes == jax_routes == dict(surrgrad="xla", fvp="bm")
 
 
-@pytest.mark.parametrize("hidden", [(32, 32, 32, 32), (65,), (64, 65)])
+@pytest.mark.parametrize("hidden", [(32, 32, 32, 32), (129,), (64, 129)])
 def test_kernels_refuse_shapes_past_b3_before_building(hidden):
-    """K1's and K3's occupancy refuse four layers or a 65-wide one,
-    naming ROADMAP B3, before they build anything: the rule the wrappers
-    apply to CUDA tensors (``build.check_hidden``)."""
+    """K1's and K3's occupancy refuse four layers or a 129-wide one (their
+    unpacked forms take up to 128 units), naming ROADMAP B3, before they
+    build anything: the rule the wrappers apply to CUDA tensors
+    (``build.check_hidden``)."""
     before = set(build.LIBS)
     with pytest.raises(NotImplementedError, match="ROADMAP B3"):
         rollout_kernel.occupancy(3, False, hidden=hidden)

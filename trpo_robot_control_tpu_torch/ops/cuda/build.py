@@ -13,7 +13,9 @@ instantiations. The five sources whose kernels run the policy MLP
 build, for a policy other than the default (64, 64) one,
 one library per hidden shape, ``lib<name>[_nj<n>]_h<w0>x<w1>...`` with
 ``-DTRPO_H0=<w0> -DTRPO_H1=<w1> ...`` (``csrc/policy_shape.cuh``): a run builds
-only its own policy's. The first call to ``library`` builds every missing
+only its own policy's. Each takes 1-``MAX_DEPTH`` hidden layers of at most
+``MAX_WIDTH[source]`` units (``check_hidden``). The first call to
+``library`` builds every missing
 default library that takes no joint count and the one asked for, one
 ``nvcc`` each, all started together; ``build_all`` builds the default
 libraries, and any others it is given, so. Each
@@ -39,11 +41,20 @@ SOURCES = ("rollout", "moments", "fvp", "rollout3d", "pg", "fvp_ff")
 PER_JOINT = ("rollout", "rollout3d")
 JOINT_COUNTS = tuple(range(1, 9))
 # the sources built once per policy shape other than DEFAULT_HIDDEN, and
-# what they take: 1-3 hidden layers of widths 1-64 (ROADMAP B3 for more)
+# what each takes: 1-3 hidden layers, each at most MAX_WIDTH units wide
+# (ROADMAP B3 for more). The rollouts and the batch-major FVP take the
+# JAX package's unpacked forms, up to 128 units; the surrogate gradient
+# and the feature-first FVP only its packed ones, up to 64, as their TPU
+# kernels do.
 PER_SHAPE = ("rollout", "fvp", "rollout3d", "pg", "fvp_ff")
 DEFAULT_HIDDEN = (64, 64)
 MAX_DEPTH = 3
-MAX_WIDTH = 64
+MAX_WIDTH = {"rollout": 128, "rollout3d": 128, "fvp": 128, "pg": 64,
+             "fvp_ff": 64}
+KERNEL = {"rollout": "planar rollout kernel",
+          "rollout3d": "3-D rollout kernel", "fvp": "FVP kernel",
+          "pg": "surrogate-gradient kernel",
+          "fvp_ff": "feature-first FVP kernel"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # The rollouts' dynamics round every multiply and add as PyTorch's separate
@@ -68,24 +79,25 @@ def _nvcc() -> str:
     return found
 
 
-def hidden_shape(params, what: str) -> tuple:
+def hidden_shape(params, source: str) -> tuple:
     """The hidden widths of ``params``' tanh MLP ({W0..WL}); raises
-    NotImplementedError, naming ROADMAP B3, for a policy the kernel
-    ``what`` is not built for: past ``MAX_DEPTH`` hidden layers or
-    ``MAX_WIDTH`` units a layer."""
+    NotImplementedError, naming ROADMAP B3, for a policy the kernel of
+    ``source`` is not built for (``check_hidden``)."""
     L = sum(1 for k in params if k.startswith("W")) - 1
     return check_hidden(
-        tuple(int(params[f"W{i}"].shape[1]) for i in range(L)), what)
+        tuple(int(params[f"W{i}"].shape[1]) for i in range(L)), source)
 
 
-def check_hidden(hidden: tuple, what: str) -> tuple:
+def check_hidden(hidden: tuple, source: str) -> tuple:
     """``hidden``, or NotImplementedError, naming ROADMAP B3, where the
-    kernel ``what`` is not built for it (``hidden_shape``'s rule)."""
+    kernel of ``source`` is not built for it: past ``MAX_DEPTH`` hidden
+    layers or ``MAX_WIDTH[source]`` units a layer."""
     hidden = tuple(hidden)
-    if not 1 <= len(hidden) <= MAX_DEPTH or max(hidden) > MAX_WIDTH:
+    cap = MAX_WIDTH[source]
+    if not 1 <= len(hidden) <= MAX_DEPTH or max(hidden) > cap:
         raise NotImplementedError(
-            f"the {what} takes 1-{MAX_DEPTH} hidden layers of 1-{MAX_WIDTH} "
-            f"units, not {hidden} (ROADMAP B3)")
+            f"the {KERNEL[source]} takes 1-{MAX_DEPTH} hidden layers of "
+            f"1-{cap} units, not {hidden} (ROADMAP B3)")
     return hidden
 
 

@@ -3,8 +3,11 @@
 //
 // Replaces `make_pallas_gn_fvp` / `_fvp_kernel` (and its pair-packed twin
 // `_fvp_kernel_packed`) in trpo_robot_control_tpu/ops/pallas/fvp_kernel.py.
-// The policy has 1-3 hidden layers of 1-64 units (policy_shape.cuh; the
-// JAX package's (64, 64) without -DTRPO_H<l>). One pass over the (B, do)
+// The policy has 1-3 hidden layers of 1-128 units (policy_shape.cuh; the
+// JAX package's (64, 64) without -DTRPO_H<l>); a layer over 64 units
+// selects the wide form at the end of this file, on the CUDA cores, as
+// the TPU kernel's widths select its unpacked `_fvp_kernel`. The tensor-
+// core form below takes widths up to 64. One pass over the (B, do)
 // samples per CG call; the hidden activations h_l (B, w_l) are computed
 // once per update outside and read here, not recomputed. Per sample, the
 // fp32 function of the plain version, with W_L the da-wide head:
@@ -78,6 +81,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "fvp_tile.cuh"
 #include "mma_bf16.cuh"
 #include "policy_shape.cuh"
@@ -88,6 +93,8 @@ using bf16 = __nv_bfloat16;
 using policy_shape::Flat;
 using policy_shape::Hidden;
 using policy_shape::NL;
+using policy_shape::Weights;
+static_assert(Hidden::widest() <= 128, "hidden widths up to 128 (ROADMAP B3)");
 
 constexpr int PL = 3;          // planes of an fp32 operand: hi, mid, lo
 constexpr int SW = 16;         // samples per warp: the mma's M
@@ -1205,6 +1212,317 @@ __global__ void __launch_bounds__(Pick<XT, DT>::NT, 1) fvp_tc_kernel(
     }
 }
 
+
+// ------------------------------------------------------------ wide form
+// At a hidden layer over 64 units (policy_shape::WIDE; the TPU kernel's
+// unpacked `_fvp_kernel`, which JAX runs past its packed width) the
+// tensor-core layout above does not fit one block: W_l's and dW_l's
+// three bf16 planes alone come to 253 KB at (100, 50, 25) and 418 KB at
+// (128, 128, 128). This form is fp32 on the CUDA cores, one pass over the
+// samples per CG call, the same function as the plain version:
+// - a block walks its tiles of TS samples (64, or 32 or 16 where the
+//   layout below would outgrow one block's 227 KB: 16 at (128, 128, 128));
+//   it stages x and h_0 .. h_{L-1} of a tile in shared memory (read once
+//   from device memory), then runs the forward tangent layer by layer,
+//   the head and u, and the reverse layer by layer through two work
+//   buffers, one __syncthreads between layers;
+// - each layer's products are small matrix products over the tile
+//   (`gemm`): a thread takes RI x RJ outputs strided over the output
+//   (output i = ig + GI ii), each one thread's fmaf chain over its inputs
+//   in order; the weights and v's blocks are read from L2 (__ldg, rows
+//   read across lanes), the tile's activations from shared memory (rows
+//   at odd strides, so the lanes' rows fall in distinct banks);
+// - the weight gradient (every gW_l and bias sum, in flat order) is
+//   summed in shared memory, each entry owned by one thread that adds its
+//   tile's chain over the samples in order; the block writes it as its
+//   partial, and fvp_tile.cuh's reduce pass sums the partials in a fixed
+//   order. No float atomics, so repeat calls are bit-identical.
+// What bounds it: at c3-rllab ((100, 50, 25), 102,400 samples, do 24)
+// the function is 30.5k MACs a sample, 6.25 GFLOP a call: 0.093 ms at
+// the fp32-FMA peak; with its products on the tensor cores the 81.5 MB of
+// inputs would bound it (0.024 ms). Here its operand loads per FMA (four
+// of each operand per 16 fmaf) and one block per SM set its time
+// (PERF.md). A tensor-core form at these widths is ROADMAP B4's.
+namespace wide {
+
+constexpr int NT = 512;        // threads a block: one block an SM
+constexpr int RI = 4, RJ = 4;  // a thread's outputs per item
+
+// row stride of a staged row of w floats: odd, so that the rows the
+// lanes of a warp read at one column fall in distinct banks
+__host__ __device__ constexpr int odd(int w) { return w | 1; }
+__host__ __device__ constexpr int maxi(int a, int b) { return a > b ? a : b; }
+
+// row stride of a staged h_l
+__host__ __device__ constexpr int hs(int l) { return odd(wid(l)); }
+// offset of the staged h_l after x (TS, XS)
+__host__ __device__ constexpr int h_off(int TS, int XS, int l) {
+    int o = TS * XS;
+    for (int m = 0; m < l; ++m) o += TS * hs(m);
+    return o;
+}
+// the gradient's entries but logstd at do = DOM, da = DT
+__host__ __device__ constexpr int pg(int DOM, int DT) {
+    int n = DOM * wid(0) + wid(NL - 1) * DT + DT;
+    for (int l = 0; l < NL; ++l) n += wid(l);
+    for (int l = 1; l < NL; ++l) n += wid(l - 1) * wid(l);
+    return n;
+}
+
+// shared memory in floats for do <= 16 XT, da <= DT and TS samples a
+// tile: x (TS, XS), h_l (TS, hs(l)) each, two work buffers (TS, WS), the
+// block's gradient (flat order, the most a (do, da) takes)
+template <int XT, int DT, int TS>
+struct Layout {
+    static constexpr int T = TS;
+    static constexpr int XS = odd(16 * XT);
+    static constexpr int WS = odd(maxi(Hidden::widest(), DT));
+    __host__ __device__ static int h(int l) { return h_off(TS, XS, l); }
+    static constexpr int WA = h_off(TS, XS, NL);
+    static constexpr int WB = WA + TS * WS;
+    static constexpr int ACC = WB + TS * WS;
+    static constexpr int BYTES = (ACC + pg(16 * XT, DT)) * 4;
+    static constexpr bool FITS = BYTES <= 232448;
+};
+
+// the tile: the most samples (64, 32, 16) whose layout fits one block
+template <int XT_, int DT_>
+struct Pick {
+    static constexpr int XT = XT_, DT = DT_;
+    static constexpr int TS = Layout<XT, DT, 64>::FITS   ? 64
+                              : Layout<XT, DT, 32>::FITS ? 32
+                                                         : 16;
+    using L = Layout<XT, DT, TS>;
+    static constexpr int NT = wide::NT;
+    static_assert(L::FITS, "one block's shared memory");
+};
+
+// operands: (row, column) -> a[row sr + column sc], from shared memory
+// (S) or read-only from global memory (G); B1 also 1 past its rows
+// (the bias's row of a weight gradient)
+struct S {
+    const float* p;
+    int sr, sc;
+    __device__ __forceinline__ float operator()(int r, int c) const {
+        return p[r * sr + c * sc];
+    }
+};
+struct G {
+    const float* __restrict__ p;
+    int sr, sc;
+    __device__ __forceinline__ float operator()(int r, int c) const {
+        return __ldg(p + r * sr + c * sc);
+    }
+};
+struct SOne {           // rows < n from shared memory, row n all ones
+    const float* p;
+    int sr, sc, n;
+    __device__ __forceinline__ float operator()(int r, int c) const {
+        return r < n ? p[r * sr + c * sc] : 1.f;
+    }
+};
+
+// out(i, j) = sum_{r < K1} a1(i, r) b1(r, j) + sum_{r < K2} a2(i, r)
+// b2(r, j) over i < M, j < N, one fmaf chain an output in r order, first
+// term then second; epi(i, j, sum) takes each
+template <typename A1, typename B1, typename A2, typename B2, typename Epi>
+__device__ __forceinline__ void gemm(int M, int N, int K1, A1 a1, B1 b1,
+                                     int K2, A2 a2, B2 b2, Epi epi) {
+    const int GI = (M + RI - 1) / RI, GJ = (N + RJ - 1) / RJ;
+    for (int it = threadIdx.x; it < GI * GJ; it += NT) {
+        const int ig = it / GJ, jg = it % GJ;
+        int ri[RI], cj[RJ];
+#pragma unroll
+        for (int ii = 0; ii < RI; ++ii) ri[ii] = min(ig + GI * ii, M - 1);
+#pragma unroll
+        for (int jj = 0; jj < RJ; ++jj) cj[jj] = min(jg + GJ * jj, N - 1);
+        float acc[RI][RJ];
+#pragma unroll
+        for (int ii = 0; ii < RI; ++ii)
+#pragma unroll
+            for (int jj = 0; jj < RJ; ++jj) acc[ii][jj] = 0.f;
+#pragma unroll 4
+        for (int r = 0; r < K1; ++r) {
+            float x[RI], y[RJ];
+#pragma unroll
+            for (int ii = 0; ii < RI; ++ii) x[ii] = a1(ri[ii], r);
+#pragma unroll
+            for (int jj = 0; jj < RJ; ++jj) y[jj] = b1(r, cj[jj]);
+#pragma unroll
+            for (int ii = 0; ii < RI; ++ii)
+#pragma unroll
+                for (int jj = 0; jj < RJ; ++jj)
+                    acc[ii][jj] = fmaf(x[ii], y[jj], acc[ii][jj]);
+        }
+#pragma unroll 4
+        for (int r = 0; r < K2; ++r) {
+            float x[RI], y[RJ];
+#pragma unroll
+            for (int ii = 0; ii < RI; ++ii) x[ii] = a2(ri[ii], r);
+#pragma unroll
+            for (int jj = 0; jj < RJ; ++jj) y[jj] = b2(r, cj[jj]);
+#pragma unroll
+            for (int ii = 0; ii < RI; ++ii)
+#pragma unroll
+                for (int jj = 0; jj < RJ; ++jj)
+                    acc[ii][jj] = fmaf(x[ii], y[jj], acc[ii][jj]);
+        }
+#pragma unroll
+        for (int ii = 0; ii < RI; ++ii)
+#pragma unroll
+            for (int jj = 0; jj < RJ; ++jj) {
+                const int i = ig + GI * ii, j = jg + GJ * jj;
+                if (i < M && j < N) epi(i, j, acc[ii][jj]);
+            }
+    }
+}
+
+// dh_l = (1 - h_l^2)(dh_{l-1} W_l + h_{l-1} dW_l + db_l) into the work
+// buffer of layer l (l % 2), l = 1 .. NL-1
+template <typename LT, int l>
+__device__ __forceinline__ void fwd_layer(float* sm, const Weights& w,
+                                          const float* v, const Flat& f) {
+    constexpr int K = wid(l - 1), N = wid(l);
+    const float* din = sm + ((l - 1) % 2 ? LT::WB : LT::WA);
+    const float* hin = sm + LT::h(l - 1);
+    const float* h = sm + LT::h(l);
+    float* out = sm + (l % 2 ? LT::WB : LT::WA);
+    const float* db = v + f.b[l];
+    gemm(LT::T, N, K, S{din, LT::WS, 1}, G{w.W[l], N, 1}, K,
+         S{hin, hs(l - 1), 1}, G{v + f.W[l], N, 1},
+         [&](int s, int o, float z) {
+             const float hv = h[s * hs(l) + o];
+             out[s * LT::WS + o] = (1.f - hv * hv) * (z + __ldg(db + o));
+         });
+}
+
+// gW_l += h_{l-1}^T g_l and db_l += sum g_l (g_l in layer l's buffer,
+// out_l wide), then g_{l-1} = (g_l W_l^T)(1 - h_{l-1}^2) into layer
+// l-1's; l = 1 .. NL (l = NL: the head, g_NL = u)
+template <typename LT, int l>
+__device__ __forceinline__ void rev_layer(float* sm, const Weights& w,
+                                          const Flat& f, int DA) {
+    constexpr int K = wid(l - 1);
+    const int N = l == NL ? DA : wid(l);
+    const float* g = sm + (l % 2 ? LT::WB : LT::WA);
+    const float* hin = sm + LT::h(l - 1);
+    float* acc = sm + LT::ACC;
+    gemm(K + 1, N, LT::T, SOne{hin, 1, hs(l - 1), K},
+         S{g, LT::WS, 1}, 0, S{nullptr, 0, 0}, S{nullptr, 0, 0},
+         [&](int k, int o, float z) {
+             acc[k < K ? f.W[l] + k * N + o : f.b[l] + o] += z;
+         });
+    float* gout = sm + ((l - 1) % 2 ? LT::WB : LT::WA);
+    gemm(LT::T, K, N, S{g, LT::WS, 1}, G{w.W[l], 1, N}, 0,
+         S{nullptr, 0, 0}, S{nullptr, 0, 0},
+         [&](int s, int k, float z) {
+             const float hv = hin[s * hs(l - 1) + k];
+             gout[s * LT::WS + k] = z * (1.f - hv * hv);
+         });
+}
+
+template <int XT, int DT>
+__global__ void __launch_bounds__(NT, 1) fvp_wide_kernel(
+    policy_shape::Weights w, const float* __restrict__ X,
+    const float* __restrict__ H0, const float* __restrict__ H1,
+    const float* __restrict__ H2, const float* __restrict__ scale,
+    const float* __restrict__ v, float* __restrict__ partial, int B,
+    int DO, int DA) {
+    using PK = Pick<XT, DT>;
+    using LT = typename PK::L;
+    constexpr int TS = PK::TS;
+    constexpr int NL_ = policy_shape::NL + 0 * XT;   // a template value
+    extern __shared__ __align__(16) float sm[];
+    float* sx = sm;
+    float* acc = sm + LT::ACC;
+    const Flat f = policy_shape::flat(DO, DA);
+    const float* hg[3] = {H0, H1, H2};
+    for (int i = threadIdx.x; i < f.ls; i += NT) acc[i] = 0.f;
+    const int n_tiles = (B + TS - 1) / TS;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int s0 = tile * TS, ns = min(TS, B - s0);
+        __syncthreads();   // the last tile's reads done
+        // x and h_0 .. h_{L-1} of the tile; rows past B zero
+        for (int i = threadIdx.x; i < TS * DO; i += NT) {
+            const int r = i / DO, d = i - r * DO;
+            sx[r * LT::XS + d] =
+                r < ns ? __ldg(X + (size_t)(s0 + r) * DO + d) : 0.f;
+        }
+#pragma unroll
+        for (int l = 0; l < NL_; ++l) {
+            const int W = wid(l);
+            float* sh = sm + LT::h(l);
+            for (int i = threadIdx.x; i < TS * W; i += NT) {
+                const int r = i / W, k = i - r * W;
+                sh[r * hs(l) + k] =
+                    r < ns ? __ldg(hg[l] + (size_t)(s0 + r) * W + k) : 0.f;
+            }
+        }
+        __syncthreads();
+        {   // dh0 = (1 - h0^2)(x dW0 + db0)
+            constexpr int N = wid(0);
+            const float* h = sm + LT::h(0);
+            float* out = sm + LT::WA;
+            const float* db = v + f.b[0];
+            gemm(TS, N, DO, S{sx, LT::XS, 1}, G{v + f.W[0], N, 1}, 0,
+                 S{nullptr, 0, 0}, S{nullptr, 0, 0},
+                 [&](int s, int o, float z) {
+                     const float hv = h[s * hs(0) + o];
+                     out[s * LT::WS + o] =
+                         (1.f - hv * hv) * (z + __ldg(db + o));
+                 });
+        }
+        __syncthreads();
+        if constexpr (NL_ > 1) {
+            fwd_layer<LT, 1>(sm, w, v, f);
+            __syncthreads();
+        }
+        if constexpr (NL_ > 2) {
+            fwd_layer<LT, 2>(sm, w, v, f);
+            __syncthreads();
+        }
+        {   // u = (dh_{L-1} W_L + h_{L-1} dW_L + db_L) scale, 0 past B
+            constexpr int K = wid(NL_ - 1);
+            const float* din = sm + ((NL_ - 1) % 2 ? LT::WB : LT::WA);
+            const float* hin = sm + LT::h(NL_ - 1);
+            float* out = sm + (NL_ % 2 ? LT::WB : LT::WA);
+            const float* db = v + f.b[NL_];
+            gemm(TS, DA, K, S{din, LT::WS, 1}, G{w.W[NL_], DA, 1}, K,
+                 S{hin, hs(NL_ - 1), 1}, G{v + f.W[NL_], DA, 1},
+                 [&](int s, int m, float z) {
+                     out[s * LT::WS + m] =
+                         s < ns ? (z + __ldg(db + m)) * __ldg(scale + m)
+                                : 0.f;
+                 });
+        }
+        __syncthreads();
+        rev_layer<LT, NL_>(sm, w, f, DA);
+        __syncthreads();
+        if constexpr (NL_ > 2) {
+            rev_layer<LT, 2>(sm, w, f, DA);
+            __syncthreads();
+        }
+        if constexpr (NL_ > 1) {
+            rev_layer<LT, 1>(sm, w, f, DA);
+            __syncthreads();
+        }
+        {   // gW0 += x^T g0, db0 += sum g0
+            constexpr int N = wid(0);
+            const float* g = sm + LT::WA;
+            gemm(DO + 1, N, TS, SOne{sx, 1, LT::XS, DO}, S{g, LT::WS, 1}, 0,
+                 S{nullptr, 0, 0}, S{nullptr, 0, 0},
+                 [&](int d, int o, float z) {
+                     acc[d < DO ? f.W[0] + d * N + o : f.b[0] + o] += z;
+                 });
+        }
+    }
+    __syncthreads();
+    float* out = partial + (size_t)blockIdx.x * f.ls;
+    for (int i = threadIdx.x; i < f.ls; i += NT) out[i] = acc[i];
+}
+
+}  // namespace wide
+
 // w -> planes[q n + i], q = 0, 1, 2
 __global__ void split_kernel(const float* __restrict__ w,
                              bf16* __restrict__ planes, int n) {
@@ -1248,20 +1566,25 @@ cudaError_t split_pad(const float* w, bf16* planes, int plane, int rin,
     return cudaGetLastError();
 }
 
+// An instantiation's kernel: the tensor-core form's (Pick) or the wide
+// form's (wide::Pick)
 template <int XT, int DT>
-cudaError_t occupancy(int* out) {
-    using PK = Pick<XT, DT>;
+auto kernel_of(Pick<XT, DT>) { return fvp_tc_kernel<XT, DT>; }
+template <int XT, int DT>
+auto kernel_of(wide::Pick<XT, DT>) { return wide::fvp_wide_kernel<XT, DT>; }
+
+template <typename PK>
+cudaError_t occupancy(PK pk, int* out) {
     constexpr int smem = PK::L::BYTES;
     cudaError_t err = cudaFuncSetAttribute(
-        fvp_tc_kernel<XT, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        kernel_of(pk), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     int blocks = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, fvp_tc_kernel<XT, DT>, PK::NT, smem);
+        &blocks, kernel_of(pk), PK::NT, smem);
     if (err != cudaSuccess) return err;
     cudaFuncAttributes fa;
-    err = cudaFuncGetAttributes(&fa, fvp_tc_kernel<XT, DT>);
+    err = cudaFuncGetAttributes(&fa, kernel_of(pk));
     if (err != cudaSuccess) return err;
     out[0] = blocks;
     out[1] = fa.numRegs;
@@ -1274,13 +1597,13 @@ cudaError_t occupancy(int* out) {
 }
 
 template <int XT, int DT>
-cudaError_t launch(const float* X, const float* const (&hs)[3],
-                   const bf16* Wp,
-                   const bf16* Vp, const float* WL, const float* scale,
-                   const float* v, float* partial, int B, int DO, int DA,
-                   int n_blocks, cudaStream_t st) {
+cudaError_t launch(Pick<XT, DT>, const float* X, const float* const (&hs)[3],
+                   const bf16* Wp, const bf16* Vp, const Weights& w,
+                   const float* scale, const float* v, float* partial, int B,
+                   int DO, int DA, int n_blocks, cudaStream_t st) {
     using PK = Pick<XT, DT>;
     constexpr int smem = PK::L::BYTES;
+    const float* WL = w.W[NL];
     cudaError_t err = cudaFuncSetAttribute(
         fvp_tc_kernel<XT, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
@@ -1290,14 +1613,38 @@ cudaError_t launch(const float* X, const float* const (&hs)[3],
     return cudaGetLastError();
 }
 
+// the wide form: the fp32 weights and v as they are (no planes)
+template <int XT, int DT>
+cudaError_t launch(wide::Pick<XT, DT>, const float* X,
+                   const float* const (&hs)[3], const bf16*, const bf16*,
+                   const Weights& w, const float* scale, const float* v,
+                   float* partial, int B, int DO, int DA, int n_blocks,
+                   cudaStream_t st) {
+    using PK = wide::Pick<XT, DT>;
+    constexpr int smem = PK::L::BYTES;
+    cudaError_t err = cudaFuncSetAttribute(
+        wide::fvp_wide_kernel<XT, DT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    wide::fvp_wide_kernel<XT, DT><<<n_blocks, PK::NT, smem, st>>>(
+        w, X, hs[0], hs[1], hs[2], scale, v, partial, B, DO, DA);
+    return cudaGetLastError();
+}
+
+// The form of this library's policy: the tensor-core one, or the wide
+// one where a layer is over 64 units (only the one named is instantiated)
+template <int XT, int DT>
+using Form = std::conditional_t<policy_shape::WIDE, wide::Pick<XT, DT>,
+                                Pick<XT, DT>>;
+
 // The instantiation for (do, da): XT k-steps of x, DT head outputs
 template <typename Op>
 cudaError_t dispatch(int DO, int DA, Op op) {
     if (DO < 1 || DO > DO_MAX || DA < 1 || DA > DA_MAX)
         return cudaErrorInvalidValue;
     if (DO <= 16)
-        return DA <= 4 ? op(Pick<1, 4>{}) : op(Pick<1, 8>{});
-    return DA <= 4 ? op(Pick<2, 4>{}) : op(Pick<2, 8>{});
+        return DA <= 4 ? op(Form<1, 4>{}) : op(Form<1, 8>{});
+    return DA <= 4 ? op(Form<2, 4>{}) : op(Form<2, 8>{});
 }
 
 }  // namespace
@@ -1314,6 +1661,7 @@ extern "C" int trpo_fvp_split_launch(const int* hidden, int n_hidden,
                                      void* planes, void* stream) {
     if (!policy_shape::same_shape(hidden, n_hidden))
         return (int)cudaErrorInvalidValue;
+    if (policy_shape::WIDE) return (int)cudaSuccess;   // reads fp32 weights
     const policy_shape::Weights w = policy_shape::weights_of(weights);
     bf16* p = static_cast<bf16*>(planes);
     for (int l = 1; l < NL; ++l) {
@@ -1350,7 +1698,9 @@ extern "C" int trpo_fvp_launch(const int* hidden, int n_hidden,
     const int VP = gv_off(NL, DO);
     bf16* Vp = static_cast<bf16*>(vplanes);
     cudaError_t err = cudaSuccess;
-    if (dense()) {     // v's blocks are the planes' blocks, unpadded
+    if (policy_shape::WIDE) {
+        // the wide form reads v as it is
+    } else if (dense()) {     // v's blocks are the planes' blocks, unpadded
         err = split(v, Vp, VP, st);
     } else {
         for (int l = 0; l < NL && err == cudaSuccess; ++l)
@@ -1361,9 +1711,8 @@ extern "C" int trpo_fvp_launch(const int* hidden, int n_hidden,
     if (err != cudaSuccess) return (int)err;
     const bf16* wp = static_cast<const bf16*>(Wp);
     err = dispatch(DO, DA, [&](auto pk) -> cudaError_t {
-        constexpr int XT = decltype(pk)::XT, DT = decltype(pk)::DT;
-        return launch<XT, DT>(X, a, wp, Vp, w.W[NL], scale, v, partial, B, DO,
-                              DA, n_blocks, st);
+        return launch(pk, X, a, wp, Vp, w, scale, v, partial, B, DO, DA,
+                      n_blocks, st);
     });
     if (err != cudaSuccess) return (int)err;
     return (int)fvp_tile::reduce(partial, v, out, n_blocks, f.ls, f.P,
@@ -1388,7 +1737,6 @@ extern "C" int trpo_fvp_tile(int DO, int DA) {
 // out[5] threads per block, out[6] samples a tile.
 extern "C" int trpo_fvp_occupancy(int DO, int DA, int* out) {
     return (int)dispatch(DO, DA, [&](auto pk) -> cudaError_t {
-        constexpr int XT = decltype(pk)::XT, DT = decltype(pk)::DT;
-        return occupancy<XT, DT>(out);
+        return occupancy(pk, out);
     });
 }

@@ -94,6 +94,9 @@ using bf16 = __nv_bfloat16;
 using policy_shape::Flat;
 using policy_shape::Hidden;
 using policy_shape::NL;
+// the packed forms only, as the TPU kernel takes them (build.MAX_WIDTH)
+static_assert(Hidden::widest() <= policy_shape::PACKED_MAX,
+              "hidden widths up to 64 (ROADMAP B3 for more)");
 using policy_shape::Weights;
 using policy_shape::padded;
 

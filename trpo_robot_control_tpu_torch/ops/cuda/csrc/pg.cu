@@ -82,6 +82,9 @@ namespace {
 using policy_shape::Flat;
 using policy_shape::Hidden;
 using policy_shape::NL;
+// the packed forms only, as the TPU kernel takes them (build.MAX_WIDTH)
+static_assert(Hidden::widest() <= policy_shape::PACKED_MAX,
+              "hidden widths up to 64 (ROADMAP B3 for more)");
 using policy_shape::Weights;
 using policy_shape::flat;
 using policy_shape::in_width;

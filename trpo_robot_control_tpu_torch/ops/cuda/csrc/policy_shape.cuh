@@ -1,10 +1,13 @@
 // The policy MLP's hidden widths, fixed per library: -DTRPO_H0=w0
-// [-DTRPO_H1=w1 [-DTRPO_H2=w2]] (1-3 hidden layers of 1-64 units;
-// ops/cuda/build.py builds one library per shape a run asks for), the JAX
-// package's default (64, 64) without them. The kernels that run the MLP
-// (rollout.cu, fvp.cu, rollout3d.cu, pg.cu, fvp_ff.cu) take the widths as
-// compile-time constants, so the (64, 64) library compiles the same code
-// as before the shape became a parameter.
+// [-DTRPO_H1=w1 [-DTRPO_H2=w2]] (1-3 hidden layers; ops/cuda/build.py
+// builds one library per shape a run asks for), the JAX package's default
+// (64, 64) without them. The kernels that run the MLP (rollout.cu,
+// fvp.cu, rollout3d.cu, pg.cu, fvp_ff.cu) take the widths as compile-time
+// constants, so the (64, 64) library compiles the same code as before the
+// shape became a parameter. Each source states its own cap on the widths
+// (build.MAX_WIDTH): 128 for the two rollouts and the batch-major FVP,
+// which select a wide form past PACKED_MAX (WIDE), 64 for the surrogate
+// gradient and the feature-first FVP.
 #pragma once
 
 namespace policy_shape {
@@ -37,7 +40,10 @@ using Hidden = Shape<64, 64>;
 #endif
 constexpr int NL = Hidden::NL;
 static_assert(NL >= 1 && NL <= 3, "1-3 hidden layers (ROADMAP B3 for more)");
-static_assert(Hidden::widest() <= 64, "hidden widths up to 64");
+// the widest layer of the packed forms, which every library of a policy
+// up to this wide compiles; a wider one selects a kernel's wide form
+constexpr int PACKED_MAX = 64;
+constexpr bool WIDE = Hidden::widest() > PACKED_MAX;
 
 // The policy's weights as a wrapper passes them to a kernel: W[l] (in,
 // out) and b[l] row-major, l = 0..NL (NL the linear head), and logstd.

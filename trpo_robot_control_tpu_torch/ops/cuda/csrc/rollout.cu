@@ -2,7 +2,7 @@
 //
 // Replaces `pallas_rollout` (trpo_robot_control_tpu/ops/pallas/
 // rollout_kernel.py:490, its pallas_call at :594; body `_rollout_kernel`)
-// for 1-8 links and any tanh policy of 1-3 hidden layers of 1-64 units
+// for 1-8 links and any tanh policy of 1-3 hidden layers of 1-128 units
 // (policy_shape.cuh; the JAX package's (64, 64) without -DTRPO_H<l>), with
 // obs and actions stored in fp32 or, as its
 // store_dtype=bf16 does, in bf16 (rounded once at the store; the
@@ -39,7 +39,8 @@
 //   units j and j + 32 of each layer where they exist (one unit at widths
 //   up to 32; at width 33 lanes 1-31 idle in the second): up to four
 //   independent chains a thread, each term's input one 8-byte
-//   shared-memory broadcast feeding four fmaf. The units' weight columns
+//   shared-memory broadcast feeding four fmaf (up to eight in the wide
+//   form below). The units' weight columns
 //   of layers 0 and 1 are in the thread's registers; a third layer's
 //   (two more 64-long columns would not fit 255 registers) in shared
 //   memory, a lane's columns side by side, read by the thread's own units.
@@ -51,9 +52,9 @@
 // - the state warp does each env's serial work once (lane = part * ENVS +
 //   env; its four parts hold the same state): the mean over the last
 //   hidden layer's outputs (part m runs the chains of actions m and m + 4,
-//   with W_L's
-//   column m in registers when there are at most four actions, else both
-//   columns read from shared memory), the action, the solve and Euler
+//   with W_L's column m in registers when there are at most four actions
+//   and the last layer is at most 64 wide, else both columns read from
+//   shared memory), the action, the solve and Euler
 //   step, FK, the reward, the
 //   done test and the reset, the observation. Its parts split the trig of
 //   FK and the observation (cos and sin of q_i and of the cumulative
@@ -76,9 +77,19 @@
 // multiply and add as PyTorch's separate elementwise ops do); the policy
 // uses explicit fmaf. The two units' weights (about 150 registers) leave
 // room for one block per SM, all that c1 and c2 need; a third layer's
-// weights take 16 KB of shared memory at width 64. At NJ >= 4 the state
-// warp's unrolled Cholesky (O(NJ^3) terms in registers) and the MLP
-// threads' wider W0 columns may spill; `-Xptxas -v` reports it.
+// weights take 16 KB of shared memory at width 64.
+// The wide form (WIDE: a layer over policy_shape::PACKED_MAX = 64 units,
+// the TPU kernel's unpacked `_policy_ff`): a lane takes up to four units
+// (j + 32 u, u < 4) of each layer; layer 0's columns stay in registers
+// (at most 4 x 27), every hidden-to-hidden layer's come from dynamic
+// shared memory laid out as SmemW's (two 128 x 128 layers are 128 KB,
+// past static shared memory's 48 KB), and the state warp reads W_L's
+// columns from shared memory when the last layer is over 64 wide. The
+// sums, and so the bits, are those of the packed form's rule above. At
+// widths up to 64 the packed form compiles the code it had.
+// At NJ >= 4 the state warp's unrolled Cholesky (O(NJ^3) terms in
+// registers) and the MLP threads' wider W0 columns may spill; `-Xptxas
+// -v` reports it.
 //
 // Instantiations: one library per joint count, built with -DTRPO_NJ=<n>
 // (n = 1..8, ops/cuda/build.py) and, for a policy other than (64, 64),
@@ -115,6 +126,9 @@ constexpr int NJ_MAX = 8;
 // normals and fresh episodes)
 constexpr int BAR_OBS = 1, BAR_MLP = 2, BAR_ACT = 3;
 constexpr unsigned FULL = 0xffffffffu;
+// the wide form (see the header) and the widths it takes
+constexpr bool WIDE = policy_shape::WIDE;
+static_assert(Hidden::widest() <= 128, "hidden widths up to 128 (ROADMAP B3)");
 
 // width of hidden layer l (1 for an l past the policy's, which only code
 // that NL leaves out names), and the units a lane of an MLP warp takes of
@@ -452,12 +466,14 @@ struct RegW {
         return w[u][d];
     }
 };
-// the third layer's weights in shared memory, (in, 32 U) with the units
-// of a lane's warp-wide column side by side: lane j's unit j + 32 u
+// layer l's weights in shared memory (a third layer's, and in the wide
+// form every hidden-to-hidden layer's), (in, 32 U) with the units of a
+// lane's warp-wide column side by side: lane j's unit j + 32 u
+template <int l>
 struct SmemW {
     const float* w;
     int j;
-    static constexpr int STRIDE = 32 * units(2);
+    static constexpr int STRIDE = 32 * units(l);
     __device__ __forceinline__ float operator()(int u, int d) const {
         return w[d * STRIDE + j + 32 * u];
     }
@@ -492,15 +508,35 @@ __global__ void __launch_bounds__(THREADS, 1) rollout_kernel(
     __shared__ __align__(16) float sA[WL * ENVS];
     __shared__ float sZ[2][NJ * ENVS];   // by step parity
     __shared__ float sFr[2][NF * ENVS];
-    // W_L as (unit, action slot m + r PARTS), zero past NJ, when APP > 1
-    __shared__ float sW2[APP > 1 ? WL * APP * PARTS : 1];
+    // whether the state warp reads W_L from shared memory: more than four
+    // actions, or a last layer too wide for a column in registers
+    constexpr bool SW2 = APP > 1 || WL > policy_shape::PACKED_MAX;
+    // W_L as (unit, action slot m + r PARTS), zero past NJ, when SW2
+    __shared__ float sW2[SW2 ? WL * APP * PARTS : 1];
     // a third hidden layer's weights (SmemW), zero past its width
-    __shared__ float sWx[NL > 2 ? W1 * SmemW::STRIDE : 1];
+    __shared__ float sWx[NL > 2 && !WIDE ? W1 * SmemW<2>::STRIDE : 1];
+    // the wide form's hidden-to-hidden layers (SmemW), layer 1 and then
+    // layer 2, zero past their widths
+    extern __shared__ __align__(16) float sWide[];
     if (T <= 0) return;
-    if constexpr (NL > 2) {
-        for (int i = threadIdx.x; i < W1 * SmemW::STRIDE; i += THREADS) {
-            const int d = i / SmemW::STRIDE, k = i % SmemW::STRIDE;
+    if constexpr (NL > 2 && !WIDE) {
+        for (int i = threadIdx.x; i < W1 * SmemW<2>::STRIDE; i += THREADS) {
+            const int d = i / SmemW<2>::STRIDE, k = i % SmemW<2>::STRIDE;
             sWx[i] = k < wid(2) ? W2p[d * wid(2) + k] : 0.f;
+        }
+        __syncthreads();
+    }
+    if constexpr (WIDE && NL > 1) {
+        constexpr int S1 = SmemW<1>::STRIDE, S2 = SmemW<2>::STRIDE;
+        for (int i = threadIdx.x; i < W0 * S1; i += THREADS) {
+            const int d = i / S1, k = i % S1;
+            sWide[i] = k < wid(1) ? W1p[d * wid(1) + k] : 0.f;
+        }
+        if constexpr (NL > 2) {
+            for (int i = threadIdx.x; i < W1 * S2; i += THREADS) {
+                const int d = i / S2, k = i % S2;
+                sWide[W0 * S1 + i] = k < wid(2) ? W2p[d * wid(2) + k] : 0.f;
+            }
         }
         __syncthreads();
     }
@@ -518,9 +554,11 @@ __global__ void __launch_bounds__(THREADS, 1) rollout_kernel(
         const int j = lane;                      // units j + 32 u
         const int col = GROUP * warp;            // the pair's first env
         // layers 0 and 1: the thread's units' weight columns in registers
-        // (zero for a unit past the width), a third layer's in sWx
+        // (zero for a unit past the width), a third layer's in sWx; in
+        // the wide form layer 0's only, the others' in sWide
         constexpr int U0 = units(0), U1 = units(1), U2 = units(2);
-        constexpr int K1 = NL > 1 ? W0 : 1;      // layer 1's inputs
+        constexpr bool REG1 = NL > 1 && !WIDE;   // layer 1 in registers
+        constexpr int K1 = REG1 ? W0 : 1;        // its inputs
         float w0[U0][DO], w1[U1][K1], bu0[U0], bu1[U1], bu2[U2];
         // unit by unit: its layer-0 column, its layer-1 column, the biases
         constexpr int UM = U0 > U1 ? U0 : U1;
@@ -529,19 +567,20 @@ __global__ void __launch_bounds__(THREADS, 1) rollout_kernel(
             const int k = j + 32 * u;
             const int u0 = u < U0 ? u : U0 - 1, u1 = u < U1 ? u : U1 - 1;
             const bool ok0 = u < U0 && unit_ok(0, k);
-            const bool ok1 = NL > 1 && u < U1 && unit_ok(1, k);
+            const bool ok1 = REG1 && u < U1 && unit_ok(1, k);
             if (u < U0) {
 #pragma unroll
                 for (int d = 0; d < DO; ++d)
                     w0[u0][d] = ok0 ? W0p[d * W0 + k] : 0.f;
             }
-            if (NL > 1 && u < U1) {
+            if (REG1 && u < U1) {
 #pragma unroll
                 for (int kk = 0; kk < K1; ++kk)
                     w1[u1][kk] = ok1 ? W1p[kk * W1 + k] : 0.f;
             }
             if (u < U0) bu0[u0] = ok0 ? b0[k] : 0.f;
-            if (NL > 1 && u < U1) bu1[u1] = ok1 ? b1[k] : 0.f;
+            if (NL > 1 && u < U1)
+                bu1[u1] = unit_ok(1, k) ? b1[k] : 0.f;
         }
         if constexpr (NL > 2) {
 #pragma unroll
@@ -561,14 +600,23 @@ __global__ void __launch_bounds__(THREADS, 1) rollout_kernel(
             // a BAR_MLP round between layers
             mlp_layer<0, DO, U0>(sObs, RegW<U0, DO>{w0}, bu0,
                                  NL > 1 ? sH0 : sA, j, col);
-            if constexpr (NL > 1) {
+            if constexpr (REG1) {
                 bar_sync(BAR_MLP, MLP_THREADS);
                 mlp_layer<1, K1, U1>(sH0, RegW<U1, K1>{w1}, bu1,
                                      NL > 2 ? sH1 : sA, j, col);
-            }
-            if constexpr (NL > 2) {
+            } else if constexpr (NL > 1) {
                 bar_sync(BAR_MLP, MLP_THREADS);
-                mlp_layer<2, W1, U2>(sH1, SmemW{sWx, j}, bu2, sA, j, col);
+                mlp_layer<1, W0, U1>(sH0, SmemW<1>{sWide, j}, bu1,
+                                     NL > 2 ? sH1 : sA, j, col);
+            }
+            if constexpr (NL > 2 && !WIDE) {
+                bar_sync(BAR_MLP, MLP_THREADS);
+                mlp_layer<2, W1, U2>(sH1, SmemW<2>{sWx, j}, bu2, sA, j, col);
+            } else if constexpr (NL > 2) {
+                bar_sync(BAR_MLP, MLP_THREADS);
+                mlp_layer<2, W1, U2>(
+                    sH1, SmemW<2>{sWide + W0 * SmemW<1>::STRIDE, j}, bu2, sA,
+                    j, col);
             }
             bar_arrive(BAR_ACT, THREADS);
             if (t + 1 < T && (draws_z || draws_fresh))
@@ -593,8 +641,8 @@ __global__ void __launch_bounds__(THREADS, 1) rollout_kernel(
             bias2[i] = bh[i];
         }
         float tgtx = tgt[e], tgty = tgt[N + e];
-        float w2[APP > 1 ? 1 : WL];      // its column `part` (action part)
-        if constexpr (APP == 1) {
+        float w2[SW2 ? 1 : WL];          // its column `part` (action part)
+        if constexpr (!SW2) {
 #pragma unroll
             for (int k = 0; k < WL; ++k)
                 w2[k] = part < NJ ? W2[k * NJ + part] : 0.f;
@@ -637,7 +685,7 @@ __global__ void __launch_bounds__(THREADS, 1) rollout_kernel(
 #pragma unroll
             for (int jj = 0; jj < WL; ++jj) {
                 const float hj = sA[jj * ENVS + slot];
-                if constexpr (APP == 1) {
+                if constexpr (!SW2) {
                     acc[0] = fmaf(hj, w2[jj], acc[0]);
                 } else {
 #pragma unroll
@@ -722,11 +770,27 @@ struct Args {
     cudaStream_t stream;
 };
 
+// the wide form's dynamic shared memory: its hidden-to-hidden layers'
+// weights as SmemW lays them out (none in the packed form)
+constexpr int WIDE_SMEM =
+    !WIDE || NL < 2 ? 0
+    : (int)sizeof(float) * (wid(0) * SmemW<1>::STRIDE +
+                            (NL > 2 ? wid(1) * SmemW<2>::STRIDE : 0));
+static_assert(WIDE_SMEM <= 200 * 1024, "the wide form's layers fit an SM");
+
 template <int NJ, bool TERM, typename Out>
 struct Launch {
+    static cudaError_t set_smem() {
+        if (WIDE_SMEM == 0) return cudaSuccess;
+        return cudaFuncSetAttribute(rollout_kernel<NJ, TERM, Out>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    WIDE_SMEM);
+    }
     static cudaError_t run(const Planar& c, const Args& a) {
         dim3 grid((a.N + ENVS - 1) / ENVS);
-        rollout_kernel<NJ, TERM, Out><<<grid, THREADS, 0, a.stream>>>(
+        cudaError_t err = set_smem();
+        if (err != cudaSuccess) return err;
+        rollout_kernel<NJ, TERM, Out><<<grid, THREADS, WIDE_SMEM, a.stream>>>(
             c, a.q0, a.qd0, a.tgt, a.pol.W[0], a.pol.b[0], a.pol.W[1],
             a.pol.b[1], a.pol.W[2], a.pol.b[2], a.pol.W[3], a.pol.b[3],
             a.pol.logstd, a.eps, a.seed, a.fq, a.fqd, a.ftgt,
@@ -735,11 +799,14 @@ struct Launch {
         return cudaGetLastError();
     }
     // resident blocks per SM, registers and local bytes per thread, static
-    // shared bytes per block, threads and envs per block
+    // shared bytes per block, threads and envs per block, dynamic shared
+    // bytes per block (the wide form's)
     static cudaError_t occupancy(int* out) {
         int blocks = 0;
-        cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &blocks, rollout_kernel<NJ, TERM, Out>, THREADS, 0);
+        cudaError_t err = set_smem();
+        if (err != cudaSuccess) return err;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, rollout_kernel<NJ, TERM, Out>, THREADS, WIDE_SMEM);
         if (err != cudaSuccess) return err;
         cudaFuncAttributes fa;
         err = cudaFuncGetAttributes(&fa, rollout_kernel<NJ, TERM, Out>);
@@ -750,6 +817,7 @@ struct Launch {
         out[3] = (int)fa.sharedSizeBytes;
         out[4] = THREADS;
         out[5] = ENVS;
+        out[6] = WIDE_SMEM;
         return cudaSuccess;
     }
 };
@@ -826,7 +894,7 @@ extern "C" int trpo_rollout_launch(
                          [&](auto inst) { return inst.run(c, a); });
 }
 
-// out: int[6], as Launch::occupancy fills it.
+// out: int[7], as Launch::occupancy fills it.
 extern "C" int trpo_rollout_occupancy(int n_joints, int terminating,
                                       int store_bf16, int* out) {
     return (int)dispatch(n_joints, terminating, store_bf16,

@@ -76,10 +76,19 @@
 // (n = 1..8, ops/cuda/build.py), each holding the six (task families,
 // obstacle) pairs (1, 2 or 3 families, obstacle off or on), each
 // terminating or not, each with fp32 or bf16 stores; and per policy
-// shape, -DTRPO_H<l> (policy_shape.cuh: 1-3 hidden layers of 1-64 units,
+// shape, -DTRPO_H<l> (policy_shape.cuh: 1-3 hidden layers of 1-128 units,
 // (64, 64) without it). Every layer's weights stay in shared memory: a
 // third 64-wide layer adds 21 KB a block at NJ = 7, so one block fits an
-// SM there instead of two.
+// SM there instead of two. The wide form (WIDE: a layer over 64 units,
+// the TPU kernel's unpacked `_policy_ff`) sizes each activation buffer by
+// the widest layer it holds (H0 layers 0 and 2, H1 layer 1), which keeps
+// rllab's (100, 50, 25) at two blocks an SM at NJ = 7 (about 111 KB a
+// block); where the layout still outgrows one block's 227 KB (three
+// 128-wide layers at NJ = 5-8, about 245 KB), the largest
+// hidden-to-hidden layer is read from global memory instead (`ldg_layer`:
+// a uniform address, one L1 broadcast to the warp per weight) in the same
+// fmaf order, so the bits stay. At widths up to 64 the layout is the one
+// the packed form had.
 //
 // Numerics: built with -fmad=false so every multiply and add rounds as
 // PyTorch's separate elementwise ops do in the plain version; the
@@ -126,6 +135,11 @@ constexpr int F_R = 0, F_P = 9, F_S = 12, F_RR = 15, F_D = 18, F_CWD = 21;
 // warps -> state: its cos/sin)
 constexpr int BAR_FRAMES = 1, BAR_COLS = 2, BAR_ACT = 3, BAR_MLP = 4,
               BAR_Q = 5, BAR_TRIG = 6;
+// the wide form (see the header) and the widths it takes
+constexpr bool WIDE = policy_shape::WIDE;
+static_assert(Hidden::widest() <= 128, "hidden widths up to 128 (ROADMAP B3)");
+// the most dynamic shared memory one block may take
+constexpr int SMEM_MAX = 232448;
 
 struct Arm3D {
     float T_rot[NJ_MAX][9], T_pos[NJ_MAX][3], mass[NJ_MAX], com[NJ_MAX][3],
@@ -471,25 +485,39 @@ template <int NJ>
 __host__ __device__ constexpr int slots(int l) {
     return NJ * upad<NJ>(l);
 }
-// offset of hidden layer l's block (l = NL: the end of the last one)
+// floats of hidden layer l's block
 template <int NJ, int DO>
-__host__ __device__ constexpr int layer_off(int l) {
+__host__ __device__ constexpr int layer_floats(int l) {
+    return (layer_in<DO>(l) + 1) * slots<NJ>(l);
+}
+// offset of hidden layer l's block (l = NL: the end of the last one) when
+// layer `skip`'s (read from global memory) is left out
+template <int NJ, int DO>
+__host__ __device__ constexpr int layers_before(int l, int skip) {
     int off = 0;
     for (int m = 0; m < l; ++m)
-        off += (layer_in<DO>(m) + 1) * slots<NJ>(m);
+        if (m != skip) off += layer_floats<NJ, DO>(m);
     return off;
 }
 
-template <int NJ, int DO>
-struct Smem {
+// the layout with layer SKIP's weights in global memory (-1: none)
+template <int NJ, int DO, int SKIP>
+struct Layout {
     static constexpr int HL = Hidden::width(NL - 1);   // the head's inputs
-    static constexpr int W2 = layer_off<NJ, DO>(NL);   // the head (HL, NJ)
+    static constexpr int W2 = layers_before<NJ, DO>(NL, SKIP);  // (HL, NJ)
     static constexpr int B2 = W2 + HL * NJ;
     static constexpr int OBS = B2 + ((NJ + 7) / 8) * 8;
-    // activations of the even and the odd hidden layers
+    // activations of the even and the odd hidden layers, each as wide as
+    // the widest layer (the wide form: the widest layer it holds)
+    static constexpr int HW0 =
+        !WIDE ? Hidden::widest()
+        : (NL > 2 && Hidden::width(2) > Hidden::width(0) ? Hidden::width(2)
+                                                         : Hidden::width(0));
+    static constexpr int HW1 =
+        NL < 2 ? 0 : !WIDE ? Hidden::widest() : Hidden::width(1);
     static constexpr int H0 = OBS + DO * ENVS;
-    static constexpr int H1 = H0 + Hidden::widest() * ENVS;
-    static constexpr int Z = H1 + (NL > 1 ? Hidden::widest() * ENVS : 0);
+    static constexpr int H1 = H0 + HW0 * ENVS;
+    static constexpr int Z = H1 + HW1 * ENVS;
     static constexpr int ACT = Z + NJ * ENVS;
     static constexpr int FRAME = ACT + NJ * ENVS;
     static constexpr int M = FRAME + (NJ + 1) * FR * ENVS;
@@ -504,6 +532,32 @@ struct Smem {
     static constexpr size_t BYTES = END * sizeof(float);
     static_assert(slots<NJ>(0) % 4 == 0 && W2 % 4 == 0,
                   "weight slices stay 16-byte aligned");
+};
+
+// The hidden layer whose weights the wide form reads from global memory,
+// or -1: none while every layer fits one block's shared memory, else the
+// largest hidden-to-hidden layer (the first of two as large).
+template <int NJ, int DO>
+__host__ __device__ constexpr int ldg_layer() {
+    if (!WIDE || Layout<NJ, DO, -1>::BYTES <= SMEM_MAX) return -1;
+    int best = -1, size = 0;
+    for (int l = 1; l < NL; ++l)
+        if (layer_floats<NJ, DO>(l) > size) {
+            best = l;
+            size = layer_floats<NJ, DO>(l);
+        }
+    return best;
+}
+
+template <int NJ, int DO>
+__host__ __device__ constexpr int layer_off(int l) {
+    return layers_before<NJ, DO>(l, ldg_layer<NJ, DO>());
+}
+
+template <int NJ, int DO>
+struct Smem : Layout<NJ, DO, ldg_layer<NJ, DO>()> {
+    static_assert(Layout<NJ, DO, ldg_layer<NJ, DO>()>::BYTES <= SMEM_MAX,
+                  "the layout fits one block's shared memory");
 };
 
 // Resident blocks the launch bounds ask for: enough for 16 warps an SM,
@@ -547,9 +601,40 @@ __device__ __forceinline__ void layer_units(const float* in, const float* W,
     for (int u = 0; u < cnt; ++u) o[u * ENVS] = tanhf(o[u * ENVS] + b[u]);
 }
 
-// Hidden layer l's weights and bias into their padded block.
+// layer_units with the weights and bias read from global memory:
+// W (in, H) row-major and b (H), units first .. first + cnt - 1, in the
+// same fmaf order (for ldg_layer)
+template <int U, int DIN, int H>
+__device__ __forceinline__ void layer_units_ldg(const float* in,
+                                                const float* __restrict__ W,
+                                                const float* __restrict__ b,
+                                                int first, int cnt, float* out,
+                                                int lane) {
+    float z[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) z[u] = 0.f;
+    const float* w = W + first;
+#pragma unroll 4
+    for (int d = 0; d < DIN; ++d) {
+        const float x = in[d * ENVS + lane];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+            if (u < cnt) z[u] = fmaf(x, __ldg(w + d * H + u), z[u]);
+    }
+    float* o = out + first * ENVS + lane;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+        if (u < cnt) o[u * ENVS] = z[u];
+#pragma unroll 1
+    for (int u = 0; u < cnt; ++u)
+        o[u * ENVS] = tanhf(o[u * ENVS] + __ldg(b + first + u));
+}
+
+// Hidden layer l's weights and bias into their padded block (none for
+// the layer read from global memory).
 template <int NJ, int DO, int NT, int l>
 __device__ __forceinline__ void stage_layer(const Weights& p, float* smem) {
+    if constexpr (l == ldg_layer<NJ, DO>()) return;
     constexpr int Hl = Hidden::width(l), IN = layer_in<DO>(l);
     constexpr int S = slots<NJ>(l), UP = upad<NJ>(l);
     float* blk = smem + layer_off<NJ, DO>(l);
@@ -568,16 +653,24 @@ __device__ __forceinline__ void stage_layer(const Weights& p, float* smem) {
 // Hidden layer l for column warp j: layer 0 reads the observation, layer
 // l > 0 the buffer layer l - 1 wrote; even layers write H0, odd ones H1.
 template <int NJ, int DO, int l>
-__device__ __forceinline__ void mlp_layer(const float* smem, const float* sObs,
+__device__ __forceinline__ void mlp_layer(const Weights& pol,
+                                          const float* smem, const float* sObs,
                                           float* sH0, float* sH1, int j,
                                           int lane) {
     constexpr int Hl = Hidden::width(l), IN = layer_in<DO>(l);
     constexpr int S = slots<NJ>(l), UP = upad<NJ>(l);
-    const float* blk = smem + layer_off<NJ, DO>(l);
     const int first = j * Hl / NJ, cnt = (j + 1) * Hl / NJ - first;
-    layer_units<umax<NJ>(l), IN, S>(
-        l == 0 ? sObs : (l % 2 ? sH0 : sH1), blk + j * UP,
-        blk + IN * S + j * UP, first, cnt, l % 2 ? sH1 : sH0, lane);
+    const float* in = l == 0 ? sObs : (l % 2 ? sH0 : sH1);
+    float* out = l % 2 ? sH1 : sH0;
+    if constexpr (l == ldg_layer<NJ, DO>()) {
+        layer_units_ldg<umax<NJ>(l), IN, Hl>(in, pol.W[l], pol.b[l], first,
+                                             cnt, out, lane);
+    } else {
+        const float* blk = smem + layer_off<NJ, DO>(l);
+        layer_units<umax<NJ>(l), IN, S>(in, blk + j * UP,
+                                        blk + IN * S + j * UP, first, cnt,
+                                        out, lane);
+    }
 }
 
 template <int NJ, int NTASKS, bool OBST, bool TERM, typename Out>
@@ -790,14 +883,16 @@ rollout3d_kernel(
                             obs[((size_t)t * DO + d) * N + e] =
                                 store_cast<Out>(sObs[d * ENVS + lane]);
                     }
-                    mlp_layer<NJ, DO, 0>(smem, sObs, sH0, sH1, j, lane);
+                    mlp_layer<NJ, DO, 0>(pol, smem, sObs, sH0, sH1, j, lane);
                     bar_sync(BAR_MLP, NCT);
                     if constexpr (NL > 1) {
-                        mlp_layer<NJ, DO, 1>(smem, sObs, sH0, sH1, j, lane);
+                        mlp_layer<NJ, DO, 1>(pol, smem, sObs, sH0, sH1,
+                                             j, lane);
                         bar_sync(BAR_MLP, NCT);
                     }
                     if constexpr (NL > 2) {
-                        mlp_layer<NJ, DO, 2>(smem, sObs, sH0, sH1, j, lane);
+                        mlp_layer<NJ, DO, 2>(pol, smem, sObs, sH0, sH1,
+                                             j, lane);
                         bar_sync(BAR_MLP, NCT);
                     }
                     // action j: mean, noise, store

@@ -61,7 +61,7 @@ gn_fvp_ff_plain.calls = 0
 def _check(params, obs_sub_ff):
     Ts, do, N = obs_sub_ff.shape
     da = params["logstd"].shape[0]
-    build.hidden_shape(params, "feature-first FVP kernel")
+    build.hidden_shape(params, "fvp_ff")
     if do > 32 or da > 8:
         raise NotImplementedError("the FVP kernel takes obs_dim <= 32, "
                                   "act_dim <= 8")
@@ -88,7 +88,7 @@ def gn_fvp_ff(params, obs_sub_ff, scale, v, damping: float):
             or v.dtype != torch.float32 or not v.is_contiguous():
         raise ValueError("v must be a contiguous fp32 vector of the policy's "
                          f"parameter count on {dev}")
-    hidden = build.hidden_shape(params, "feature-first FVP kernel")
+    hidden = build.hidden_shape(params, "fvp_ff")
     n_blocks = min(Ts * -(-N // TILE), MAX_BLOCKS)
     partial = torch.empty(n_blocks * (P - da), device=dev)
     out = torch.empty_like(v)
@@ -125,6 +125,7 @@ def occupancy(store_dtype=torch.bfloat16, hidden=build.DEFAULT_HIDDEN
     ``store_dtype`` and a policy of ``hidden`` widths: resident blocks and
     warps per SM, registers and local (spill) bytes per thread, dynamic
     and static shared bytes per block, samples a tile."""
+    hidden = build.check_hidden(hidden, "fvp_ff")
     out = (ctypes.c_int * 7)()
     err = build.library(build.lib_name("fvp_ff", hidden=hidden),
                         _SIG).trpo_fvp_ff_occupancy(

@@ -5,17 +5,20 @@ Replaces ``make_pallas_gn_fvp`` in
 over batch-major samples (forward tangent through the tanh MLP,
 u = dmu * inv_var / B, reverse accumulation of J^T u), with the hidden
 activations computed once per update by ``activations``. It takes any
-tanh policy of 1-3 hidden layers of 1-64 units (``build.hidden_shape``;
+tanh policy of 1-3 hidden layers of 1-128 units (``build.hidden_shape``;
 a policy other than the default (64, 64) builds a library of its own,
 past those it raises NotImplementedError, naming ROADMAP B3). The TPU
 kernel's sample-pair packing is a matrix-unit trick and is not carried
-over. The hidden layers' products run on the tensor cores and stay exact
-to fp32: every fp32 operand is split into three bf16 planes as
-``pg_kernel.split3`` does and the six plane products that hold fp32's 24
+over. Up to 64 units the hidden layers' products run on the tensor
+cores and stay exact to fp32: every fp32 operand is split into three
+bf16 planes as ``pg_kernel.split3`` does and the six plane products that hold fp32's 24
 bits are summed, as in the feature-first kernel. The hidden-to-hidden
 weights' planes are split once per update, with the scratch every call
 reuses (``workspace``); v's hidden-layer blocks once per call ahead of
-the kernel.
+the kernel. A layer over 64 units selects the kernel's wide form, as the
+TPU kernel's widths select its unpacked ``_fvp_kernel``: fp32 on the CUDA
+cores, the weights and v read as they are (no planes), one pass over the
+samples a call, the gradient summed per block in shared memory.
 
 ``gn_fvp`` is the wrapper: the CUDA kernel on CUDA tensors (or it raises),
 ``gn_fvp_plain`` on CPU tensors. Both return the damped product
@@ -95,7 +98,10 @@ def _pad(w: int) -> int:
 def plane_sizes(hidden: tuple, do: int) -> tuple:
     """bf16 elements of the hidden-to-hidden weights' planes (each W_l's
     three, zero-padded to multiples of 16) and of v's per-call planes
-    (dW0 (do, pad(w_0)) and each dW_l)."""
+    (dW0 (do, pad(w_0)) and each dW_l); none for the wide form (a layer
+    over 64 units), which reads fp32."""
+    if max(hidden) > 64:
+        return 0, 0
     p = [_pad(w) for w in hidden]
     inner = sum(a * b for a, b in zip(p, p[1:]))
     return 3 * inner, 3 * (do * p[0] + inner)
@@ -124,7 +130,7 @@ def workspace(params, obs):
     not take, before it builds anything."""
     if not obs.is_cuda:
         return None
-    hidden = build.hidden_shape(params, "FVP kernel")
+    hidden = build.hidden_shape(params, "fvp")
     B, do = obs.shape
     da = params["logstd"].shape[0]
     for k, w in params.items():
@@ -152,7 +158,7 @@ def gn_fvp(params, obs, hs, scale, v, damping: float, ws):
     """The damped Fv for a flat v; ``ws``: ``workspace(params, obs)``."""
     if not obs.is_cuda:
         return gn_fvp_plain(params, obs, hs, scale, v, damping)
-    hidden = build.hidden_shape(params, "FVP kernel")
+    hidden = build.hidden_shape(params, "fvp")
     B, do = obs.shape
     da = params["logstd"].shape[0]
     if len(hs) != len(hidden) or any(h.shape != (B, w)
@@ -202,7 +208,7 @@ def occupancy(do: int, da: int, hidden: tuple = build.DEFAULT_HIDDEN
     blocks and warps per SM, registers and local (spill) bytes per thread,
     dynamic and static shared bytes per block, threads and samples a
     tile."""
-    hidden = build.check_hidden(hidden, "FVP kernel")
+    hidden = build.check_hidden(hidden, "fvp")
     out = (ctypes.c_int * 7)()
     err = _library(hidden).trpo_fvp_occupancy(do, da, out)
     build.check(err, "FVP kernel occupancy")

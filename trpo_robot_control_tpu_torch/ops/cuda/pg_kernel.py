@@ -70,7 +70,7 @@ def surrogate_grad(params, obs_ff, act_ff, adv_ff):
         return surrogate_grad_plain(params, obs_ff, act_ff, adv_ff)
     T, do, N = obs_ff.shape
     da = act_ff.shape[1]
-    hidden = build.hidden_shape(params, "surrogate-gradient kernel")
+    hidden = build.hidden_shape(params, "pg")
     if do > 32 or da > 8:
         raise NotImplementedError("the surrogate-gradient kernel takes "
                                   "obs_dim <= 32, act_dim <= 8")

@@ -16,8 +16,9 @@ families, task) before the next step. It takes any arm, spatial or
 planar (a planar arm's fresh targets lie in the z = 0 plane, as
 ``envs/arm.py:reset`` draws them), with 1, 2 or 3 task families and the
 obstacle term on or off, and any tanh policy of 1-3 hidden layers of
-1-64 units; it is built for ``JOINT_COUNTS`` (one library per count, and
-per policy shape other than (64, 64); past them, ROADMAP B3). See the
+1-128 units (over 64, the kernel's wide form: the TPU kernel's unpacked
+``_policy_ff``); it is built for ``JOINT_COUNTS`` (one library per count,
+and per policy shape other than (64, 64); past them, ROADMAP B3). See the
 source for what bounds it on the card and its warp roles: one state warp
 does each env's serial work, one column warp per joint runs mass-matrix
 passes specialised to what is not structurally zero (``mass_bias_split``
@@ -599,7 +600,7 @@ def rollout3d(cfg, params, q0, qd0, tgt, task, eps=None, seed=None,
     T = cfg.horizon
     do = cfg.obs_dim
     dev = q0.device
-    hidden = build.hidden_shape(params, "3-D rollout kernel")
+    hidden = build.hidden_shape(params, "rollout3d")
     if params["W0"].shape[0] != do:
         raise ValueError(f"W0 takes {params['W0'].shape[0]} inputs, the "
                          f"observation has {do}")
@@ -674,6 +675,7 @@ def occupancy(cfg, store_dtype=torch.float32, hidden=build.DEFAULT_HIDDEN
     c = arm3d_consts(cfg)
     check_instantiated(c)
     check_store(store_dtype)
+    hidden = build.check_hidden(hidden, "rollout3d")
     out = (ctypes.c_int * 6)()
     err = build.library(build.lib_name("rollout3d", c.n, hidden),
                         _SIG).trpo_rollout3d_occupancy(

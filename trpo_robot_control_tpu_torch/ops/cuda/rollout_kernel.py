@@ -9,9 +9,10 @@ Gaussian action, torque clip, reward) and, when ``cfg.done_dist > 0``, the
 terminating branch: an env whose post-step end effector comes within
 ``done_dist`` of its target is flagged done and starts a fresh episode
 before the next step. It takes any tanh policy of 1-3 hidden layers of
-1-64 units (``build.hidden_shape``; a policy other than the default
-(64, 64) builds a library of its own, past those it raises
-NotImplementedError, naming ROADMAP B3). A block holds 8 envs in five
+1-128 units (``build.hidden_shape``; a policy other than the default
+(64, 64) builds a library of its own, one wider than 64 units the
+kernel's wide form, the TPU kernel's unpacked ``_policy_ff``; past those
+it raises NotImplementedError, naming ROADMAP B3). A block holds 8 envs in five
 warps: four compute the policy's hidden units across their lanes, one
 does each env's serial work; see the source for what bounds it on the
 card and what its design does about that. ``occupancy`` reports what the
@@ -357,7 +358,7 @@ def rollout(cfg, params, q0, qd0, tgt, eps=None, seed=None, fresh=None,
     T = cfg.horizon
     do = 3 * n + 3
     dev = q0.device
-    hidden = build.hidden_shape(params, "planar rollout kernel")
+    hidden = build.hidden_shape(params, "rollout")
     check_joints(n, "planar rollout kernel")
     if params["W0"].shape[0] != do:
         raise ValueError(f"W0 takes {params['W0'].shape[0]} inputs, the "
@@ -418,17 +419,18 @@ def occupancy(n: int, term: bool, store_dtype=torch.float32,
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
     bytes per thread (the stack frame: spills, and the slow-path array of
     the precise trig, which ``-Xptxas -v`` tells apart), static shared
-    bytes, threads and envs per block. Raises NotImplementedError for an
-    ``n`` or a policy it is not built for."""
+    bytes, dynamic shared bytes (the wide form's hidden-to-hidden layers;
+    0 at widths up to 64), threads and envs per block. Raises
+    NotImplementedError for an ``n`` or a policy it is not built for."""
     check_joints(n, "planar rollout kernel")
     check_store(store_dtype)
-    hidden = build.check_hidden(hidden, "planar rollout kernel")
-    out = (ctypes.c_int * 6)()
+    hidden = build.check_hidden(hidden, "rollout")
+    out = (ctypes.c_int * 7)()
     err = build.library(build.lib_name("rollout", n, hidden),
                         _SIG).trpo_rollout_occupancy(
         n, int(term), int(store_dtype == torch.bfloat16), out)
     build.check(err, "rollout kernel occupancy")
-    blocks, regs, local, static, threads, envs = out
+    blocks, regs, local, static, threads, envs, dyn = out
     return dict(blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32,
                 registers=regs, local_bytes=local, smem_static=static,
-                threads=threads, envs_per_block=envs)
+                smem_dynamic=dyn, threads=threads, envs_per_block=envs)
