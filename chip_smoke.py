@@ -126,8 +126,12 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
    arm and c5's observation on 4096 envs x 200 steps against its plain
    version on every 16th env (0.0 and 0 ulps, or, where the plain
    version's matrix product sums in another order, its step-0 actions in
-   the fmaf order and phase 3's bounds; TERM 0.0 at RLLAB), K3 on c2's,
-   a c1-sized and c3's fp32 Fisher batch (K3_SHAPE_REL); K1, K3 and K4
+   the fmaf order and phase 3's bounds; TERM 0.0 at RLLAB), K3's wide
+   form (split-bf16 products on the tensor cores, a chain of launches) on
+   c2's, a c1-sized and c3's fp32 Fisher batch against its plain version
+   (K3_SHAPE_REL) and the statement of its arithmetic
+   (``gn_fvp_wide_split``, K3_SPLIT_REL), with every launch's occupancy
+   and no spill store, up to do 32, da 8; K1, K3 and K4
    timed beside their bounds; then c3-rllab (``c3_rllab``: rllab's
    (100, 50, 25) policy; K4, K2-bf16, the plain surrogate gradient and
    K3 ten times per update on the fp32 relayout, as ``kernel_routes``
@@ -559,6 +563,32 @@ def k3_ms(params, obs_fvp, damping, v):
     from trpo_robot_control_tpu_torch.ops.fvp import make_gn_fvp
     fvp = make_gn_fvp(params, obs_fvp, damping)
     return cuda_ms(lambda: fvp(v), 50, lead_ms=K1_LEAD_MS)
+
+
+def k3_launch_ms(params, obs_fvp, damping, v, calls=20):
+    """Device ms per CG call of each launch K3 makes (its wide form's
+    chain, the split and the reduce), by kernel name, from
+    ``torch.profiler`` over ``calls`` calls after warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+    from trpo_robot_control_tpu_torch.ops.fvp import make_gn_fvp
+    fvp = make_gn_fvp(params, obs_fvp, damping)
+    for _ in range(3):
+        fvp(v)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fvp(v)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = getattr(e, "cuda_time_total", 0)
+        if t > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("::")[-1].replace("void ", "")
+            out[name] = out.get(name, 0.0) + t / calls / 1e3
+    return out
 
 
 def fvp_macs(do, hidden, da) -> int:
@@ -1974,6 +2004,46 @@ def k3_shape_check(tag, gen, params, obs_fvp, damping, rel=K3_SHAPE_REL):
     return worst
 
 
+def k3_wide_check(tag, gen, params, obs_fvp, damping, n_v=3):
+    """K3's wide form (``make_gn_fvp`` at a layer over 64 units) against
+    its plain version within K3_SHAPE_REL and against the statement of its
+    arithmetic (``gn_fvp_wide_split`` in ``tests/test_torch_helpers.py``)
+    within K3_SPLIT_REL, for ``n_v`` v drawn from ``gen``; repeat calls and
+    a fresh workspace bit-identical. Returns the worst relative L2 errors
+    (plain, statement)."""
+    from trpo_robot_control_tpu_torch.models import policy
+    from trpo_robot_control_tpu_torch.ops.cuda import fvp_kernel as fk
+    from trpo_robot_control_tpu_torch.ops.fvp import make_gn_fvp
+    statement = port_test_helpers().gn_fvp_wide_split
+    B = obs_fvp.shape[0]
+    hs = fk.activations(params, obs_fvp)
+    scale = torch.exp(-2.0 * params["logstd"]) / B
+    fvp = make_gn_fvp(params, obs_fvp, damping)
+    worst = worst_s = 0.0
+    for _ in range(n_v):
+        v = torch.randn(policy.flatten(params).numel(), generator=gen,
+                        device=obs_fvp.device)
+        f_k = fvp(v)
+        f_p = fk.gn_fvp_plain(params, obs_fvp, hs, scale, v, damping)
+        f_s = statement(params, obs_fvp, hs, v, damping)
+        worst = max(worst, float(torch.linalg.norm(f_k - f_p)
+                                 / torch.linalg.norm(f_p)))
+        worst_s = max(worst_s, float(torch.linalg.norm(f_k - f_s)
+                                     / torch.linalg.norm(f_s)))
+        require(torch.equal(f_k, fvp(v))
+                and torch.equal(f_k, make_gn_fvp(params, obs_fvp,
+                                                 damping)(v)),
+                f"{tag} K3 is not deterministic")
+    print(f"{tag} K3 on B' = {B} (do {obs_fvp.shape[1]}): worst relative L2 "
+          f"err {worst:.3e} from the plain version (bound {K3_SHAPE_REL}), "
+          f"{worst_s:.3e} from the statement of its arithmetic (bound "
+          f"{K3_SPLIT_REL}) over {n_v} v; repeat calls and a fresh "
+          "workspace bit-identical")
+    require(worst <= K3_SHAPE_REL and worst_s <= K3_SPLIT_REL,
+            f"{tag} K3 error {worst}, {worst_s} from its statement")
+    return worst, worst_s
+
+
 def planar_shape_checks(dev):
     """Phase 9a: K1 and K3 at every shape of POLICY_SHAPES. K1 at c2's arm
     (3 links, 1024 envs x 100 steps) in eps mode against ``rollout_plain``:
@@ -2055,8 +2125,8 @@ def planar_shape_checks(dev):
         obs_ff = rk.rollout(cfg, *kw, seed=seed_k1)[0]
         obs_fvp = obs_ff[::cfg.trpo.fvp_subsample].permute(0, 2, 1) \
             .reshape(-1, cfg.obs_dim)
-        rel2 = k3_shape_check(f"{key} c2", gen, params, obs_fvp,
-                              cfg.trpo.cg_damping)
+        rel2 = k3_wide_check(f"{key} c2", gen, params, obs_fvp,
+                             cfg.trpo.cg_damping)
         ms1 = k1_ms(cfg, params, s0, seed_k1)
         ms3 = k3_ms(params, obs_fvp, cfg.trpo.cg_damping, torch.randn(
             policy.flatten(params).numel(), generator=gen, device=dev))
@@ -2066,8 +2136,8 @@ def planar_shape_checks(dev):
         params1 = policy.init_params(gen, 9, 2, hidden,
                                      cfg.trpo.logstd_init)
         obs1 = torch.randn(3200, 9, generator=gen, device=dev)
-        rel1 = k3_shape_check(f"{key} c1-sized", gen, params1, obs1,
-                              cfg.trpo.cg_damping)
+        rel1 = k3_wide_check(f"{key} c1-sized", gen, params1, obs1,
+                             cfg.trpo.cg_damping)
         occ3 = {}
         for tag, do, da in (("c2", 12, 3), ("c1", 9, 2)):
             o = fk.occupancy(do, da, hidden)
@@ -2274,8 +2344,11 @@ def wide_shape_checks(dev):
     every SHAPE_STRIDE-th env (``k4_wide_check``), and at RLLAB also TERM
     in fresh-state mode at done_dist K4_WIDE_DONE_DIST (0.0); K3 on c2's
     Fisher subsample (25,600 x 12), a c1-sized one (3,200 x 9, da 2) and
-    c3's fp32 relayout (102,400 x 24, da 7) within K3_SHAPE_REL, repeat
-    calls bit-identical; each kernel's occupancy, K1's and K3's times at
+    c3's fp32 relayout (102,400 x 24, da 7) within K3_SHAPE_REL of its
+    plain version and K3_SPLIT_REL of its statement (``k3_wide_check``),
+    repeat calls and a fresh workspace bit-identical, every launch of its
+    wide form resident with no spill store (do 32, da 8 too); each
+    kernel's occupancy, K1's and K3's times at
     c2 beside their bounds and plain versions (K1 and K4 at 8 joints and
     the widest shape: ``tests/test_torch_cuda.py``'s spill check).
     Returns {kernel: {shape: record}}."""
@@ -2364,8 +2437,8 @@ def wide_shape_checks(dev):
         obs_ff = rk.rollout(cfg, *kw, seed=seed_k1)[0]
         obs_fvp = obs_ff[::cfg.trpo.fvp_subsample].permute(0, 2, 1) \
             .reshape(-1, cfg.obs_dim)
-        rel2 = k3_shape_check(f"{key} c2", gen, params, obs_fvp,
-                              cfg.trpo.cg_damping)
+        rel2 = k3_wide_check(f"{key} c2", gen, params, obs_fvp,
+                             cfg.trpo.cg_damping)
         v = torch.randn(P, generator=gen, device=dev)
         ms3 = k3_ms(params, obs_fvp, cfg.trpo.cg_damping, v)
         B3 = obs_fvp.shape[0]
@@ -2373,6 +2446,10 @@ def wide_shape_checks(dev):
         scale = torch.exp(-2.0 * params["logstd"]) / B3
         ms3p = cuda_ms(lambda: fk.gn_fvp_plain(params, obs_fvp, hs, scale, v,
                                                cfg.trpo.cg_damping), 10)
+        launch2 = k3_launch_ms(params, obs_fvp, cfg.trpo.cg_damping, v)
+        print(f"{key} c2 K3's launches (ms a call): " + ", ".join(
+            f"{k} {t:.4f}" for k, t in sorted(launch2.items(),
+                                              key=lambda x: -x[1])))
         b3, b3fma = k3_bound(B3, cfg.obs_dim, n, P, hidden)
         print(f"{key} c2 K1 {ms1:.4f} ms/launch ({1e3 * ms1 / T:.3f} us a "
               f"step; bound {b1:.4f} ms by {by1}, plain {t_k1p:.1f} ms), K3 "
@@ -2382,8 +2459,8 @@ def wide_shape_checks(dev):
         params1 = policy.init_params(gen, 9, 2, hidden,
                                      cfg.trpo.logstd_init)
         obs1 = torch.randn(3200, 9, generator=gen, device=dev)
-        rel1 = k3_shape_check(f"{key} c1-sized", gen, params1, obs1,
-                              cfg.trpo.cg_damping)
+        rel1 = k3_wide_check(f"{key} c1-sized", gen, params1, obs1,
+                             cfg.trpo.cg_damping)
         del obs_ff, obs_fvp
         # ---- K4 at c3's and c5's observation; K3 on c3's relayout
         r4 = {}
@@ -2413,9 +2490,19 @@ def wide_shape_checks(dev):
                 k_sub = cfg3.trpo.fvp_subsample
                 obs_fvp3 = obs3[::k_sub].permute(0, 2, 1) \
                     .reshape(-1, cfg3.obs_dim)
-                rel3 = k3_shape_check(f"{key} c3 (fp32 relayout)", gen3,
-                                      params3, obs_fvp3,
-                                      cfg3.trpo.cg_damping)
+                rel3 = k3_wide_check(f"{key} c3 (fp32 relayout)", gen3,
+                                     params3, obs_fvp3,
+                                     cfg3.trpo.cg_damping)
+                v3 = torch.randn(policy.flatten(params3).numel(),
+                                 generator=gen3, device=dev)
+                ms3c3 = k3_ms(params3, obs_fvp3, cfg3.trpo.cg_damping, v3)
+                launch3 = k3_launch_ms(params3, obs_fvp3,
+                                       cfg3.trpo.cg_damping, v3)
+                print(f"{key} c3 (fp32 relayout) K3 {ms3c3:.4f} ms a call; "
+                      "its launches (ms a call): "
+                      + ", ".join(f"{k} {t:.4f}" for k, t in
+                                  sorted(launch3.items(),
+                                         key=lambda x: -x[1])))
                 del obs3, obs_fvp3
             if tag == "c3" and hidden == RLLAB:
                 cfg_t = cfg3.replace(done_dist=K4_WIDE_DONE_DIST)
@@ -2435,17 +2522,32 @@ def wide_shape_checks(dev):
                                term_early_dones=early_t)
                 del kt, pt
         out["rollout3d"][key] = r4
+        # K3's launches: each resident, none with local (spill) memory, at
+        # c2's, c1's and c3's widths and the widest instantiation (do 32,
+        # da 8); the library's spill stores from its -Xptxas -v report
         occ3 = {}
-        for tag, do, da in (("c2", 12, 3), ("c1", 9, 2), ("c3", 24, 7)):
+        for tag, do, da in (("c2", 12, 3), ("c1", 9, 2), ("c3", 24, 7),
+                            ("do32_da8", 32, 8)):
             o3 = fk.occupancy(do, da, hidden)
-            print(f"{key} K3 occupancy [{tag}, do {do}, da {da}]: {o3}")
-            require(o3["blocks_per_sm"] >= 1, f"{key} K3 does not fit an SM")
-            occ3[tag] = brief(o3) | {"tile": o3["tile"],
-                                     "smem_dynamic": o3["smem_dynamic"]}
-        out["fvp"][key] = dict(rel_l2=rel2, rel_l2_c1=rel1, rel_l2_c3=rel3,
+            for name, ok in o3["kernels"].items():
+                print(f"{key} K3 occupancy [{tag}, do {do}, da {da}] {name}: "
+                      f"{ok}")
+                require(ok["blocks_per_sm"] >= 1 and ok["local_bytes"] == 0,
+                        f"{key} K3 {name} does not fit an SM or spills: {ok}")
+            occ3[tag] = {name: brief(ok) | {"tile": ok["tile"],
+                                            "smem_dynamic": ok["smem_dynamic"]}
+                         for name, ok in o3["kernels"].items()}
+        spills3 = spill_stores(build.lib_name("fvp", None, hidden))
+        print(f"{key} K3 spill stores per kernel (bytes): {spills3}")
+        require(spills3 and not any(spills3), f"{key} K3 spills: {spills3}")
+        out["fvp"][key] = dict(rel_l2=rel2[0], rel_l2_split=rel2[1],
+                               rel_l2_c1=rel1[0], rel_l2_split_c1=rel1[1],
+                               rel_l2_c3=rel3[0], rel_l2_split_c3=rel3[1],
                                ms=ms3, plain_ms=ms3p, bound_ms=b3[0],
                                bound_by=b3[1], bound_fp32_fma_ms=b3fma[0],
-                               occupancy=occ3)
+                               occupancy=occ3, spill_stores=spills3,
+                               launches_ms=launch2, ms_c3=ms3c3,
+                               launches_ms_c3=launch3)
     return out
 
 

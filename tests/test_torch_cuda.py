@@ -14,7 +14,8 @@ import torch
 
 from test_torch_helpers import (OBSTACLE_ON_ARM, PG_G_KEPT_REL,
                                 PG_MU_FP64_ATOL, env_inputs_np,
-                                gn_fvp_ff_split, gn_fvp_split, pg_fp64_errors,
+                                gn_fvp_ff_split, gn_fvp_split,
+                                gn_fvp_wide_split, pg_fp64_errors,
                                 policy_params_np, surrogate_grad_fp64, t,
                                 tasks_np)
 from trpo_robot_control_tpu_torch import configs as pconfigs
@@ -776,3 +777,70 @@ def test_wide_rollouts_have_no_spills(cuda):
                   for x in re.findall(r"(\d+) bytes spill stores", report)]
         assert len(spills) == count and not any(spills), report
     assert all(o["blocks_per_sm"] >= 1 for o in occ), occ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", WIDE_SHAPES)
+@pytest.mark.parametrize("B, do, da", [
+    (3200, 9, 2),           # c1's Fisher batch
+    (1000, 12, 3),          # c2's widths, a ragged last split and chunk
+    (300, 27, 7),           # do > 16, da > 4: the other instantiations
+])
+def test_fvp_wide_form_matches_its_statement_on_card(cuda, B, do, da,
+                                                     hidden):
+    """K3's wide form (split-bf16 products on the tensor cores, a chain of
+    launches) within 1e-6 relative L2 of the statement of its arithmetic
+    (``gn_fvp_wide_split``); repeat calls and a fresh workspace
+    bit-identical; its tile is a split of the grad launch."""
+    g = torch.Generator(device=cuda).manual_seed(43)
+    pn = policy_params_np(np.random.RandomState(44), do, da, hidden)
+    pc = {k: t(v).to(cuda) for k, v in pn.items()}
+    obs = torch.randn(B, do, generator=g, device=cuda)
+    hs = fvp_kernel.activations(pc, obs)
+    v = torch.randn(sum(x.numel() for x in pc.values()), generator=g,
+                    device=cuda)
+    fk = make_gn_fvp(pc, obs, 0.1)(v)
+    fs = gn_fvp_wide_split(pc, obs, hs, v, 0.1)
+    assert float(torch.linalg.norm(fk - fs) / torch.linalg.norm(fs)) < 1e-6
+    assert torch.equal(fk, make_gn_fvp(pc, obs, 0.1)(v))
+    assert fvp_kernel.tile(do, da, hidden) == fvp_kernel.WIDE_SPLIT
+
+
+@pytest.mark.cuda
+def test_fvp_wide_form_has_no_spills(cuda):
+    """At the top of the range, (128, 128, 128), with the widest
+    observation and head (do 32, da 8), every launch of K3's wide form is
+    resident with no local memory, and its library has no spill store."""
+    hidden = (128, 128, 128)
+    occ = fvp_kernel.occupancy(32, 8, hidden)
+    assert all(o["blocks_per_sm"] >= 1 and o["local_bytes"] == 0
+               for o in occ["kernels"].values()), occ
+    lib = f"{build.lib_name('fvp', None, hidden)}: "
+    report = "\n".join(ln for ln in build.ptxas_report().splitlines()
+                       if ln.startswith(lib))
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", report)]
+    assert spills and not any(spills), report
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,value", [
+    ("fvp_impl", "xla"), ("fvp_impl", "pallas_ff"), ("moments_impl", "xla"),
+    ("moments_impl", "triton"), ("rollout_impl", "xla"),
+    ("rollout_impl", "scan")])
+def test_unhonoured_switch_values_raise_on_card(cuda, name, value):
+    """A switch value the port has no counterpart for (the JAX package's
+    "xla" forms, or a value it does not have) raises NotImplementedError
+    on the card, naming the switch and its value, before anything runs."""
+    from trpo_robot_control_tpu_torch.envs.arm import make_rollout_fn
+    from trpo_robot_control_tpu_torch.trpo.train import init_state
+    from trpo_robot_control_tpu_torch.trpo.update import trpo_update
+    base = pconfigs.C1_REACHER2.replace(n_envs=64, horizon=10)
+    cfg = base.replace(rollout_impl=value) if name == "rollout_impl" else \
+        base.replace(trpo=dataclasses.replace(base.trpo, **{name: value}))
+    st = init_state(base, device="cuda")
+    with pytest.raises(NotImplementedError, match=f"{name}='{value}'"):
+        if name == "rollout_impl":
+            make_rollout_fn(cfg)(st.params, st.gen)
+        else:
+            batch = make_rollout_fn(base)(st.params, st.gen)
+            trpo_update(cfg, st.params, st.w, batch)

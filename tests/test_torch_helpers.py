@@ -550,6 +550,67 @@ def gn_fvp_split(params, obs, hs, v, damping, pairs=SIX_PAIRS, blocks=None):
     return _reduce_tiles(_flat_grads(per_tile, nt), blocks, v, damping)
 
 
+def gn_fvp_wide_split(params, obs, hs, v, damping, pairs=SIX_PAIRS,
+                      splits=None):
+    """A PyTorch statement of K3's wide form's arithmetic (``csrc/fvp.cu``,
+    ``namespace wide``; a hidden layer over 64 units, any depth), on the
+    tensors' device.
+
+    The activations ``hs`` are read as given. Per sample: the forward
+    tangent layer by layer (x dW0, then dh_{l-1} W_l + h_{l-1} dW_l, each
+    fp32 operand as three bf16 planes and the plane products ``pairs``
+    summed, hi hi on its own, as ``_plane_products`` states), the head in
+    fp32, u, and the reverse chain g_{l-1} = (g_l W_l^T)(1 - h_{l-1}^2) the
+    same way. Then each layer's weight gradient and bias sum as one plane
+    product [a_j; 1]^T g_j (a_0 = x, a_j = h_{j-1}, g_L = u) over each
+    chunk of ``fvp_kernel.WIDE_CHUNK`` samples (hi and ml rounded once a
+    chunk), the chunks of a split added in order in fp32; the splits
+    (``splits`` of them: by default the kernel's, ``fvp_kernel.WIDE_SPLIT``
+    samples a split, at most ``fvp_kernel.MAX_BLOCKS``, each a whole
+    number of chunks) summed in the reduce pass's order
+    (``_reduce_tiles``)."""
+    from trpo_robot_control_tpu_torch.models import policy
+    from trpo_robot_control_tpu_torch.ops.cuda import fvp_kernel
+    planes, mm, tr = _plane_products(pairs)
+    L = len(hs)
+    B = obs.shape[0]
+    S = splits or min(-(-B // fvp_kernel.WIDE_SPLIT), fvp_kernel.MAX_BLOCKS)
+    C = fvp_kernel.WIDE_CHUNK
+    span = -(-(-(-B // S)) // C) * C
+    p, t = params, policy.unflatten(v, params)
+    x, hs = obs.float(), [h.float() for h in hs]
+    scale = torch.exp(-2.0 * p["logstd"]) / B
+    dh = (1.0 - hs[0] * hs[0]) * (mm((planes(x), planes(t["W0"]))) + t["b0"])
+    for l in range(1, L):
+        dh = (1.0 - hs[l] * hs[l]) * (
+            mm((planes(dh), planes(p[f"W{l}"])),
+               (planes(hs[l - 1]), planes(t[f"W{l}"]))) + t[f"b{l}"])
+    u = (dh @ p[f"W{L}"] + hs[L - 1] @ t[f"W{L}"] + t[f"b{L}"]) * scale
+    gs = [None] * L + [u]
+    gs[L - 1] = (u @ p[f"W{L}"].T) * (1.0 - hs[L - 1] * hs[L - 1])
+    for l in range(L - 1, 0, -1):
+        gs[l - 1] = mm((planes(gs[l]), tr(planes(p[f"W{l}"])))) \
+            * (1.0 - hs[l - 1] * hs[l - 1])
+
+    def chunks(a):
+        """(B, w) -> (S, chunks a split, C, w), zero past B."""
+        out = torch.zeros(S * span, a.shape[1], device=a.device)
+        out[:B] = a
+        return out.reshape(S, span // C, C, a.shape[1])
+
+    ones = torch.ones(B, 1, device=obs.device)
+    ws, bs = [], []
+    for a, g in zip([x] + hs[:L], gs):
+        r = mm((tr(planes(chunks(torch.cat([a, ones], 1)))),
+                planes(chunks(g))))
+        tot = r[:, 0]
+        for i in range(1, r.shape[1]):
+            tot = tot + r[:, i]
+        ws.append(tot[:, :-1].reshape(S, -1))
+        bs.append(tot[:, -1])
+    return _reduce_tiles(torch.cat(ws + bs, 1), S, v, damping)
+
+
 def mean_fmaf(params, obs):
     """The policy mean of obs (do, n) before the head's bias as the rollout
     kernels sum it, on the tensors' device: each unit one fmaf chain over

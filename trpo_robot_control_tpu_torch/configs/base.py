@@ -5,7 +5,8 @@ port imports nothing from the JAX package, so it keeps its own frozen
 constants. ``tests/test_torch_rules.py`` holds the two copies equal with
 ``dataclasses.asdict``. Field comments that name JAX-side implementation
 switches (``fvp_impl``, ``moments_impl``, ...) describe the reference; the
-port reads only the fields its own path uses.
+port honours the values it has a counterpart for and, on the card, raises
+for the others (``trpo/update.py:HONOURED``).
 """
 from __future__ import annotations
 

@@ -13,8 +13,10 @@ noise instead. ``make_rollout_fn`` resolves the fused rollout kernel as
 the reference does: planar, gravity-free, single-task arms without the
 obstacle term take the planar kernel (K1), every other arm, planar ones
 with task terms, the obstacle or gravity included, the 3-D RNEA kernel
-(K4); both store obs and actions in the config's ``ff_store_dtype``
-(fp32 or bf16) and take 1-8 joints.
+(K4), as does every arm with ``rollout_impl="pallas3d"``; on the card a
+``rollout_impl`` the port has no counterpart for raises. Both store obs
+and actions in the config's ``ff_store_dtype`` (fp32 or bf16) and take
+1-8 joints.
 
 Early termination (``cfg.done_dist > 0``): an env whose post-step end
 effector comes within ``done_dist`` of its target is flagged done and
@@ -30,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.cuda import rollout3d_kernel, rollout_kernel
+from ..trpo.update import check_switch
 from .rigid_body import ArmConstants
 
 
@@ -42,9 +45,12 @@ class EnvState(NamedTuple):
 
 def _planar_route(cfg) -> bool:
     """The planar kernel covers the bare reach task of a planar arm
-    without gravity; everything else goes to the 3-D kernel."""
+    without gravity; everything else goes to the 3-D kernel, and so does
+    every arm where ``rollout_impl`` is "pallas3d" (the JAX package's value
+    that forces its 3-D kernel)."""
     return (ArmConstants(cfg.arm).planar and abs(cfg.arm.gravity) < 1e-12
-            and cfg.n_tasks == 1 and cfg.cost.obstacle_weight == 0.0)
+            and cfg.n_tasks == 1 and cfg.cost.obstacle_weight == 0.0
+            and cfg.rollout_impl != "pallas3d")
 
 
 def _check_ported(cfg) -> None:
@@ -114,6 +120,7 @@ def make_rollout_fn(cfg):
     def fn(params, gen: torch.Generator, n_envs=None):
         N = cfg.n_envs if n_envs is None else n_envs
         dev = gen.device
+        check_switch("rollout_impl", cfg.rollout_impl, dev)
         s = reset(cfg, gen, N)
         seed = eps = fresh = None
         if dev.type == "cuda":

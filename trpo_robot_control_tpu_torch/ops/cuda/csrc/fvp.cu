@@ -5,9 +5,10 @@
 // `_fvp_kernel_packed`) in trpo_robot_control_tpu/ops/pallas/fvp_kernel.py.
 // The policy has 1-3 hidden layers of 1-128 units (policy_shape.cuh; the
 // JAX package's (64, 64) without -DTRPO_H<l>); a layer over 64 units
-// selects the wide form at the end of this file, on the CUDA cores, as
-// the TPU kernel's widths select its unpacked `_fvp_kernel`. The tensor-
-// core form below takes widths up to 64. One pass over the (B, do)
+// selects the wide form further down (`namespace wide`: the same plane
+// products, a chain of launches), as the TPU kernel's widths select its
+// unpacked `_fvp_kernel`. The one-pass form below takes widths up to 64.
+// One pass over the (B, do)
 // samples per CG call; the hidden activations h_l (B, w_l) are computed
 // once per update outside and read here, not recomputed. Per sample, the
 // fp32 function of the plain version, with W_L the da-wide head:
@@ -1215,310 +1216,827 @@ __global__ void __launch_bounds__(Pick<XT, DT>::NT, 1) fvp_tc_kernel(
 
 // ------------------------------------------------------------ wide form
 // At a hidden layer over 64 units (policy_shape::WIDE; the TPU kernel's
-// unpacked `_fvp_kernel`, which JAX runs past its packed width) the
-// tensor-core layout above does not fit one block: W_l's and dW_l's
-// three bf16 planes alone come to 253 KB at (100, 50, 25) and 418 KB at
-// (128, 128, 128). This form is fp32 on the CUDA cores, one pass over the
-// samples per CG call, the same function as the plain version:
-// - a block walks its tiles of TS samples (64, or 32 or 16 where the
-//   layout below would outgrow one block's 227 KB: 16 at (128, 128, 128));
-//   it stages x and h_0 .. h_{L-1} of a tile in shared memory (read once
-//   from device memory), then runs the forward tangent layer by layer,
-//   the head and u, and the reverse layer by layer through two work
-//   buffers, one __syncthreads between layers;
-// - each layer's products are small matrix products over the tile
-//   (`gemm`): a thread takes RI x RJ outputs strided over the output
-//   (output i = ig + GI ii), each one thread's fmaf chain over its inputs
-//   in order; the weights and v's blocks are read from L2 (__ldg, rows
-//   read across lanes), the tile's activations from shared memory (rows
-//   at odd strides, so the lanes' rows fall in distinct banks);
-// - the weight gradient (every gW_l and bias sum, in flat order) is
-//   summed in shared memory, each entry owned by one thread that adds its
-//   tile's chain over the samples in order; the block writes it as its
-//   partial, and fvp_tile.cuh's reduce pass sums the partials in a fixed
-//   order. No float atomics, so repeat calls are bit-identical.
-// What bounds it: at c3-rllab ((100, 50, 25), 102,400 samples, do 24)
-// the function is 30.5k MACs a sample, 6.25 GFLOP a call: 0.093 ms at
-// the fp32-FMA peak; with its products on the tensor cores the 81.5 MB of
-// inputs would bound it (0.024 ms). Here its operand loads per FMA (four
-// of each operand per 16 fmaf) and one block per SM set its time
-// (PERF.md). A tensor-core form at these widths is ROADMAP B4's.
+// unpacked `_fvp_kernel`, which JAX runs past its packed width) the layout
+// above does not fit one block: W_l's and dW_l's three bf16 planes alone
+// come to 253 KB at (100, 50, 25) and 418 KB at (128, 128, 128) at its row
+// strides, and a warp's 16 samples of two 128-wide layers' A fragments
+// and accumulators pass 255 registers. The wide form keeps its arithmetic
+// (every fp32 operand of a hidden layer's product split into three bf16
+// planes, the six plane products that hold fp32's 24 bits summed on
+// mma.sync m16n8k16, hi hi in its own accumulator; the da-wide head in
+// fp32 on the CUDA cores) and runs a CG call as a chain of launches, each
+// holding one layer's planes in shared memory for its whole grid, so every
+// staged byte serves all of a block's samples:
+//   fwd<0>       dh0 = (1-h0^2)(x dW0 + db0)                     -> buf0
+//                (made inside fwd<1> instead, k-step by k-step, where
+//                dW0's planes fit beside W1's: Fwd::FUSE0)
+//   fwd<l>       dh_l = (1-h_l^2)(dh_{l-1} W_l + h_{l-1} dW_l + db_l)
+//                -> buf_l, l = 1 .. L-2
+//   fwd<L-1>     the same, then the head: dmu = dh W_L + h dW_L + db_L,
+//                u = dmu scale (0 past B), g_{L-1} = (u W_L^T)(1-h^2)
+//                -> buf_{L-1}, u
+//   rev<l>       g_{l-1} = (g_l W_l^T)(1-h_{l-1}^2) -> buf_{l-1} (dh_{l-1}
+//                there is dead), l = L-1 .. 1
+//   grad         every [a_j; 1]^T g_j (a_0 = x, a_j = h_{j-1}, g_L = u):
+//                the weight gradients with the bias sums as their last
+//                row, over a fixed split of the samples a block
+//   reduce       fvp_tile.cuh's, over the splits, with 2 v and damping v
+// The per-sample launches (fwd, rev) take samples as the mma's M, 16 a
+// warp, as the form above does: a warp loads its rows of the fp32 inputs
+// from global memory straight into the A fragment's layout, splits them in
+// registers and accumulates every output column of its rows at once (hi
+// and ml over pad(l) / 8 n-tiles), so each input element is read and split
+// once; the output's accumulator layout is the next launch's A fragment
+// layout, lane for lane. B operands (W_l and dW_l as [in][out], W_l^T as
+// [out][in]) are kept in fragment order (frag_index): the weights split
+// once per update in both orientations (trpo_fvp_split_launch), v's blocks
+// once per call, each block copying them whole into shared memory and
+// reading each n-pair's fragments of a plane as one 16-byte load a lane.
+// Nothing sums across samples there, so the grid (as many blocks as are
+// resident, occupancy) changes no result. The grad launch takes features
+// as M and samples as K: a block owns a GT x GT tile of one layer's
+// gradient over one split of SPLIT samples, stages KC samples of both
+// operands at a time as planes (each element split once) and keeps its
+// sums in registers; the splits' partials are summed by the reduce pass in
+// a fixed order. No float atomics, so repeat calls are bit-identical.
+// What bounds it on an H100: at c3-rllab ((100, 50, 25), 102,400 samples,
+// do 24, da 7) the function is 30.5k MACs a sample, 6.25 GFLOP a call
+// (0.006 ms at the bf16 peak), and its inputs 81.5 MB (0.024 ms at 3.35
+// TB/s): the bytes bound it. This form moves more: the inputs two or
+// three times and each buf_l written and read back, about 0.55 GB at
+// c3-rllab (0.16 ms at 3.35 TB/s before L2 hits), the price of one
+// layer's planes a launch; grad's reads are most of its time (PERF.md).
 namespace wide {
 
-constexpr int NT = 512;        // threads a block: one block an SM
-constexpr int RI = 4, RJ = 4;  // a thread's outputs per item
+constexpr int NW = 8, NT = 32 * NW;    // warps, threads a block
+constexpr int KC = 32;                 // samples a chunk of the grad launch
+constexpr int GT = 64;                 // its output tile, rows and columns
+constexpr int GS = GT + 8;             // bf16 row stride of its staged planes
+constexpr int GST = 4;                 // its fp32 stages (GST - 1 in flight)
+constexpr int G_PLANES = 2 * PL * KC * GS * 2;    // its bytes: the planes,
+constexpr int G_SMEM = G_PLANES + 2 * GST * KC * GT * 4;   // and the stages
+constexpr int SPLIT = 512;             // samples a split (trpo_fvp_tile)
 
-// row stride of a staged row of w floats: odd, so that the rows the
-// lanes of a warp read at one column fall in distinct banks
-__host__ __device__ constexpr int odd(int w) { return w | 1; }
-__host__ __device__ constexpr int maxi(int a, int b) { return a > b ? a : b; }
+// bf16 elements of the three planes of a (K, N) B operand (multiples of 16)
+__host__ __device__ constexpr int frag(int K, int N) { return PL * K * N; }
 
-// row stride of a staged h_l
-__host__ __device__ constexpr int hs(int l) { return odd(wid(l)); }
-// offset of the staged h_l after x (TS, XS)
-__host__ __device__ constexpr int h_off(int TS, int XS, int l) {
-    int o = TS * XS;
-    for (int m = 0; m < l; ++m) o += TS * hs(m);
+// Fragment order: for each k-step kk, n-pair np (n-tiles 2 np, 2 np + 1)
+// and plane p, 32 lanes of 16 bytes, lane (g, c) holding b0, b1 of n-tile
+// 2 np and b0, b1 of 2 np + 1 (b0: rows 2c, 2c + 1 of the k-step, b1: rows
+// 2c + 8, 2c + 9, column g; the lower row in the low half). The index of
+// element (k, n) of plane p:
+__host__ __device__ inline int frag_index(int N, int p, int k, int n) {
+    const int kr = k & 15;
+    const int lane = (n & 7) * 4 + ((kr & 7) >> 1);
+    const int r = ((n >> 3) & 1) * 2 + (kr >> 3);
+    return (((((k >> 4) * (N >> 4) + (n >> 4)) * PL + p) * 32 + lane) * 4 +
+            r) * 2 + (kr & 1);
+}
+
+// The workspace's planes: W_1 .. W_{L-1} as B of the forward (K = pad(l-1),
+// N = pad(l)), then as B of the reverse (W_l^T: K = pad(l), N = pad(l-1))
+__host__ __device__ constexpr int wf_off(int l) {
+    int o = 0;
+    for (int m = 1; m < l; ++m) o += frag(pad(m - 1), pad(m));
     return o;
 }
-// the gradient's entries but logstd at do = DOM, da = DT
-__host__ __device__ constexpr int pg(int DOM, int DT) {
-    int n = DOM * wid(0) + wid(NL - 1) * DT + DT;
-    for (int l = 0; l < NL; ++l) n += wid(l);
-    for (int l = 1; l < NL; ++l) n += wid(l - 1) * wid(l);
+__host__ __device__ constexpr int wt_off(int l) { return wf_off(NL) + wf_off(l); }
+// v's planes, per call: dW0 (K = 16 XT, N = pad(0)), then dW_l as W_l's
+__host__ __device__ constexpr int vf_off(int l, int XT) {
+    return l == 0 ? 0 : frag(16 * XT, pad(0)) + wf_off(l);
+}
+
+// The scratch after the grad launch's partials (n_blocks x Pg floats,
+// rounded up to 64): buf_l (B, pad(l)), l = 0 .. L-1, then u (B, DT)
+inline size_t scratch_off(int n_blocks, int Pg) {
+    return ((size_t)n_blocks * Pg + 63) / 64 * 64;
+}
+inline size_t scratch_floats(int B, int DT) {
+    size_t n = (size_t)B * DT;
+    for (int l = 0; l < NL; ++l) n += (size_t)B * pad(l);
     return n;
 }
 
-// shared memory in floats for do <= 16 XT, da <= DT and TS samples a
-// tile: x (TS, XS), h_l (TS, hs(l)) each, two work buffers (TS, WS), the
-// block's gradient (flat order, the most a (do, da) takes)
-template <int XT, int DT, int TS>
-struct Layout {
-    static constexpr int T = TS;
-    static constexpr int XS = odd(16 * XT);
-    static constexpr int WS = odd(maxi(Hidden::widest(), DT));
-    __host__ __device__ static int h(int l) { return h_off(TS, XS, l); }
-    static constexpr int WA = h_off(TS, XS, NL);
-    static constexpr int WB = WA + TS * WS;
-    static constexpr int ACC = WB + TS * WS;
-    static constexpr int BYTES = (ACC + pg(16 * XT, DT)) * 4;
-    static constexpr bool FITS = BYTES <= 232448;
+// what every launch of a call reads and writes
+struct Args {
+    const float* X;          // (B, do)
+    const float* H[3];       // h_0 .. h_{L-1} (B, w_l)
+    const bf16* Wp;          // the workspace's planes
+    const bf16* Vp;          // v's planes
+    const float* WL;         // the head's weights (w_{L-1}, da)
+    const float* scale;      // (da) exp(-2 logstd) / B
+    const float* v;
+    float* buf[3];           // buf_l (B, pad(l))
+    float* u;                // (B, DT)
+    int B, DO, DA;
+    int fW[4], fb[4], ls;    // policy_shape::flat(DO, DA)'s offsets
 };
 
-// the tile: the most samples (64, 32, 16) whose layout fits one block
+// elements k, k + 1 (k even) of row r of a row-major fp32 array of row
+// stride S, zero from column W on; EVEN: S even, so that the pair is one
+// aligned 8-byte load
+template <bool EVEN>
+__device__ __forceinline__ float2 pair(const float* M, int r, int S, int W,
+                                       int k) {
+    const float* p = M + (size_t)r * S + k;
+    if constexpr (EVEN) {
+        return k < W ? __ldg(reinterpret_cast<const float2*>(p))
+                     : make_float2(0.f, 0.f);
+    } else {
+        return make_float2(k < W ? __ldg(p) : 0.f,
+                           k + 1 < W ? __ldg(p + 1) : 0.f);
+    }
+}
+
+// The A fragment of k-step kk for the 16 rows from s0 (zero from row B on),
+// split into its planes
+template <bool EVEN>
+__device__ __forceinline__ void a_planes(uint32_t (&a)[PL][4], const float* M,
+                                         int S, int W, int s0, int B, int kk,
+                                         int g, int c) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        const int r = s0 + g + 8 * (q & 1), k = 16 * kk + 2 * c + 8 * (q >> 1);
+        const float2 e = r < B ? pair<EVEN>(M, r, S, W, k)
+                               : make_float2(0.f, 0.f);
+        split_pair(e.x, e.y, a[0][q], a[1][q], a[2][q]);
+    }
+}
+
+// n-tiles i .. i + N - 1 of a
+template <int N, int M>
+__device__ __forceinline__ auto at(float (&a)[M][4], int i) -> float (&)[N][4] {
+    return *reinterpret_cast<float(*)[N][4]>(&a[i]);
+}
+
+// hi, ml += the plane products of A (ap) with k-step kk of a B operand of
+// NP n-pairs in fragment order (sB, shared memory), over its PN n-pairs
+// from p0, two n-pairs at a time
+template <int NP, int PN>
+__device__ __forceinline__ void products(float (&hi)[2 * PN][4],
+                                         float (&ml)[2 * PN][4],
+                                         const uint32_t (&ap)[PL][4],
+                                         const bf16* sB, int kk, int p0,
+                                         int lane) {
+    const uint4* b =
+        reinterpret_cast<const uint4*>(sB) + (kk * NP + p0) * PL * 32 + lane;
+#pragma unroll
+    for (int q = 0; q < PN; q += 2) {
+        if (q + 2 <= PN) {
+            uint32_t r[2][PL][4];
+#pragma unroll
+            for (int pp = 0; pp < 2; ++pp)
+#pragma unroll
+                for (int pl = 0; pl < PL; ++pl) {
+                    const uint4 x = b[((q + pp) * PL + pl) * 32];
+                    r[pp][pl][0] = x.x; r[pp][pl][1] = x.y;
+                    r[pp][pl][2] = x.z; r[pp][pl][3] = x.w;
+                }
+            plane_mma<4, true>(at<4>(hi, 2 * q), at<4>(ml, 2 * q), ap, r);
+        } else {
+            uint32_t r[1][PL][4];
+#pragma unroll
+            for (int pl = 0; pl < PL; ++pl) {
+                const uint4 x = b[(q * PL + pl) * 32];
+                r[0][pl][0] = x.x; r[0][pl][1] = x.y;
+                r[0][pl][2] = x.z; r[0][pl][3] = x.w;
+            }
+            plane_mma<2, true>(at<2>(hi, 2 * q), at<2>(ml, 2 * q), ap, r);
+        }
+    }
+}
+
+// bytes 16 at a time, global -> shared, by the block's threads
+__device__ __forceinline__ void copy16(char* dst, const void* src, int bytes,
+                                       int tid) {
+    const char* s = static_cast<const char*>(src);
+    for (int i = 16 * tid; i < bytes; i += 16 * NT)
+        cp_async16(dst + i, s + i, 16);
+}
+
+// shared memory of fwd<l>: [W_l's planes (l >= 1)] [dW_l's (dW0's at l =
+// 0)] [db_l (pad(l))] and, where fwd<1> takes layer 0 in (FUSE0: its
+// planes fit), [dW0's planes] [db0]; for the last layer then the head's
+// fp32 W_L and dW_L (pad(l), DT) [o][m], db_L and scale (DT)
+template <int l, int XT, int DT>
+struct Fwd {
+    static constexpr bool LAST = l == NL - 1;
+    static constexpr int K = l == 0 ? 16 * XT : pad(l - 1), N = pad(l);
+    static constexpr int PB = frag(K, N) * 2;
+    static constexpr int PB0 = frag(16 * XT, pad(0)) * 2;
+    static constexpr int W = 0, DW = l == 0 ? 0 : PB;
+    static constexpr int DB = DW + PB;
+    static constexpr int F0 = DB + N * 4;          // dW0's planes, db0
+    static constexpr int HEAD = 2 * N * DT * 4 + 2 * DT * 4;
+    static constexpr bool FUSE0 =
+        l == 1 && NL > 1 && F0 + PB0 + pad(0) * 4 + (LAST ? HEAD : 0) <= 232448;
+    static constexpr int DW0 = F0, DB0 = F0 + PB0;
+    static constexpr int HW = FUSE0 ? DB0 + pad(0) * 4 : F0;
+    static constexpr int HDW = HW + N * DT * 4, HC = HDW + N * DT * 4;
+    static constexpr int BYTES = LAST ? HW + HEAD : HW;
+    // the k-steps rolled, not unrolled, where unrolling them would spill
+    static constexpr bool ROLL = (LAST || FUSE0) && N > 96;
+    // two blocks an SM where a narrow layer's registers and planes allow
+    static constexpr int MINB = N <= 64 && !FUSE0 && 2 * BYTES <= 232448 ? 2 : 1;
+    static_assert(BYTES <= 232448, "one block's shared memory");
+};
+
+// hi, ml over PN n-pairs from P0 of layer l for the warp's 16 samples
+// from s0: x dW0 at l = 0, else dh_{l-1} W_l + h_{l-1} dW_l, k-step by
+// k-step (each A fragment loaded and split once). With layer 0 fused in
+// (l = 1), k-step kk's dh0 is made here, from x's planes and n-pair kk of
+// dW0's, as fwd<0> makes it; h0's values serve both (1 - h0^2) and the
+// A fragment of h0 dW1.
+template <int l, int XT, int DT, int P0, int PN>
+__device__ __forceinline__ void fwd_acc(float (&hi)[2 * PN][4],
+                                        float (&ml)[2 * PN][4], const Args& a,
+                                        const char* smem, int s0, int g,
+                                        int c, int lane) {
+    using F = Fwd<l, XT, DT>;
+    constexpr int K = F::K, NP = F::N / 16;
+    const bf16* sW = reinterpret_cast<const bf16*>(smem + F::W);
+    const bf16* sDW = reinterpret_cast<const bf16*>(smem + F::DW);
+    zero(hi);
+    zero(ml);
+    uint32_t ax[F::FUSE0 ? XT : 1][PL][4];
+    if constexpr (F::FUSE0)
+#pragma unroll
+        for (int kx = 0; kx < XT; ++kx)
+            a_planes<false>(ax[kx], a.X, a.DO, a.DO, s0, a.B, kx, g, c);
+    auto step = [&](int kk) {
+        uint32_t ap[PL][4];
+        if constexpr (l == 0) {
+            a_planes<false>(ap, a.X, a.DO, a.DO, s0, a.B, kk, g, c);
+            products<NP, PN>(hi, ml, ap, sDW, kk, P0, lane);
+        } else if constexpr (F::FUSE0) {
+            const bf16* sDW0 = reinterpret_cast<const bf16*>(smem + F::DW0);
+            const float* sdb0 = reinterpret_cast<const float*>(smem + F::DB0);
+            float th[2][4], tm[2][4];
+            zero(th);
+            zero(tm);
+#pragma unroll
+            for (int kx = 0; kx < XT; ++kx)
+                products<pad(0) / 16, 1>(th, tm, ax[kx], sDW0, kx, kk, lane);
+            uint32_t ah[PL][4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const int r = s0 + g + 8 * (q & 1), hf = q & 1, nt = q >> 1;
+                const int k = 16 * kk + 2 * c + 8 * nt;
+                const float2 hv = r < a.B
+                    ? pair<wid(0) % 2 == 0>(a.H[0], r, wid(0), wid(0), k)
+                    : make_float2(0.f, 0.f);
+                const float d0 = (1.f - hv.x * hv.x) *
+                                 ((th[nt][2 * hf] + tm[nt][2 * hf]) + sdb0[k]);
+                const float d1 = (1.f - hv.y * hv.y) *
+                                 ((th[nt][2 * hf + 1] + tm[nt][2 * hf + 1]) + sdb0[k + 1]);
+                split_pair(d0, d1, ap[0][q], ap[1][q], ap[2][q]);
+                split_pair(hv.x, hv.y, ah[0][q], ah[1][q], ah[2][q]);
+            }
+            products<NP, PN>(hi, ml, ap, sW, kk, P0, lane);
+            products<NP, PN>(hi, ml, ah, sDW, kk, P0, lane);
+        } else {
+            a_planes<true>(ap, a.buf[l - 1], K, K, s0, a.B, kk, g, c);
+            products<NP, PN>(hi, ml, ap, sW, kk, P0, lane);
+            a_planes<wid(l - 1) % 2 == 0>(ap, a.H[l - 1], wid(l - 1),
+                                          wid(l - 1), s0, a.B, kk, g, c);
+            products<NP, PN>(hi, ml, ap, sDW, kk, P0, lane);
+        }
+    };
+    if constexpr (F::ROLL) {
+#pragma unroll 1
+        for (int kk = 0; kk < K / 16; ++kk) step(kk);
+    } else {
+#pragma unroll
+        for (int kk = 0; kk < K / 16; ++kk) step(kk);
+    }
+}
+
+// The head's share of n-pairs P0 .. P0 + PN - 1 of the last hidden layer:
+// dh = (1 - h^2)(acc + db), dmu += dh W_L + h dW_L over this lane's columns
+template <int l, int XT, int DT, int P0, int PN>
+__device__ __forceinline__ void head_cols(float (&dmu)[2][DT], const Args& a,
+                                          const char* smem, const float* sdb,
+                                          const float* sW2, const float* sdW2,
+                                          int s0, int g, int c, int lane) {
+    constexpr bool HEVEN = wid(l) % 2 == 0;
+    float hi[2 * PN][4], ml[2 * PN][4];
+    fwd_acc<l, XT, DT, P0, PN>(hi, ml, a, smem, s0, g, c, lane);
+#pragma unroll
+    for (int i = 0; i < 2 * PN; ++i) {
+        const int nt = 2 * P0 + i;
+        float2 hv[2];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+            const int r = s0 + g + 8 * hf;
+            hv[hf] = r < a.B ? pair<HEVEN>(a.H[l], r, wid(l), wid(l),
+                                           8 * nt + 2 * c)
+                             : make_float2(0.f, 0.f);
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const int o = 8 * nt + 2 * c + e;
+            const float db = sdb[o];
+            float w[DT], dw[DT];
+#pragma unroll
+            for (int m = 0; m < DT; m += 4) {
+                const float4 x = *reinterpret_cast<const float4*>(sW2 + o * DT + m);
+                const float4 y = *reinterpret_cast<const float4*>(sdW2 + o * DT + m);
+                w[m] = x.x; w[m + 1] = x.y; w[m + 2] = x.z; w[m + 3] = x.w;
+                dw[m] = y.x; dw[m + 1] = y.y; dw[m + 2] = y.z; dw[m + 3] = y.w;
+            }
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+                const float h = e ? hv[hf].y : hv[hf].x;
+                const float dh = (1.f - h * h) *
+                                 ((hi[i][2 * hf + e] + ml[i][2 * hf + e]) + db);
+#pragma unroll
+                for (int m = 0; m < DT; ++m)
+                    dmu[hf][m] = fmaf(h, dw[m], fmaf(dh, w[m], dmu[hf][m]));
+            }
+        }
+    }
+}
+
+// head_cols over the last layer's n-pairs P0 .. NP - 1, NPC at a time
+template <int l, int XT, int DT, int P0, int NPC, int NP>
+__device__ __forceinline__ void head_passes(float (&dmu)[2][DT],
+                                            const Args& a, const char* smem,
+                                            const float* sdb, const float* sW2,
+                                            const float* sdW2, int s0, int g,
+                                            int c, int lane) {
+    if constexpr (P0 < NP) {
+        constexpr int PN = NPC < NP - P0 ? NPC : NP - P0;
+        head_cols<l, XT, DT, P0, PN>(dmu, a, smem, sdb, sW2, sdW2, s0, g, c,
+                                     lane);
+        head_passes<l, XT, DT, P0 + PN, NPC, NP>(dmu, a, smem, sdb, sW2, sdW2,
+                                                 s0, g, c, lane);
+    }
+}
+
+template <int l, int XT, int DT>
+__global__ void __launch_bounds__(NT, (Fwd<l, XT, DT>::MINB)) fwd_kernel(Args a) {
+    using F = Fwd<l, XT, DT>;
+    constexpr int N = F::N, NTN = N / 8, NP = N / 16;
+    // the last layer's columns in passes (of 64, or of 32 with the widest
+    // head) past 96 units, so that its accumulators and the head's
+    // operands fit the registers
+    constexpr int NPC = F::LAST && NP > 6 ? (DT > 4 ? 2 : 4) : NP;
+    extern __shared__ __align__(16) char smem[];
+    float* sdb = reinterpret_cast<float*>(smem + F::DB);
+    float* sW2 = reinterpret_cast<float*>(smem + F::HW);
+    float* sdW2 = reinterpret_cast<float*>(smem + F::HDW);
+    float* sdb2 = reinterpret_cast<float*>(smem + F::HC);
+    float* sscale = sdb2 + DT;
+    const Flat f = policy_shape::flat(a.DO, a.DA);
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, c = lane & 3;
+
+    // prologue: the planes (v's per call, W_l's per update), db_l, the head
+    copy16(smem + F::DW, a.Vp + vf_off(l, XT), F::PB, tid);
+    if constexpr (l > 0) copy16(smem + F::W, a.Wp + wf_off(l), F::PB, tid);
+    if constexpr (F::FUSE0) {
+        copy16(smem + F::DW0, a.Vp + vf_off(0, XT), F::PB0, tid);
+        float* sdb0 = reinterpret_cast<float*>(smem + F::DB0);
+        for (int i = tid; i < pad(0); i += NT)
+            sdb0[i] = i < wid(0) ? a.v[f.b[0] + i] : 0.f;
+    }
+    cp_async_commit();
+    for (int i = tid; i < N; i += NT) sdb[i] = i < wid(l) ? a.v[f.b[l] + i] : 0.f;
+    if constexpr (F::LAST) {
+        for (int i = tid; i < N * DT; i += NT) {
+            const int k = i / DT, m = i % DT;
+            const bool ok = m < a.DA && k < wid(l);
+            sW2[i] = ok ? a.WL[k * a.DA + m] : 0.f;
+            sdW2[i] = ok ? a.v[f.W[NL] + k * a.DA + m] : 0.f;
+        }
+        if (tid < DT) {
+            sdb2[tid] = tid < a.DA ? a.v[f.b[NL] + tid] : 0.f;
+            sscale[tid] = tid < a.DA ? a.scale[tid] : 0.f;
+        }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+
+    constexpr bool HEVEN = wid(l) % 2 == 0;     // h_l's rows a whole float2
+    const float* H = a.H[l];
+    const int n_chunks = (a.B + 15) / 16;
+    for (int ch = blockIdx.x * NW + warp; ch < n_chunks; ch += gridDim.x * NW) {
+        const int s0 = 16 * ch;
+        if constexpr (!F::LAST) {
+            // dh_l = (1 - h_l^2)(acc + db_l) into buf_l
+            float hi[NTN][4], ml[NTN][4];
+            fwd_acc<l, XT, DT, 0, NP>(hi, ml, a, smem, s0, g, c, lane);
+#pragma unroll
+            for (int nt = 0; nt < NTN; ++nt) {
+                const int k = 8 * nt + 2 * c;
+#pragma unroll
+                for (int hf = 0; hf < 2; ++hf) {
+                    const int r = s0 + g + 8 * hf;
+                    if (r >= a.B) continue;
+                    const float2 hv = pair<HEVEN>(H, r, wid(l), wid(l), k);
+                    float2 d;
+                    d.x = (1.f - hv.x * hv.x) *
+                          ((hi[nt][2 * hf] + ml[nt][2 * hf]) + sdb[k]);
+                    d.y = (1.f - hv.y * hv.y) *
+                          ((hi[nt][2 * hf + 1] + ml[nt][2 * hf + 1]) + sdb[k + 1]);
+                    *reinterpret_cast<float2*>(a.buf[l] + (size_t)r * N + k) = d;
+                }
+            }
+        } else {
+            // the head: dmu over the columns, then u and g_{L-1}
+            float dmu[2][DT];
+            zero(dmu);
+            head_passes<l, XT, DT, 0, NPC, NP>(dmu, a, smem, sdb, sW2, sdW2,
+                                               s0, g, c, lane);
+            // u = (dmu + db_L) scale (0 past B): the quad's four column
+            // shares summed, every lane of the quad the same; lane c
+            // writes outputs c, c + 4
+            float u[2][DT];
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+                const int r = s0 + g + 8 * hf;
+#pragma unroll
+                for (int m = 0; m < DT; ++m) {
+                    float s = dmu[hf][m];
+                    s += __shfl_xor_sync(FULL, s, 1);
+                    s += __shfl_xor_sync(FULL, s, 2);
+                    u[hf][m] = m < a.DA && r < a.B ? (s + sdb2[m]) * sscale[m] : 0.f;
+                }
+                if (r < a.B)
+#pragma unroll
+                    for (int m = 0; m < DT; ++m)
+                        if ((m & 3) == c) a.u[(size_t)r * DT + m] = u[hf][m];
+            }
+            // g_{L-1} = (u W_L^T)(1 - h^2) into buf_{L-1}
+#pragma unroll
+            for (int nt = 0; nt < NTN; ++nt) {
+                const int k = 8 * nt + 2 * c;
+                float w[2][DT];
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+#pragma unroll
+                    for (int m = 0; m < DT; m += 4) {
+                        const float4 x = *reinterpret_cast<const float4*>(sW2 + (k + e) * DT + m);
+                        w[e][m] = x.x; w[e][m + 1] = x.y; w[e][m + 2] = x.z; w[e][m + 3] = x.w;
+                    }
+#pragma unroll
+                for (int hf = 0; hf < 2; ++hf) {
+                    const int r = s0 + g + 8 * hf;
+                    if (r >= a.B) continue;
+                    const float2 hv = pair<HEVEN>(H, r, wid(l), wid(l), k);
+                    float s[2];
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        s[e] = u[hf][0] * w[e][0];
+#pragma unroll
+                        for (int m = 1; m < DT; ++m) s[e] = fmaf(u[hf][m], w[e][m], s[e]);
+                    }
+                    *reinterpret_cast<float2*>(a.buf[l] + (size_t)r * N + k) =
+                        make_float2(s[0] * (1.f - hv.x * hv.x),
+                                    s[1] * (1.f - hv.y * hv.y));
+                }
+            }
+        }
+    }
+}
+
+// rev<l>: g_{l-1} = (g_l W_l^T)(1 - h_{l-1}^2), W_l^T's planes in shared
+// memory, l = L-1 .. 1
+template <int l>
+struct Rev {
+    static constexpr int K = pad(l), N = pad(l - 1);
+    static constexpr int BYTES = frag(K, N) * 2;
+    static constexpr int MINB = N <= 64 && 2 * BYTES <= 232448 ? 2 : 1;
+    static_assert(BYTES <= 232448, "one block's shared memory");
+};
+
+template <int l>
+__global__ void __launch_bounds__(NT, (Rev<l>::MINB)) rev_kernel(Args a) {
+    using R = Rev<l>;
+    constexpr int K = R::K, N = R::N, KS = K / 16, NTN = N / 8, NP = N / 16;
+    extern __shared__ __align__(16) char smem[];
+    const bf16* sWT = reinterpret_cast<const bf16*>(smem);
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, c = lane & 3;
+    copy16(smem, a.Wp + wt_off(l), R::BYTES, tid);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    constexpr int WI = wid(l - 1);
+    const float* H = a.H[l - 1];
+    const int n_chunks = (a.B + 15) / 16;
+    for (int ch = blockIdx.x * NW + warp; ch < n_chunks; ch += gridDim.x * NW) {
+        const int s0 = 16 * ch;
+        float hi[NTN][4], ml[NTN][4];
+        zero(hi);
+        zero(ml);
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+            uint32_t ap[PL][4];
+            a_planes<true>(ap, a.buf[l], K, K, s0, a.B, kk, g, c);
+            products<NP, NP>(hi, ml, ap, sWT, kk, 0, lane);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NTN; ++nt) {
+            const int k = 8 * nt + 2 * c;
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+                const int r = s0 + g + 8 * hf;
+                if (r >= a.B) continue;
+                const float2 hv = pair<WI % 2 == 0>(H, r, WI, WI, k);
+                *reinterpret_cast<float2*>(a.buf[l - 1] + (size_t)r * N + k) =
+                    make_float2((hi[nt][2 * hf] + ml[nt][2 * hf]) * (1.f - hv.x * hv.x),
+                                (hi[nt][2 * hf + 1] + ml[nt][2 * hf + 1]) *
+                                    (1.f - hv.y * hv.y));
+            }
+        }
+    }
+}
+
+// The grad launch's work: layer j's [a_j; 1]^T g_j (j = L: the head, g_L =
+// u) in tiles of GT x GT, MT(j) row tiles (the features and the ones row;
+// do + 1 <= 33 rows at j = 0) by NTL(j) column tiles
+__host__ __device__ constexpr int g_mt(int j) {
+    return j == 0 ? 1 : (wid(j - 1) + 1 + GT - 1) / GT;
+}
+__host__ __device__ constexpr int g_nt(int j) {
+    return j == NL ? 1 : (pad(j) + GT - 1) / GT;
+}
+__host__ __device__ constexpr int g_items() {
+    int n = 0;
+    for (int j = 0; j <= NL; ++j) n += g_mt(j) * g_nt(j);
+    return n;
+}
+
+// N (4 or 8) bytes global -> shared, the bytes past src_bytes zero
+// (mma_bf16.cuh's cp_async16 for 16)
+template <int N>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src,
+                                            int src_bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "n"(N), "r"(src_bytes));
+}
+
+// the samples [s, s + KC) (those past b1 zero) of columns c0 .. c0 + GT - 1
+// of a row-major fp32 array of row stride and width w (zero past it) into
+// dst [KC][GT] by cp.async of V-byte vectors (w 4 / V-aligned rows). A
+// thread keeps one column vector over rows r0, r0 + RPP, ..., walking one
+// pointer down them, so that few addresses stay live across the chunks.
+template <int V>
+__device__ __forceinline__ void stage_rows(float (*dst)[GT], const float* M,
+                                          int w, int c0, int s, int b1,
+                                          int tid) {
+    constexpr int E = V / 4, VPR = GT / E, RPP = NT / VPR, PER = KC / RPP;
+    const int cl = E * (tid % VPR), r0 = tid / VPR;
+    const int cb = min(V, max(0, 4 * (w - c0 - cl)));   // bytes in the width
+    const int lim = b1 - s - r0;                        // rows RPP q < lim
+    const float* p = M + (size_t)(s + r0) * w + c0 + cl;
+    const size_t step = (size_t)RPP * w;
+#pragma unroll
+    for (int q = 0; q < PER; ++q, p += step) {
+        const int nb = RPP * q < lim ? cb : 0;
+        float* d = &dst[r0 + RPP * q][cl];
+        if constexpr (V == 16) cp_async16(d, nb > 0 ? p : M, nb);
+        else cp_async_ca<V>(d, nb > 0 ? p : M, nb);
+    }
+}
+
+// A grad block's work: layer j's operands a_j (A, width in) and g_j (G,
+// row stride gs, out columns), its tile's first row and column, and the
+// flat offsets of gW_j and gb_j
+struct Item {
+    const float* A;
+    const float* G;
+    int in, gs, out, m0, n0, wo, bo;
+};
+
+template <int DT>
+__device__ __forceinline__ Item item_of(const Args& a) {
+    int item = blockIdx.x % g_items();
+    Item it = {a.X, a.buf[0], a.DO, pad(0), wid(0), 0, 0, a.fW[0], a.fb[0]};
+    bool found = false;
+#pragma unroll
+    for (int jj = 0; jj <= NL; ++jj) {
+        const int n = g_mt(jj) * g_nt(jj);
+        if (!found && item < n) {
+            found = true;
+            if (jj > 0) {
+                it.A = a.H[jj > 0 ? jj - 1 : 0];
+                it.in = wid(jj - 1);
+            }
+            if (jj < NL) {
+                it.G = a.buf[jj < NL ? jj : 0];
+                it.gs = pad(jj);
+                it.out = wid(jj);
+            } else {
+                it.G = a.u;
+                it.gs = DT;
+                it.out = a.DA;
+            }
+            it.wo = a.fW[jj];
+            it.bo = a.fb[jj];
+            const int mtn = g_mt(jj);
+            it.m0 = GT * (item % mtn);
+            it.n0 = GT * (item / mtn);
+        } else if (!found) {
+            item -= n;
+        }
+    }
+    return it;
+}
+
+// grad: block (item, split) sums its tile over samples [split span,
+// (split + 1) span) into the split's partial. Warp (wm, wn) owns rows
+// 16 wm.., columns 32 wn.. of the tile (a warp wholly in the tile's
+// padding skips its products). The operands come by cp.async into a ring
+// of GST fp32 stages, GST - 1 chunks ahead, 16 bytes at a time where the
+// rows allow (VA bytes for a's, one loop a width so that only its
+// addresses stay live); each chunk of KC samples is split into planes once
+// and summed on the tensor cores into fresh accumulators (a chain of many
+// k-steps in one would lose low bits), added to the totals in fp32.
+template <int DT, int VA>
+__device__ __forceinline__ void grad_tile(const Args& a, float* partial,
+                                          int span, char* smem) {
+    bf16 (*sA)[KC][GS] = reinterpret_cast<bf16 (*)[KC][GS]>(smem);
+    bf16 (*sB)[KC][GS] = reinterpret_cast<bf16 (*)[KC][GS]>(smem + G_PLANES / 2);
+    float (*fA)[KC][GT] = reinterpret_cast<float (*)[KC][GT]>(smem + G_PLANES);
+    float (*fB)[KC][GT] =
+        reinterpret_cast<float (*)[KC][GT]>(smem + G_PLANES + GST * KC * GT * 4);
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int wm = warp & 3, wn = warp >> 2;
+    const Item it = item_of<DT>(a);
+    const int in = it.in, m0 = it.m0;
+    const int b0 = blockIdx.x / g_items() * span, b1 = min(a.B, b0 + span);
+    const int n_ch = b1 > b0 ? (b1 - b0 + KC - 1) / KC : 0;
+    const bool busy = m0 + 16 * wm <= in && it.n0 + 32 * wn < it.out;
+
+    // chunk i's operands into stage i % GST (zero past the sample range and
+    // the widths; the ones row is set as it is split)
+    auto issue = [&](int i) {
+        if (i < n_ch) {
+            const int st = i % GST, s = b0 + KC * i;
+            stage_rows<16>(fB[st], it.G, it.gs, it.n0, s, b1, tid);
+            stage_rows<VA>(fA[st], it.A, in, m0, s, b1, tid);
+        }
+        cp_async_commit();
+    };
+    float tot[4][4];
+    zero(tot);
+#pragma unroll
+    for (int i = 0; i < GST - 1; ++i) issue(i);
+    for (int i = 0; i < n_ch; ++i) {
+        cp_async_wait<GST - 2>();   // chunk i's stage landed
+        __syncthreads();            // for every thread; the planes free
+        const int st = i % GST, s = b0 + KC * i;
+#pragma unroll 2   // fully unrolled, its temporaries would spill
+        for (int q = 0; q < KC * GT / 2 / NT; ++q) {
+            const int p = tid + NT * q, sr = p / (GT / 2), cp = 2 * (p % (GT / 2));
+            float2 x = *reinterpret_cast<const float2*>(&fA[st][sr][cp]);
+            if (s + sr < b1) {
+                if (m0 + cp == in) x.x = 1.f;
+                if (m0 + cp + 1 == in) x.y = 1.f;
+            }
+            const float2 y = *reinterpret_cast<const float2*>(&fB[st][sr][cp]);
+            uint32_t pa[PL], pb[PL];
+            split_pair(x.x, x.y, pa[0], pa[1], pa[2]);
+            split_pair(y.x, y.y, pb[0], pb[1], pb[2]);
+#pragma unroll
+            for (int pl = 0; pl < PL; ++pl) {
+                *reinterpret_cast<uint32_t*>(&sA[pl][sr][cp]) = pa[pl];
+                *reinterpret_cast<uint32_t*>(&sB[pl][sr][cp]) = pb[pl];
+            }
+        }
+        __syncthreads();            // the planes in place; stage st free
+        issue(i + GST - 1);
+        if (!busy) continue;
+#pragma unroll
+        for (int qq = 0; qq < 2; ++qq) {     // n-pair by n-pair
+            float hi[2][4], ml[2][4];
+            zero(hi);
+            zero(ml);
+#pragma unroll
+            for (int ks = 0; ks < KC / 16; ++ks) {
+                uint32_t ap[PL][4], r[1][PL][4];
+#pragma unroll
+                for (int pl = 0; pl < PL; ++pl) {
+                    ldmatrix_x4_trans(ap[pl], &sA[pl][16 * ks + (lane & 7) + 8 * (lane >> 4)]
+                                                 [16 * wm + 8 * ((lane >> 3) & 1)]);
+                    ldmatrix_x4_trans(r[0][pl], &sB[pl][16 * ks + (lane & 15)]
+                                                   [32 * wn + 16 * qq + ((lane >> 4) << 3)]);
+                }
+                plane_mma<2, true>(hi, ml, ap, r);
+            }
+#pragma unroll
+            for (int t = 0; t < 2; ++t)
+#pragma unroll
+                for (int q = 0; q < 4; ++q)
+                    tot[2 * qq + t][q] += hi[t][q] + ml[t][q];
+        }
+    }
+    cp_async_wait<0>();
+    // the tile into the split's partial: row k < in of gW_j, the ones row
+    // k = in of gb_j (the item found again here, not kept live above)
+    const Item o = item_of<DT>(a);
+    float* part = partial + (size_t)(blockIdx.x / g_items()) * a.ls;
+    const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int k = o.m0 + 16 * wm + g + 8 * hf;
+                const int n = o.n0 + 32 * wn + 8 * t + 2 * c + e;
+                if (n >= o.out || k > o.in) continue;
+                part[k < o.in ? o.wo + k * o.out + n : o.bo + n] =
+                    tot[t][2 * hf + e];
+            }
+}
+
+template <int DT>
+__global__ void __launch_bounds__(NT, 2) grad_kernel(Args a, float* partial,
+                                                     int span) {
+    extern __shared__ __align__(16) char smem[];
+    const int in = item_of<DT>(a).in;   // a's rows: 16-, 8- or 4-byte vectors
+    if (in % 4 == 0) grad_tile<DT, 16>(a, partial, span, smem);
+    else if (in % 2 == 0) grad_tile<DT, 8>(a, partial, span, smem);
+    else grad_tile<DT, 4>(a, partial, span, smem);
+}
+
+// Fragment-order splits of up to four row-major fp32 matrices (R, C) into
+// (K, N) B operands: B (k, n) = W (k, n), or W (n, k) where trans
+struct FragJob {
+    const float* w;
+    bf16* out;
+    int R, C, K, N, trans;
+};
+struct FragJobs {
+    FragJob job[4];
+    int n;
+};
+
+template <int U>   // U: unused; instantiated by the wide form only
+__global__ void frag_split_kernel(FragJobs js) {
+#pragma unroll
+    for (int jb = 0; jb < 4; ++jb) {
+        if (jb >= js.n) break;
+        const FragJob j = js.job[jb];
+        for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < j.K * j.N;
+             i += gridDim.x * blockDim.x) {
+            const int k = i / j.N, n = i % j.N;
+            const int r = j.trans ? n : k, cc = j.trans ? k : n;
+            bf16 p[PL];
+            split3(r < j.R && cc < j.C ? j.w[r * j.C + cc] : 0.f, p);
+#pragma unroll
+            for (int pl = 0; pl < PL; ++pl) j.out[frag_index(j.N, pl, k, n)] = p[pl];
+        }
+    }
+}
+
+template <int U = 0>   // a template, so that only the wide form builds it
+cudaError_t frag_split(const FragJobs& js, cudaStream_t st) {
+    if (js.n == 0) return cudaSuccess;
+    frag_split_kernel<U><<<132, 256, 0, st>>>(js);
+    return cudaGetLastError();
+}
+
+// The wide form's tag: (do, da) instantiation XT, DT; TS, the grid's unit
+// of work (trpo_fvp_tile), is a split of the grad launch
 template <int XT_, int DT_>
 struct Pick {
     static constexpr int XT = XT_, DT = DT_;
-    static constexpr int TS = Layout<XT, DT, 64>::FITS   ? 64
-                              : Layout<XT, DT, 32>::FITS ? 32
-                                                         : 16;
-    using L = Layout<XT, DT, TS>;
+    static constexpr int TS = SPLIT;
     static constexpr int NT = wide::NT;
-    static_assert(L::FITS, "one block's shared memory");
 };
 
-// operands: (row, column) -> a[row sr + column sc], from shared memory
-// (S) or read-only from global memory (G); B1 also 1 past its rows
-// (the bias's row of a weight gradient)
-struct S {
-    const float* p;
-    int sr, sc;
-    __device__ __forceinline__ float operator()(int r, int c) const {
-        return p[r * sr + c * sc];
+// One per-sample launch over B samples (16 a warp) with `smem` bytes of
+// dynamic shared memory: as many blocks as are resident on the card
+// (counted once per kernel), or fewer where B needs fewer
+template <void (*K)(Args)>
+cudaError_t per_sample(int smem, const Args& a, cudaStream_t st) {
+    static int resident = 0;
+    cudaError_t err = cudaFuncSetAttribute(
+        K, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    if (resident == 0) {
+        int dev = 0, sms = 0, blocks = 0;
+        if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+            (err = cudaDeviceGetAttribute(
+                 &sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+            (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &blocks, K, NT, smem)) != cudaSuccess)
+            return err;
+        if (blocks < 1) return cudaErrorInvalidConfiguration;
+        resident = sms * blocks;
     }
-};
-struct G {
-    const float* __restrict__ p;
-    int sr, sc;
-    __device__ __forceinline__ float operator()(int r, int c) const {
-        return __ldg(p + r * sr + c * sc);
-    }
-};
-struct SOne {           // rows < n from shared memory, row n all ones
-    const float* p;
-    int sr, sc, n;
-    __device__ __forceinline__ float operator()(int r, int c) const {
-        return r < n ? p[r * sr + c * sc] : 1.f;
-    }
-};
-
-// out(i, j) = sum_{r < K1} a1(i, r) b1(r, j) + sum_{r < K2} a2(i, r)
-// b2(r, j) over i < M, j < N, one fmaf chain an output in r order, first
-// term then second; epi(i, j, sum) takes each
-template <typename A1, typename B1, typename A2, typename B2, typename Epi>
-__device__ __forceinline__ void gemm(int M, int N, int K1, A1 a1, B1 b1,
-                                     int K2, A2 a2, B2 b2, Epi epi) {
-    const int GI = (M + RI - 1) / RI, GJ = (N + RJ - 1) / RJ;
-    for (int it = threadIdx.x; it < GI * GJ; it += NT) {
-        const int ig = it / GJ, jg = it % GJ;
-        int ri[RI], cj[RJ];
-#pragma unroll
-        for (int ii = 0; ii < RI; ++ii) ri[ii] = min(ig + GI * ii, M - 1);
-#pragma unroll
-        for (int jj = 0; jj < RJ; ++jj) cj[jj] = min(jg + GJ * jj, N - 1);
-        float acc[RI][RJ];
-#pragma unroll
-        for (int ii = 0; ii < RI; ++ii)
-#pragma unroll
-            for (int jj = 0; jj < RJ; ++jj) acc[ii][jj] = 0.f;
-#pragma unroll 4
-        for (int r = 0; r < K1; ++r) {
-            float x[RI], y[RJ];
-#pragma unroll
-            for (int ii = 0; ii < RI; ++ii) x[ii] = a1(ri[ii], r);
-#pragma unroll
-            for (int jj = 0; jj < RJ; ++jj) y[jj] = b1(r, cj[jj]);
-#pragma unroll
-            for (int ii = 0; ii < RI; ++ii)
-#pragma unroll
-                for (int jj = 0; jj < RJ; ++jj)
-                    acc[ii][jj] = fmaf(x[ii], y[jj], acc[ii][jj]);
-        }
-#pragma unroll 4
-        for (int r = 0; r < K2; ++r) {
-            float x[RI], y[RJ];
-#pragma unroll
-            for (int ii = 0; ii < RI; ++ii) x[ii] = a2(ri[ii], r);
-#pragma unroll
-            for (int jj = 0; jj < RJ; ++jj) y[jj] = b2(r, cj[jj]);
-#pragma unroll
-            for (int ii = 0; ii < RI; ++ii)
-#pragma unroll
-                for (int jj = 0; jj < RJ; ++jj)
-                    acc[ii][jj] = fmaf(x[ii], y[jj], acc[ii][jj]);
-        }
-#pragma unroll
-        for (int ii = 0; ii < RI; ++ii)
-#pragma unroll
-            for (int jj = 0; jj < RJ; ++jj) {
-                const int i = ig + GI * ii, j = jg + GJ * jj;
-                if (i < M && j < N) epi(i, j, acc[ii][jj]);
-            }
-    }
-}
-
-// dh_l = (1 - h_l^2)(dh_{l-1} W_l + h_{l-1} dW_l + db_l) into the work
-// buffer of layer l (l % 2), l = 1 .. NL-1
-template <typename LT, int l>
-__device__ __forceinline__ void fwd_layer(float* sm, const Weights& w,
-                                          const float* v, const Flat& f) {
-    constexpr int K = wid(l - 1), N = wid(l);
-    const float* din = sm + ((l - 1) % 2 ? LT::WB : LT::WA);
-    const float* hin = sm + LT::h(l - 1);
-    const float* h = sm + LT::h(l);
-    float* out = sm + (l % 2 ? LT::WB : LT::WA);
-    const float* db = v + f.b[l];
-    gemm(LT::T, N, K, S{din, LT::WS, 1}, G{w.W[l], N, 1}, K,
-         S{hin, hs(l - 1), 1}, G{v + f.W[l], N, 1},
-         [&](int s, int o, float z) {
-             const float hv = h[s * hs(l) + o];
-             out[s * LT::WS + o] = (1.f - hv * hv) * (z + __ldg(db + o));
-         });
-}
-
-// gW_l += h_{l-1}^T g_l and db_l += sum g_l (g_l in layer l's buffer,
-// out_l wide), then g_{l-1} = (g_l W_l^T)(1 - h_{l-1}^2) into layer
-// l-1's; l = 1 .. NL (l = NL: the head, g_NL = u)
-template <typename LT, int l>
-__device__ __forceinline__ void rev_layer(float* sm, const Weights& w,
-                                          const Flat& f, int DA) {
-    constexpr int K = wid(l - 1);
-    const int N = l == NL ? DA : wid(l);
-    const float* g = sm + (l % 2 ? LT::WB : LT::WA);
-    const float* hin = sm + LT::h(l - 1);
-    float* acc = sm + LT::ACC;
-    gemm(K + 1, N, LT::T, SOne{hin, 1, hs(l - 1), K},
-         S{g, LT::WS, 1}, 0, S{nullptr, 0, 0}, S{nullptr, 0, 0},
-         [&](int k, int o, float z) {
-             acc[k < K ? f.W[l] + k * N + o : f.b[l] + o] += z;
-         });
-    float* gout = sm + ((l - 1) % 2 ? LT::WB : LT::WA);
-    gemm(LT::T, K, N, S{g, LT::WS, 1}, G{w.W[l], 1, N}, 0,
-         S{nullptr, 0, 0}, S{nullptr, 0, 0},
-         [&](int s, int k, float z) {
-             const float hv = hin[s * hs(l - 1) + k];
-             gout[s * LT::WS + k] = z * (1.f - hv * hv);
-         });
-}
-
-template <int XT, int DT>
-__global__ void __launch_bounds__(NT, 1) fvp_wide_kernel(
-    policy_shape::Weights w, const float* __restrict__ X,
-    const float* __restrict__ H0, const float* __restrict__ H1,
-    const float* __restrict__ H2, const float* __restrict__ scale,
-    const float* __restrict__ v, float* __restrict__ partial, int B,
-    int DO, int DA) {
-    using PK = Pick<XT, DT>;
-    using LT = typename PK::L;
-    constexpr int TS = PK::TS;
-    constexpr int NL_ = policy_shape::NL + 0 * XT;   // a template value
-    extern __shared__ __align__(16) float sm[];
-    float* sx = sm;
-    float* acc = sm + LT::ACC;
-    const Flat f = policy_shape::flat(DO, DA);
-    const float* hg[3] = {H0, H1, H2};
-    for (int i = threadIdx.x; i < f.ls; i += NT) acc[i] = 0.f;
-    const int n_tiles = (B + TS - 1) / TS;
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        const int s0 = tile * TS, ns = min(TS, B - s0);
-        __syncthreads();   // the last tile's reads done
-        // x and h_0 .. h_{L-1} of the tile; rows past B zero
-        for (int i = threadIdx.x; i < TS * DO; i += NT) {
-            const int r = i / DO, d = i - r * DO;
-            sx[r * LT::XS + d] =
-                r < ns ? __ldg(X + (size_t)(s0 + r) * DO + d) : 0.f;
-        }
-#pragma unroll
-        for (int l = 0; l < NL_; ++l) {
-            const int W = wid(l);
-            float* sh = sm + LT::h(l);
-            for (int i = threadIdx.x; i < TS * W; i += NT) {
-                const int r = i / W, k = i - r * W;
-                sh[r * hs(l) + k] =
-                    r < ns ? __ldg(hg[l] + (size_t)(s0 + r) * W + k) : 0.f;
-            }
-        }
-        __syncthreads();
-        {   // dh0 = (1 - h0^2)(x dW0 + db0)
-            constexpr int N = wid(0);
-            const float* h = sm + LT::h(0);
-            float* out = sm + LT::WA;
-            const float* db = v + f.b[0];
-            gemm(TS, N, DO, S{sx, LT::XS, 1}, G{v + f.W[0], N, 1}, 0,
-                 S{nullptr, 0, 0}, S{nullptr, 0, 0},
-                 [&](int s, int o, float z) {
-                     const float hv = h[s * hs(0) + o];
-                     out[s * LT::WS + o] =
-                         (1.f - hv * hv) * (z + __ldg(db + o));
-                 });
-        }
-        __syncthreads();
-        if constexpr (NL_ > 1) {
-            fwd_layer<LT, 1>(sm, w, v, f);
-            __syncthreads();
-        }
-        if constexpr (NL_ > 2) {
-            fwd_layer<LT, 2>(sm, w, v, f);
-            __syncthreads();
-        }
-        {   // u = (dh_{L-1} W_L + h_{L-1} dW_L + db_L) scale, 0 past B
-            constexpr int K = wid(NL_ - 1);
-            const float* din = sm + ((NL_ - 1) % 2 ? LT::WB : LT::WA);
-            const float* hin = sm + LT::h(NL_ - 1);
-            float* out = sm + (NL_ % 2 ? LT::WB : LT::WA);
-            const float* db = v + f.b[NL_];
-            gemm(TS, DA, K, S{din, LT::WS, 1}, G{w.W[NL_], DA, 1}, K,
-                 S{hin, hs(NL_ - 1), 1}, G{v + f.W[NL_], DA, 1},
-                 [&](int s, int m, float z) {
-                     out[s * LT::WS + m] =
-                         s < ns ? (z + __ldg(db + m)) * __ldg(scale + m)
-                                : 0.f;
-                 });
-        }
-        __syncthreads();
-        rev_layer<LT, NL_>(sm, w, f, DA);
-        __syncthreads();
-        if constexpr (NL_ > 2) {
-            rev_layer<LT, 2>(sm, w, f, DA);
-            __syncthreads();
-        }
-        if constexpr (NL_ > 1) {
-            rev_layer<LT, 1>(sm, w, f, DA);
-            __syncthreads();
-        }
-        {   // gW0 += x^T g0, db0 += sum g0
-            constexpr int N = wid(0);
-            const float* g = sm + LT::WA;
-            gemm(DO + 1, N, TS, SOne{sx, 1, LT::XS, DO}, S{g, LT::WS, 1}, 0,
-                 S{nullptr, 0, 0}, S{nullptr, 0, 0},
-                 [&](int d, int o, float z) {
-                     acc[d < DO ? f.W[0] + d * N + o : f.b[0] + o] += z;
-                 });
-        }
-    }
-    __syncthreads();
-    float* out = partial + (size_t)blockIdx.x * f.ls;
-    for (int i = threadIdx.x; i < f.ls; i += NT) out[i] = acc[i];
+    const int need = (a.B + 16 * NW - 1) / (16 * NW);
+    void* args[] = {const_cast<Args*>(&a)};
+    err = cudaLaunchKernel(reinterpret_cast<const void*>(K),
+                           dim3(need < resident ? need : resident), dim3(NT),
+                           args, smem, st);
+    return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace wide
@@ -1566,34 +2084,123 @@ cudaError_t split_pad(const float* w, bf16* planes, int plane, int rin,
     return cudaGetLastError();
 }
 
-// An instantiation's kernel: the tensor-core form's (Pick) or the wide
-// form's (wide::Pick)
+// The weights' planes of this library's form, once per update: the
+// tensor-core form's W_1 .. W_{L-1} row by row, the wide form's in
+// fragment order, as B of the forward and of the reverse
 template <int XT, int DT>
-auto kernel_of(Pick<XT, DT>) { return fvp_tc_kernel<XT, DT>; }
-template <int XT, int DT>
-auto kernel_of(wide::Pick<XT, DT>) { return wide::fvp_wide_kernel<XT, DT>; }
+cudaError_t split_weights(Pick<XT, DT>, const Weights& w, bf16* p,
+                          cudaStream_t st) {
+    for (int l = 1; l < NL; ++l) {
+        const cudaError_t err = split_pad(
+            w.W[l], p + gw_off(l), pad(l - 1) * pad(l), wid(l - 1), wid(l),
+            pad(l - 1), pad(l), st);
+        if (err != cudaSuccess) return err;
+    }
+    return cudaSuccess;
+}
 
-template <typename PK>
-cudaError_t occupancy(PK pk, int* out) {
-    constexpr int smem = PK::L::BYTES;
+template <int XT, int DT>
+cudaError_t split_weights(wide::Pick<XT, DT>, const Weights& w, bf16* p,
+                          cudaStream_t st) {
+    wide::FragJobs js = {};
+    for (int l = 1; l < NL; ++l) {
+        js.job[js.n++] = wide::FragJob{w.W[l], p + wide::wf_off(l), wid(l - 1),
+                                       wid(l), pad(l - 1), pad(l), 0};
+        js.job[js.n++] = wide::FragJob{w.W[l], p + wide::wt_off(l), wid(l - 1),
+                                       wid(l), pad(l), pad(l - 1), 1};
+    }
+    return wide::frag_split(js, st);
+}
+
+// floats of the launch's `partial` scratch
+template <int XT, int DT>
+size_t partial_floats(Pick<XT, DT>, int, int n_blocks, int Pg) {
+    return (size_t)n_blocks * Pg;
+}
+template <int XT, int DT>
+size_t partial_floats(wide::Pick<XT, DT>, int B, int n_blocks, int Pg) {
+    return wide::scratch_off(n_blocks, Pg) + wide::scratch_floats(B, DT);
+}
+
+// What the card makes of a kernel: out[0] resident blocks per SM, out[1]
+// registers per thread, out[2] local (spill) bytes per thread, out[3]
+// dynamic and out[4] static shared bytes per block, out[5] threads per
+// block, out[6] samples a unit of its work
+template <typename Kern>
+cudaError_t occupancy_of(Kern k, int smem, int threads, int ts, int* out) {
     cudaError_t err = cudaFuncSetAttribute(
-        kernel_of(pk), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, kernel_of(pk), PK::NT, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads,
+                                                        smem);
     if (err != cudaSuccess) return err;
     cudaFuncAttributes fa;
-    err = cudaFuncGetAttributes(&fa, kernel_of(pk));
+    err = cudaFuncGetAttributes(&fa, k);
     if (err != cudaSuccess) return err;
     out[0] = blocks;
     out[1] = fa.numRegs;
     out[2] = (int)fa.localSizeBytes;
     out[3] = smem;
     out[4] = (int)fa.sharedSizeBytes;
-    out[5] = PK::NT;
-    out[6] = PK::TS;
+    out[5] = threads;
+    out[6] = ts;
     return cudaSuccess;
+}
+
+// kernel k of the form: out[0 .. 6] as above, out[7] how many kernels
+// the form launches, out[8] which (0 the tensor-core form's, 1 fwd, 2 rev,
+// 3 grad), out[9] its layer, out[10] 1 where it takes layer 0 in (fwd<1>)
+// plus 2 where it holds the head; in the wide form's launch order
+template <int XT, int DT>
+cudaError_t occupancy(Pick<XT, DT>, int k, int* out) {
+    using PK = Pick<XT, DT>;
+    out[7] = 1;
+    out[8] = out[9] = out[10] = 0;
+    if (k != 0) return cudaErrorInvalidValue;
+    return occupancy_of(fvp_tc_kernel<XT, DT>, PK::L::BYTES, PK::NT, PK::TS,
+                        out);
+}
+
+template <int XT, int DT>
+cudaError_t occupancy(wide::Pick<XT, DT>, int k, int* out) {
+    using namespace wide;
+    constexpr int NL_ = NL + 0 * XT;
+    constexpr bool F0 = Fwd<1, XT, DT>::FUSE0;
+    constexpr int ROUND = 16 * wide::NW;     // samples a round of a block
+    out[7] = (F0 ? 0 : 1) + 2 * (NL_ - 1) + 1;
+    auto fwd = [&](auto kern, int l, int bytes, bool last) {
+        out[8] = 1;
+        out[9] = l;
+        out[10] = (l == 1 && F0 ? 1 : 0) + (last ? 2 : 0);
+        return occupancy_of(kern, bytes, wide::NT, ROUND, out);
+    };
+    auto rev = [&](auto kern, int l, int bytes) {
+        out[8] = 2;
+        out[9] = l;
+        out[10] = 0;
+        return occupancy_of(kern, bytes, wide::NT, ROUND, out);
+    };
+    int i = k;
+    if (!F0 && i-- == 0)
+        return fwd(fwd_kernel<0, XT, DT>, 0, Fwd<0, XT, DT>::BYTES, NL_ == 1);
+    if constexpr (NL_ > 1)
+        if (i-- == 0)
+            return fwd(fwd_kernel<1, XT, DT>, 1, Fwd<1, XT, DT>::BYTES, NL_ == 2);
+    if constexpr (NL_ > 2) {
+        if (i-- == 0)
+            return fwd(fwd_kernel<2, XT, DT>, 2, Fwd<2, XT, DT>::BYTES, true);
+        if (i-- == 0) return rev(rev_kernel<2>, 2, Rev<2>::BYTES);
+    }
+    if constexpr (NL_ > 1)
+        if (i-- == 0) return rev(rev_kernel<1>, 1, Rev<1>::BYTES);
+    if (i == 0) {
+        out[8] = 3;
+        out[9] = NL_;
+        out[10] = 0;
+        return occupancy_of(grad_kernel<DT>, G_SMEM, wide::NT, KC, out);
+    }
+    return cudaErrorInvalidValue;
 }
 
 template <int XT, int DT>
@@ -1613,21 +2220,71 @@ cudaError_t launch(Pick<XT, DT>, const float* X, const float* const (&hs)[3],
     return cudaGetLastError();
 }
 
-// the wide form: the fp32 weights and v as they are (no planes)
+// the wide form: v's blocks into fragment order, the per-sample launches
+// through the scratch after the partials, then grad over n_blocks splits
 template <int XT, int DT>
 cudaError_t launch(wide::Pick<XT, DT>, const float* X,
-                   const float* const (&hs)[3], const bf16*, const bf16*,
+                   const float* const (&hs)[3], const bf16* Wp, bf16* Vp,
                    const Weights& w, const float* scale, const float* v,
                    float* partial, int B, int DO, int DA, int n_blocks,
                    cudaStream_t st) {
-    using PK = wide::Pick<XT, DT>;
-    constexpr int smem = PK::L::BYTES;
-    cudaError_t err = cudaFuncSetAttribute(
-        wide::fvp_wide_kernel<XT, DT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    using namespace wide;
+    constexpr int NL_ = NL + 0 * XT;
+    const Flat f = policy_shape::flat(DO, DA);
+    FragJobs js = {};
+    js.job[js.n++] = FragJob{v + f.W[0], Vp + vf_off(0, XT), DO, wid(0),
+                             16 * XT, pad(0), 0};
+    for (int l = 1; l < NL_; ++l)
+        js.job[js.n++] = FragJob{v + f.W[l], Vp + vf_off(l, XT), wid(l - 1),
+                                 wid(l), pad(l - 1), pad(l), 0};
+    cudaError_t err = frag_split(js, st);
     if (err != cudaSuccess) return err;
-    wide::fvp_wide_kernel<XT, DT><<<n_blocks, PK::NT, smem, st>>>(
-        w, X, hs[0], hs[1], hs[2], scale, v, partial, B, DO, DA);
+    Args a = {};
+    a.X = X;
+    a.Wp = Wp;
+    a.Vp = Vp;
+    a.WL = w.W[NL_];
+    a.scale = scale;
+    a.v = v;
+    a.B = B;
+    a.DO = DO;
+    a.DA = DA;
+    for (int l = 0; l <= NL_; ++l) {
+        a.fW[l] = f.W[l];
+        a.fb[l] = f.b[l];
+    }
+    a.ls = f.ls;
+    float* s = partial + scratch_off(n_blocks, f.ls);
+    for (int l = 0; l < NL_; ++l) {
+        a.H[l] = hs[l];
+        a.buf[l] = s;
+        s += (size_t)B * pad(l);
+    }
+    a.u = s;
+    if constexpr (!Fwd<1, XT, DT>::FUSE0)
+        err = per_sample<fwd_kernel<0, XT, DT>>(Fwd<0, XT, DT>::BYTES, a, st);
+    if constexpr (NL_ > 1)
+        if (err == cudaSuccess)
+            err = per_sample<fwd_kernel<1, XT, DT>>(Fwd<1, XT, DT>::BYTES, a,
+                                                    st);
+    if constexpr (NL_ > 2) {
+        if (err == cudaSuccess)
+            err = per_sample<fwd_kernel<2, XT, DT>>(Fwd<2, XT, DT>::BYTES, a,
+                                                    st);
+        if (err == cudaSuccess)
+            err = per_sample<rev_kernel<2>>(Rev<2>::BYTES, a, st);
+    }
+    if constexpr (NL_ > 1)
+        if (err == cudaSuccess)
+            err = per_sample<rev_kernel<1>>(Rev<1>::BYTES, a, st);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(grad_kernel<DT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               G_SMEM);
+    if (err != cudaSuccess) return err;
+    const int span = ((B + n_blocks - 1) / n_blocks + KC - 1) / KC * KC;
+    grad_kernel<DT><<<g_items() * n_blocks, wide::NT, G_SMEM, st>>>(
+        a, partial, span);
     return cudaGetLastError();
 }
 
@@ -1649,37 +2306,35 @@ cudaError_t dispatch(int DO, int DA, Op op) {
 
 }  // namespace
 
-// The hidden-to-hidden weights' planes, once per update; every CG call's
-// launch reads them. hidden (n_hidden ints, host): the policy's hidden
-// widths, which must be this library's (policy_shape.cuh), else
-// cudaErrorInvalidValue; weights (host array of device pointers): W0, b0,
-// ..., W_L, b_L, logstd. planes: 3 sum_{l=1}^{L-1} pad(w_{l-1}) pad(w_l)
+// The weights' planes, once per update; every CG call's launch reads
+// them. hidden (n_hidden ints, host): the policy's hidden widths, which
+// must be this library's (policy_shape.cuh), else cudaErrorInvalidValue;
+// weights (host array of device pointers): W0, b0, ..., W_L, b_L, logstd.
+// planes: the tensor-core form's 3 sum_{l=1}^{L-1} pad(w_{l-1}) pad(w_l)
 // bf16, each W_l's three planes (pad(w_{l-1}), pad(w_l)) after the last,
-// zero past its widths (pad: up to a multiple of 16).
+// zero past its widths (pad: up to a multiple of 16); the wide form's
+// twice that, the same planes in fragment order as B of the forward, then
+// W_l^T's as B of the reverse.
 extern "C" int trpo_fvp_split_launch(const int* hidden, int n_hidden,
                                      const float* const* weights,
                                      void* planes, void* stream) {
     if (!policy_shape::same_shape(hidden, n_hidden))
         return (int)cudaErrorInvalidValue;
-    if (policy_shape::WIDE) return (int)cudaSuccess;   // reads fp32 weights
-    const policy_shape::Weights w = policy_shape::weights_of(weights);
-    bf16* p = static_cast<bf16*>(planes);
-    for (int l = 1; l < NL; ++l) {
-        const cudaError_t err = split_pad(
-            w.W[l], p + gw_off(l), pad(l - 1) * pad(l), wid(l - 1), wid(l),
-            pad(l - 1), pad(l), static_cast<cudaStream_t>(stream));
-        if (err != cudaSuccess) return (int)err;
-    }
-    return (int)cudaSuccess;
+    return (int)split_weights(Form<1, 4>{},
+                              policy_shape::weights_of(weights),
+                              static_cast<bf16*>(planes),
+                              static_cast<cudaStream_t>(stream));
 }
 
 // X (B, do), hs: a host array of the device pointers h_0 .. h_{L-1}
 // (B, w_l), Wp: the planes from trpo_fvp_split_launch, weights as there
 // (the kernel reads the head W_L (w_{L-1}, da)), scale (da) =
 // exp(-2 logstd) / B, v and out (P) in flat sorted-key order, all on the
-// device; vplanes: 3 (do pad(w_0) + sum_{l>=1} pad(w_{l-1}) pad(w_l))
-// bf16 and partial: n_blocks * (P - da) floats of scratch. Launches the
-// split of v's W0 .. W_{L-1} blocks, the kernel and the reduce pass.
+// device; vplanes: 3 (pad16(do) pad(w_0) + sum_{l>=1} pad(w_{l-1})
+// pad(w_l)) bf16 (do pad(w_0) in the tensor-core form) and partial:
+// trpo_fvp_partial_floats floats of scratch. Launches the split of v's W0
+// .. W_{L-1} blocks, the kernel (the wide form: its chain of launches) and
+// the reduce pass over n_blocks partials.
 extern "C" int trpo_fvp_launch(const int* hidden, int n_hidden,
                                const float* const* weights, const float* X,
                                const float* const* hs, const void* Wp,
@@ -1699,7 +2354,7 @@ extern "C" int trpo_fvp_launch(const int* hidden, int n_hidden,
     bf16* Vp = static_cast<bf16*>(vplanes);
     cudaError_t err = cudaSuccess;
     if (policy_shape::WIDE) {
-        // the wide form reads v as it is
+        // the wide form splits v in fragment order as it launches
     } else if (dense()) {     // v's blocks are the planes' blocks, unpadded
         err = split(v, Vp, VP, st);
     } else {
@@ -1719,9 +2374,9 @@ extern "C" int trpo_fvp_launch(const int* hidden, int n_hidden,
                                  damping, st);
 }
 
-// Samples a tile of the instantiation for (do, da): the grid's unit of
-// work (n_blocks = min(ceil(B / tile), 132)); -1 for a (do, da) it does
-// not take.
+// Samples a unit of the grid's work for (do, da) (n_blocks = min(ceil(B /
+// tile), 132)): a tile of the tensor-core form, a split of the wide
+// form's grad launch; -1 for a (do, da) it does not take.
 extern "C" int trpo_fvp_tile(int DO, int DA) {
     int ts = -1;
     dispatch(DO, DA, [&](auto pk) -> cudaError_t {
@@ -1731,12 +2386,25 @@ extern "C" int trpo_fvp_tile(int DO, int DA) {
     return ts;
 }
 
-// What the card makes of the instantiation for (do, da): out[0] resident
-// blocks per SM, out[1] registers per thread, out[2] local (spill) bytes
-// per thread, out[3] dynamic and out[4] static shared bytes per block,
-// out[5] threads per block, out[6] samples a tile.
-extern "C" int trpo_fvp_occupancy(int DO, int DA, int* out) {
+// Floats of trpo_fvp_launch's `partial` scratch for B samples over
+// n_blocks: the per-block partials and, in the wide form, the per-sample
+// buffers after them; -1 for arguments it does not take.
+extern "C" int trpo_fvp_partial_floats(int B, int DO, int DA, int n_blocks) {
+    if (B < 1 || n_blocks < 1) return -1;
+    const int Pg = policy_shape::flat(DO, DA).ls;
+    size_t n = 0;
+    if (dispatch(DO, DA, [&](auto pk) -> cudaError_t {
+            n = partial_floats(pk, B, n_blocks, Pg);
+            return cudaSuccess;
+        }) != cudaSuccess || n > 0x7fffffff)
+        return -1;
+    return (int)n;
+}
+
+// What the card makes of kernel k of the instantiation for (do, da)
+// (occupancy above): out[0 .. 10].
+extern "C" int trpo_fvp_occupancy(int DO, int DA, int k, int* out) {
     return (int)dispatch(DO, DA, [&](auto pk) -> cudaError_t {
-        return occupancy(pk, out);
+        return occupancy(pk, k, out);
     });
 }

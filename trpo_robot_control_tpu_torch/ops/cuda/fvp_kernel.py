@@ -16,9 +16,12 @@ bits are summed, as in the feature-first kernel. The hidden-to-hidden
 weights' planes are split once per update, with the scratch every call
 reuses (``workspace``); v's hidden-layer blocks once per call ahead of
 the kernel. A layer over 64 units selects the kernel's wide form, as the
-TPU kernel's widths select its unpacked ``_fvp_kernel``: fp32 on the CUDA
-cores, the weights and v read as they are (no planes), one pass over the
-samples a call, the gradient summed per block in shared memory.
+TPU kernel's widths select its unpacked ``_fvp_kernel``: the same
+split-bf16 arithmetic on the tensor cores, run as a chain of launches
+that each hold one layer's planes in shared memory (the forward tangent
+layer by layer, the head, the reverse chain, then the weight gradients
+over ``WIDE_SPLIT``-sample splits of the batch), with the per-sample
+buffers between them in the workspace's scratch.
 
 ``gn_fvp`` is the wrapper: the CUDA kernel on CUDA tensors (or it raises),
 ``gn_fvp_plain`` on CPU tensors. Both return the damped product
@@ -40,6 +43,10 @@ MAX_BLOCKS = 132
 # samples a tile at (64, 64): 16 a warp, 8 warps (csrc/fvp.cu: Pick; a
 # policy whose layout does not fit 8 warps' takes 4, ``tile``)
 TILE = 128
+# the wide form's weight-gradient launch: samples a split (the grid's unit,
+# ``tile``) and a chunk summed at a time (csrc/fvp.cu: wide::SPLIT, KC)
+WIDE_SPLIT = 512
+WIDE_CHUNK = 32
 
 _SIG = {"trpo_fvp_launch": [ctypes.c_void_p, ctypes.c_int]
         + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
@@ -47,7 +54,8 @@ _SIG = {"trpo_fvp_launch": [ctypes.c_void_p, ctypes.c_int]
         "trpo_fvp_split_launch": [ctypes.c_void_p, ctypes.c_int]
         + [ctypes.c_void_p] * 3,
         "trpo_fvp_tile": [ctypes.c_int, ctypes.c_int],
-        "trpo_fvp_occupancy": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+        "trpo_fvp_partial_floats": [ctypes.c_int] * 4,
+        "trpo_fvp_occupancy": [ctypes.c_int] * 3 + [ctypes.c_void_p]}
 
 
 def activations(params, obs):
@@ -98,12 +106,13 @@ def _pad(w: int) -> int:
 def plane_sizes(hidden: tuple, do: int) -> tuple:
     """bf16 elements of the hidden-to-hidden weights' planes (each W_l's
     three, zero-padded to multiples of 16) and of v's per-call planes
-    (dW0 (do, pad(w_0)) and each dW_l); none for the wide form (a layer
-    over 64 units), which reads fp32."""
-    if max(hidden) > 64:
-        return 0, 0
+    (dW0 (do, pad(w_0)) and each dW_l). The wide form (a layer over 64
+    units) keeps each W_l's planes twice, as W_l and as W_l^T, and dW0's
+    rows padded to 16 too."""
     p = [_pad(w) for w in hidden]
     inner = sum(a * b for a, b in zip(p, p[1:]))
+    if max(hidden) > 64:
+        return 6 * inner, 3 * (_pad(do) * p[0] + inner)
     return 3 * inner, 3 * (do * p[0] + inner)
 
 
@@ -121,11 +130,24 @@ def tile(do: int, da: int, hidden: tuple = build.DEFAULT_HIDDEN) -> int:
     return ts
 
 
+def partial_floats(hidden: tuple, B: int, do: int, da: int,
+                   n_blocks: int) -> int:
+    """Floats of the launch's scratch: the n_blocks per-block partials of
+    the weight gradient and, in the wide form, the per-sample buffers
+    (B x pad(w_l) each and u)."""
+    n = _library(hidden).trpo_fvp_partial_floats(B, do, da, n_blocks)
+    if n < 0:
+        raise NotImplementedError("the FVP kernel takes obs_dim <= 32, "
+                                  "act_dim <= 8")
+    return n
+
+
 def workspace(params, obs):
     """The device buffers every CG call of an update shares: the
     hidden-to-hidden weights' three bf16 planes each, split here once for
-    every launch, and the scratch for v's planes and the per-block
-    partials; None for CPU tensors (the plain version needs none). Raises
+    every launch, and the scratch for v's planes, the per-block partials
+    and the wide form's per-sample buffers; None for CPU tensors (the
+    plain version needs none). Raises
     NotImplementedError, naming ROADMAP B3, for a policy the kernel does
     not take, before it builds anything."""
     if not obs.is_cuda:
@@ -148,8 +170,8 @@ def workspace(params, obs):
         build.stream_handle(obs.device))
     build.check(err, "FVP kernel's weight split")
     vplanes = torch.empty(n_v, dtype=torch.bfloat16, device=obs.device)
-    Pg = sum(w.numel() for w in params.values()) - da
-    partial = torch.empty(min(-(-B // ts), MAX_BLOCKS) * Pg,
+    partial = torch.empty(partial_floats(hidden, B, do, da,
+                                         min(-(-B // ts), MAX_BLOCKS)),
                           device=obs.device)
     return hidden, ts, wplanes, vplanes, partial
 
@@ -184,7 +206,7 @@ def gn_fvp(params, obs, hs, scale, v, damping: float, ws):
     ws_hidden, ts, wplanes, vplanes, partial = ws
     n_blocks = min(-(-B // ts), MAX_BLOCKS)
     if ws_hidden != hidden or vplanes.numel() != plane_sizes(hidden, do)[1] \
-            or partial.numel() != n_blocks * (P - da):
+            or partial.numel() != partial_floats(hidden, B, do, da, n_blocks):
         raise ValueError("the FVP workspace was made for another shape")
     out = torch.empty_like(v)
     hid, n_hid, weights = build.policy_args(params, hidden)
@@ -206,13 +228,35 @@ def occupancy(do: int, da: int, hidden: tuple = build.DEFAULT_HIDDEN
     """What the card makes of the kernel's instantiation for obs_dim
     ``do``, act_dim ``da`` and a policy of ``hidden`` widths: resident
     blocks and warps per SM, registers and local (spill) bytes per thread,
-    dynamic and static shared bytes per block, threads and samples a
-    tile."""
+    dynamic and static shared bytes per block, threads and samples a unit
+    of work. The wide form's launches each under ``kernels``
+    (``_kernel_name``), the figures of the one with the fewest resident
+    warps at the top level."""
     hidden = build.check_hidden(hidden, "fvp")
-    out = (ctypes.c_int * 7)()
-    err = _library(hidden).trpo_fvp_occupancy(do, da, out)
-    build.check(err, "FVP kernel occupancy")
-    blocks, regs, local, dyn, static, threads, ts = out
-    return dict(blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32,
-                registers=regs, local_bytes=local, smem_dynamic=dyn,
-                smem_static=static, threads=threads, tile=ts)
+    lib = _library(hidden)
+    kernels = {}
+    k = count = 0
+    while k == 0 or k < count:
+        out = (ctypes.c_int * 11)()
+        build.check(lib.trpo_fvp_occupancy(do, da, k, out),
+                    "FVP kernel occupancy")
+        blocks, regs, local, dyn, static, threads, ts, count = out[:8]
+        kernels[_kernel_name(*out[8:])] = dict(
+            blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32,
+            registers=regs, local_bytes=local, smem_dynamic=dyn,
+            smem_static=static, threads=threads, tile=ts)
+        k += 1
+    if count == 1:
+        return next(iter(kernels.values()))
+    least = min(kernels.values(), key=lambda o: o["warps_per_sm"])
+    return dict(least, kernels=kernels)
+
+
+def _kernel_name(kind: int, layer: int, flags: int) -> str:
+    """The wide form's launches: fwd<l> ("fwd0+1" where fwd<1> takes layer
+    0 in, "+head" on the last), rev<l>, grad; "fvp" the tensor-core
+    form's one kernel."""
+    if kind == 1:
+        return ("fwd0+1" if flags & 1 else f"fwd{layer}") \
+            + ("+head" if flags & 2 else "")
+    return {0: "fvp", 2: f"rev{layer}", 3: "grad"}[kind]

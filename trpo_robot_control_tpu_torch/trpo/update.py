@@ -6,7 +6,8 @@ closed-form surrogate gradient (K5 at B >= 400k samples, else the plain
 form) -> CG on the damped GN-FVP over the Fisher subsample, every k-th time
 step of every e-th env (K6 on the feature-first subsample at B' >= 64k
 samples, else K3 on its batch-major relayout; a policy wider than 64 takes
-the plain form and K3, as in JAX: ``kernel_routes``) -> step size from the CG
+the plain form and K3, as in JAX: ``kernel_routes``; ``fvp_form="kl"`` or
+``fvp_impl="kl"``, the KL-Hessian form on the relayout) -> step size from the CG
 invariant -> KL line search over the full batch or an env-strided
 subsample of it. The kernel gates are the JAX package's, on the global
 batch, and the CPU takes the same route through the plain versions. With
@@ -27,7 +28,7 @@ from ..models import baseline, policy
 from ..ops.cg import conjugate_gradient
 from ..ops.cuda import fvp_ff_kernel, pg_kernel
 from ..ops.cuda.moments_kernel import baseline_moments
-from ..ops.fvp import make_gn_fvp
+from ..ops.fvp import make_gn_fvp, make_kl_fvp
 from ..ops.gae import gae
 from ..ops.linesearch import line_search
 
@@ -60,6 +61,24 @@ FVP_FF_MIN_B = 64_000
 PACKED_MAX_WIDTH = 64
 
 
+# The implementation switches' values the port runs on the card. The
+# plain forms of the FVP, the moments and the rollout serve the tests on
+# the CPU, so the JAX package's "xla" values, and any value it does not
+# have, raise there (``check_switch``).
+HONOURED = {"fvp_impl": ("auto", "pallas", "pallas_bm", "kl"),
+            "moments_impl": ("auto", "pallas"),
+            "rollout_impl": ("auto", "pallas", "pallas3d")}
+
+
+def check_switch(name: str, value: str, device) -> None:
+    """NotImplementedError, naming the switch and its value, where the port
+    would not run what the JAX package runs for it on ``device``."""
+    if torch.device(device).type == "cuda" and value not in HONOURED[name]:
+        raise NotImplementedError(
+            f"{name}={value!r}: the port runs {', '.join(HONOURED[name])} "
+            "on the card, not this one")
+
+
 def packed_ok(params) -> bool:
     """Whether every width of the policy fits the packed kernels (K5, K6)."""
     L = policy.n_layers(params) - 1
@@ -68,21 +87,25 @@ def packed_ok(params) -> bool:
     return max(widths) <= PACKED_MAX_WIDTH
 
 
-def kernel_routes(tr, params, T, N, sub_T, sub_N):
+def kernel_routes(tr, params, T, N, sub_T, sub_N, fvp_form: str = "gn"):
     """The update's routes for a (T, ., N) batch and its (sub_T, ., sub_N)
     Fisher subsample, decided as the JAX package's resolver decides them
     (its trpo/update.py), with the port's gates: ``surrgrad`` "pallas" (K5)
     or "xla" (``policy.surrogate_grad_ff``), ``fvp`` "ff" (K6 on the
-    feature-first subsample) or "bm" (K3 on its batch-major relayout)."""
+    feature-first subsample), "bm" (K3 on its batch-major relayout) or
+    "kl" (``make_kl_fvp`` on the same relayout, for ``fvp_form="kl"`` or
+    ``fvp_impl="kl"``)."""
     sg = tr.surrgrad_impl
     if sg == "auto":
         sg = "pallas" if T * N >= SURRGRAD_MIN_B else "xla"
     if sg == "pallas" and not packed_ok(params):
         sg = "xla"
-    ff = (tr.fvp_subsample > 1 and tr.fvp_impl not in ("xla", "pallas_bm")
+    impl = tr.fvp_impl if fvp_form == "gn" else "kl"
+    ff = (tr.fvp_subsample > 1 and impl not in ("xla", "pallas_bm", "kl")
           and packed_ok(params)
-          and (tr.fvp_impl == "pallas" or sub_T * sub_N >= FVP_FF_MIN_B))
-    return dict(surrgrad=sg, fvp="ff" if ff else "bm")
+          and (impl == "pallas" or sub_T * sub_N >= FVP_FF_MIN_B))
+    return dict(surrgrad=sg,
+                fvp="kl" if impl == "kl" else "ff" if ff else "bm")
 
 
 def _eval_candidates(params, thetas, obs_ff, act_ff, adv, mu_old, logp_old,
@@ -120,13 +143,19 @@ def _eval_candidates(params, thetas, obs_ff, act_ff, adv, mu_old, logp_old,
 
 
 def trpo_update(cfg, params, w, batch, axis_name=None,
-                return_directions: bool = False):
+                fvp_form: str = "gn", return_directions: bool = False):
     """One TRPO update on a batch from the rollout kernel (obs_ff
     (T, do, N), actions_ff (T, da, N), rewards_ff (T, N) and the batch-major
-    obs (N, T, do)). Returns (new_params, new_w, stats)."""
+    obs (N, T, do)). ``fvp_form``: "gn" (the GN-FVP that ``fvp_impl``
+    selects) or "kl" (the KL-Hessian form), as in the JAX package. Returns
+    (new_params, new_w, stats)."""
     _check_supported(cfg, batch, axis_name)
+    if fvp_form not in ("gn", "kl"):
+        raise ValueError(f"fvp_form is 'gn' or 'kl', not {fvp_form!r}")
     tr = cfg.trpo
     obs_ff, act_ff = batch["obs_ff"], batch["actions_ff"]
+    for name in ("fvp_impl", "moments_impl"):
+        check_switch(name, getattr(tr, name), obs_ff.device)
     rewards_tn = batch["rewards_ff"]
     T, do, N = obs_ff.shape
     store = torch.bfloat16 if obs_ff.dtype == torch.bfloat16 else None
@@ -148,7 +177,8 @@ def trpo_update(cfg, params, w, batch, axis_name=None,
 
     # ---- 2) closed-form surrogate gradient at theta_old
     k, e = tr.fvp_subsample, tr.fvp_env_subsample
-    routes = kernel_routes(tr, params, T, N, -(-T // k), -(-N // e))
+    routes = kernel_routes(tr, params, T, N, -(-T // k), -(-N // e),
+                           fvp_form)
     with record_function("trpo/surrogate_grad"):
         if routes["surrgrad"] == "pallas":
             g_tree, mu_old_ff, logp_old_ff = pg_kernel.surrogate_grad(
@@ -163,8 +193,8 @@ def trpo_update(cfg, params, w, batch, axis_name=None,
     # ---- 3) CG on the damped GN-FVP over the Fisher subsample. The time
     # stride over (T, do, N) selects the same samples as obs_f[::k] when
     # T % k == 0; the env stride e (envs are i.i.d.) comes on top of it.
-    # K6 reads that strided view in place; K3 takes it relaid to
-    # (B / (k e), do) fp32.
+    # K6 reads that strided view in place; K3 (and the KL form) take it
+    # relaid to (B / (k e), do) fp32.
     if k > 1 and T % k:
         raise ValueError("the feature-first fvp_subsample matches "
                          "obs_f[::k] only when horizon % fvp_subsample "
@@ -180,7 +210,8 @@ def trpo_update(cfg, params, w, batch, axis_name=None,
         else:
             obs_fvp = (sub.permute(0, 2, 1) if k > 1
                        else batch["obs"][::e]).reshape(-1, do).float()
-            fvp = make_gn_fvp(params, obs_fvp, tr.cg_damping)
+            make_fvp = make_kl_fvp if routes["fvp"] == "kl" else make_gn_fvp
+            fvp = make_fvp(params, obs_fvp, tr.cg_damping)
         x, r_final, cg_residual = conjugate_gradient(fvp, g, tr.cg_iters)
         # ---- 4) step size: F x = g - r (CG invariant): x^T F x = x.g - x.r
         xhx = torch.dot(x, g) - torch.dot(x, r_final)
