@@ -136,7 +136,20 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
    (100, 50, 25) policy; K4, K2-bf16, the plain surrogate gradient and
    K3 ten times per update on the fp32 relayout, as ``kernel_routes``
    decides) through ``arm3d_phases`` and c2-rllab (``c2_rllab``) through
-   ``c2_shape_phases``, each trained five full-width iterations.
+   ``c2_shape_phases``, each trained five full-width iterations;
+11. the MLP value baseline, which sends the update down the batch-major
+   branch (``mlp_phases``): c1-, c2- and c3-mlp (``mlp_config``, the
+   configs' own baseline_hidden, baseline_lr and baseline_epochs) trained
+   five full-width iterations each (K1 or K4 once and K3 ten times an
+   update on the n-major Fisher subsample, no K2, K5 or K6, no plain
+   version); at c2 and c3 one batch through ``trpo_update`` with and
+   without its feature-first keys, held to the update contract
+   (``bm_vs_ff``); at c2-mlp 4 iterations straight against 2, a
+   checkpoint saved and loaded, and 2 more, bit for bit
+   (``resume_check``); K3 on c3-mlp's n-major 102,400 x 24 subsample
+   against its plain version and its statement, timed beside its bound,
+   with K6 on the same batch's feature-first subsample and the relayout
+   timed beside it (``k3_nmajor``).
 
 The last lines are the kernels' JSON record (c2/c3 figures at the top
 level of each entry, c4/c5/c5-planar3 ones under ``at_c4``/``at_c5``/
@@ -147,7 +160,9 @@ and, at c2, ``bf16_mode_c2`` (K1's and K2's), K3 on c2-bf16 under
 under ``at_n8``), phase 8's shape checks of K4-K6 under
 ``policy_shapes`` (phase 9's of K1 and K3 too, the c2 paths under
 ``at_c2_baselines32``/``at_c2_deep3``), phase 10's under
-``wide_shapes`` and ``at_c3_rllab``/``at_c2_rllab``, and the terminating
+``wide_shapes`` and ``at_c3_rllab``/``at_c2_rllab``, phase 11's under
+``at_c1_mlp``/``at_c2_mlp``/``at_c3_mlp`` (K3 on c3-mlp's subsample under
+the ``fvp`` entry's ``at_c3_mlp``), and the terminating
 instantiations as ``rollout_term``
 (c2) and ``rollout3d_term`` (c5, c5-planar3 under ``at_c5_planar3``)),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -2795,6 +2810,175 @@ def k1_n8_record(dev):
                 horizon=T)
 
 
+# Phase 11: the MLP value baseline, which sends the update down the
+# batch-major branch (as in JAX): the configs' own baseline_hidden (64,),
+# baseline_lr and baseline_epochs, nothing cut
+def mlp_config(cfg):
+    """``cfg`` with the MLP value baseline, named ``<c>_mlp``."""
+    return cfg.replace(name=cfg.name.split("_")[0] + "_mlp",
+                       trpo=dataclasses.replace(cfg.trpo, baseline="mlp"))
+
+
+def bm_vs_ff(dev, cfg, seed):
+    """One batch of ``cfg`` (linear baseline) through ``trpo_update`` with
+    and without its feature-first keys: the same accepted exponent,
+    direction cosine >= 0.999, |beta| relative error <= 1e-3 (the update
+    contract), and no K2, K5 or K6 launch on the batch-major call, whose
+    FVP is K3 on the n-major subsample. Returns its record."""
+    from trpo_robot_control_tpu_torch.envs import arm
+    from trpo_robot_control_tpu_torch.ops import cuda as kernels
+    from trpo_robot_control_tpu_torch.trpo.train import init_state
+    from trpo_robot_control_tpu_torch.trpo.update import trpo_update
+    state = init_state(cfg, seed=seed, device=dev)
+    batch = arm.make_rollout_fn(cfg)(state.params, state.gen)
+    out = {}
+    for name, b in (("ff", batch),
+                    ("bm", {k: batch[k] for k in ("obs", "actions",
+                                                  "rewards")})):
+        kernels.reset_counts()
+        _, _, st = trpo_update(cfg, state.params, state.w, b,
+                               return_directions=True)
+        out[name] = (st, kernels.launch_counts(), kernels.plain_calls())
+    (st_f, l_f, _), (st_b, l_b, p_b) = out["ff"], out["bm"]
+    cosine = port_test_helpers().cosine
+    cos_x, cos_g = (cosine(st_f[v].cpu().numpy(), st_b[v].cpu().numpy())
+                    for v in ("x", "g"))
+    beta_rel = abs(float(st_b["beta"]) - float(st_f["beta"])) \
+        / float(st_f["beta"])
+    acc = (int(st_f["accepted"]), int(st_b["accepted"]))
+    print(f"{cfg.name} batch-major against feature-first on one batch: "
+          f"cos x {cos_x:.6f}, cos g {cos_g:.6f}, |beta| rel {beta_rel:.3e}, "
+          f"accepted {acc}; launches ff {l_f}, batch-major {l_b}")
+    require(l_b == {"rollout": 0, "moments": 0, "fvp": cfg.trpo.cg_iters,
+                    "rollout3d": 0, "pg": 0, "fvp_ff": 0}
+            and all(c == 0 for c in p_b.values()),
+            f"{cfg.name} batch-major launches {l_b}, plain calls {p_b}")
+    require(cos_x >= 0.999 and beta_rel <= 1e-3 and acc[0] == acc[1],
+            f"{cfg.name} batch-major against feature-first: cos x {cos_x}, "
+            f"beta rel {beta_rel}, accepted {acc}")
+    return dict(cos_x=cos_x, cos_g=cos_g, beta_rel_err=beta_rel,
+                accepted=list(acc), launches_bm=l_b, launches_ff=l_f)
+
+
+def resume_check(dev, cfg):
+    """4 training iterations straight against 2, a checkpoint saved and
+    loaded, and 2 more: params, baseline weights and every stat but the
+    wall time bit-identical."""
+    import tempfile
+
+    from trpo_robot_control_tpu_torch.trpo.train import train
+    from trpo_robot_control_tpu_torch.utils.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    straight, h4 = train(cfg, n_iters=4, seed=0, device=dev)
+    half, _ = train(cfg, n_iters=2, seed=0, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        back = load_checkpoint(save_checkpoint(tmp, cfg, half), cfg, dev)
+    resumed, h2 = train(cfg, n_iters=2, state=back)
+
+    def leaves(st):
+        w = st.w if isinstance(st.w, dict) else {"w": st.w}
+        return [st.params[k] for k in sorted(st.params)] \
+            + [w[k] for k in sorted(w)]
+
+    same = all(torch.equal(a, b) for a, b in zip(leaves(straight),
+                                                 leaves(resumed)))
+    stats_same = all({k: v for k, v in a.items() if k != "wall_s"}
+                     == {k: v for k, v in b.items() if k != "wall_s"}
+                     for a, b in zip(h4[2:], h2))
+    print(f"{cfg.name} resume on the card: 4 iterations straight against "
+          f"2 + save + load + 2: params and w bit-identical {same}, stats "
+          f"bit-identical {stats_same}")
+    require(same and stats_same, f"{cfg.name}: the resumed run differs")
+    return dict(bit_identical=True)
+
+
+def k3_nmajor(dev, cfg, launches, seed):
+    """K3 on ``cfg``'s n-major Fisher subsample, as the batch-major branch
+    forms it from a trainer batch (``obs[::e].reshape(-1, do)[::k]``, fp32,
+    contiguous): held to its plain version and its statement
+    (``k3_check``), timed behind the lead beside its bound and its plain
+    version, with K6 on the same batch's feature-first subsample and the
+    relayout's own time beside it. Returns its record."""
+    from trpo_robot_control_tpu_torch.envs import arm
+    from trpo_robot_control_tpu_torch.models import policy
+    from trpo_robot_control_tpu_torch.ops.cuda import fvp_kernel as fk
+    gen, params, _ = k4_setup(dev, cfg, seed)
+    batch = arm.make_rollout_fn(cfg)(params, gen)
+    tr = cfg.trpo
+    k, e, do, da = tr.fvp_subsample, tr.fvp_env_subsample, cfg.obs_dim, \
+        cfg.arm.n_joints
+
+    def relayout():
+        obs = batch["obs"].to(torch.float32,
+                              memory_format=torch.contiguous_format)
+        sub = obs[::e].reshape(-1, do)[::k]
+        return torch.empty(sub.shape, dtype=torch.float32,
+                           device=dev).copy_(sub)
+
+    obs_fvp = relayout()
+    B = obs_fvp.shape[0]
+    rec, fvp, hs, scale = k3_check(cfg.name, gen, params, obs_fvp,
+                                   tr.cg_damping)
+    P = policy.flatten(params).numel()
+    v = torch.randn(P, generator=gen, device=dev)
+    t_k3 = k3_ms(params, obs_fvp, tr.cg_damping, v)
+    t_p = cuda_ms(lambda: fk.gn_fvp_plain(params, obs_fvp, hs, scale, v,
+                                          tr.cg_damping), 20)
+    (b3, by), (b3fma, _) = k3_bound(B, do, da, P, tr.hidden)
+    t_rel = cuda_ms(relayout, 20)
+    t_k6 = k6_ms(params, batch["obs_ff"][::k, :, ::e], tr.cg_damping, v,
+                 lead_ms=K1_LEAD_MS)
+    print(f"{cfg.name} fvp on the n-major ({B}, {do}) subsample: "
+          f"{t_k3:.4f} ms/launch (tensor-core bound {b3:.4f} ms by {by}, "
+          f"{100 * b3 / t_k3:.1f} % of it reached; fp32-FMA {b3fma:.4f}), "
+          f"plain {t_p:.3f} ms, {launches} launches on the main path; the "
+          f"relayout {t_rel:.4f} ms; K6 on the same batch's feature-first "
+          f"subsample {t_k6:.4f} ms/launch")
+    rec.update(launches=launches, ms=t_k3, plain_ms=t_p, bound_ms=b3,
+               bound_by=by, bound_fp32_fma_ms=b3fma, bound_share=b3 / t_k3,
+               library_ms=None, samples=B, relayout_ms=t_rel,
+               k6_on_ff_subsample_ms=t_k6)
+    return rec
+
+
+def mlp_phases(dev):
+    """Phase 11: c1-, c2- and c3-mlp trained five full-width iterations
+    each (K1 or K4 once and K3 ten times an update on the n-major
+    subsample, no K2, K5 or K6, no plain version, KL <= delta); at c2 and
+    c3 one batch through the batch-major branch against the feature-first
+    one; at c2-mlp a checkpoint resume on the card; K3 on c3-mlp's n-major
+    subsample. Returns {config: {kernel: record}}."""
+    from trpo_robot_control_tpu_torch.configs import (C1_REACHER2,
+                                                      C2_REACHER3,
+                                                      C3_FRANKA7)
+    from trpo_robot_control_tpu_torch.ops import cuda as kernels
+    from trpo_robot_control_tpu_torch.trpo.train import train
+    t0 = time.perf_counter()
+    out = {}
+    n_iters = 5
+    for base in (C1_REACHER2, C2_REACHER3, C3_FRANKA7):
+        cfg = mlp_config(base)
+        roll = "rollout3d" if base is C3_FRANKA7 else "rollout"
+        expect = {"rollout": 0, "moments": 0,
+                  "fvp": n_iters * cfg.trpo.cg_iters, "rollout3d": 0,
+                  "pg": 0, "fvp_ff": 0}
+        expect[roll] = n_iters
+        launches, ms_upd = train_checked(cfg, n_iters, kernels, expect,
+                                         train)
+        out[cfg.name] = {
+            roll: dict(launches=launches[roll], ms_per_update=ms_upd),
+            "fvp": dict(launches=launches["fvp"], ms_per_update=ms_upd)}
+    for base, seed in ((C2_REACHER3, 20), (C3_FRANKA7, 21)):
+        out[mlp_config(base).name]["fvp"]["bm_vs_ff"] = bm_vs_ff(dev, base,
+                                                                 seed)
+    c2m, c3m = mlp_config(C2_REACHER3), mlp_config(C3_FRANKA7)
+    out[c2m.name]["fvp"]["resume"] = resume_check(dev, c2m)
+    out[c3m.name]["fvp"].update(
+        k3_nmajor(dev, c3m, out[c3m.name]["fvp"]["launches"], 22))
+    print(f"MLP-baseline phases took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2863,6 +3047,9 @@ def main() -> int:
     more["c3_rllab"] = arm3d_phases(dev, c3_rllab(), 15, tag="c3_rllab")
     more["c2_rllab"] = c2_shape_phases(dev, c2_rllab(), 16)
     print(f"wide policy phases done at {time.perf_counter() - t_start:.1f} s")
+    more.update(mlp_phases(dev))
+    print(f"MLP-baseline phases done at "
+          f"{time.perf_counter() - t_start:.1f} s")
     out = []
     for name in ("rollout", "moments", "fvp", "rollout3d", "pg", "fvp_ff",
                  "rollout_term", "rollout3d_term"):

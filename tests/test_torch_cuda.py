@@ -844,3 +844,26 @@ def test_unhonoured_switch_values_raise_on_card(cuda, name, value):
         else:
             batch = make_rollout_fn(base)(st.params, st.gen)
             trpo_update(cfg, st.params, st.w, batch)
+
+
+@pytest.mark.cuda
+def test_c2_mlp_trains_on_card_through_k1_and_k3(cuda):
+    """c2 with the MLP value baseline at full width: the batch-major branch,
+    K1 once and K3 ten times an update on the n-major Fisher subsample, no
+    K2, K5 or K6, no plain version, every accepted step inside the trust
+    region, the stats finite."""
+    from trpo_robot_control_tpu_torch.ops import cuda as kernels
+    from trpo_robot_control_tpu_torch.trpo.train import train
+    cfg = pconfigs.C2_REACHER3.replace(trpo=dataclasses.replace(
+        pconfigs.C2_REACHER3.trpo, baseline="mlp"))
+    n_iters = 3
+    kernels.reset_counts()
+    state, hist = train(cfg, n_iters=n_iters, seed=0)
+    assert kernels.launch_counts() == {
+        "rollout": n_iters, "moments": 0, "fvp": n_iters * cfg.trpo.cg_iters,
+        "rollout3d": 0, "pg": 0, "fvp_ff": 0}
+    assert all(c == 0 for c in kernels.plain_calls().values())
+    for st in hist:
+        assert all(np.isfinite(v) for v in st.values()), st
+        assert st["accepted"] < 0 or st["kl"] <= cfg.trpo.delta, st
+    assert set(state.w) == {"W0", "b0", "W1", "b1"}

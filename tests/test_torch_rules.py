@@ -108,9 +108,11 @@ def test_cli_trains_on_cpu(capsys):
 
 
 def test_cli_has_no_unported_flags():
+    """Data and tensor parallelism (ROADMAP A5, A6) are not ported: the CLI
+    refuses their flags. The checkpoint, metrics and baseline flags are
+    (``tests/test_torch_checkpoint.py``)."""
     from trpo_robot_control_tpu_torch.cli.train import main
-    for flag in ("--sharded", "--n-model", "--baseline", "--ckpt-dir",
-                 "--resume"):
+    for flag in ("--sharded", "--n-model"):
         with pytest.raises(SystemExit):
             main(["--iters", "1", "--device", "cpu", flag, "1"])
 
@@ -135,15 +137,22 @@ def test_unported_paths_raise():
         make_rollout_fn(C1_REACHER2.replace(arm=planar_arm(9)))
     with pytest.raises(NotImplementedError, match="ROADMAP B3"):
         make_rollout_fn(C5_MULTITASK.replace(arm=planar_arm(9)))
-    with pytest.raises(NotImplementedError, match="MLP baseline"):
-        init_state(C1_REACHER2.replace(trpo=dataclasses.replace(
-            C1_REACHER2.trpo, baseline="mlp")), device="cpu")
-    st = init_state(C1_REACHER2, device="cpu")
-    batch = {"obs": torch.zeros(4, 5, 9)}
-    with pytest.raises(NotImplementedError, match="batch-major"):
-        trpo_update(C1_REACHER2, st.params, st.w, batch)
+    # the MLP baseline and the batch-major update path (slice 16)
+    small = C1_REACHER2.replace(n_envs=8, horizon=5)
+    mlp = small.replace(trpo=dataclasses.replace(small.trpo,
+                                                 baseline="mlp"))
+    st = init_state(mlp, device="cpu")
+    assert set(st.w) == {"W0", "b0", "W1", "b1"}
+    full = make_rollout_fn(small)(st.params, st.gen)
+    _, w_new, stats = trpo_update(mlp, st.params, st.w, full)
+    assert set(w_new) == set(st.w)
+    st = init_state(small, device="cpu")
+    batch = {k: full[k] for k in ("obs", "actions", "rewards")}
+    _, w_new, stats = trpo_update(small, st.params, st.w, batch)
+    assert w_new.shape == st.w.shape
+    assert all(bool(torch.isfinite(v)) for v in stats.values())
     with pytest.raises(NotImplementedError, match="data parallelism"):
-        trpo_update(C1_REACHER2, st.params, st.w, batch, axis_name="data")
+        trpo_update(small, st.params, st.w, batch, axis_name="data")
 
 
 @pytest.mark.parametrize("path", ["c5-planar3", "c2-bf16", "planar5"])

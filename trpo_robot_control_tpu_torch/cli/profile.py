@@ -3,6 +3,8 @@
   python -m trpo_robot_control_tpu_torch.cli.profile --config c2_reacher3
   python -m trpo_robot_control_tpu_torch.cli.profile --config c5_multitask \
       --done-dist 0.05
+  python -m trpo_robot_control_tpu_torch.cli.profile --config c3_franka7 \
+      --baseline mlp
 
 Runs two warm-up iterations, then times ``--iters`` iterations on the host
 clock (each ends in the stats' device-to-host copy), then profiles another
@@ -29,12 +31,19 @@ def main(argv=None):
     ap.add_argument("--done-dist", type=float, default=None,
                     help="early episode termination distance (default: "
                          "the config's, 0 = fixed horizon)")
+    ap.add_argument("--baseline", choices=("linear", "mlp"), default=None,
+                    help="value baseline (default: the config's)")
     args = ap.parse_args(argv)
+
+    import dataclasses
 
     from ..configs import CONFIGS
     cfg = CONFIGS[args.config]
     if args.done_dist is not None:
         cfg = cfg.replace(done_dist=args.done_dist)
+    if args.baseline is not None:
+        cfg = cfg.replace(trpo=dataclasses.replace(cfg.trpo,
+                                                   baseline=args.baseline))
     profile(cfg, args.iters)
 
 
@@ -54,7 +63,8 @@ def profile(cfg, iters: int = 5):
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(f"card: {card}; config {cfg.name}, {cfg.n_envs} envs x "
-          f"{cfg.horizon} steps, done_dist {cfg.done_dist}")
+          f"{cfg.horizon} steps, done_dist {cfg.done_dist}, baseline "
+          f"{cfg.trpo.baseline}")
     state = init_state(cfg, seed=0, device=dev)
     step = make_train_step(cfg)
 

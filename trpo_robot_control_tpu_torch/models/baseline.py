@@ -1,17 +1,29 @@
-"""Linear-feature value baseline (port of the linear path of
-``trpo_robot_control_tpu/models/baseline.py``).
+"""Value baselines (port of ``trpo_robot_control_tpu/models/baseline.py``).
 
-Ridge regression on phi(s, t) = [obs, obs^2, t/h, (t/h)^2, (t/h)^3, 1],
-solved from the normal equations with a Jacobi-scaled eigendecomposition.
-Everything is fp32 with TF32 off (``device.resolve``).
+The linear one: ridge regression on phi(s, t) = [obs, obs^2, t/h, (t/h)^2,
+(t/h)^3, 1], solved from the normal equations with a Jacobi-scaled
+eigendecomposition. The MLP one: a tanh MLP on the same features, refit
+each update by a fixed number of full-batch Adam steps (warm-started, the
+moments fresh every refit). Everything is fp32 with TF32 off
+(``device.resolve``); none of it is a kernel in the JAX package either.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 
 def n_features(obs_dim: int) -> int:
     return 2 * obs_dim + 4
+
+
+def features(obs, horizon: int):
+    """obs (N, T, do) -> phi (N, T, F)."""
+    N, T, do = obs.shape
+    tau = _time_features(T, horizon, obs.device).to(obs.dtype)
+    return torch.cat([obs, obs ** 2, tau.expand(N, T, 4)], dim=-1)
 
 
 def _time_features(T, horizon, device):
@@ -75,6 +87,17 @@ def assemble(G, C, tau, N, do):
     return A, b
 
 
+def predict(w, phi):
+    return phi @ w
+
+
+def fit(phi_flat, targets_flat, reg: float):
+    """Solve (phi^T phi + reg I) w = phi^T y (``fit_normal``)."""
+    A = phi_flat.T @ phi_flat + reg * torch.eye(
+        phi_flat.shape[-1], dtype=phi_flat.dtype, device=phi_flat.device)
+    return fit_normal(A, phi_flat.T @ targets_flat)
+
+
 def fit_normal(A, b, eps: float = 1e-20, rel_floor: float = 1e-6):
     """Solve the ridge-regularised normal equations robustly at fp32.
 
@@ -91,3 +114,59 @@ def fit_normal(A, b, eps: float = 1e-20, rel_floor: float = 1e-6):
     w_s = Q @ (inv * (Q.T @ (b / d)))
     w = w_s / d
     return torch.where(torch.isfinite(w), w, torch.zeros_like(w))
+
+
+# ----------------------------------------------------------------- MLP
+
+def init_mlp(gen: torch.Generator, n_in: int, hidden):
+    """Weights W_i ~ N(0, 2 / m) (m the layer's fan-in), zero biases, keys
+    ``W0..WL, b0..bL``; drawn from ``gen`` on its own device."""
+    dev = gen.device
+    dims = [n_in] + list(hidden) + [1]
+    w = {}
+    for i, (m, n) in enumerate(zip(dims[:-1], dims[1:])):
+        w[f"W{i}"] = torch.randn(m, n, generator=gen, device=dev) \
+            * math.sqrt(2.0 / m)
+        w[f"b{i}"] = torch.zeros(n, device=dev)
+    return w
+
+
+def predict_mlp(w, phi):
+    """phi (..., F) -> values (...)."""
+    L = sum(1 for k in w if k.startswith("W"))
+    h = phi
+    for i in range(L - 1):
+        h = torch.tanh(h @ w[f"W{i}"] + w[f"b{i}"])
+    return (h @ w[f"W{L - 1}"] + w[f"b{L - 1}"])[..., 0]
+
+
+def fit_mlp(w, phi_flat, targets_flat, lr: float, steps: int):
+    """``steps`` full-batch Adam steps on the MSE from ``w``, with fresh
+    moments. The JAX package's update rule, step t = i + 1:
+    p -= lr sqrt(1 - b2^t) / (1 - b1^t) m / (sqrt(v) + eps), its scale
+    formed in fp32 as there (``torch.optim.Adam`` adds eps elsewhere). A
+    weight whose refit is not finite keeps its old value."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    keys = sorted(w)
+    old = [w[k].detach() for k in keys]
+    p = [x.clone() for x in old]
+    m = [torch.zeros_like(x) for x in p]
+    v = [torch.zeros_like(x) for x in p]
+    f32 = np.float32
+    for i in range(steps):
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_(True) for x in p]
+            loss = torch.mean((predict_mlp(dict(zip(keys, leaves)), phi_flat)
+                               - targets_flat) ** 2)
+            g = torch.autograd.grad(loss, leaves)
+        torch._foreach_mul_(m, b1)
+        torch._foreach_add_(m, g, alpha=1.0 - b1)
+        torch._foreach_mul_(v, b2)
+        torch._foreach_addcmul_(v, g, g, value=1.0 - b2)
+        t = f32(i + 1)
+        scale = np.sqrt(f32(1.0) - f32(b2) ** t) / (f32(1.0) - f32(b1) ** t)
+        denom = torch._foreach_sqrt(v)
+        torch._foreach_add_(denom, eps)
+        torch._foreach_addcdiv_(p, m, denom, value=-float(f32(lr) * scale))
+    return {k: torch.where(torch.isfinite(new), new, o)
+            for k, new, o in zip(keys, p, old)}

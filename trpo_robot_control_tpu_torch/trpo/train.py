@@ -18,20 +18,25 @@ from .update import trpo_update
 
 class TrainState(NamedTuple):
     params: dict
-    w: torch.Tensor           # baseline weights
+    w: object                 # baseline weights: a tensor, or the MLP's dict
     gen: torch.Generator      # parameter init, resets and rollout noise
     iteration: int
 
 
 def init_state(cfg, seed: Optional[int] = None, device=None) -> TrainState:
+    """The policy's weights, then (MLP baseline) the baseline's, drawn from
+    one generator seeded with ``seed`` (default ``cfg.seed``); a linear
+    baseline starts at zero."""
     dev = resolve(device)
-    if cfg.trpo.baseline != "linear":
-        raise NotImplementedError("the MLP baseline comes with a later slice")
     gen = torch.Generator(device=dev)
     gen.manual_seed(cfg.seed if seed is None else seed)
     params = policy.init_params(gen, cfg.obs_dim, cfg.arm.n_joints,
                                 cfg.trpo.hidden, cfg.trpo.logstd_init)
-    w = torch.zeros(baseline.n_features(cfg.obs_dim), device=dev)
+    n_in = baseline.n_features(cfg.obs_dim)
+    if cfg.trpo.baseline == "mlp":
+        w = baseline.init_mlp(gen, n_in, cfg.trpo.baseline_hidden)
+    else:
+        w = torch.zeros(n_in, device=dev)
     return TrainState(params=params, w=w, gen=gen, iteration=0)
 
 
@@ -62,8 +67,11 @@ def stats_to_host(stats) -> dict:
 
 
 def train(cfg, n_iters: Optional[int] = None, seed: Optional[int] = None,
-          log_fn=None, state: Optional[TrainState] = None, device=None):
-    """Run training; returns (final_state, history list of stat dicts)."""
+          log_fn=None, state: Optional[TrainState] = None, device=None,
+          checkpoint_every: int = 0, checkpoint_dir: Optional[str] = None):
+    """Run training; returns (final_state, history list of stat dicts).
+    With ``checkpoint_every`` and ``checkpoint_dir`` a checkpoint is saved
+    after every ``checkpoint_every``-th iteration of this call."""
     n_iters = cfg.n_iters if n_iters is None else n_iters
     if state is None:
         state = init_state(cfg, seed, device)
@@ -71,7 +79,7 @@ def train(cfg, n_iters: Optional[int] = None, seed: Optional[int] = None,
         resolve(state.gen.device)
     step = make_train_step(cfg)
     history = []
-    for _ in range(n_iters):
+    for it in range(n_iters):
         t0 = time.perf_counter()
         state, stats = step(state)
         stats = stats_to_host(stats)
@@ -81,4 +89,8 @@ def train(cfg, n_iters: Optional[int] = None, seed: Optional[int] = None,
         history.append(stats)
         if log_fn is not None:
             log_fn(stats)
+        if checkpoint_every and checkpoint_dir and \
+                (it + 1) % checkpoint_every == 0:
+            from ..utils.checkpoint import save_checkpoint
+            save_checkpoint(checkpoint_dir, cfg, state)
     return state, history
