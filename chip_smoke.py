@@ -5,7 +5,7 @@
 Needs one CUDA card; exits non-zero, and prints no result, without one.
 Drives the port (``trpo_robot_control_tpu_torch``) only:
 
-1. names the card and builds the six CUDA kernels from ``ops/cuda/csrc``
+1. names the card and builds the seven CUDA kernels from ``ops/cuda/csrc``
    (the two rollouts one library per joint count, 1-8, and K4 at 7
    joints, K5 and K6 one library per policy shape of phase 8, K1 at 3
    links and K3 one per shape of phase 9, K1, K4 and K3 one per shape of
@@ -149,7 +149,22 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
    (``resume_check``); K3 on c3-mlp's n-major 102,400 x 24 subsample
    against its plain version and its statement, timed beside its bound,
    with K6 on the same batch's feature-first subsample and the relayout
-   timed beside it (``k3_nmajor``).
+   timed beside it (``k3_nmajor``);
+12. the K-step train loop, ``trpo/train.py:make_train_many``, which on the
+   card replays one captured CUDA graph of the train step
+   (``train_many_phases``), at c1-c5, c2-term, c5-term and c1-/c2-/c3-mlp
+   at full width: TRAIN_MANY_K replays against as many eager steps from
+   the same state, bit for bit; the capture's launches equal to one eager
+   step's (``step_launches``), no plain version; finite stats and KL <=
+   delta in every row; ms an update eager and replayed, the capture's
+   seconds and the peak device memory. On each linear path the
+   ``fit_normal`` kernel (the ridge solve that replaces eigh, one launch
+   an update on every linear path since this phase; none on the MLP
+   paths) on that config's first-update normal equations against the
+   statement of its arithmetic (``fit_normal_jacobi_statement`` in
+   ``tests/test_torch_helpers.py``), the eigh solve and an fp64 one,
+   timed beside its bound (the whole card's, one SM's beside it), the
+   plain version and ``torch.linalg.eigh`` of the same A_s.
 
 The last lines are the kernels' JSON record (c2/c3 figures at the top
 level of each entry, c4/c5/c5-planar3 ones under ``at_c4``/``at_c5``/
@@ -164,7 +179,9 @@ under ``at_n8``), phase 8's shape checks of K4-K6 under
 ``at_c1_mlp``/``at_c2_mlp``/``at_c3_mlp`` (K3 on c3-mlp's subsample under
 the ``fvp`` entry's ``at_c3_mlp``), and the terminating
 instantiations as ``rollout_term``
-(c2) and ``rollout3d_term`` (c5, c5-planar3 under ``at_c5_planar3``)),
+(c2) and ``rollout3d_term`` (c5, c5-planar3 under ``at_c5_planar3``),
+``fit_normal`` at c2, the other linear paths under ``at_<tag>``; phase
+12's per-config figures on the ``train_many`` line before them),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -192,6 +209,8 @@ REPLACES = {
     "rollout3d": "trpo_robot_control_tpu/ops/pallas/rollout3d_kernel.py:895",
     "pg": "trpo_robot_control_tpu/ops/pallas/pg_kernel.py:312",
     "fvp_ff": "trpo_robot_control_tpu/ops/pallas/fvp_ff_kernel.py:188",
+    # no Pallas kernel: the eigh of JAX's fit_normal, which XLA runs
+    "fit_normal": "trpo_robot_control_tpu/models/baseline.py:155",
     # the terminating branches of the rollout kernels' bodies
     "rollout_term": "trpo_robot_control_tpu/ops/pallas/rollout_kernel.py:436",
     "rollout3d_term":
@@ -863,6 +882,8 @@ def train_checked(cfg, n_iters, kernels, expect, train):
         print("iter " + json.dumps({k: (round(v, 6) if isinstance(v, float)
                                         else v) for k, v in st.items()}))
 
+    # the linear baseline's ridge solve: one fit_normal launch an update
+    expect = dict(expect, fit_normal=n_iters * (cfg.trpo.baseline != "mlp"))
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
     _, hist = train(cfg, n_iters=n_iters, seed=0, log_fn=log)
@@ -1018,6 +1039,7 @@ def c2_phases(dev):
         {"rollout": n_iters, "moments": n_iters,
          "fvp": n_iters * cfg.trpo.cg_iters, "rollout3d": 0, "pg": 0,
          "fvp_ff": 0}, train)
+    rec["fit_normal"] = dict(launches=launches["fit_normal"])
 
     # ---- kernel times beside bounds, plain versions and yardsticks
     B = T * N
@@ -2850,7 +2872,7 @@ def bm_vs_ff(dev, cfg, seed):
           f"cos x {cos_x:.6f}, cos g {cos_g:.6f}, |beta| rel {beta_rel:.3e}, "
           f"accepted {acc}; launches ff {l_f}, batch-major {l_b}")
     require(l_b == {"rollout": 0, "moments": 0, "fvp": cfg.trpo.cg_iters,
-                    "rollout3d": 0, "pg": 0, "fvp_ff": 0}
+                    "rollout3d": 0, "pg": 0, "fvp_ff": 0, "fit_normal": 1}
             and all(c == 0 for c in p_b.values()),
             f"{cfg.name} batch-major launches {l_b}, plain calls {p_b}")
     require(cos_x >= 0.999 and beta_rel <= 1e-3 and acc[0] == acc[1],
@@ -2875,11 +2897,7 @@ def resume_check(dev, cfg):
         back = load_checkpoint(save_checkpoint(tmp, cfg, half), cfg, dev)
     resumed, h2 = train(cfg, n_iters=2, state=back)
 
-    def leaves(st):
-        w = st.w if isinstance(st.w, dict) else {"w": st.w}
-        return [st.params[k] for k in sorted(st.params)] \
-            + [w[k] for k in sorted(w)]
-
+    leaves = port_test_helpers().state_leaves
     same = all(torch.equal(a, b) for a, b in zip(leaves(straight),
                                                  leaves(resumed)))
     stats_same = all({k: v for k, v in a.items() if k != "wall_s"}
@@ -2979,6 +2997,260 @@ def mlp_phases(dev):
     return out
 
 
+# Phase 12: make_train_many, the K-step train loop replayed as one captured
+# CUDA graph of the train step, on every path at full width, and the
+# fit_normal kernel on each linear path's first-update normal equations
+TRAIN_MANY_K = 10
+# the kernel and the eigh solve against an fp64 one with the same floor,
+# and against each other, in the A-norm: within FIT_UNITS fp32 unit
+# roundoffs times the kept condition number (tests/test_torch_helpers.py:
+# fit_bound), capped at this (readings up to 1.9e-4 on these full-width
+# systems; w = 0 reads 1.0)
+FIT_CAP = 1e-3
+
+
+def train_many_configs():
+    """(tag, config, seed) of every path phase 12 captures."""
+    from trpo_robot_control_tpu_torch.configs import (C1_REACHER2,
+                                                      C2_REACHER3,
+                                                      C3_FRANKA7,
+                                                      C4_FRANKA7_OBSTACLE,
+                                                      C5_MULTITASK)
+    return [("c1", C1_REACHER2, 30), ("c2", C2_REACHER3, 31),
+            ("c3", C3_FRANKA7, 32), ("c4", C4_FRANKA7_OBSTACLE, 33),
+            ("c5", C5_MULTITASK, 34),
+            ("c2_term", C2_REACHER3.replace(done_dist=C2_DONE_DIST), 35),
+            ("c5_term", C5_MULTITASK.replace(done_dist=C5_DONE_DIST), 36),
+            ("c1_mlp", mlp_config(C1_REACHER2), 37),
+            ("c2_mlp", mlp_config(C2_REACHER3), 38),
+            ("c3_mlp", mlp_config(C3_FRANKA7), 39)]
+
+
+def step_launches(cfg, params):
+    """One train step's launches on ``cfg``'s path: its rollout kernel, K2
+    and fit_normal on a linear baseline, K5 and K6 or K3 as the update's
+    routes decide (``trpo/update.py:kernel_routes``)."""
+    from trpo_robot_control_tpu_torch.envs.arm import _planar_route
+    from trpo_robot_control_tpu_torch.ops import cuda as kernels
+    from trpo_robot_control_tpu_torch.trpo.update import kernel_routes
+    tr = cfg.trpo
+    T, N, k, e = cfg.horizon, cfg.n_envs, tr.fvp_subsample, \
+        tr.fvp_env_subsample
+    linear = tr.baseline != "mlp"
+    routes = kernel_routes(tr, params, T, N, -(-T // k), -(-N // e),
+                           ff=linear)
+    out = dict.fromkeys(kernels.WRAPPERS, 0)
+    out["rollout" if _planar_route(cfg) else "rollout3d"] = 1
+    out["moments"] = out["fit_normal"] = int(linear)
+    out["pg"] = int(routes["surrgrad"] == "pallas")
+    out[{"ff": "fvp_ff", "bm": "fvp"}[routes["fvp"]]] = tr.cg_iters
+    return out
+
+
+def fit_flops(m: int) -> int:
+    """The fewest fp32 operations that fit_normal's w needs on an m x m
+    system, whatever the algorithm: the Jacobi scaling (m^2 products
+    d_i d_j, m^2 divisions), A_s reduced to tridiagonal form by Householder
+    reflections (4 m^3 / 3; Golub and Van Loan, Matrix Computations,
+    section 8.3) and the reflectors applied to b/d and back (4 m^2). The
+    tridiagonal eigenproblem and its rotations applied to one vector are
+    O(m^2) and not counted; forming the eigenvectors, as the kernel and
+    eigh do, would bring the count to about 9 m^3 (ibid.). Independent of
+    the sweeps the kernel runs."""
+    return 4 * m ** 3 // 3 + 6 * m * m
+
+
+def first_update_system(dev, cfg, state):
+    """(A + ridge I, b): ``cfg``'s first-update normal equations, from the
+    rollout of ``state`` on a copy of its generator, the initial linear
+    baseline's values, GAE and K2's moments, as ``trpo_update`` forms
+    them."""
+    from trpo_robot_control_tpu_torch.envs import arm
+    from trpo_robot_control_tpu_torch.models import baseline
+    from trpo_robot_control_tpu_torch.ops.cuda.moments_kernel import \
+        baseline_moments
+    from trpo_robot_control_tpu_torch.ops.gae import gae
+    tr = cfg.trpo
+    gen = torch.Generator(device=dev)
+    gen.set_state(state.gen.get_state())
+    batch = arm.make_rollout_fn(cfg)(state.params, gen)
+    obs_ff, rew = batch["obs_ff"], batch["rewards_ff"]
+    values = baseline.values_ff(state.w, obs_ff, cfg.horizon)
+    adv_raw = gae(rew, values, tr.gamma, tr.lam, dones=batch.get("dones_ff"),
+                  time_axis=0)
+    A, b = baseline_moments(obs_ff, adv_raw + values, cfg.horizon)
+    return A + tr.baseline_reg * torch.eye(A.shape[0], device=dev), b
+
+
+def fit_normal_check(dev, tag, cfg, state):
+    """The fit_normal kernel on ``cfg``'s first-update normal equations
+    (``first_update_system``): against the statement of its arithmetic
+    run on the card, bit for bit (w and the sweeps: the same separately
+    rounded operations in the same order); the statement's eigenpairs a
+    decomposition of A_s and w their solve (``fit_pairs_errors``); the
+    kernel against the eigh solve (the plain version) and both against an
+    fp64 solve, within ``fit_bound`` capped at FIT_CAP; timed beside its
+    bound, the plain version and ``torch.linalg.eigh`` of the same A_s
+    (the library yardstick). Returns its record."""
+    from trpo_robot_control_tpu_torch.ops.cuda import fit_kernel as fk
+    A, b = first_update_system(dev, cfg, state)
+    m = A.shape[0]
+    w, sweeps = fk.jacobi_solve(A, b)
+    sweeps = int(sweeps)
+    helpers = port_test_helpers()
+    w_s, lam_s, Q_s, sweeps_s = helpers.fit_normal_jacobi_statement(A, b)
+    w64, kept = helpers.fp64_floored_solve(A, b)
+    w_p = fk.fit_normal_plain(A, b)
+    bit = bool(torch.equal(w, w_s))
+    res, solve = helpers.fit_pairs_errors(A, b, w, lam_s, Q_s)
+    err = dict(w_abs=float((w - w_s).abs().max()),
+               plain=helpers.a_norm_rel(A, w, w_p),
+               kernel_fp64=helpers.a_norm_rel(A, w, w64),
+               plain_fp64=helpers.a_norm_rel(A, w_p, w64),
+               pairs_residual=res, solve_from_pairs=solve)
+    bound64 = helpers.fit_bound(kept, FIT_CAP)
+    print(f"{tag} fit_normal (F {m}): {sweeps} sweeps (statement "
+          f"{sweeps_s}), bit-identical to the statement {bit} (max |w "
+          f"difference| {err['w_abs']:.2e}); the statement's pairs: "
+          f"residual {res:.2e}, solve {solve:.2e}; against the eigh solve "
+          f"{err['plain']:.2e} in the A-norm; kernel / eigh against fp64 "
+          f"{err['kernel_fp64']:.2e} / {err['plain_fp64']:.2e} (kept "
+          f"condition {kept:.3e}, bound {bound64:.2e})")
+    require(bit and sweeps == sweeps_s and sweeps < fk.MAX_SWEEPS,
+            f"{tag} fit_normal against its statement: sweeps {sweeps} / "
+            f"{sweeps_s}, {err}")
+    require(res <= helpers.FIT_RES_TOL and solve <= helpers.FIT_SOLVE_TOL,
+            f"{tag} fit_normal's pairs: {err}")
+    require(max(err["plain"], err["kernel_fp64"], err["plain_fp64"])
+            <= bound64, f"{tag} fit_normal against the eigh and fp64 "
+            f"solves: {err}, bound {bound64}")
+    require(all(torch.equal(fk.fit_normal(A, b), w) for _ in range(3)),
+            f"{tag} fit_normal: repeat calls differ")
+    d = torch.sqrt(torch.diagonal(A) + 1e-20)
+    A_s = A / (d[:, None] * d[None, :])
+    t_k = cuda_ms(lambda: fk.fit_normal(A, b), 50, lead_ms=K1_LEAD_MS)
+    t_p = cuda_ms(lambda: fk.fit_normal_plain(A, b), 20)
+    t_lib = cuda_ms(lambda: torch.linalg.eigh(A_s), 20)
+    flops = fit_flops(m)
+    bms, by = bound_ms(flops, 4.0 * (m * m + 2 * m))
+    one_sm = 1e3 * flops / (PEAK_FP32_FLOPS / 132)
+    print(f"{tag} fit_normal: {t_k:.4f} ms/launch (bound {bms:.3e} ms by "
+          f"{by}, one SM's {one_sm:.3e} ms), plain {t_p:.4f} ms, "
+          f"torch.linalg.eigh of A_s {t_lib:.4f} ms")
+    return dict(max_abs_err=err["w_abs"], ms=t_k, plain_ms=t_p,
+                bound_ms=bms, bound_by=by, bound_one_sm_ms=one_sm,
+                library_ms=t_lib, sweeps=sweeps, F=m, flops=flops,
+                bit_identical_to_statement=bit, kept_condition=kept,
+                errors=err)
+
+
+def train_many_check(dev, tag, cfg, seed):
+    """``make_train_many(cfg, K)`` on the card against K eager steps of
+    ``make_train_step`` from the same state, bit for bit (parameters,
+    baseline weights, every stat); the capture's launches equal to one
+    eager step's (``step_launches``), no plain version; finite stats and
+    KL <= delta in every row of two calls; ms an update eager (the K-step
+    loop, no host read, after two warm-up steps) and replayed (a second
+    call), the warm-up's and capture's seconds, the peak device memory.
+    Returns its record."""
+    from trpo_robot_control_tpu_torch.ops import cuda as kernels
+    from trpo_robot_control_tpu_torch.trpo.train import (WARMUP_STEPS,
+                                                         init_state,
+                                                         make_train_many,
+                                                         make_train_step)
+    K = TRAIN_MANY_K
+    step = make_train_step(cfg)
+    linear = cfg.trpo.baseline != "mlp"
+    leaves = port_test_helpers().state_leaves
+
+    warm = init_state(cfg, seed=seed + 100, device=dev)
+    for _ in range(2):
+        warm, _ = step(warm)
+    del warm
+    state0 = init_state(cfg, seed=seed, device=dev)
+    expect = step_launches(cfg, state0.params)
+    rec = dict(fit_normal=fit_normal_check(dev, tag, cfg, state0)
+               if linear else None)
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, rows = state0, []
+    for i in range(K):
+        ref, st = step(ref)
+        rows.append(st)
+        if i == 0:
+            one, one_plain = kernels.launch_counts(), kernels.plain_calls()
+    torch.cuda.synchronize()
+    eager_ms = 1e3 * (time.perf_counter() - t0) / K
+    ref_leaves = leaves(ref)
+    del ref, state0
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    fn = make_train_many(cfg, K)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    state, stacked = fn(init_state(cfg, seed=seed, device=dev))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    main, plain = kernels.launch_counts(), kernels.plain_calls()
+    g = fn.graphed()
+    print(f"{tag} make_train_many: launches at capture {g.launches}, on "
+          f"the call (warm-up and capture) {main}, one eager step {one}")
+    require(one == expect and all(c == 0 for c in one_plain.values()),
+            f"{tag} eager step launches {one}, plain {one_plain}, "
+            f"expected {expect}")
+    require(g.launches == one and all(c == 0 for c in g.plain_calls.values())
+            and all(c == 0 for c in plain.values()),
+            f"{tag} capture launches {g.launches}, plain {g.plain_calls}")
+    require(main == {k: (WARMUP_STEPS + 1) * v for k, v in one.items()},
+            f"{tag} make_train_many launches {main}")
+    same_state = all(torch.equal(a, b) for a, b in zip(leaves(state),
+                                                       ref_leaves))
+    diff = [k for k in stacked
+            if not torch.equal(stacked[k], torch.stack([r[k] for r in rows]))]
+    print(f"{tag} graph against eager over {K} steps: state bit-identical "
+          f"{same_state}, stats differing {diff}")
+    require(same_state and not diff and set(stacked) == set(rows[0]),
+            f"{tag}: graph replay differs from the eager steps ({diff})")
+    del rows, ref_leaves
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, stacked2 = fn(state)
+    torch.cuda.synchronize()
+    graph_ms = 1e3 * (time.perf_counter() - t0) / K
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for st in (stacked, stacked2):
+        host = {k: v.double().cpu() for k, v in st.items()}
+        require(all(bool(torch.isfinite(v).all()) for v in host.values()),
+                f"{tag}: non-finite stats {host}")
+        ok = (host["accepted"] < 0) | (host["kl"] <= cfg.trpo.delta)
+        require(bool(ok.all()), f"{tag}: an accepted step outside the trust "
+                f"region {host}")
+    require(state.iteration == 2 * K, f"{tag}: iteration {state.iteration}")
+    print(f"{tag} update: eager {eager_ms:.3f} ms, graph replay "
+          f"{graph_ms:.3f} ms ({1e3 / graph_ms:.2f} updates/s); warm-up "
+          f"{g.warmup_s:.2f} s, capture {g.capture_s:.2f} s, first call "
+          f"{first_s:.2f} s; peak device memory {peak:.3f} GiB")
+    rec.update(eager_ms=eager_ms, graph_ms=graph_ms, capture_s=g.capture_s,
+               warmup_s=g.warmup_s, first_call_s=first_s, peak_gib=peak,
+               launches_at_capture=g.launches, bit_identical=True)
+    return rec
+
+
+def train_many_phases(dev):
+    """Phase 12: ``train_many_check`` on every path of
+    ``train_many_configs``. Returns {tag: record}."""
+    t0 = time.perf_counter()
+    out = {tag: train_many_check(dev, tag, cfg, seed)
+           for tag, cfg, seed in train_many_configs()}
+    print(f"train_many phases took {time.perf_counter() - t0:.1f} s")
+    print("train_many " + json.dumps(
+        {tag: {k: v for k, v in r.items() if k != "fit_normal"}
+         for tag, r in out.items()}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3050,9 +3322,17 @@ def main() -> int:
     more.update(mlp_phases(dev))
     print(f"MLP-baseline phases done at "
           f"{time.perf_counter() - t_start:.1f} s")
+    for tag, r in train_many_phases(dev).items():
+        if r["fit_normal"] is None:
+            continue
+        if tag == "c2":
+            rec["fit_normal"].update(r["fit_normal"])
+        else:
+            more.setdefault(tag, {})["fit_normal"] = r["fit_normal"]
+    print(f"train_many phases done at {time.perf_counter() - t_start:.1f} s")
     out = []
     for name in ("rollout", "moments", "fvp", "rollout3d", "pg", "fvp_ff",
-                 "rollout_term", "rollout3d_term"):
+                 "rollout_term", "rollout3d_term", "fit_normal"):
         r = rec[name]
         src = name.replace("_term", "")
         entry = dict(name=name, route="cuda", source=SOURCE.format(src),

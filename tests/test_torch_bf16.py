@@ -196,7 +196,7 @@ def test_new_wrappers_take_the_plain_version_on_cpu():
         torch.ones(sum(v.numel() for v in pt.values())))
     counts = kernels.launch_counts()
     assert set(counts) == {"rollout", "moments", "fvp", "rollout3d", "pg",
-                           "fvp_ff"}
+                           "fvp_ff", "fit_normal"}
     assert all(c == 0 for c in counts.values())
     assert kernels.plain_calls()["pg"] == 1
     assert kernels.plain_calls()["fvp_ff"] == 1

@@ -13,16 +13,20 @@ import pytest
 import torch
 
 from test_torch_helpers import (OBSTACLE_ON_ARM, PG_G_KEPT_REL,
-                                PG_MU_FP64_ATOL, env_inputs_np,
+                                PG_MU_FP64_ATOL, FIT_CAP_SPD, FIT_RES_TOL,
+                                FIT_SOLVE_TOL, a_norm_rel, env_inputs_np,
+                                fit_bound, fit_normal_jacobi_statement,
+                                fit_pairs_errors, fp64_floored_solve,
                                 gn_fvp_ff_split, gn_fvp_split,
                                 gn_fvp_wide_split, pg_fp64_errors,
-                                policy_params_np, surrogate_grad_fp64, t,
+                                policy_params_np, spd_system_np,
+                                state_leaves, surrogate_grad_fp64, t,
                                 tasks_np)
 from trpo_robot_control_tpu_torch import configs as pconfigs
 from trpo_robot_control_tpu_torch.models import policy
 from trpo_robot_control_tpu_torch.ops.fvp import make_gn_fvp
-from trpo_robot_control_tpu_torch.ops.cuda import (build, fvp_ff_kernel,
-                                                   fvp_kernel,
+from trpo_robot_control_tpu_torch.ops.cuda import (build, fit_kernel,
+                                                   fvp_ff_kernel, fvp_kernel,
                                                    moments_kernel, pg_kernel,
                                                    rollout3d_kernel,
                                                    rollout_kernel)
@@ -861,9 +865,109 @@ def test_c2_mlp_trains_on_card_through_k1_and_k3(cuda):
     state, hist = train(cfg, n_iters=n_iters, seed=0)
     assert kernels.launch_counts() == {
         "rollout": n_iters, "moments": 0, "fvp": n_iters * cfg.trpo.cg_iters,
-        "rollout3d": 0, "pg": 0, "fvp_ff": 0}
+        "rollout3d": 0, "pg": 0, "fvp_ff": 0, "fit_normal": 0}
     assert all(c == 0 for c in kernels.plain_calls().values())
     for st in hist:
         assert all(np.isfinite(v) for v in st.values()), st
         assert st["accepted"] < 0 or st["kl"] <= cfg.trpo.delta, st
     assert set(state.w) == {"W0", "b0", "W1", "b1"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cond", [1e2, 1e6])
+@pytest.mark.parametrize("do", [6, 12, 24, 27, 32])
+def test_fit_normal_kernel_matches_statement_on_card(cuda, do, cond):
+    """The kernel against the statement of its arithmetic run on the same
+    card, bit for bit (the same separately rounded operations in the same
+    order): w and the sweep count; bit-identical repeat calls; the
+    statement's eigenpairs on the card a decomposition of A_s and w their
+    solve (the CPU test's bounds); and the kernel and the eigh solve (the
+    plain version) against the fp64-floored solve and against each other
+    (prediction space) within ``fit_bound`` (the CPU test's bound, which
+    w = 0 fails)."""
+    A, b = (t(x).to(cuda) for x in spd_system_np(do, cond, seed=do))
+    w, sweeps = fit_kernel.jacobi_solve(A, b)
+    w_s, lam_s, Q_s, sweeps_s = fit_normal_jacobi_statement(A, b)
+    assert int(sweeps) == sweeps_s < fit_kernel.MAX_SWEEPS
+    assert torch.equal(w, w_s)
+    for _ in range(3):
+        assert torch.equal(fit_kernel.fit_normal(A, b), w)
+    res, solve = fit_pairs_errors(A, b, w, lam_s, Q_s)
+    assert res <= FIT_RES_TOL and solve <= FIT_SOLVE_TOL, (res, solve)
+    w64, kept_cond = fp64_floored_solve(A, b)
+    bound = fit_bound(kept_cond, FIT_CAP_SPD)
+    w_p = fit_kernel.fit_normal_plain(A, b)
+    assert a_norm_rel(A, w, w64) <= bound
+    assert a_norm_rel(A, w_p, w64) <= bound
+    assert a_norm_rel(A, w, w_p) <= bound
+
+
+@pytest.mark.cuda
+def test_eigh_refuses_a_graph_capture_on_card(cuda):
+    """Why the card solves with the fit_normal kernel: ``torch.linalg.eigh``
+    reads its info flag on the host, which invalidates a CUDA graph capture
+    (run in a child process, which the failed capture leaves behind)."""
+    import subprocess
+    import sys
+    code = ("import torch\n"
+            "A = 2.0 * torch.eye(28, device='cuda') + 0.1\n"
+            "torch.linalg.eigh(A)\n"
+            "torch.cuda.synchronize()\n"
+            "g = torch.cuda.CUDAGraph()\n"
+            "with torch.cuda.graph(g):\n"
+            "    torch.linalg.eigh(A)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode != 0
+    assert "capture" in out.stderr, out.stderr[-2000:]
+
+
+@pytest.mark.cuda
+def test_fit_normal_kernel_zeroes_a_non_finite_system_on_card(cuda):
+    nan = torch.full((28, 28), float("nan"), device=cuda)
+    ones = torch.ones(28, device=cuda)
+    assert torch.equal(fit_kernel.fit_normal(nan, ones), torch.zeros_like(ones))
+    assert torch.equal(fit_kernel.fit_normal_plain(nan, ones),
+                       torch.zeros_like(ones))
+    with pytest.raises(NotImplementedError, match="even F"):
+        fit_kernel.fit_normal(torch.eye(70, device=cuda),
+                              torch.ones(70, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["c2_reacher3", "c3_franka7"])
+def test_train_many_graph_equals_eager_steps_on_card(cuda, name):
+    """K replays of the captured train step against K eager steps from the
+    same state, bit for bit (parameters, baseline weights, every stat), then
+    two eager steps after the replays against steps K + 1 and K + 2 of the
+    eager run: the graph advanced the generator as eager steps do. The
+    capture launched what one eager step launches, and no plain version."""
+    from trpo_robot_control_tpu_torch.ops import cuda as kernels
+    from trpo_robot_control_tpu_torch.trpo.train import (init_state,
+                                                         make_train_many,
+                                                         make_train_step)
+    horizon = 20 if name == "c2_reacher3" else 16
+    cfg = pconfigs.CONFIGS[name].replace(n_envs=64, horizon=horizon)
+    K = 4
+    step = make_train_step(cfg)
+    ref, rows = init_state(cfg, seed=3), []
+    kernels.reset_counts()
+    for i in range(K + 2):
+        ref, st = step(ref)
+        rows.append(st)
+        if i == 0:
+            one_step = kernels.launch_counts()
+        if i == K - 1:
+            at_k = [x.clone() for x in state_leaves(ref)]
+    fn = make_train_many(cfg, K)
+    state, stacked = fn(init_state(cfg, seed=3))
+    assert fn.graphed().launches == one_step
+    assert all(c == 0 for c in fn.graphed().plain_calls.values())
+    assert all(torch.equal(a, b) for a, b in zip(state_leaves(state), at_k))
+    for k, v in stacked.items():
+        assert torch.equal(v, torch.stack([r[k] for r in rows[:K]])), k
+    for i in range(2):
+        state, st = step(state)
+        assert all(torch.equal(st[k], rows[K + i][k]) for k in st)
+    assert all(torch.equal(a, b) for a, b in zip(state_leaves(state),
+                                                 state_leaves(ref)))

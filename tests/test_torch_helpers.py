@@ -628,3 +628,181 @@ def mean_fmaf(params, obs):
             z = (z.double() + W[d][:, None] * h[d].double()[None, :]).float()
         h = torch.tanh(z + params[f"b{l}"][:, None]) if l < L - 1 else z
     return h
+
+
+def spd_system_np(do, cond, seed):
+    """A (F, F), b (F,) fp32, F = 2 do + 4: A = D M D, M with eigenvalues
+    log-spaced over [1/cond, 1] in a random basis, D spread over six
+    decades (what fit_normal's Jacobi scaling undoes)."""
+    rng = np.random.RandomState(seed)
+    F = 2 * do + 4
+    Q, _ = np.linalg.qr(rng.standard_normal((F, F)))
+    M = (Q * np.logspace(0, -np.log10(cond), F)) @ Q.T
+    D = np.exp(rng.uniform(-3, 3, F))
+    A = (D[:, None] * M * D[None, :]).astype(np.float32)
+    return 0.5 * (A + A.T), rng.standard_normal(F).astype(np.float32)
+
+
+def fp64_floored_solve(A, b, rel_floor=1e-6):
+    """fit_normal's solve in fp64 on A's device: (w (F,) fp64, the kept
+    spectrum's condition number lambda_max / smallest kept lambda)."""
+    A64, b64 = A.double(), b.double()
+    d = torch.sqrt(torch.diagonal(A64) + 1e-20)
+    lam, Q = torch.linalg.eigh(A64 / (d[:, None] * d[None, :]))
+    keep = lam > rel_floor * lam[-1]
+    inv = torch.where(keep, 1.0 / lam, torch.zeros_like(lam))
+    return Q @ (inv * (Q.T @ (b64 / d))) / d, float(lam[-1] / lam[keep].min())
+
+
+def a_norm_rel(A, w, ref):
+    """||w - ref||_A / ||ref||_A in fp64: the relative error of the
+    predictions phi @ w over the batch whose normal equations A holds."""
+    A64, e, r = A.double(), (w - ref).double(), ref.double()
+    return float(torch.sqrt(e @ A64 @ e) / torch.sqrt(r @ A64 @ r))
+
+
+# fit_normal against the fp64 floored solve, in the A-norm: within
+# FIT_UNITS fp32 unit roundoffs times the kept condition number, the most
+# any fp32 solve of an fp32 A_s promises, and never past a fixed cap set
+# from readings (``fit_bound``), so that w = 0 (which reads 1.0) fails
+FIT_UNITS = 20.0
+# the cap on SPD systems with a random right-hand side (spd_system_np):
+# at kept condition ~1e6 fp32 Jacobi and fp32 eigh alike read up to 0.27
+FIT_CAP_SPD = 0.5
+# the statement's eigenpairs: ||A_s Q - Q diag(lambda)||_F / ||A_s||_F
+# (readings up to 1.5e-6 at F = 68), and w against the fp64 solve with
+# those same pairs, in the A-norm (readings up to 4.3e-5): the solve's
+# own rounding, free of the condition number
+FIT_RES_TOL = 1e-5
+FIT_SOLVE_TOL = 5e-4
+
+
+def fit_bound(kept_cond, cap):
+    """The bound on ``a_norm_rel`` of an fp32 fit against the fp64 one."""
+    return min(FIT_UNITS * 2.0 ** -24 * kept_cond, cap)
+
+
+def fit_pairs_errors(A, b, w, lam, Q, rel_floor=1e-6):
+    """(the backward residual of the pairs (lam, Q) of A_s, w's A-norm
+    error against the fp64 floored solve with those pairs): the first
+    holds the eigendecomposition, the second the floor and the solve."""
+    A64 = A.double()
+    d = torch.sqrt(torch.diagonal(A64) + 1e-20)
+    S = A64 / (d[:, None] * d[None, :])
+    lam, Q = lam.double(), Q.double()
+    res = float(torch.linalg.norm(S @ Q - Q * lam) / torch.linalg.norm(S))
+    inv = torch.where(lam > rel_floor * lam.max(), 1.0 / lam,
+                      torch.zeros_like(lam))
+    ref = Q @ (inv * (Q.T @ (b.double() / d))) / d
+    return res, a_norm_rel(A, w, ref)
+
+
+def state_leaves(st):
+    """A train state's parameters, then its baseline weights (a linear
+    baseline's one tensor, or the MLP's dict), in a fixed order."""
+    w = st.w if isinstance(st.w, dict) else {"w": st.w}
+    return [st.params[k] for k in sorted(st.params)] \
+        + [w[k] for k in sorted(w)]
+
+
+def _round_robin(m):
+    """The fit_normal kernel's schedule over m (even) indices: per round r
+    the (p, q), p < q, of pair 0 = (r, m - 1) and pair k = (r + k, r - k)
+    mod m - 1, as index tensors."""
+    rounds = []
+    for r in range(m - 1):
+        pr = [(r, m - 1)] + [
+            tuple(sorted(((r + k) % (m - 1), (r - k + m - 1) % (m - 1))))
+            for k in range(1, m // 2)]
+        rounds.append((torch.tensor([p for p, _ in pr]),
+                       torch.tensor([q for _, q in pr])))
+    return rounds
+
+
+def _square_sum(S, off):
+    """sum of S's squares (off: the diagonal skipped), summed as the kernel
+    sums them: row i in column order, then the rows in order."""
+    m = S.shape[0]
+    zero = torch.zeros((), device=S.device)
+    diag = torch.arange(m, device=S.device)
+    rows = torch.zeros(m, device=S.device)
+    for j in range(m):
+        sq = S[:, j] * S[:, j]
+        rows = rows + (torch.where(diag == j, zero, sq) if off else sq)
+    tot = zero
+    for i in range(m):
+        tot = tot + rows[i]
+    return tot
+
+
+def fit_normal_jacobi_statement(A, b, eps=1e-20, rel_floor=1e-6, tol=None,
+                                max_sweeps=None):
+    """The arithmetic of the fit_normal kernel (``ops/cuda/csrc/
+    fit_normal.cu``) as fp32 tensor ops on A's device, each separately
+    rounded, in the kernel's order: the Jacobi scaling, cyclic two-sided
+    Jacobi in the kernel's round-robin order with Rutishauser's angles
+    (rows rotated by a pair's angle, then columns; the block of pairs
+    (P, Q), P < Q, mirrored below the diagonal; a diagonal block
+    a_pp - t a_pq, a_qq + t a_pq and zeros), the stop rule (off-diagonal
+    squares <= tol^2 ||A_s||_F^2 before a sweep, at most ``max_sweeps``),
+    the floor and the solve, each sum in the kernel's order. Returns (w,
+    lambda, Q, sweeps) with the eigenpairs in the kernel's order."""
+    from trpo_robot_control_tpu_torch.ops.cuda import fit_kernel
+    tol = fit_kernel.TOL if tol is None else tol
+    max_sweeps = fit_kernel.MAX_SWEEPS if max_sweeps is None else max_sweeps
+    A, b = A.float(), b.float()
+    dev, m = A.device, A.shape[0]
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    zero = f32(0.0)
+    d = torch.sqrt(torch.diagonal(A) + f32(eps))
+    S = A / (d[:, None] * d[None, :])
+    V = torch.eye(m, device=dev)
+    thr = f32(tol * tol) * _square_sum(S, False)
+    pair_of = torch.empty(m, dtype=torch.long, device=dev)
+    sweeps = 0
+    for _ in range(max_sweeps):
+        if bool(_square_sum(S, True) <= thr):
+            break
+        sweeps += 1
+        for p, q in _round_robin(m):
+            p, q = p.to(dev), q.to(dev)
+            app, aqq, apq = S[p, p], S[q, q], S[p, q]
+            theta = (aqq - app) / (f32(2.0) * apq)
+            sgn = torch.where(theta >= 0, f32(1.0), f32(-1.0))
+            t = sgn / (torch.abs(theta)
+                       + torch.sqrt(theta * theta + f32(1.0)))
+            t = torch.where(apq == 0, zero, t)
+            c = f32(1.0) / torch.sqrt(t * t + f32(1.0))
+            s = t * c
+            X = S.clone()
+            X[p] = c[:, None] * S[p] - s[:, None] * S[q]
+            X[q] = s[:, None] * S[p] + c[:, None] * S[q]
+            Y = X.clone()
+            Y[:, p] = c * X[:, p] - s * X[:, q]
+            Y[:, q] = s * X[:, p] + c * X[:, q]
+            pair_of[p] = torch.arange(m // 2, device=dev)
+            pair_of[q] = torch.arange(m // 2, device=dev)
+            Y = torch.where(pair_of[:, None] > pair_of[None, :], Y.T, Y)
+            ta = t * apq
+            Y[p, p] = app - ta
+            Y[q, q] = aqq + ta
+            Y[p, q] = zero
+            Y[q, p] = zero
+            S = Y
+            Vn = V.clone()
+            Vn[:, p] = c * V[:, p] - s * V[:, q]
+            Vn[:, q] = s * V[:, p] + c * V[:, q]
+            V = Vn
+    lam = torch.diagonal(S).clone()
+    floor = f32(rel_floor) * torch.max(lam)
+    inv = torch.where(lam > floor, f32(1.0) / lam, zero)
+    y = b / d
+    z = torch.zeros(m, device=dev)
+    for i in range(m):
+        z = z + V[i, :] * y[i]
+    z = z * inv
+    ws = torch.zeros(m, device=dev)
+    for k in range(m):
+        ws = ws + V[:, k] * z[k]
+    w = ws / d
+    return torch.where(torch.isfinite(w), w, zero), lam, V, sweeps

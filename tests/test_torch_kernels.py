@@ -22,6 +22,7 @@ from trpo_robot_control_tpu.ops.pallas.moments_kernel import \
 from trpo_robot_control_tpu.ops.pallas.rollout_kernel import (
     pallas_rollout, rollout_reference)
 from trpo_robot_control_tpu_torch import configs as pconfigs
+from trpo_robot_control_tpu_torch.models import baseline
 from trpo_robot_control_tpu_torch.ops import cuda as kernels
 from trpo_robot_control_tpu_torch.ops.cuda import (moments_kernel,
                                                    rollout_kernel)
@@ -186,10 +187,13 @@ def test_wrappers_take_the_plain_version_on_cpu():
                                seed=torch.zeros(2, dtype=torch.int64))
     obs_ff, _, rew_ff = rollout_kernel.rollout(cfg, pt, t(q0), t(qd0),
                                                t(tgt), eps=t(eps))
-    moments_kernel.baseline_moments(obs_ff, rew_ff, 4)
+    A, b = moments_kernel.baseline_moments(obs_ff, rew_ff, 4)
+    baseline.fit_normal(A + 1e-3 * torch.eye(A.shape[0]), b)
     p_make_gn_fvp(pt, obs_ff.permute(0, 2, 1).reshape(-1, cfg.obs_dim),
                   0.1)(torch.ones(sum(v.numel() for v in pt.values())))
     assert kernels.launch_counts() == {"rollout": 0, "moments": 0, "fvp": 0,
-                                       "rollout3d": 0, "pg": 0, "fvp_ff": 0}
+                                       "rollout3d": 0, "pg": 0, "fvp_ff": 0,
+                                       "fit_normal": 0}
     assert kernels.plain_calls() == {"rollout": 1, "moments": 1, "fvp": 1,
-                                     "rollout3d": 0, "pg": 0, "fvp_ff": 0}
+                                     "rollout3d": 0, "pg": 0, "fvp_ff": 0,
+                                     "fit_normal": 1}

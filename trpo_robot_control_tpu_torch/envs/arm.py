@@ -141,8 +141,9 @@ def make_rollout_fn(cfg):
                                              store_dtype=store, fresh=fresh)
         if len(out) == 4:
             # the final step always ends the episode (fixed buffer end, no
-            # bootstrap), as in the JAX package
-            out[3][-1] = 1.0
+            # bootstrap), as in the JAX package; fill_, which a CUDA graph
+            # captures, not an assignment (a host scalar's copy)
+            out[3][-1].fill_(1.0)
         return batch_from_ff(*out)
 
     return fn

@@ -5,7 +5,8 @@ The linear one: ridge regression on phi(s, t) = [obs, obs^2, t/h, (t/h)^2,
 eigendecomposition. The MLP one: a tanh MLP on the same features, refit
 each update by a fixed number of full-batch Adam steps (warm-started, the
 moments fresh every refit). Everything is fp32 with TF32 off
-(``device.resolve``); none of it is a kernel in the JAX package either.
+(``device.resolve``); none of it is a kernel in the JAX package either
+(the card's ridge solve is a kernel of the port's own, ``fit_normal``).
 """
 from __future__ import annotations
 
@@ -105,15 +106,13 @@ def fit_normal(A, b, eps: float = 1e-20, rel_floor: float = 1e-6):
     drops directions with lambda < rel_floor * lambda_max. A bare fp32
     Cholesky fails near convergence, where cond(A) reaches ~1e8, and the
     resulting NaN weights freeze training. A non-finite fit degrades to a
-    zero baseline for one iteration."""
-    d = torch.sqrt(torch.diagonal(A) + eps)
-    A_s = A / (d[:, None] * d[None, :])
-    lam, Q = torch.linalg.eigh(A_s)
-    inv = torch.where(lam > rel_floor * lam[-1], 1.0 / lam,
-                      torch.zeros_like(lam))
-    w_s = Q @ (inv * (Q.T @ (b / d)))
-    w = w_s / d
-    return torch.where(torch.isfinite(w), w, torch.zeros_like(w))
+    zero baseline for one iteration. On the card the solve is one launch
+    of the fit_normal kernel, which reads nothing back to the host (a
+    CUDA graph of the train step captures it); on the CPU it is the eigh
+    solve, ``ops/cuda/fit_kernel.fit_normal_plain``."""
+    # imported here: ops.cuda imports this module (the moments kernel)
+    from ..ops.cuda import fit_kernel
+    return fit_kernel.fit_normal(A, b, eps, rel_floor)
 
 
 # ----------------------------------------------------------------- MLP

@@ -36,7 +36,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("rollout", "moments", "fvp", "rollout3d", "pg", "fvp_ff")
+SOURCES = ("rollout", "moments", "fvp", "rollout3d", "pg", "fvp_ff",
+           "fit_normal")
 # the sources built once per joint count, and the counts
 PER_JOINT = ("rollout", "rollout3d")
 JOINT_COUNTS = tuple(range(1, 9))

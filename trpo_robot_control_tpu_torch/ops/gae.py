@@ -15,7 +15,9 @@ def _nonterm(rewards, dones, time_axis: int):
     if dones is None:
         T = rewards.shape[time_axis]
         ones = torch.ones(T, dtype=rewards.dtype, device=rewards.device)
-        ones[-1] = 0.0
+        # fill_, not an assignment, which copies a host scalar (a CUDA
+        # graph capture refuses that copy)
+        ones[-1].fill_(0.0)
         shape = [1, 1]
         shape[time_axis] = T
         return ones.reshape(shape).expand(rewards.shape)

@@ -27,7 +27,9 @@ actions_ff takes the feature-first baseline pipeline and then this
 branch's policy math, with the (T, N) advantages transposed.
 
 Every step stays on the device; the only host synchronisation is the
-caller's read of the stats (and ``fit_normal``'s eigh). Each layer runs
+caller's read of the stats. On the card none is left inside the update
+(the ridge solve is the ``fit_normal`` kernel, not eigh), so a CUDA graph
+captures it whole (``trpo/train.py:make_train_many``). Each layer runs
 under a ``record_function`` range (``trpo/...``) that ``cli/profile.py``
 reads; outside a profiler a range costs about a microsecond of host time.
 """
