@@ -164,7 +164,17 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
    statement of its arithmetic (``fit_normal_jacobi_statement`` in
    ``tests/test_torch_helpers.py``), the eigh solve and an fp64 one,
    timed beside its bound (the whole card's, one SM's beside it), the
-   plain version and ``torch.linalg.eigh`` of the same A_s.
+   plain version and ``torch.linalg.eigh`` of the same A_s, with its µs a
+   Jacobi round.
+
+Before the phases it prints the ``-Xptxas -v`` lines of the linear
+baseline's two kernels (``fit_normal_kernel``, K2's
+``moments_fp32_kernel``) and requires K2's bf16-mode SASS (its tensor-core
+kernels and the reduce pass, ``cuobjdump -sass`` with the encodings and
+mangled names taken out) to hash to K2_BF16_SASS_SHA256, the digest of
+those functions as the design before the one-launch fp32 mode compiled
+them: the fp32 redesign left the bf16 mode's code as it was. Phase 2
+times K2 fp32 at c2 and at c1 (``k2_times``).
 
 The last lines are the kernels' JSON record (c2/c3 figures at the top
 level of each entry, c4/c5/c5-planar3 ones under ``at_c4``/``at_c5``/
@@ -223,6 +233,14 @@ K1_TIGHT_STEPS, K1_TIGHT_ATOL = 10, 1e-5
 # through 100 dependent dynamics steps, so the bound is looser.
 K1_FULL_ATOL = 1e-2
 K2_REL = 1e-5
+# SHA-256 of K2's bf16-mode SASS (``k2_bf16_sass``) as the design with a
+# two-launch fp32 mode compiled it (nvcc of CUDA 12.9, sm_90a): it shows
+# that the one-launch fp32 mode left the bf16 mode's code as it was. Update
+# it with a deliberate edit of the bf16 mode or of mma_bf16.cuh, or a new
+# nvcc, after checking the new SASS; remove it once the bf16 mode is
+# redesigned.
+K2_BF16_SASS_SHA256 = \
+    "0206a2eeeb3dafcbbd359a745918f6d92b6d759b1ee9fb996445ddfd999c4c32"
 K3_REL = 1e-5
 # K3 against the statement of its plane products (gn_fvp_split): one fp32
 # rounding per product, as tests/test_torch_fvp_bm_split.py holds it
@@ -625,6 +643,24 @@ def k3_launch_ms(params, obs_fvp, damping, v, calls=20):
     return out
 
 
+def device_kernels(fn) -> dict:
+    """{kernel name: launches} of one call of ``fn``, from
+    ``torch.profiler``'s device trace."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if (t if t is not None else getattr(e, "cuda_time_total", 0)) > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("::")[-1].replace("void ", "")
+            out[name] = out.get(name, 0) + e.count
+    return out
+
+
 def fvp_macs(do, hidden, da) -> int:
     """K3's function at one sample, each product counted once: the forward
     tangent and the reverse accumulation (2 do H + 4 H H + 4 H da at
@@ -874,6 +910,81 @@ def k2_check(tag, obs_ff, targets, horizon):
     return gram_k, gram_p, tau
 
 
+def k2_times(tag, obs_ff, targets, tau):
+    """K2 fp32 at ``tag``'s shapes: one device kernel a call (the
+    profiler's trace of one call); ms a launch queued behind the lead (the
+    card's time) and without it, beside its bound, the plain version and
+    ``torch.matmul`` of v_ext (the library yardstick). Returns its
+    record."""
+    from trpo_robot_control_tpu_torch.ops.cuda import moments_kernel as mk
+    T, do, N = obs_ff.shape
+    B, R = T * N, 2 * do + 5
+    kernels = device_kernels(lambda: mk.extended_gram(obs_ff, targets, tau))
+    print(f"{tag} moments (fp32): device kernels of one call {kernels}")
+    require(kernels == {"moments_fp32_kernel": 1},
+            f"{tag} K2 fp32 is not one device launch: {kernels}")
+    t_k = cuda_ms(lambda: mk.extended_gram(obs_ff, targets, tau), 50,
+                  lead_ms=K1_LEAD_MS)
+    t_unled = cuda_ms(lambda: mk.extended_gram(obs_ff, targets, tau), 50)
+    t_p = cuda_ms(lambda: mk.extended_gram_plain(obs_ff, targets, tau), 20)
+    v_ext = torch.cat([obs_ff, obs_ff * obs_ff, targets[:, None, :],
+                       tau[:, :, None].expand(T, 4, N)], dim=1) \
+        .permute(1, 0, 2).reshape(R, B).contiguous()
+    t_lib = cuda_ms(lambda: torch.matmul(v_ext, v_ext.T), 50)
+    bms, by = bound_ms(2.0 * (R * (R + 1) // 2) * B + B * do,
+                       4.0 * (B * (do + 1) + 4 * T + R * R))
+    print(f"{tag} moments (fp32, one launch, grid {mk.fp32_grid(T, N)}): "
+          f"{t_k:.5f} ms/launch queued behind the lead, {t_unled:.5f} "
+          f"without it (bound {bms:.5f} ms by {by}, "
+          f"{100 * bms / t_k:.1f} % of it reached), plain {t_p:.4f} ms, "
+          f"torch.matmul of v_ext {t_lib:.5f} ms")
+    return dict(ms=t_k, ms_without_lead=t_unled, plain_ms=t_p,
+                bound_ms=bms, bound_by=by, library_ms=t_lib,
+                grid=mk.fp32_grid(T, N), device_kernels=kernels)
+
+
+def refit_ptxas() -> str:
+    """The ``-Xptxas -v`` lines of the linear baseline's two kernels."""
+    from trpo_robot_control_tpu_torch.ops.cuda import build
+    out, keep = [], False
+    for ln in build.ptxas_report().splitlines():
+        if "Compiling entry" in ln:
+            keep = ln.startswith(("fit_normal:", "moments:")) and (
+                "fit_normal_kernel" in ln or "moments_fp32_kernel" in ln)
+        if keep:
+            out.append(ln)
+    return "\n".join(out)
+
+
+def k2_bf16_sass() -> str:
+    """SHA-256 of K2's bf16-mode functions (the tensor-core kernels and
+    the reduce pass) in the built library's SASS, with the instruction
+    encodings and mangled names taken out, in name order."""
+    from trpo_robot_control_tpu_torch.ops.cuda import build
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass",
+                           str(build._target("moments"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    funcs, name = {}, None
+    for ln in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            name = re.sub(r"_GLOBAL__N__\w+?_\d+_moments_cu_\w+?(?=\d)",
+                          "ANON", m.group(1))
+            funcs[name] = []
+        elif name and "/*" in ln:
+            ins = re.sub(r"_ZN\w+", "SYM",
+                         re.sub(r"/\* 0x[0-9a-f]+ \*/", "", ln)).strip()
+            if ins:
+                funcs[name].append(ins)
+    keep = sorted(k for k in funcs
+                  if "tc_kernel" in k or "reduce_kernel" in k)
+    require(len(keep) == 4, f"K2 bf16-mode functions in the SASS: {keep}")
+    return hashlib.sha256("\n".join("\n".join(funcs[k]) for k in keep)
+                          .encode()).hexdigest()
+
+
 def train_checked(cfg, n_iters, kernels, expect, train):
     """Train ``n_iters`` full-width iterations with the counts set to 0
     just before; checks the launches, the plain calls and the stats and
@@ -949,6 +1060,28 @@ def k1_c1(dev):
     return dict(max_abs_err=max(errs10), ms=ms, us_per_step=1e3 * ms / T,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 philox_sha256=digest)
+
+
+def k2_c1(dev):
+    """K2 fp32 at c1 (64 envs x 50 steps, do 9) on a K1 eps-mode batch:
+    against its plain version, and timed (``k2_times``); returns its
+    record."""
+    from trpo_robot_control_tpu_torch.configs import C1_REACHER2
+    from trpo_robot_control_tpu_torch.ops.cuda import rollout_kernel as rk
+    from trpo_robot_control_tpu_torch.ops.gae import gae
+    cfg = C1_REACHER2
+    params, s0, _ = k1_setup(dev, cfg, 4)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    eps = torch.randn(cfg.horizon, cfg.n_envs, cfg.arm.n_joints,
+                      generator=gen, device=dev)
+    obs_ff, _, rew_ff = rk.rollout(cfg, params, s0.q, s0.qd, s0.tgt, eps=eps)
+    targets = gae(rew_ff, torch.zeros_like(rew_ff), cfg.trpo.gamma,
+                  cfg.trpo.lam, time_axis=0)
+    gram_k, gram_p, tau = k2_check("c1", obs_ff, targets, cfg.horizon)
+    rec = dict(max_abs_err=float((gram_k - gram_p).abs().max()))
+    rec.update(k2_times("c1", obs_ff, targets, tau))
+    return rec
 
 
 def c2_phases(dev):
@@ -1042,27 +1175,18 @@ def c2_phases(dev):
     rec["fit_normal"] = dict(launches=launches["fit_normal"])
 
     # ---- kernel times beside bounds, plain versions and yardsticks
-    B = T * N
     seed_t = torch.tensor([7, 7], dtype=torch.int64, device=dev)
     t_k1 = k1_ms(cfg, params, s0, seed_t)
     t_k1p = cuda_ms(lambda: rk.rollout_plain(cfg, params, s0.q, s0.qd,
                                              s0.tgt, eps), 2, warmup=1)
     b1 = k1_bound(cfg, P)
     rec["rollout"]["us_per_step"] = 1e3 * t_k1 / T
-    t_k2 = cuda_ms(lambda: mk.extended_gram(obs_ff, targets, tau), 50,
-                   lead_ms=K1_LEAD_MS)
-    t_k2_unled = cuda_ms(lambda: mk.extended_gram(obs_ff, targets, tau), 50)
-    print(f"c2 moments: {t_k2:.4f} ms/launch queued behind the lead, "
-          f"{t_k2_unled:.4f} without it")
-    rec["moments"]["ms_without_lead"] = t_k2_unled
-    t_k2p = cuda_ms(lambda: mk.extended_gram_plain(obs_ff, targets, tau), 20)
-    R = 2 * do + 5
-    v_ext = torch.cat([obs_ff, obs_ff * obs_ff, targets[:, None, :],
-                       tau[:, :, None].expand(T, 4, N)], dim=1) \
-        .permute(1, 0, 2).reshape(R, B).contiguous()
-    t_k2lib = cuda_ms(lambda: torch.matmul(v_ext, v_ext.T), 50)
-    b2 = bound_ms(2.0 * (R * (R + 1) // 2) * B + B * do,
-                  4.0 * (B * (do + 1) + 4 * T + R * R))
+    k2 = k2_times("c2", obs_ff, targets, tau)
+    t_k2, t_k2p, t_k2lib = k2["ms"], k2["plain_ms"], k2["library_ms"]
+    b2 = (k2["bound_ms"], k2["bound_by"])
+    rec["moments"]["ms_without_lead"] = k2["ms_without_lead"]
+    rec["moments"]["grid"] = k2["grid"]
+    rec["moments"]["at_c1"] = k2_c1(dev)
     v = torch.randn(P, generator=gen, device=dev)
     t_k3 = cuda_ms(lambda: fvp(v), 50, lead_ms=K1_LEAD_MS)
     t_k3p = cuda_ms(lambda: fk.gn_fvp_plain(params, obs_fvp, hs, scale, v,
@@ -3134,10 +3258,14 @@ def fit_normal_check(dev, tag, cfg, state):
     flops = fit_flops(m)
     bms, by = bound_ms(flops, 4.0 * (m * m + 2 * m))
     one_sm = 1e3 * flops / (PEAK_FP32_FLOPS / 132)
-    print(f"{tag} fit_normal: {t_k:.4f} ms/launch (bound {bms:.3e} ms by "
-          f"{by}, one SM's {one_sm:.3e} ms), plain {t_p:.4f} ms, "
+    rounds = sweeps * (m - 1)
+    us_round = 1e3 * t_k / max(rounds, 1)
+    print(f"{tag} fit_normal: {t_k:.4f} ms/launch, {us_round:.3f} us a "
+          f"round ({sweeps} sweeps x {m - 1} rounds) (bound {bms:.3e} ms "
+          f"by {by}, one SM's {one_sm:.3e} ms), plain {t_p:.4f} ms, "
           f"torch.linalg.eigh of A_s {t_lib:.4f} ms")
     return dict(max_abs_err=err["w_abs"], ms=t_k, plain_ms=t_p,
+                us_per_round=us_round,
                 bound_ms=bms, bound_by=by, bound_one_sm_ms=one_sm,
                 library_ms=t_lib, sweeps=sweeps, F=m, flops=flops,
                 bit_identical_to_statement=bit, kept_condition=kept,
@@ -3268,6 +3396,12 @@ def main() -> int:
     libs += phase8_libs() + phase9_libs() + phase10_libs()
     print(f"build: {build.build_all(libs):.1f} s ({len(libs)} libraries)")
     print(build.ptxas_report())
+    print("the refit's kernels, -Xptxas -v:\n" + refit_ptxas())
+    sass = k2_bf16_sass()
+    print(f"K2 bf16-mode SASS SHA-256 {sass} (the parent design's "
+          f"{K2_BF16_SASS_SHA256}): "
+          + ("unchanged" if sass == K2_BF16_SASS_SHA256 else "CHANGED"))
+    require(sass == K2_BF16_SASS_SHA256, "K2's bf16-mode SASS changed")
     occupancy_k1 = k1_occupancy()
     occupancy = k4_occupancy()
     occupancy_k3 = k3_occupancy()

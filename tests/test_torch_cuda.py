@@ -91,17 +91,75 @@ def test_rollout_kernel_has_no_spills_and_fills_the_card(cuda):
         assert -(-pconfigs.C2_REACHER3.n_envs // o["envs_per_block"]) >= 128, o
 
 
-@pytest.mark.cuda
-def test_moments_kernel_matches_plain_on_card(cuda):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    T, do, N = 20, 12, 300
+# (T, do, N) in fp32 mode: c1, c2, ragged N (tiles straddling two steps),
+# do 1 and the widest, 32
+K2_FP32_SHAPES = [(50, 9, 64), (100, 12, 1024), (20, 12, 300),
+                  (100, 12, 1000), (20, 1, 300), (20, 32, 1000)]
+
+
+def _k2_inputs(cuda, T, do, N, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     obs = torch.randn(T, do, N, generator=g, device=cuda)
     y = 5.0 * torch.randn(T, N, generator=g, device=cuda)
-    tau = moments_kernel._time_features(T, T, cuda)
+    return obs, y, moments_kernel._time_features(T, T, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,do,N", K2_FP32_SHAPES)
+def test_moments_kernel_matches_plain_on_card(cuda, T, do, N):
+    """fp32 mode, one launch: within 1e-5 relative of the Gram summed in
+    fp64, exactly symmetric, and bit-identical from call to call."""
+    obs, y, tau = _k2_inputs(cuda, T, do, N)
     gk = moments_kernel.extended_gram(obs, y, tau)
     gp = moments_kernel.extended_gram_plain(obs, y, tau)
     assert float((gk - gp).abs().max() / gp.abs().max()) < 1e-5
-    assert torch.equal(gk, moments_kernel.extended_gram(obs, y, tau))
+    assert torch.equal(gk, gk.T)
+    for _ in range(3):
+        assert torch.equal(gk, moments_kernel.extended_gram(obs, y, tau))
+
+
+def _device_kernels(fn):
+    """{kernel name: launches} of one call of ``fn``, from torch.profiler's
+    device trace."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if (t if t is not None else getattr(e, "cuda_time_total", 0)) > 0:
+            out[e.key] = out.get(e.key, 0) + e.count
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,do,N", [(50, 9, 64), (100, 12, 1024)])
+def test_moments_kernel_fp32_replays_in_a_cuda_graph_on_card(cuda, T, do,
+                                                             N):
+    """fp32 mode is one device kernel a call (the profiler's trace of an
+    eager call), one wrapper launch under capture, and two replays of the
+    captured graph give the eager call's bits: each launch leaves its
+    tickets at zero."""
+    obs, y, tau = _k2_inputs(cuda, T, do, N, seed=1)
+    eager = moments_kernel.extended_gram(obs, y, tau)
+    kernels = _device_kernels(lambda: moments_kernel.extended_gram(obs, y,
+                                                                  tau))
+    assert list(kernels.values()) == [1], kernels
+    assert "moments_fp32_kernel" in next(iter(kernels)), kernels
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    n0 = moments_kernel.extended_gram.launches
+    with torch.cuda.graph(graph):
+        out = moments_kernel.extended_gram(obs, y, tau)
+    assert moments_kernel.extended_gram.launches == n0 + 1
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert torch.equal(moments_kernel.extended_gram(obs, y, tau), eager)
 
 
 @pytest.mark.cuda
@@ -873,19 +931,23 @@ def test_c2_mlp_trains_on_card_through_k1_and_k3(cuda):
     assert set(state.w) == {"W0", "b0", "W1", "b1"}
 
 
+# do -1 gives F = 2 (spd_system_np's F = 2 do + 4), the smallest system;
+# 9, 12, 24, 27 are c1's, c2's, c3/c4's and c5's F 22, 28, 52, 58, 32 the
+# widest, F 68
 @pytest.mark.cuda
 @pytest.mark.parametrize("cond", [1e2, 1e6])
-@pytest.mark.parametrize("do", [6, 12, 24, 27, 32])
+@pytest.mark.parametrize("do", [-1, 6, 9, 12, 24, 27, 32])
 def test_fit_normal_kernel_matches_statement_on_card(cuda, do, cond):
     """The kernel against the statement of its arithmetic run on the same
     card, bit for bit (the same separately rounded operations in the same
-    order): w and the sweep count; bit-identical repeat calls; the
+    order): w and the sweep count, at the split the launcher takes for
+    this F; bit-identical repeat calls; the
     statement's eigenpairs on the card a decomposition of A_s and w their
     solve (the CPU test's bounds); and the kernel and the eigh solve (the
     plain version) against the fp64-floored solve and against each other
     (prediction space) within ``fit_bound`` (the CPU test's bound, which
     w = 0 fails)."""
-    A, b = (t(x).to(cuda) for x in spd_system_np(do, cond, seed=do))
+    A, b = (t(x).to(cuda) for x in spd_system_np(do, cond, seed=abs(do)))
     w, sweeps = fit_kernel.jacobi_solve(A, b)
     w_s, lam_s, Q_s, sweeps_s = fit_normal_jacobi_statement(A, b)
     assert int(sweeps) == sweeps_s < fit_kernel.MAX_SWEEPS

@@ -12,9 +12,11 @@ import pytest
 import torch
 
 from test_torch_helpers import (FIT_CAP_SPD, FIT_RES_TOL, FIT_SOLVE_TOL,
-                                a_norm_rel, fit_bound,
+                                _round_robin, a_norm_rel, fit_bound,
                                 fit_normal_jacobi_statement,
-                                fit_pairs_errors, fp64_floored_solve, j, n,
+                                fit_pairs_errors, fixed_position_schedule,
+                                fp64_floored_solve, j, n,
+                                schedule_index_at, schedule_position_of,
                                 spd_system_np, t)
 from trpo_robot_control_tpu.models import baseline as jbase
 from trpo_robot_control_tpu_torch import configs as pconfigs
@@ -143,3 +145,22 @@ def test_fit_normal_takes_the_plain_version_on_cpu():
     assert torch.equal(w, fit_kernel.fit_normal_plain(A, b))
     assert kernels.plain_calls()["fit_normal"] == 2
     assert kernels.launch_counts()["fit_normal"] == 0
+
+
+@pytest.mark.parametrize("F", range(2, 70, 2))
+def test_fixed_position_schedule_is_the_round_robin(F):
+    """The kernel walks the statement's round-robin order by fixed
+    positions: in every round the pairs of positions (k, F - 1 - k), each
+    oriented p < q, are ``_round_robin(F)``'s pair k; the closed forms of
+    what the kernel steps round by round give the same layout; after the
+    F - 1 rounds of a sweep the layout is the identity again."""
+    rounds, after = fixed_position_schedule(F)
+    assert len(rounds) == F - 1
+    for r, ((layout, pairs), (p, q)) in enumerate(zip(rounds,
+                                                      _round_robin(F))):
+        assert pairs == list(zip(p.tolist(), q.tolist())), r
+        assert layout == [schedule_index_at(pos, r, F) for pos in range(F)]
+        assert [schedule_position_of(i, r, F) for i in range(F)] == \
+            [layout.index(i) for i in range(F)]
+        assert sorted(layout) == list(range(F))
+    assert after == list(range(F))

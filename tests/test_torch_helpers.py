@@ -719,6 +719,36 @@ def _round_robin(m):
     return rounds
 
 
+def fixed_position_schedule(m):
+    """The fit_normal kernel's schedule as it walks it (``csrc/
+    fit_normal.cu``): index i < m - 1 sits at position (i - r) mod (m - 1)
+    in round r and index m - 1 at m - 1; every round pairs positions
+    (k, m - 1 - k), pair k; between rounds every index but m - 1 moves down
+    one position, cyclically; a pair's p (the angle's sign) is its smaller
+    index. Returns ([(layout, pairs)] per round, the layout after the m - 1
+    rounds): layout[pos] the index at pos, pairs[k] = (p, q), p < q."""
+    layout = list(range(m))
+    rounds = []
+    for _ in range(m - 1):
+        pairs = [tuple(sorted((layout[k], layout[m - 1 - k])))
+                 for k in range(m // 2)]
+        rounds.append((list(layout), pairs))
+        layout = layout[1:m - 1] + layout[:1] + [m - 1]
+    return rounds, layout
+
+
+def schedule_index_at(pos, r, m):
+    """The index at position ``pos`` in round ``r``, in closed form (the
+    kernel steps it: one up, mod m - 1, a round, position m - 1 fixed)."""
+    return m - 1 if pos == m - 1 else (pos + r) % (m - 1)
+
+
+def schedule_position_of(i, r, m):
+    """Index ``i``'s position in round ``r``, in closed form (the kernel's
+    row threads step it: one down, mod m - 1, a round)."""
+    return m - 1 if i == m - 1 else (i - r) % (m - 1)
+
+
 def _square_sum(S, off):
     """sum of S's squares (off: the diagonal skipped), summed as the kernel
     sums them: row i in column order, then the rows in order."""

@@ -156,6 +156,29 @@ def test_moments_plain_matches_pallas_and_twin():
                                np.asarray(A_j)[2 * do:, 2 * do:], rtol=1e-6)
 
 
+# (T, N) of c1, c2, c3, c4, c5 and ragged ones (N not a multiple of the
+# 128-sample tile; tiles that straddle two steps)
+@pytest.mark.parametrize("T,N", [(50, 64), (100, 1024), (200, 4096),
+                                 (200, 16384), (200, 65536), (100, 1000),
+                                 (20, 300), (7, 37)])
+def test_moments_fp32_grid_and_scratch(T, N):
+    """K2 fp32 mode's grid and scratch, as the wrapper computes them: at
+    most F32_GRID blocks and no more than the 128-sample tiles (block b
+    walks tiles b, b + grid, ..., so every block has one); each block the
+    same most tiles the fixed grid allows, and the fewest blocks that do;
+    room for every block's partial and every group's sum."""
+    grid = moments_kernel.fp32_grid(T, N)
+    tiles = -(-T * N // moments_kernel.TILE)
+    most = -(-tiles // moments_kernel.F32_GRID)
+    assert 1 <= grid <= min(tiles, moments_kernel.F32_GRID)
+    assert -(-tiles // grid) == most
+    assert grid == 1 or -(-tiles // (grid - 1)) > most
+    groups = -(-grid // moments_kernel.F32_GROUP)
+    for do in (1, 9, 12, 32):
+        E = (2 * do + 5) * (2 * do + 6) // 2
+        assert moments_kernel.fp32_scratch(grid, do) == (grid + groups) * E
+
+
 @pytest.mark.parametrize("B", [300, 512])
 def test_fvp_plain_matches_pallas_and_twin(B):
     rng = np.random.RandomState(3)

@@ -11,13 +11,32 @@
 // (as the JAX package's normal_eq_ff rounds them) and tau stays fp32.
 //
 // fp32 mode (c1, c2) is bound by bytes on an H100: it reads 5.3 MB at c2
-// (~1.6 us at 3.35 TB/s) against ~0.09 GFLOP of fp32 FMA (~1.3 us at 67
-// TFLOP/s). It reads each obs/y element once, coalesced along the env
-// axis, into a shared tile of v_ext rows (row stride padded by one word);
-// each thread owns fixed upper-triangle entries, sums each tile's 128
-// products on its own and adds the tile sums over the block's tiles in
-// registers (a small tile sum loses less to rounding than one product
-// added at a time to a large running total).
+// (~1.6 us at 3.35 TB/s) against 44.5 M fp32 FMA of upper triangle (~1.3
+// us at 67 TFLOP/s). One launch does it all. A tile is F32_S = 128
+// consecutive samples of the flattened (t, n) axis (a ragged N wastes
+// nothing), staged in shared memory sample-major (an odd number of float4
+// groups a sample, so a float4 column walk hits distinct banks). obs, y
+// and tau arrive by 4-byte cp.async in a ring of F32_NS tiles, so three
+// tiles' loads are in flight while one's products run; the
+// thread that copied a sample's obs rows then forms their squares. The
+// products are register-blocked: a thread owns a 4 x 4 block (I, J),
+// I <= J, of the Gram's upper block triangle and a 1/KS share of every
+// tile's samples, and per sample reads two float4 (rows 4I.., 4J..) for
+// 16 FMA; each tile's products go into fresh accumulators, added to
+// running totals (a small tile sum loses less to rounding than one
+// product added at a time to a large total). The grid fills the card once
+// with an equal share of tiles a block, at most F32_GRID blocks, a fixed
+// number, so the bits do not depend on the card. The cross-block sum
+// follows in the same launch, in a fixed order: each block adds its KS
+// shares in share order and writes its partial; the last block of each
+// group of F32_GROUP (a ticket) sums the group's partials in block order,
+// and the last group to finish sums the group sums in group order into the
+// Gram, each sum's loads all issued before its adds. The tickets are a
+// __device__ array (f32_tickets), zero when the library loads on a device;
+// each last block resets its ticket, so the next launch, or a CUDA graph's
+// replay, finds them 0. Two fp32-mode launches on one device therefore
+// must not run at the same time (the train step issues one at a time, on
+// one stream).
 //
 // bf16 mode (c3-c5) is bound by bytes too, once its products run on the
 // tensor cores: every data operand is a bf16 value (obs as stored, obs^2
@@ -46,9 +65,9 @@
 // tau_k(t) s_a into the v x tau block and tau_k tau_l c (c the tile's
 // valid envs) into the tau x tau block, so tau is never rounded to bf16.
 //
-// Both modes write per-block partials and a second pass sums them in a
-// fixed order: no float atomics, so the result is bit-identical from call
-// to call.
+// bf16 mode writes per-block partials and a second launch sums them in a
+// fixed order. Neither mode uses float atomics, so the result is
+// bit-identical from call to call.
 //
 // C interface (ctypes); returns cudaGetLastError() after the launches.
 
@@ -64,12 +83,8 @@
 namespace {
 
 constexpr int NT = 256;                 // threads per block
-constexpr int S = 128;                  // fp32 mode: samples per tile
-constexpr int SP = S + 1;               // padded row stride
 constexpr int DO_MAX = 32;
 constexpr int R_MAX = 2 * DO_MAX + 5;
-constexpr int E_MAX = R_MAX * (R_MAX + 1) / 2;
-constexpr int PER_THREAD = (E_MAX + NT - 1) / NT;
 constexpr int RED_OUT = 32;             // outputs per reduce block
 constexpr int RED_GROUPS = NT / RED_OUT;
 constexpr int SMEM_MAX = 232448;        // a block's shared memory on sm_90
@@ -84,58 +99,218 @@ __device__ __forceinline__ void entry(int e, int R, int& a, int& b) {
     b = a + e;
 }
 
-__global__ void __launch_bounds__(NT) moments_partial_kernel(
+// ---------------------------------------------------------------- fp32 mode
+
+constexpr int F32_S = 128;                   // samples per tile
+constexpr int F32_NS = 4;                    // cp.async ring stages
+constexpr int F32_GRID = 132;                // most blocks (fixed)
+constexpr int F32_GROUP = 8;                 // blocks a first-level sum
+constexpr int F32_TOP = (F32_GRID + F32_GROUP - 1) / F32_GROUP;  // groups
+constexpr int RB_MAX = (R_MAX + 3) / 4;      // 4-row groups of v_ext
+constexpr int F32_SMEM = F32_NS * F32_S * 4 * (RB_MAX | 1) * 4;  // bytes
+
+// the cross-block sum's tickets: one a group, then the groups' own; zero at
+// load, and left zero by every launch
+__device__ unsigned int f32_tickets[F32_TOP + 1];
+
+// fp32 mode's dynamic shared memory, indexed directly (a generic pointer
+// into it would cost generic loads): F32_NS stages of F32_S samples x RP
+// floats, sample-major; after the tiles, the KS shares' totals of every
+// 4 x 4 block
+extern __shared__ float4 f32_smem4[];
+__device__ __forceinline__ float& f32_smem(int i) {
+    return reinterpret_cast<float*>(f32_smem4)[i];
+}
+
+// 4 bytes global -> shared float i; ok false writes a zero, reads nothing
+__device__ __forceinline__ void f32_cp_async(int i, const float* src,
+                                             bool ok) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_addr(&f32_smem(i))),
+                 "l"(src), "r"(ok ? 4 : 0)
+                 : "memory");
+}
+template <int N>
+__device__ __forceinline__ void f32_cp_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Tile `tile`'s sample s into stage `stage` (row base `row`): obs rows
+// d = half, half + 2, ..., y (d = DO) and, for half 1, tau; one commit
+// group, empty past the last tile.
+__device__ __forceinline__ void f32_issue(
     const float* __restrict__ obs, const float* __restrict__ y,
-    const float* __restrict__ tau, float* __restrict__ partial, int T,
-    int DO, int N) {
-    extern __shared__ float sV[];            // R rows of SP
-    const int R = 2 * DO + 5;
-    const int E = R * (R + 1) / 2;
-    const int tid = threadIdx.x;
-    int ea[PER_THREAD], eb[PER_THREAD];
-    float acc[PER_THREAD];
-#pragma unroll
-    for (int r = 0; r < PER_THREAD; ++r) {
-        const int e = tid + r * NT;
-        if (e < E) entry(e, R, ea[r], eb[r]);
-        acc[r] = 0.f;
-    }
-    const int tiles_per_t = (N + S - 1) / S;
-    const int n_tiles = T * tiles_per_t;
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        const int t = tile / tiles_per_t;
-        const int n0 = (tile % tiles_per_t) * S;
-        __syncthreads();
-        for (int i = tid; i < DO * S; i += NT) {
-            const int d = i / S, j = i % S, n = n0 + j;
-            const float x = (n < N) ? obs[((size_t)t * DO + d) * N + n] : 0.f;
-            sV[d * SP + j] = x;
-            sV[(DO + d) * SP + j] = x * x;
+    const float* __restrict__ tau, int tile, int n_tiles, unsigned total,
+    int N, int DO, int s, int half, int row) {
+    if (tile < n_tiles) {
+        const unsigned q = (unsigned)tile * F32_S + s;
+        const bool ok = q < total;
+        const unsigned t = ok ? q / (unsigned)N : 0u;
+        const unsigned n = ok ? q - t * (unsigned)N : 0u;
+        for (int d = half; d <= DO; d += 2) {
+            if (d < DO)
+                f32_cp_async(row + d, obs + ((size_t)t * DO + d) * N + n, ok);
+            else
+                f32_cp_async(row + 2 * DO, y + (ok ? q : 0u), ok);
         }
-        for (int j = tid; j < S; j += NT) {
-            const bool ok = n0 + j < N;
-            sV[2 * DO * SP + j] = ok ? y[(size_t)t * N + n0 + j] : 0.f;
+        if (half == 1)
 #pragma unroll
             for (int k = 0; k < 4; ++k)
-                sV[(2 * DO + 1 + k) * SP + j] = ok ? tau[t * 4 + k] : 0.f;
+                f32_cp_async(row + 2 * DO + 1 + k, tau + t * 4 + k, ok);
+    }
+    cp_async_commit();
+}
+
+__global__ void __launch_bounds__(NT, 1) moments_fp32_kernel(
+    const float* __restrict__ obs, const float* __restrict__ y,
+    const float* __restrict__ tau, float* __restrict__ partial,
+    float* __restrict__ gram, int T, int DO, int N) {
+    unsigned int* tickets = f32_tickets;
+    __shared__ bool last;
+    const int R = 2 * DO + 5;
+    const int E = R * (R + 1) / 2;
+    const int RB = (R + 3) / 4;             // 4-row groups of v_ext
+    const int RG = RB | 1;                  // odd: a float4 column walk
+    const int RP = 4 * RG;                  // hits distinct banks
+    const int NBT = RB * (RB + 1) / 2;
+    const int KS = NT / NBT;
+    const int tid = threadIdx.x;
+    const unsigned total = (unsigned)T * (unsigned)N;   // < 2^31
+    const int n_tiles = (int)((total + F32_S - 1) / F32_S);
+
+    // this thread's 4 x 4 block (I, J) of the upper block triangle, and its
+    // share of each tile's samples
+    const int bt = tid % NBT, ks = tid / NBT;
+    const bool comp = ks < KS;
+    int I = 0, J = bt;
+    while (J >= RB - I) {
+        J -= RB - I;
+        ++I;
+    }
+    J += I;
+    float run[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) run[e] = 0.f;
+
+    // staging: sample s, its rows d = half, half + 2, ... (f32_issue); the
+    // same thread then forms the squares of its obs rows
+    const int s = tid % F32_S, half = tid / F32_S;
+    for (int e = tid; e < F32_NS * F32_S; e += NT)   // the padding rows
+        for (int r = R; r < RP; ++r) f32_smem(e * RP + r) = 0.f;
+#pragma unroll
+    for (int k = 0; k < F32_NS - 1; ++k)
+        f32_issue(obs, y, tau, blockIdx.x + k * gridDim.x, n_tiles, total, N,
+                  DO, s, half, (k * F32_S + s) * RP);
+    for (int li = 0;; ++li) {
+        const int tile = blockIdx.x + li * gridDim.x;
+        if (tile >= n_tiles) break;
+        const int stage = li % F32_NS;
+        __syncthreads();                    // the refilled stage is consumed
+        f32_issue(obs, y, tau, tile + (F32_NS - 1) * gridDim.x, n_tiles,
+                  total, N, DO, s, half,
+                  (((li + F32_NS - 1) % F32_NS) * F32_S + s) * RP);
+        f32_cp_wait<F32_NS - 1>();          // this thread's copies of tile
+        const int row = (stage * F32_S + s) * RP;
+        for (int d = half; d < DO; d += 2) {
+            const float x = f32_smem(row + d);
+            f32_smem(row + DO + d) = __fmul_rn(x, x);
         }
         __syncthreads();
+        if (comp) {
+            // a tile's products into fresh accumulators, then the running
+            // totals (a small tile sum loses less to rounding than one
+            // product added at a time to a large total)
+            const int base = stage * F32_S * RG;
+            float acc[16];
 #pragma unroll
-        for (int r = 0; r < PER_THREAD; ++r) {
-            if (tid + r * NT < E) {
-                const float* va = sV + ea[r] * SP;
-                const float* vb = sV + eb[r] * SP;
-                float s = 0.f;         // the tile's sum, then the block's
-                for (int j = 0; j < S; ++j) s = fmaf(va[j], vb[j], s);
-                acc[r] += s;
+            for (int e = 0; e < 16; ++e) acc[e] = 0.f;
+            for (int j = ks; j < F32_S; j += KS) {
+                const float4 a = f32_smem4[base + j * RG + I];
+                const float4 b = f32_smem4[base + j * RG + J];
+                const float av[4] = {a.x, a.y, a.z, a.w};
+                const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+                for (int u = 0; u < 4; ++u)
+#pragma unroll
+                    for (int v = 0; v < 4; ++v)
+                        acc[u * 4 + v] = fmaf(av[u], bv[v], acc[u * 4 + v]);
             }
+#pragma unroll
+            for (int e = 0; e < 16; ++e) run[e] += acc[e];
         }
     }
+    f32_cp_wait<0>();
+
+    // the block's partial: each entry's KS shares in share order
+    __syncthreads();
+    if (comp) {
 #pragma unroll
-    for (int r = 0; r < PER_THREAD; ++r) {
-        const int e = tid + r * NT;
-        if (e < E) partial[(size_t)blockIdx.x * E + e] = acc[r];
+        for (int e = 0; e < 16; ++e) f32_smem((ks * NBT + bt) * 16 + e) = run[e];
     }
+    __syncthreads();
+    for (int e = tid; e < E; e += NT) {
+        int a, b;
+        entry(e, R, a, b);
+        const int Ia = a / 4, Jb = b / 4;
+        const int blk = Ia * RB - Ia * (Ia - 1) / 2 + (Jb - Ia);
+        const int at = (a % 4) * 4 + b % 4;
+        float v = 0.f;
+        for (int k = 0; k < KS; ++k) v += f32_smem((k * NBT + blk) * 16 + at);
+        partial[(size_t)blockIdx.x * E + e] = v;
+    }
+
+    // the cross-block sum: the last block of each group, then the last
+    // group; every partial of a sum is loaded before any is added
+    const int G = gridDim.x;
+    const int NG = (G + F32_GROUP - 1) / F32_GROUP;
+    const int grp = blockIdx.x / F32_GROUP;
+    const int first = grp * F32_GROUP, size = min(F32_GROUP, G - first);
+    float* gpart = partial + (size_t)G * E;
+    // a barrier, then one thread's fence before the ticket and after it
+    // (as a grid-wide barrier orders its blocks' writes)
+    __syncthreads();
+    if (tid == 0) {
+        __threadfence();
+        last = atomicAdd(&tickets[grp], 1u) == (unsigned)size - 1;
+        if (last) __threadfence();
+    }
+    __syncthreads();
+    if (!last) return;
+    for (int e = tid; e < E; e += NT) {
+        float x[F32_GROUP];
+#pragma unroll
+        for (int k = 0; k < F32_GROUP; ++k)
+            x[k] = k < size ? __ldcg(partial + (size_t)(first + k) * E + e) : 0.f;
+        float v = 0.f;
+#pragma unroll
+        for (int k = 0; k < F32_GROUP; ++k)
+            if (k < size) v += x[k];
+        gpart[(size_t)grp * E + e] = v;
+    }
+    __syncthreads();
+    if (tid == 0) {
+        tickets[grp] = 0;
+        __threadfence();
+        last = atomicAdd(&tickets[F32_TOP], 1u) == (unsigned)NG - 1;
+        if (last) __threadfence();
+    }
+    __syncthreads();
+    if (!last) return;
+    for (int e = tid; e < E; e += NT) {
+        float x[F32_TOP];
+#pragma unroll
+        for (int k = 0; k < F32_TOP; ++k)
+            x[k] = k < NG ? __ldcg(gpart + (size_t)k * E + e) : 0.f;
+        float v = 0.f;
+#pragma unroll
+        for (int k = 0; k < F32_TOP; ++k)
+            if (k < NG) v += x[k];
+        int a, b;
+        entry(e, R, a, b);
+        gram[a * R + b] = v;
+        gram[b * R + a] = v;
+    }
+    if (tid == 0) tickets[F32_TOP] = 0;
 }
 
 // ---------------------------------------------------------------- bf16 mode
@@ -303,8 +478,8 @@ __device__ __forceinline__ void tile_products(
 }
 
 // Per-block partial of the extended Gram in bf16 mode; NB 8-column blocks
-// (8 NB >= 2 DO + 2). Same partial layout as
-// moments_partial_kernel.
+// (8 NB >= 2 DO + 2): E upper-triangle entries a block, row by row, which
+// moments_reduce_kernel sums.
 template <int NB>
 __global__ void __launch_bounds__(NT, Frags<NB>::M == 64 ? 2 : 1)
     moments_partial_tc_kernel(const __nv_bfloat16* __restrict__ obs,
@@ -490,6 +665,20 @@ __global__ void __launch_bounds__(NT) moments_reduce_kernel(
     }
 }
 
+// fp32 mode's shared memory opt-in, once per device: the host call takes
+// microseconds, longer than a launch at c1 or c2
+cudaError_t f32_allow_smem() {
+    static bool done[64];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+    err = cudaFuncSetAttribute(moments_fp32_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               F32_SMEM);
+    if (err == cudaSuccess && dev < 64) done[dev] = true;
+    return err;
+}
+
 template <int NB>
 cudaError_t launch_tc(const __nv_bfloat16* obs, const float* y,
                       const float* tau, float* partial, int T, int DO, int N,
@@ -510,8 +699,10 @@ cudaError_t launch_tc(const __nv_bfloat16* obs, const float* y,
 }  // namespace
 
 // obs (T, do, N) fp32, or bf16 when obs_bf16 != 0; y (T, N) and
-// tau (T, 4) fp32, all on the device; partial: n_blocks * E floats of
-// scratch; gram: (2do+5)^2 floats out.
+// tau (T, 4) fp32, all on the device; gram: (2do+5)^2 floats out.
+// partial: scratch, n_blocks * E floats in bf16 mode, (n_blocks +
+// ceil(n_blocks / 8)) * E in fp32 mode (n_blocks <= 132 there; one
+// fp32-mode launch at a time on a device, f32_tickets).
 extern "C" int trpo_moments_launch(const void* obs, const float* y,
                                    const float* tau, float* partial,
                                    float* gram, int T, int DO, int N,
@@ -533,10 +724,18 @@ extern "C" int trpo_moments_launch(const void* obs, const float* y,
                         : launch_tc<9>(o, y, tau, partial, T, DO, N, n_blocks,
                                        st);
     } else {
-        const size_t smem = (size_t)R * SP * sizeof(float);
-        moments_partial_kernel<<<n_blocks, NT, smem, st>>>(
-            static_cast<const float*>(obs), y, tau, partial, T, DO, N);
-        err = cudaGetLastError();
+        if (n_blocks < 1 || n_blocks > F32_GRID
+            || (long long)T * N >= (1LL << 31) - F32_S)
+            return (int)cudaErrorInvalidValue;
+        const int RB = (R + 3) / 4, NBT = RB * (RB + 1) / 2;
+        const size_t ring = (size_t)F32_NS * F32_S * 4 * (RB | 1) * 4;
+        const size_t red = (size_t)(NT / NBT) * NBT * 16 * sizeof(float);
+        const size_t smem = ring > red ? ring : red;
+        err = f32_allow_smem();
+        if (err != cudaSuccess) return (int)err;
+        moments_fp32_kernel<<<n_blocks, NT, smem, st>>>(
+            static_cast<const float*>(obs), y, tau, partial, gram, T, DO, N);
+        return (int)cudaGetLastError();
     }
     if (err != cudaSuccess) return (int)err;
     moments_reduce_kernel<<<(E + RED_OUT - 1) / RED_OUT, NT, 0, st>>>(

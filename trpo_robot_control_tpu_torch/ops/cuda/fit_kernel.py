@@ -5,7 +5,7 @@ with XLA's ``jnp.linalg.eigh`` (``trpo_robot_control_tpu/models/
 baseline.py:155``, ``fit_normal``). On the card ``torch.linalg.eigh``
 checks its ``info`` on the host, a device synchronisation that a CUDA
 graph cannot capture, so the card solves with this kernel instead: one
-block, one launch a fit, no host read.
+block of 7-24 warps, one launch a fit, no host read.
 
 It computes what ``fit_normal_plain`` computes: Jacobi scaling
 ``d = sqrt(diag A + eps)``, ``A_s = A / (d d^T)``; a symmetric

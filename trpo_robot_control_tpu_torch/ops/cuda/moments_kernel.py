@@ -9,7 +9,11 @@ A_tt = N tau^T tau, as the TPU wrapper does. obs_ff may be fp32 or bf16
 (c3's storage); in bf16 mode obs^2 and y are rounded to bf16 and tau
 stays fp32, as ``models/baseline.normal_eq_ff`` rounds them, and the
 products run on the tensor cores (``mma.sync``, exact bf16 products summed
-in fp32).
+in fp32), with a second launch summing the blocks' partials. fp32 mode is
+one launch: register-blocked fp32 FMA over tiles of the flattened (t, n)
+axis, and the cross-block sum in a fixed order behind two levels of
+tickets (``fp32_grid``, ``fp32_scratch``; the tickets are the library's
+own device array, so two fp32 calls on one device must not overlap).
 
 ``extended_gram`` is the wrapper: the CUDA kernel on CUDA tensors (or it
 raises), ``extended_gram_plain`` on CPU tensors. ``baseline_moments`` is
@@ -26,13 +30,33 @@ import torch
 from . import build
 from ...models.baseline import _time_features, assemble, data_rows
 
-TILE = 128          # fp32 mode: envs of one step per tile (csrc/moments.cu: S)
-BF16_TILE = 256     # bf16 mode's (csrc/moments.cu: ST)
-MAX_BLOCKS = 256    # fixed, so the reduction order does not depend on the card
+# fp32 mode (csrc/moments.cu: F32_S, F32_GRID, F32_GROUP): samples of the
+# flattened (t, n) axis a tile; the most blocks, fixed, so the sum's order
+# does not depend on the card; blocks a first-level sum
+TILE = 128
+F32_GRID = 132
+F32_GROUP = 8
+BF16_TILE = 256     # bf16 mode's envs of one step a tile (csrc/moments.cu: ST)
+MAX_BLOCKS = 256    # bf16 mode's most blocks, fixed as F32_GRID is
 MAX_OBS_DIM = 32
 
 _SIG = {"trpo_moments_launch": [ctypes.c_void_p] * 5
         + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
+
+
+def fp32_grid(T: int, N: int) -> int:
+    """fp32 mode's blocks: the fewest that give every block the same most
+    tiles, ceil(tiles / ceil(tiles / F32_GRID)); block b sums tiles b,
+    b + grid, ..."""
+    tiles = -(-T * N // TILE)
+    return -(-tiles // -(-tiles // F32_GRID))
+
+
+def fp32_scratch(grid: int, do: int) -> int:
+    """fp32 mode's scratch floats: each block's partial, then each group's
+    sum, E = R (R + 1) / 2 entries each."""
+    R = 2 * do + 5
+    return (grid + -(-grid // F32_GROUP)) * (R * (R + 1) // 2)
 
 
 def extended_gram_plain(obs_ff, y, tau):
@@ -53,7 +77,10 @@ extended_gram_plain.calls = 0
 
 
 def extended_gram(obs_ff, y, tau):
-    """The (2do+5, 2do+5) Gram of ``extended_gram_plain``."""
+    """The (2do+5, 2do+5) Gram of ``extended_gram_plain``. In fp32 mode the
+    kernel's cross-block tickets are one array a device, so calls on one
+    device must not run at the same time (on two streams, or two graphs
+    replayed at once)."""
     if not obs_ff.is_cuda:
         return extended_gram_plain(obs_ff, y, tau)
     T, do, N = obs_ff.shape
@@ -70,16 +97,19 @@ def extended_gram(obs_ff, y, tau):
             raise ValueError(f"{name}: need a contiguous {shape} tensor on "
                              f"{obs_ff.device} (fp32, obs_ff fp32 or bf16)")
     R = 2 * do + 5
-    E = R * (R + 1) // 2
-    tile = BF16_TILE if bf16 else TILE
-    n_blocks = min(T * -(-N // tile), MAX_BLOCKS)
-    partial = torch.empty(n_blocks * E, device=obs_ff.device)
-    gram = torch.empty(R, R, device=obs_ff.device)
+    dev = obs_ff.device
+    if bf16:
+        n_blocks = min(T * -(-N // BF16_TILE), MAX_BLOCKS)
+        partial = torch.empty(n_blocks * (R * (R + 1) // 2), device=dev)
+    else:
+        n_blocks = fp32_grid(T, N)
+        partial = torch.empty(fp32_scratch(n_blocks, do), device=dev)
+    gram = torch.empty(R, R, device=dev)
     lib = build.library("moments", _SIG)
     err = lib.trpo_moments_launch(
         build.ptr(obs_ff), build.ptr(y), build.ptr(tau), build.ptr(partial),
         build.ptr(gram), T, do, N, n_blocks, int(bf16),
-        build.stream_handle(obs_ff.device))
+        build.stream_handle(dev))
     build.check(err, "moments kernel")
     extended_gram.launches += 1
     return gram
