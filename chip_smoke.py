@@ -165,7 +165,27 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
    ``tests/test_torch_helpers.py``), the eigh solve and an fp64 one,
    timed beside its bound (the whole card's, one SM's beside it), the
    plain version and ``torch.linalg.eigh`` of the same A_s, with its µs a
-   Jacobi round.
+   Jacobi round;
+13. data parallelism, ``parallel/mesh.py`` (``sharded_phases``), through
+   the same kernels: (a) ``make_mesh`` makes a world of one over NCCL in
+   this process; at c1-c5 ``make_sharded_update`` on ``shard_batch`` of one
+   rollout equals ``trpo_update`` bit for bit with the same launches, and
+   at c2 and c5 ``make_train_many(cfg, 3, mesh)`` equals the replayed
+   graph of ``make_train_many(cfg, 3)``; all-reduces and bytes an update,
+   ms an update sharded and unsharded in turns, one all-reduce's µs;
+   (b) SHARD_RANKS gloo ranks spawned on the card (CUDA tensors staged
+   through the host) on their ``shard_batch``es of one c2 and one c3
+   batch (c3: K6 chosen on the global 102,400-sample subsample, 51,200 a
+   rank), bit-identical to each other, the unsharded update's launches on
+   each, and the unsharded update's direction (cosine >= 0.999), beta
+   (1e-3), accepted exponent and theta (rtol 2e-3, atol 2e-4); c3 on four
+   seeds; the summed normal equations within SHARD_MOMENTS_TOL of the
+   unsharded ones and the refit within FIT_CAP in the A-norm; ms an
+   update and peak memory a rank; then
+   ``train_sharded`` for SHARD_TRAIN_ITERS iterations at c2, the ranks bit
+   for bit; (c) ``python -m torch.distributed.run --standalone
+   --nproc_per_node 1 -m trpo_robot_control_tpu_torch.cli.train --config
+   c2_reacher3 --sharded --iters 2`` exits 0.
 
 Before the phases it prints the ``-Xptxas -v`` lines of the linear
 baseline's two kernels (``fit_normal_kernel``, K2's
@@ -191,7 +211,8 @@ the ``fvp`` entry's ``at_c3_mlp``), and the terminating
 instantiations as ``rollout_term``
 (c2) and ``rollout3d_term`` (c5, c5-planar3 under ``at_c5_planar3``),
 ``fit_normal`` at c2, the other linear paths under ``at_<tag>``; phase
-12's per-config figures on the ``train_many`` line before them),
+12's per-config figures on the ``train_many`` line and phase 13's on the
+``sharded`` line before them),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -3379,6 +3400,483 @@ def train_many_phases(dev):
     return out
 
 
+# Phase 13: data parallelism (parallel/mesh.py) through the same kernels:
+# (a) a world of one over NCCL in this process, bit for bit the unsharded
+# path; (b) SHARD_RANKS gloo ranks sharing the card on one batch each of c2
+# and c3, held to the unsharded update at ROADMAP's parity contract and
+# test_sharding.py's bounds, then train_sharded; (c) the CLI under torchrun
+SHARD_RANKS = 2
+SHARD_TRAIN_ITERS = 3
+SHARD_TIMEOUT_S = 300
+SHARD_REPS = 3
+# 13b's batches, (tag, config, seed): c3 on four seeds, since the refit's
+# end-to-end check there reads the ridge solve's sensitivity
+SHARD_BATCHES = (("c2", "C2_REACHER3", 48), ("c3", "C3_FRANKA7", 49),
+                 ("c3_s50", "C3_FRANKA7", 50), ("c3_s51", "C3_FRANKA7", 51),
+                 ("c3_s52", "C3_FRANKA7", 52))
+# the ranks' summed normal equations against the unsharded ones (fp32
+# sums in another order): max |dA_ij| / sqrt(A_ii A_jj), max |db| / max |b|
+SHARD_MOMENTS_TOL = 1e-5
+
+
+def all_reduce_us(group, n: int, dev) -> dict:
+    """Host µs a ``collectives.all_reduce`` of ``n`` fp32 on ``dev`` over
+    ``group``: each call synchronised, and queued (50 calls, then one
+    synchronisation); and a bare ``dist.all_reduce`` in place, queued."""
+    import torch.distributed as dist
+    from trpo_robot_control_tpu_torch.parallel import collectives
+    x = torch.ones(n, device=dev)
+    sync = 1e3 * host_ms(lambda: collectives.all_reduce(x, group), 50)
+
+    def queued(fn, reps=50):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e6 * (time.perf_counter() - t0) / reps
+    return dict(n=n, synchronised_us=sync,
+                queued_us=queued(lambda: collectives.all_reduce(x, group)),
+                bare_queued_us=queued(lambda: dist.all_reduce(x, group=group)))
+
+
+class NormalEquations:
+    """While entered, records the data rows that ``trpo_update`` hands K2
+    (``rows``: obs_ff, the targets, the horizon) and each (A + ridge I, b)
+    that ``baseline.fit_moments`` hands ``fit_normal`` (``seen``, on the
+    host in fp64); both calls run as before."""
+
+    def __enter__(self):
+        from trpo_robot_control_tpu_torch.models import baseline
+        from trpo_robot_control_tpu_torch.trpo import update
+        self.saved = [(baseline, "fit_normal", baseline.fit_normal),
+                      (update, "baseline_moments", update.baseline_moments)]
+        self.seen, self.rows = [], []
+        solve, moments = baseline.fit_normal, update.baseline_moments
+
+        def fit_spy(A, b, *args, **kw):
+            self.seen.append((A.detach().double().cpu(),
+                              b.detach().double().cpu()))
+            return solve(A, b, *args, **kw)
+
+        def moments_spy(obs_ff, targets, horizon):
+            self.rows.append((obs_ff, targets, horizon))
+            return moments(obs_ff, targets, horizon)
+        baseline.fit_normal, update.baseline_moments = fit_spy, moments_spy
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+
+
+def exact_refit(obs_ff, targets, horizon: int, reg: float):
+    """The ridge refit from the same rows with K2's Gram summed exactly
+    (``extended_gram_plain``: fp64 sums, rounded to fp32 once), solved by
+    ``fit_normal``: the unsharded refit with its sums in another order.
+    Returns (w, A + ridge I in fp64 on the host)."""
+    from trpo_robot_control_tpu_torch.models import baseline
+    from trpo_robot_control_tpu_torch.ops.cuda.moments_kernel import \
+        extended_gram_plain
+    T, do, N = obs_ff.shape
+    tau = baseline._time_features(T, horizon, obs_ff.device)
+    gram = extended_gram_plain(obs_ff, targets.contiguous(), tau)
+    F2 = 2 * do + 1
+    A, b = baseline.assemble(gram[:F2, :F2], gram[:F2, F2:], tau, N, do)
+    A = A + reg * torch.eye(A.shape[0], device=A.device)
+    return baseline.fit_normal(A, b), A.double().cpu()
+
+
+def moments_err(A, b, A_ref, b_ref) -> dict:
+    """The summed normal equations against the unsharded ones:
+    max |dA_ij| / sqrt(A_ii A_jj) and max |db_i| / max |b|."""
+    d = torch.sqrt(torch.diagonal(A_ref))
+    return dict(A=float(((A - A_ref).abs() / (d[:, None] * d[None, :])).max()),
+                b=float((b - b_ref).abs().max() / b_ref.abs().max()))
+
+
+def kept_directions(A, rel_floor: float = 1e-6) -> dict:
+    """The Jacobi-scaled A's eigenvalues in fp64 that ``fit_normal`` keeps
+    (>= rel_floor times the largest): their count, of F, and the kept
+    condition number."""
+    d = torch.sqrt(torch.diagonal(A))
+    lam = torch.linalg.eigvalsh(A / (d[:, None] * d[None, :]))
+    kept = lam[lam > rel_floor * lam[-1]]
+    return dict(kept=int(kept.numel()), F=int(lam.numel()),
+                cond=float(lam[-1] / kept[0]))
+
+
+def host_ms(fn, reps: int = SHARD_REPS) -> float:
+    """Host ms a call of ``fn`` over ``reps`` calls after one, each ending
+    in a synchronisation (an update's time as its caller sees it)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def sharded_one(dev):
+    """13a: ``make_mesh`` with no group makes a world of one over NCCL; at
+    c1-c5 ``make_sharded_update`` on ``shard_batch`` of one rollout equals
+    ``trpo_update`` bit for bit (parameters, baseline, every stat) with the
+    same launches; at c2 and c5 ``make_train_many(cfg, 3, mesh)`` (eager)
+    equals ``make_train_many(cfg, 3)`` (the replayed graph) bit for bit.
+    Counts, all-reduces and ms an update (unsharded, sharded, sharded,
+    unsharded) per config. Destroys the group. Returns {tag: record}."""
+    import torch.distributed as dist
+    from trpo_robot_control_tpu_torch.configs import (C1_REACHER2,
+                                                      C2_REACHER3,
+                                                      C3_FRANKA7,
+                                                      C4_FRANKA7_OBSTACLE,
+                                                      C5_MULTITASK)
+    from trpo_robot_control_tpu_torch.envs import arm
+    from trpo_robot_control_tpu_torch.ops import cuda as kernels
+    from trpo_robot_control_tpu_torch.parallel import collectives
+    from trpo_robot_control_tpu_torch.parallel import mesh as pm
+    from trpo_robot_control_tpu_torch.trpo.train import (init_state,
+                                                         make_train_many)
+    from trpo_robot_control_tpu_torch.trpo.update import trpo_update
+    leaves = port_test_helpers().state_leaves
+    mesh = pm.make_mesh(device=dev)
+    backend = dist.get_backend(mesh.group)
+    require(backend == "nccl" and mesh.shape == {"data": 1, "model": 1},
+            f"world of one: {backend}, {mesh.shape}")
+    out = {}
+    for tag, cfg, seed in (("c1", C1_REACHER2, 40), ("c2", C2_REACHER3, 41),
+                           ("c3", C3_FRANKA7, 42),
+                           ("c4", C4_FRANKA7_OBSTACLE, 43),
+                           ("c5", C5_MULTITASK, 44)):
+        st = init_state(cfg, seed=seed, device=dev)
+        batch = arm.make_rollout_fn(cfg)(st.params, st.gen)
+        kernels.reset_counts()
+        ref = trpo_update(cfg, st.params, st.w, batch)
+        want = kernels.launch_counts()
+        update = pm.make_sharded_update(cfg, mesh)
+        kernels.reset_counts()
+        collectives.reset_counts()
+        got = update(st.params, st.w, pm.shard_batch(mesh, batch))
+        launches, plain = kernels.launch_counts(), kernels.plain_calls()
+        calls = collectives.all_reduce.calls
+        nbytes = collectives.all_reduce.bytes
+        a, b = (leaves(type("S", (), dict(params=r[0], w=r[1]))) for r in
+                (ref, got))
+        bit = all(torch.equal(x, y) for x, y in zip(a, b)) and \
+            ref[2].keys() == got[2].keys() and \
+            all(torch.equal(ref[2][k], got[2][k]) for k in ref[2])
+        print(f"{tag} sharded update, world of one ({backend}): "
+              f"bit-identical {bit}; launches {launches} (unsharded "
+              f"{want}); {calls} all-reduces, {nbytes} bytes an update")
+        require(bit and launches == want
+                and all(c == 0 for c in plain.values()),
+                f"{tag} world of one against the unsharded update")
+        ms = [host_ms(lambda: trpo_update(cfg, st.params, st.w, batch)),
+              host_ms(lambda: update(st.params, st.w, batch))]
+        ms += [host_ms(lambda: update(st.params, st.w, batch)),
+               host_ms(lambda: trpo_update(cfg, st.params, st.w, batch))]
+        unsharded_ms, sharded_ms = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+        print(f"{tag} ms an update (host, synchronised; turns unsharded, "
+              f"sharded, sharded, unsharded {[round(m, 3) for m in ms]}): "
+              f"unsharded {unsharded_ms:.3f}, sharded on one rank "
+              f"{sharded_ms:.3f}")
+        out[tag] = dict(bit_identical=bit, launches=launches,
+                        all_reduces=calls, all_reduce_bytes=nbytes,
+                        unsharded_ms=unsharded_ms, sharded_ms=sharded_ms,
+                        turns_ms=ms)
+        del st, batch, ref, got
+    ar = all_reduce_us(mesh.group, 5190, dev)
+    print(f"one all-reduce of c2's P = 5190 floats ({backend}, world of "
+          f"one): {ar['synchronised_us']:.1f} µs synchronised, "
+          f"{ar['queued_us']:.1f} µs queued, bare dist.all_reduce "
+          f"{ar['bare_queued_us']:.1f} µs queued")
+    out["all_reduce"] = ar
+    for tag, cfg, seed in (("c2", C2_REACHER3, 45), ("c5", C5_MULTITASK, 46)):
+        s1, st1 = make_train_many(cfg, 3)(init_state(cfg, seed, dev))
+        s2, st2 = make_train_many(cfg, 3, mesh)(init_state(cfg, seed, dev))
+        bit = all(torch.equal(x, y) for x, y in zip(leaves(s1), leaves(s2))) \
+            and st1.keys() == st2.keys() \
+            and all(torch.equal(st1[k], st2[k]) for k in st1)
+        print(f"{tag} make_train_many(cfg, 3, mesh) against the replayed "
+              f"graph: bit-identical {bit}")
+        require(bit, f"{tag} sharded train loop against the unsharded one")
+        out[tag]["train_many_bit_identical"] = bit
+    dist.destroy_process_group()
+    return out
+
+
+def _shard_rank(rank, port, tmp, dev):
+    """13b, one rank of SHARD_RANKS over gloo on the card (a spawned
+    process): its ``shard_batch`` of each saved batch through
+    ``make_sharded_update`` (launches, all-reduces, ms an update), then
+    ``train_sharded`` at c2; writes ``rank<r>.pt`` to ``tmp``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(SHARD_RANKS),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    from trpo_robot_control_tpu_torch.ops import cuda as kernels
+    from trpo_robot_control_tpu_torch.parallel import collectives
+    from trpo_robot_control_tpu_torch.parallel import mesh as pm
+    pm.init_distributed(timeout_s=120)
+    mesh = pm.make_mesh(device=dev, backend="gloo")
+    out = {}
+    for tag, _, _ in SHARD_BATCHES:
+        saved = torch.load(os.path.join(tmp, f"{tag}.pt"), weights_only=False)
+        cfg = saved["cfg"]
+        params = {k: v.to(dev) for k, v in saved["params"].items()}
+        w = saved["w"].to(dev)
+        local = pm.shard_batch(mesh, saved["batch"])
+        update = pm.make_sharded_update(cfg, mesh)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        collectives.reset_counts()
+        with NormalEquations() as normal:
+            new, w_new, st = update(params, w, local, return_directions=True)
+        torch.cuda.synchronize()
+        rec = dict(launches=kernels.launch_counts(),
+                   plain=kernels.plain_calls(),
+                   all_reduces=collectives.all_reduce.calls,
+                   all_reduce_bytes=collectives.all_reduce.bytes,
+                   moments=normal.seen,
+                   theta=torch.cat([new[k].reshape(-1) for k in sorted(new)]
+                                   ).cpu(),
+                   w=w_new.cpu(), stats={k: v.cpu() for k, v in st.items()})
+        rec["ms"] = host_ms(lambda: update(params, w, local))
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[tag] = rec
+    out["all_reduce"] = all_reduce_us(mesh.group, 5190, dev)
+    cfg = torch.load(os.path.join(tmp, "c2.pt"), weights_only=False)["cfg"]
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    state, hist = pm.train_sharded(cfg, mesh, n_iters=SHARD_TRAIN_ITERS,
+                                   seed=47)
+    torch.cuda.synchronize()
+    out["train"] = dict(
+        seconds=time.perf_counter() - t0, history=hist,
+        launches=kernels.launch_counts(),
+        leaves=[x.cpu() for x in port_test_helpers().state_leaves(state)])
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def sharded_gloo(dev):
+    """13b: one batch each of c2 (1024 x 100: K1, K2 fp32, fit_normal, K3
+    x 10) and, on SHARD_BATCHES' four seeds, c3 (4096 x 200: K4, K2-bf16,
+    K5-bf16 on the global 819,200 samples, K6 on the global 102,400-sample
+    subsample, 51,200 a rank), collected once by the unsharded rollout and
+    updated unsharded here, then by SHARD_RANKS spawned gloo ranks sharing
+    the card on their ``shard_batch``es: ranks bit-identical; against the
+    unsharded update the direction cosine >= 0.999, |beta| rel <= 1e-3,
+    the same accepted exponent (else both KLs against delta printed, and
+    a failure), theta within rtol 2e-3 atol 2e-4 (tests/test_sharding.py
+    :48-63); the normal equations the ranks solve (summed over them, ridge
+    added) within SHARD_MOMENTS_TOL of the unsharded ones, and the refit
+    within FIT_CAP of the unsharded one in the A-norm (the relative RMS
+    error of the predictions over the batch; the max error of the
+    predictions against their mean scale, test_sharding.py's form, is
+    printed beside it, with the same two figures for the unsharded rows
+    summed exactly, and the directions the solve keeps and its kept
+    condition number for both systems); each rank's launches those of the
+    unsharded update, no plain version; then
+    train_sharded's SHARD_TRAIN_ITERS iterations at c2: KL <= delta,
+    finite stats, ranks bit-identical. Returns its record."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from trpo_robot_control_tpu_torch import configs
+    from trpo_robot_control_tpu_torch.configs import C2_REACHER3
+    from trpo_robot_control_tpu_torch.envs import arm
+    from trpo_robot_control_tpu_torch.models import baseline, policy
+    from trpo_robot_control_tpu_torch.ops import cuda as kernels
+    from trpo_robot_control_tpu_torch.trpo.train import init_state
+    from trpo_robot_control_tpu_torch.trpo.update import trpo_update
+    cosine = port_test_helpers().cosine
+    refs, out = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, name, seed in SHARD_BATCHES:
+            cfg = getattr(configs, name)
+            st = init_state(cfg, seed=seed, device=dev)
+            batch = arm.make_rollout_fn(cfg)(st.params, st.gen)
+            kernels.reset_counts()
+            with NormalEquations() as normal:
+                new, w_new, stats = trpo_update(cfg, st.params, st.w, batch,
+                                                return_directions=True)
+            launches = kernels.launch_counts()
+            w_exact, _ = exact_refit(*normal.rows[0], cfg.trpo.baseline_reg)
+            refs[tag] = dict(launches=launches, moments=normal.seen,
+                             w_exact=w_exact.cpu(),
+                             theta=policy.flatten(new).cpu(),
+                             theta0=policy.flatten(st.params).cpu(),
+                             w=w_new.cpu(), stats={k: v.cpu()
+                                                   for k, v in stats.items()},
+                             obs=batch["obs"], horizon=cfg.horizon,
+                             delta=cfg.trpo.delta)
+            refs[tag]["ms"] = host_ms(
+                lambda: trpo_update(cfg, st.params, st.w, batch))
+            torch.save(dict(cfg=cfg, params={k: v.cpu() for k, v in
+                                             st.params.items()},
+                            w=st.w.cpu(), batch={k: v.cpu() for k, v in
+                                                 batch.items()}),
+                       os.path.join(tmp, f"{tag}.pt"))
+            del st, batch
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        ctx = mp.spawn(_shard_rank, args=(port, tmp, dev), nprocs=SHARD_RANKS,
+                       join=False)
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > SHARD_TIMEOUT_S:
+                for p in ctx.processes:
+                    p.kill()
+                raise RuntimeError(f"phase 13b: the ranks did not finish in "
+                                   f"{SHARD_TIMEOUT_S} s")
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(SHARD_RANKS)]
+    print(f"phase 13b: {SHARD_RANKS} gloo ranks on one card, {spawn_s:.1f} s "
+          "from spawn to exit; one all-reduce of P = 5190 floats a rank "
+          f"{[r['all_reduce'] for r in ranks]}")
+    out["all_reduce"] = [r["all_reduce"] for r in ranks]
+    checks = []                 # required once every batch is printed
+    for tag, ref in refs.items():
+        r0 = ranks[0][tag]
+        same = all(torch.equal(r0["theta"], r[tag]["theta"])
+                   and torch.equal(r0["w"], r[tag]["w"])
+                   and all(torch.equal(r0["stats"][k], r[tag]["stats"][k])
+                           for k in r0["stats"]) for r in ranks[1:])
+        st, st_ref = r0["stats"], ref["stats"]
+        cos = cosine(st["x"].numpy(), st_ref["x"].numpy())
+        beta_rel = abs(float(st["beta"]) - float(st_ref["beta"])) \
+            / float(st_ref["beta"])
+        acc, acc_ref = int(st["accepted"]), int(st_ref["accepted"])
+        th_err = (r0["theta"] - ref["theta"]).abs()
+        th_over = int((th_err > 2e-4 + 2e-3 * ref["theta"].abs()).sum())
+        phi = baseline.features(ref["obs"].float(), ref["horizon"]).reshape(
+            -1, r0["w"].numel()).cpu()
+        v, v_ref = phi @ r0["w"], phi @ ref["w"]
+        v_err = float((v - v_ref).abs().max() / (v_ref.abs().mean() + 1e-6))
+        (A, b), (A_ref, b_ref) = r0["moments"][0], ref["moments"][0]
+        m_err = moments_err(A, b, A_ref, b_ref)
+        kept, kept_ref = kept_directions(A), kept_directions(A_ref)
+        a_norm = port_test_helpers().a_norm_rel
+        refit = dict(sharded=a_norm(A_ref, r0["w"], ref["w"]),
+                     exact_sums=a_norm(A_ref, ref["w_exact"], ref["w"]))
+        v_x = phi @ ref["w_exact"]
+        v_err_x = float((v_x - v_ref).abs().max()
+                        / (v_ref.abs().mean() + 1e-6))
+        print(f"{tag} normal equations, the ranks' sum against the unsharded"
+              f" ones: |dA| {m_err['A']:.3e} of sqrt(A_ii A_jj), |db| "
+              f"{m_err['b']:.3e} of max |b| (limit {SHARD_MOMENTS_TOL:g}); "
+              f"the solve keeps {kept['kept']} / {kept['F']} directions at "
+              f"kept condition {kept['cond']:.3e} (unsharded "
+              f"{kept_ref['kept']}, {kept_ref['cond']:.3e}); the refit "
+              f"against the unsharded one, A-norm (limit {FIT_CAP:g}) / "
+              f"max |dv| of mean |v|: sharded {refit['sharded']:.3e} / "
+              f"{v_err:.3e}, the unsharded rows with exact sums "
+              f"{refit['exact_sums']:.3e} / {v_err_x:.3e}")
+        print(f"{tag} {SHARD_RANKS} gloo ranks against the unsharded update: "
+              f"ranks bit-identical {same}; direction cosine {cos:.7f}, "
+              f"|beta| rel {beta_rel:.3e}, accepted {acc} / {acc_ref}, max "
+              f"|theta error| {float(th_err.max()):.3e} ({th_over} over "
+              f"rtol 2e-3 atol 2e-4), baseline {v_err:.3e} of scale; "
+              f"launches a rank {[r[tag]['launches'] for r in ranks]} "
+              f"(unsharded {ref['launches']}); all-reduces "
+              f"{r0['all_reduces']}, {r0['all_reduce_bytes']} bytes an "
+              f"update; ms an update {[round(r[tag]['ms'], 3) for r in ranks]}"
+              f" (unsharded {ref['ms']:.3f}); peak GiB a rank "
+              f"{[round(r[tag]['peak_gib'], 3) for r in ranks]}")
+        if acc != acc_ref:
+            print(f"{tag}: accepted exponents differ; KL sharded "
+                  f"{float(st['kl']):.6e}, unsharded {float(st_ref['kl']):.6e}"
+                  f", delta {ref['delta']}")
+        require(same, f"{tag}: the ranks' updates differ")
+        require(all(r[tag]["launches"] == ref["launches"]
+                    and all(c == 0 for c in r[tag]["plain"].values())
+                    for r in ranks), f"{tag}: the ranks' routes differ from "
+                "the unsharded update's")
+        checks.append((cos >= 0.999 and beta_rel <= 1e-3 and acc == acc_ref
+                       and th_over == 0,
+                       f"{tag}: the sharded update against the unsharded "
+                       "one"))
+        checks.append((len(r0["moments"]) == len(ref["moments"]) == 1
+                       and max(m_err.values()) <= SHARD_MOMENTS_TOL
+                       and refit["sharded"] <= FIT_CAP,
+                       f"{tag}: the summed normal equations and the refit "
+                       "against the unsharded ones"))
+        out[tag] = dict(ranks_bit_identical=same, direction_cosine=cos,
+                        beta_rel=beta_rel, accepted=acc,
+                        theta_max_abs_err=float(th_err.max()),
+                        baseline_err=v_err, baseline_err_exact_sums=v_err_x,
+                        refit_a_norm=refit, moments_err=m_err,
+                        kept=kept, kept_unsharded=kept_ref,
+                        launches=r0["launches"],
+                        all_reduces=r0["all_reduces"],
+                        all_reduce_bytes=r0["all_reduce_bytes"],
+                        ms=[r[tag]["ms"] for r in ranks],
+                        unsharded_ms=ref["ms"],
+                        peak_gib=[r[tag]["peak_gib"] for r in ranks])
+    for ok, what in checks:
+        require(ok, what)
+    trains = [r["train"] for r in ranks]
+    hist = trains[0]["history"]
+    same = all(all(torch.equal(a, b) for a, b in zip(trains[0]["leaves"],
+                                                     t["leaves"]))
+               and [{k: v for k, v in h.items() if k != "wall_s"}
+                    for h in t["history"]]
+               == [{k: v for k, v in h.items() if k != "wall_s"}
+                   for h in hist] for t in trains[1:])
+    ok = all(all(math.isfinite(v) for v in h.values())
+             and (h["accepted"] < 0 or h["kl"] <= C2_REACHER3.trpo.delta)
+             for h in hist)
+    print(f"c2 train_sharded on {SHARD_RANKS} gloo ranks, "
+          f"{SHARD_TRAIN_ITERS} iterations: ranks bit-identical {same}; "
+          f"returns {[round(h['mean_return'], 4) for h in hist]}, kl "
+          f"{[round(h['kl'], 6) for h in hist]}, accepted "
+          f"{[h['accepted'] for h in hist]}; ms an iteration "
+          f"{[round(1e3 * h['wall_s'], 3) for h in hist]}; launches "
+          f"{trains[0]['launches']}")
+    require(same and ok and len(hist) == SHARD_TRAIN_ITERS,
+            "train_sharded on two ranks")
+    out["train_c2"] = dict(ranks_bit_identical=same,
+                           ms=[1e3 * h["wall_s"] for h in hist],
+                           launches=trains[0]["launches"])
+    return out
+
+
+def sharded_cli():
+    """13c: the CLI under torchrun, one rank, ``--sharded`` at c2; exit 0
+    and two iteration lines. Returns its seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m",
+           "trpo_robot_control_tpu_torch.cli.train", "--config", "c2_reacher3", "--sharded", "--iters", "2"]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                         timeout=SHARD_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in run.stdout.splitlines() if ln.startswith("iter")]
+    mesh = [ln for ln in run.stderr.splitlines() if ln.startswith("mesh:")]
+    print(f"torchrun ... cli.train --config c2_reacher3 --sharded --iters 2: "
+          f"exit {run.returncode} in {seconds:.1f} s; {mesh}; " + "; ".join(
+              lines))
+    require(run.returncode == 0 and len(lines) == 2,
+            f"the sharded CLI: {run.stderr[-2000:]}")
+    return seconds
+
+
+def sharded_phases(dev):
+    """Phase 13 (13a-c). Returns its record."""
+    t0 = time.perf_counter()
+    rec = dict(world_of_one=sharded_one(dev), gloo_ranks=sharded_gloo(dev),
+               cli_s=sharded_cli())
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"sharded phases took {rec['seconds']:.1f} s")
+    print("sharded " + json.dumps(rec))
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3464,6 +3962,8 @@ def main() -> int:
         else:
             more.setdefault(tag, {})["fit_normal"] = r["fit_normal"]
     print(f"train_many phases done at {time.perf_counter() - t_start:.1f} s")
+    sharded_phases(dev)
+    print(f"sharded phases done at {time.perf_counter() - t_start:.1f} s")
     out = []
     for name in ("rollout", "moments", "fvp", "rollout3d", "pg", "fvp_ff",
                  "rollout_term", "rollout3d_term", "fit_normal"):

@@ -1033,3 +1033,105 @@ def test_train_many_graph_equals_eager_steps_on_card(cuda, name):
         assert all(torch.equal(st[k], rows[K + i][k]) for k in st)
     assert all(torch.equal(a, b) for a, b in zip(state_leaves(state),
                                                  state_leaves(ref)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["c2_reacher3", "c3_franka7"])
+def test_world_of_one_over_nccl_is_the_unsharded_path_on_card(cuda, name):
+    """``make_mesh`` with no group makes a world of one over NCCL: the
+    sharded update equals ``trpo_update`` bit for bit with the same kernel
+    launches, and ``make_train_many`` over the mesh (eager) equals the
+    replayed graph of ``make_train_many`` bit for bit."""
+    import torch.distributed as dist
+    from trpo_robot_control_tpu_torch.envs.arm import make_rollout_fn
+    from trpo_robot_control_tpu_torch.ops import cuda as kernels
+    from trpo_robot_control_tpu_torch.parallel import mesh as pm
+    from trpo_robot_control_tpu_torch.trpo.train import (init_state,
+                                                         make_train_many)
+    from trpo_robot_control_tpu_torch.trpo.update import trpo_update
+    cfg = pconfigs.CONFIGS[name].replace(n_envs=128, horizon=16)
+    mesh = pm.make_mesh()
+    try:
+        assert dist.get_backend(mesh.group) == "nccl"
+        st = init_state(cfg, seed=5)
+        batch = make_rollout_fn(cfg)(st.params, st.gen)
+        kernels.reset_counts()
+        ref = trpo_update(cfg, st.params, st.w, batch)
+        want = kernels.launch_counts()
+        kernels.reset_counts()
+        got = pm.make_sharded_update(cfg, mesh)(st.params, st.w,
+                                                pm.shard_batch(mesh, batch))
+        assert kernels.launch_counts() == want
+        assert torch.equal(policy.flatten(ref[0]), policy.flatten(got[0]))
+        assert torch.equal(ref[1], got[1])
+        assert all(torch.equal(ref[2][k], got[2][k]) for k in ref[2])
+        s1, a = make_train_many(cfg, 2)(init_state(cfg, seed=6))
+        s2, b = make_train_many(cfg, 2, mesh)(init_state(cfg, seed=6))
+        assert all(torch.equal(x, y) for x, y in zip(state_leaves(s1),
+                                                     state_leaves(s2)))
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    finally:
+        dist.destroy_process_group()
+
+
+def _gloo_rank_on_card(rank, port, path):
+    """One of two gloo ranks sharing the card (spawned): its shard of the
+    saved batch through the sharded update, written beside ``path``."""
+    import os
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    from trpo_robot_control_tpu_torch.ops import cuda as kernels
+    from trpo_robot_control_tpu_torch.parallel import mesh as pm
+    pm.init_distributed(timeout_s=60)
+    mesh = pm.make_mesh(backend="gloo")
+    saved = torch.load(path, weights_only=False)
+    params = {k: v.cuda() for k, v in saved["params"].items()}
+    kernels.reset_counts()
+    new, w, st = pm.make_sharded_update(saved["cfg"], mesh)(
+        params, saved["w"].cuda(), pm.shard_batch(mesh, saved["batch"]),
+        return_directions=True)
+    torch.save(dict(theta=policy.flatten(new).cpu(), w=w.cpu(),
+                    stats={k: v.cpu() for k, v in st.items()},
+                    launches=kernels.launch_counts()), f"{path}.{rank}")
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
+    """Two spawned gloo ranks on one card (CUDA tensors staged through the
+    host) on their halves of one c2 batch: bit-identical to each other,
+    the unsharded update's launches on each, and the unsharded update's
+    direction (cosine >= 0.999), beta (1e-3) and accepted exponent."""
+    import socket
+
+    import torch.multiprocessing as mp
+    from trpo_robot_control_tpu_torch.envs.arm import make_rollout_fn
+    from trpo_robot_control_tpu_torch.ops import cuda as kernels
+    from trpo_robot_control_tpu_torch.trpo.train import init_state
+    from trpo_robot_control_tpu_torch.trpo.update import trpo_update
+    from test_torch_helpers import cosine
+    cfg = pconfigs.CONFIGS["c2_reacher3"].replace(n_envs=256, horizon=20)
+    st = init_state(cfg, seed=7)
+    batch = make_rollout_fn(cfg)(st.params, st.gen)
+    kernels.reset_counts()
+    _, _, ref = trpo_update(cfg, st.params, st.w, batch,
+                            return_directions=True)
+    want = kernels.launch_counts()
+    path = str(tmp_path / "c2.pt")
+    torch.save(dict(cfg=cfg, params={k: v.cpu() for k, v in st.params.items()},
+                    w=st.w.cpu(), batch={k: v.cpu() for k, v in batch.items()}),
+               path)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mp.spawn(_gloo_rank_on_card, args=(port, path), nprocs=2)
+    r0, r1 = (torch.load(f"{path}.{r}", weights_only=False) for r in (0, 1))
+    assert torch.equal(r0["theta"], r1["theta"])
+    assert torch.equal(r0["w"], r1["w"])
+    assert all(torch.equal(r0["stats"][k], r1["stats"][k])
+               for k in r0["stats"])
+    assert r0["launches"] == r1["launches"] == want
+    assert cosine(r0["stats"]["x"].numpy(), ref["x"].cpu().numpy()) >= 0.999
+    assert abs(float(r0["stats"]["beta"]) - float(ref["beta"])) \
+        <= 1e-3 * float(ref["beta"])
+    assert int(r0["stats"]["accepted"]) == int(ref["accepted"])

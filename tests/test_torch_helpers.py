@@ -5,6 +5,8 @@ Inputs are made with numpy from a seed and handed to both the JAX package
 imported only inside the helpers that need it, so the card-only tests
 (``test_torch_cuda.py``) run where JAX is not installed.
 """
+import functools
+
 import numpy as np
 import torch
 
@@ -190,12 +192,27 @@ def check_update_parity(jcfg, pcfg, params_np, jbatch):
     return st_t
 
 
+@functools.lru_cache(maxsize=None)
 def jit_jax_update(cfg):
+    """JAX's ``trpo_update`` for ``cfg``, jitted once per config in a
+    process (the configs are frozen dataclasses), so the tests that update
+    at one config share its compilation."""
     import jax
 
     from trpo_robot_control_tpu.trpo.update import trpo_update
     return jax.jit(lambda p, w, b: trpo_update(cfg, p, w, b,
                                                return_directions=True))
+
+
+@functools.lru_cache(maxsize=None)
+def jit_jax_rollout(cfg):
+    """JAX's ``envs/arm.py:rollout`` for ``cfg`` with its policy's sampling,
+    jitted once per config in a process: ``fn(params, key) -> batch``."""
+    import jax
+
+    from trpo_robot_control_tpu.envs import arm as jarm
+    from trpo_robot_control_tpu.models import policy as jpol
+    return jax.jit(lambda p, k: jarm.rollout(cfg, p, jpol.sample, k))
 
 
 def jax_terminating(cfg, params_np, seed):
@@ -207,12 +224,10 @@ def jax_terminating(cfg, params_np, seed):
     import jax
 
     from trpo_robot_control_tpu.envs import arm as jarm
-    from trpo_robot_control_tpu.models import policy as jpol
     N, T, n_j = cfg.n_envs, cfg.horizon, cfg.arm.n_joints
     key = jax.random.PRNGKey(seed)
     params = {k: j(v) for k, v in params_np.items()}
-    batch = jax.jit(lambda p, k: jarm.rollout(cfg, p, jpol.sample, k))(
-        params, key)
+    batch = jit_jax_rollout(cfg)(params, key)
     k_reset, k_roll = jax.random.split(key)
     s0 = jarm.reset(cfg, k_reset, N)
     eps, fresh = [], []

@@ -22,6 +22,9 @@ from trpo_robot_control_tpu_torch.utils.convert import (params_from_numpy,
 
 CFG = C1_REACHER2.replace(n_envs=24, horizon=30)
 
+# one thread, as test_torch_helpers.py pins it: the suite runs under xdist
+torch.set_num_threads(1)
+
 
 def _oracle_setup(seed):
     """``tests/test_parity.py``'s data: the oracle's initial policy and its

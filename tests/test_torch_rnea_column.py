@@ -11,6 +11,9 @@ import torch
 from trpo_robot_control_tpu_torch.configs import C3_FRANKA7
 from trpo_robot_control_tpu_torch.ops.cuda import rollout3d_kernel as r3
 
+# one thread, as test_torch_helpers.py pins it: the suite runs under xdist
+torch.set_num_threads(1)
+
 
 def _sweep(seed):
     c = r3.arm3d_consts(C3_FRANKA7)

@@ -108,13 +108,13 @@ def test_cli_trains_on_cpu(capsys):
 
 
 def test_cli_has_no_unported_flags():
-    """Data and tensor parallelism (ROADMAP A5, A6) are not ported: the CLI
-    refuses their flags. The checkpoint, metrics and baseline flags are
-    (``tests/test_torch_checkpoint.py``)."""
+    """Tensor parallelism (ROADMAP A6) is not ported: the CLI refuses
+    ``--n-model``, naming it. ``--sharded`` (data parallelism, A5) is
+    (``tests/test_torch_sharding.py``), and so are the checkpoint, metrics
+    and baseline flags (``tests/test_torch_checkpoint.py``)."""
     from trpo_robot_control_tpu_torch.cli.train import main
-    for flag in ("--sharded", "--n-model"):
-        with pytest.raises(SystemExit):
-            main(["--iters", "1", "--device", "cpu", flag, "1"])
+    with pytest.raises(SystemExit, match="ROADMAP A6"):
+        main(["--iters", "1", "--device", "cpu", "--n-model", "1"])
 
 
 def test_unported_paths_raise():
@@ -151,8 +151,10 @@ def test_unported_paths_raise():
     _, w_new, stats = trpo_update(small, st.params, st.w, batch)
     assert w_new.shape == st.w.shape
     assert all(bool(torch.isfinite(v)) for v in stats.values())
-    with pytest.raises(NotImplementedError, match="data parallelism"):
-        trpo_update(small, st.params, st.w, batch, axis_name="data")
+    # data parallelism (A5) is ported; tensor parallelism (A6) is not
+    from trpo_robot_control_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        make_mesh(n_model=2, device="cpu")
 
 
 @pytest.mark.parametrize("path", ["c5-planar3", "c2-bf16", "planar5"])

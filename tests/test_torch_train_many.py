@@ -97,6 +97,13 @@ def test_stacked_stats_carry_jax_keys():
     assert state.iteration == int(j_state.iteration) == 2
 
 
-def test_train_many_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        make_train_many(CONFIGS["c1"], K, mesh=object())
+def test_train_many_over_a_mesh_refuses_uneven_envs():
+    """Over a mesh (``parallel/mesh.py``), ``n_envs`` must split evenly over
+    the data axis (JAX ``parallel/mesh.py:118-120``); the check comes
+    before any collective (``tests/test_torch_sharding.py`` runs the mesh
+    path itself)."""
+    from trpo_robot_control_tpu_torch.parallel.mesh import Mesh
+    mesh = Mesh(group=None, shape={"data": 3, "model": 1}, rank=0,
+                device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="evenly"):
+        make_train_many(CONFIGS["c1"], K, mesh=mesh)

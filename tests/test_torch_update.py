@@ -6,6 +6,7 @@ iterations with shared per-iteration noise that must accept the same
 exponents. The JAX batch comes from the Pallas rollout in interpret mode
 (so it carries obs_ff) and JAX's update runs its CPU twins under jit."""
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -41,6 +42,15 @@ def _init_np(jcfg, seed):
     return {k: np.asarray(v) for k, v in p.items()}
 
 
+@functools.lru_cache(maxsize=None)
+def _parity_batch(name, N, T):
+    """``test_update_parity``'s batch (the Pallas rollout in interpret
+    mode), made once for the cases that differ only in delta."""
+    jcfg, _ = _cfgs(name, N, T)
+    return jax_batch(jcfg, _init_np(jcfg, seed=1),
+                     *env_inputs_np(jcfg, N, seed=2))
+
+
 # the last case takes a trust region wide enough that the line search
 # backtracks (accepted exponent 1 on this batch)
 @pytest.mark.parametrize("name,N,T,delta", [c + (None,) for c in CASES]
@@ -52,7 +62,7 @@ def test_update_parity(name, N, T, delta):
         pcfg = pcfg.replace(trpo=dataclasses.replace(pcfg.trpo, delta=delta))
     pn = _init_np(jcfg, seed=1)
     w0 = np.zeros(2 * jcfg.obs_dim + 4, np.float32)
-    bj = jax_batch(jcfg, pn, *env_inputs_np(jcfg, N, seed=2))
+    bj = _parity_batch(name, N, T)
     new_j, w_j, st_j = jit_jax_update(jcfg)({k: j(v) for k, v in pn.items()},
                                             j(w0), bj)
     new_t, w_t, st_t = trpo_update(pcfg, params_from_numpy(pn, "cpu"),

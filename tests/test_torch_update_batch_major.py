@@ -226,9 +226,9 @@ def test_batch_major_fvp_gets_contiguous_aligned_fp32(monkeypatch, k, e):
     batch = {key: roll[key] for key in BM_KEYS}
     seen = []
 
-    def spy(params, obs, damping):
+    def spy(params, obs, damping, **kw):
         seen.append(obs)
-        return make_gn_fvp(params, obs, damping)
+        return make_gn_fvp(params, obs, damping, **kw)
 
     make_gn_fvp = update.make_gn_fvp
     monkeypatch.setattr(update, "make_gn_fvp", spy)

@@ -11,15 +11,26 @@ of stats per iteration, with JSONL metrics and checkpoints.
       --jsonl run.jsonl --ckpt-dir ckpt --ckpt-every 10
   python -m trpo_robot_control_tpu_torch.cli.train --config c2_reacher3 \
       --resume ckpt/ckpt_000020.npz --iters 20
+  torchrun --standalone --nproc_per_node 2 \
+      -m trpo_robot_control_tpu_torch.cli.train --device cpu --sharded \
+      --n-envs 32 --horizon 20 --iters 2
 
 Runs on the CUDA device unless ``--device cpu`` is given. ``--trpo
 KEY=VALUE`` sets any TRPOSpec field, cast to the field's type (a tuple
 field takes comma-separated integers, a bool field true/false/1/0).
+
+Data parallelism (``parallel/mesh.py``): under torchrun (its RANK,
+WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) every rank joins the
+process group, takes card LOCAL_RANK % the card count, and trains on its
+share of the envs; ``--sharded`` takes the mesh path in one process too.
+Rank 0 prints, logs and writes the checkpoints. ``--n-model`` (tensor
+parallelism) is not ported: ROADMAP A6.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 
 
@@ -79,14 +90,28 @@ def main(argv=None):
     ap.add_argument("--baseline", choices=("linear", "mlp"), default=None,
                     help="value baseline: linear ridge fit (default) or "
                          "small-MLP Adam refit")
+    ap.add_argument("--sharded", action="store_true",
+                    help="take the data-parallel mesh path even in one "
+                         "process (it is taken whenever the world has more "
+                         "than one rank)")
+    ap.add_argument("--n-model", type=int, default=None,
+                    help="tensor-parallel 'model' axis size: not ported "
+                         "(ROADMAP A6)")
     ap.add_argument("--trpo", action="append", default=[],
                     metavar="KEY=VALUE",
                     help="set a TRPOSpec field, e.g. --trpo cg_iters=20 "
                          "--trpo hidden=32,32 --trpo delta=0.005 "
                          "(repeatable; cast to the field's type)")
     args = ap.parse_args(argv)
+    if args.n_model is not None:
+        sys.exit("--n-model: tensor parallelism is not ported yet: "
+                 "ROADMAP A6")
+
+    import torch
+    import torch.distributed as dist
 
     from ..configs import CONFIGS
+    from ..parallel.mesh import init_distributed, make_mesh, train_sharded
     from ..trpo.train import train
     from ..utils.checkpoint import (config_hash, load_checkpoint,
                                     save_checkpoint)
@@ -106,10 +131,20 @@ def main(argv=None):
         cfg = cfg.replace(trpo=trpo_overrides(cfg.trpo, args.trpo))
     early_steps = (cfg.horizon - 1) * cfg.n_envs
 
-    logger = JsonlLogger(args.jsonl, echo=False)
+    init_distributed()
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    sharded = args.sharded or world > 1
+    lead = not dist.is_initialized() or dist.get_rank() == 0
+    device = args.device
+    if sharded and (device is None or device == "cuda") \
+            and torch.cuda.is_available():
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        device = f"cuda:{local % torch.cuda.device_count()}"
+        torch.cuda.set_device(device)
+    logger = JsonlLogger(args.jsonl if lead else None, echo=False)
     logger.header({"config": cfg.name, "config_hash": config_hash(cfg),
                    "n_envs": cfg.n_envs, "horizon": cfg.horizon})
-    state = load_checkpoint(args.resume, cfg, args.device) \
+    state = load_checkpoint(args.resume, cfg, device) \
         if args.resume else None
 
     def log(s):
@@ -124,14 +159,25 @@ def main(argv=None):
               f"cg_res {s['cg_residual']:.3e}{done}  "
               f"{1e3 * s['wall_s']:.1f} ms", flush=True)
 
-    state, _ = train(cfg, n_iters=args.iters, seed=args.seed, log_fn=log,
-                     state=state, device=args.device,
-                     checkpoint_every=args.ckpt_every,
-                     checkpoint_dir=args.ckpt_dir)
+    run = dict(n_iters=args.iters, seed=args.seed, log_fn=log, state=state,
+               checkpoint_every=args.ckpt_every, checkpoint_dir=args.ckpt_dir)
+    if sharded:
+        mesh = make_mesh(device=device)
+        if lead:
+            kind = torch.cuda.get_device_name(mesh.device) \
+                if mesh.device.type == "cuda" else "cpu"
+            print(f"mesh: {mesh.shape} over {world} rank(s), "
+                  f"{dist.get_backend(mesh.group)}, {kind}", file=sys.stderr)
+        state, _ = train_sharded(cfg, mesh, **run)
+    else:
+        state, _ = train(cfg, device=device, **run)
     if args.ckpt_dir:
-        print(f"checkpoint: {save_checkpoint(args.ckpt_dir, cfg, state)}",
-              file=sys.stderr)
+        path = save_checkpoint(args.ckpt_dir, cfg, state)
+        if lead:
+            print(f"checkpoint: {path}", file=sys.stderr)
     logger.close()
+    if sharded:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

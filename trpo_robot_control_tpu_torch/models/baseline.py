@@ -15,6 +15,8 @@ import math
 import numpy as np
 import torch
 
+from ..parallel.collectives import pmean, psum
+
 
 def n_features(obs_dim: int) -> int:
     return 2 * obs_dim + 4
@@ -92,11 +94,19 @@ def predict(w, phi):
     return phi @ w
 
 
-def fit(phi_flat, targets_flat, reg: float):
-    """Solve (phi^T phi + reg I) w = phi^T y (``fit_normal``)."""
-    A = phi_flat.T @ phi_flat + reg * torch.eye(
-        phi_flat.shape[-1], dtype=phi_flat.dtype, device=phi_flat.device)
-    return fit_normal(A, phi_flat.T @ targets_flat)
+def fit(phi_flat, targets_flat, reg: float, axis_name=None):
+    """Solve (phi^T phi + reg I) w = phi^T y (``fit_moments``)."""
+    return fit_moments(phi_flat.T @ phi_flat, phi_flat.T @ targets_flat,
+                       reg, axis_name)
+
+
+def fit_moments(A, b, reg: float, axis_name=None):
+    """Solve (A + reg I) w = b (``fit_normal``). ``axis_name`` (the mesh's
+    'data' process group): A and b are summed over the ranks first, since
+    adding the ridge on each rank would add it world-size times."""
+    A, b = psum((A, b), axis_name)
+    A = A + reg * torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+    return fit_normal(A, b)
 
 
 def fit_normal(A, b, eps: float = 1e-20, rel_floor: float = 1e-6):
@@ -139,12 +149,16 @@ def predict_mlp(w, phi):
     return (h @ w[f"W{L - 1}"] + w[f"b{L - 1}"])[..., 0]
 
 
-def fit_mlp(w, phi_flat, targets_flat, lr: float, steps: int):
+def fit_mlp(w, phi_flat, targets_flat, lr: float, steps: int,
+            axis_name=None):
     """``steps`` full-batch Adam steps on the MSE from ``w``, with fresh
     moments. The JAX package's update rule, step t = i + 1:
     p -= lr sqrt(1 - b2^t) / (1 - b1^t) m / (sqrt(v) + eps), its scale
     formed in fp32 as there (``torch.optim.Adam`` adds eps elsewhere). A
-    weight whose refit is not finite keeps its old value."""
+    weight whose refit is not finite keeps its old value. ``axis_name``
+    (the mesh's 'data' process group): the gradients are averaged over the
+    ranks at every step, before the moments, so every rank applies the
+    same update and the guard acts on the same values."""
     b1, b2, eps = 0.9, 0.999, 1e-8
     keys = sorted(w)
     old = [w[k].detach() for k in keys]
@@ -157,7 +171,7 @@ def fit_mlp(w, phi_flat, targets_flat, lr: float, steps: int):
             leaves = [x.detach().requires_grad_(True) for x in p]
             loss = torch.mean((predict_mlp(dict(zip(keys, leaves)), phi_flat)
                                - targets_flat) ** 2)
-            g = torch.autograd.grad(loss, leaves)
+            g = pmean(torch.autograd.grad(loss, leaves), axis_name)
         torch._foreach_mul_(m, b1)
         torch._foreach_add_(m, g, alpha=1.0 - b1)
         torch._foreach_mul_(v, b2)

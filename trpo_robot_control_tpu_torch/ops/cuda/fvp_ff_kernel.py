@@ -30,6 +30,7 @@ import torch
 from . import build
 from .fvp_kernel import activations, gn_fvp_math
 from ...models import policy
+from ...parallel.collectives import pmean
 
 # fixed, so the reduction order does not depend on the card: one block (188
 # KB of shared memory at (64, 64)) on each of an H100's 132 SMs
@@ -107,16 +108,19 @@ def gn_fvp_ff(params, obs_sub_ff, scale, v, damping: float):
 gn_fvp_ff.launches = 0
 
 
-def make_gn_fvp_ff(params, obs_sub_ff, damping: float):
+def make_gn_fvp_ff(params, obs_sub_ff, damping: float, axis_name=None):
     """obs_sub_ff: the (T', do, N') Fisher subsample, a time- and
     env-strided view of the stored batch. Returns fvp(v_flat) -> flat
-    damped Fv."""
+    damped Fv, averaged over the ranks of ``axis_name`` (the mesh's 'data'
+    process group; ``ops/fvp.py`` says why after the damping)."""
     if not obs_sub_ff.is_cuda:
-        return lambda v: gn_fvp_ff_plain(params, obs_sub_ff, v, damping)
+        return lambda v: pmean(gn_fvp_ff_plain(params, obs_sub_ff, v,
+                                               damping), axis_name)
     _check(params, obs_sub_ff)
     B = obs_sub_ff.shape[0] * obs_sub_ff.shape[2]
     scale = torch.exp(-2.0 * params["logstd"]) / B
-    return lambda v: gn_fvp_ff(params, obs_sub_ff, scale, v, damping)
+    return lambda v: pmean(gn_fvp_ff(params, obs_sub_ff, scale, v, damping),
+                           axis_name)
 
 
 def occupancy(store_dtype=torch.bfloat16, hidden=build.DEFAULT_HIDDEN

@@ -14,16 +14,24 @@ theta_old: the Hessian of the mean KL(old || new) at new = old applied to
 v. The JAX package computes it outside any Pallas kernel (``jax.jvp`` of
 ``jax.grad``), so here it is plain PyTorch on either device, a double
 backward; it is a reference form, not a kernel.
+
+Under data parallelism (``axis_name``, the mesh's 'data' process group)
+each rank's F v, on its own envs, is averaged over the ranks in every
+call, as the JAX package's ``pmean``. The KL form averages before adding
+``damping * v``, as JAX; the kernels add it themselves, and every rank's v
+is the same, so the mean of (F_r v + d v) is mean(F_r v) + d v and no
+kernel changes.
 """
 from __future__ import annotations
 
 import torch
 
 from ..models import policy
+from ..parallel.collectives import pmean
 from .cuda import fvp_kernel
 
 
-def make_gn_fvp(params, obs, damping: float):
+def make_gn_fvp(params, obs, damping: float, axis_name=None):
     """obs: (B, do). Returns fvp(v_flat) -> flat damped Fv."""
     B = obs.shape[0]
     hs = fvp_kernel.activations(params, obs)
@@ -31,12 +39,13 @@ def make_gn_fvp(params, obs, damping: float):
     ws = fvp_kernel.workspace(params, obs)
 
     def fvp(v_flat):
-        return fvp_kernel.gn_fvp(params, obs, hs, scale, v_flat, damping, ws)
+        return pmean(fvp_kernel.gn_fvp(params, obs, hs, scale, v_flat, damping,
+                                       ws), axis_name)
 
     return fvp
 
 
-def make_kl_fvp(params, obs, damping: float):
+def make_kl_fvp(params, obs, damping: float, axis_name=None):
     """obs: (B, do). Returns fvp(v_flat) -> the flat H v + damping v, H the
     Hessian of the mean KL(old || new) over obs at new = old, mu_old and
     logstd_old held fixed; each call counts in ``make_kl_fvp.calls``."""
@@ -54,7 +63,8 @@ def make_kl_fvp(params, obs, damping: float):
         with torch.enable_grad():
             hv = torch.autograd.grad(grad, leaves, grad_outputs=v_flat,
                                      retain_graph=True)
-        return torch.cat([h.reshape(-1) for h in hv]) + damping * v_flat
+        return pmean(torch.cat([h.reshape(-1) for h in hv]), axis_name) \
+            + damping * v_flat
 
     return fvp
 

@@ -2,10 +2,12 @@
 rollout and one update per iteration, all on the device; the host reads
 the scalar stats once per iteration (``train``), or once per K iterations
 (``make_train_many``, which on the card replays one captured CUDA graph of
-the train step K times).
+the train step K times). Over a mesh (data parallelism) the steps are
+``parallel/mesh.py``'s sharded ones.
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import NamedTuple, Optional
 
@@ -16,6 +18,7 @@ from ..device import resolve
 from ..envs import arm
 from ..models import baseline, policy
 from ..ops import cuda as kernels
+from ..parallel.collectives import psum
 from .update import trpo_update
 
 # eager steps on a side stream before a capture (kernel libraries built,
@@ -47,19 +50,31 @@ def init_state(cfg, seed: Optional[int] = None, device=None) -> TrainState:
     return TrainState(params=params, w=w, gen=gen, iteration=0)
 
 
-def make_train_step(cfg):
+def make_train_step(cfg, mesh=None):
     """Returns ``train_step(state) -> (state, stats)``; stats are device
     tensors. A terminating config adds ``early_dones``, the number of
-    env-steps before the last that ended an episode."""
+    env-steps before the last that ended an episode. Over ``mesh``
+    (``parallel/mesh.py``, data parallelism) each rank rolls out its
+    ``cfg.n_envs / n_data`` envs from its rank stream and the update
+    all-reduces over the mesh's 'data' group (``early_dones`` summed over
+    the ranks); uneven envs raise ValueError."""
     rollout_fn = arm.make_rollout_fn(cfg)
+    group, n_envs, stream = None, None, lambda gen: gen
+    if mesh is not None:
+        from ..parallel.mesh import local_envs, rank_stream
+        group, n_envs = mesh.group, local_envs(mesh, cfg.n_envs)
+        stream = functools.partial(rank_stream, mesh)
 
     def train_step(state: TrainState):
         with record_function("trpo/rollout"):
-            batch = rollout_fn(state.params, state.gen)
-        params, w, stats = trpo_update(cfg, state.params, state.w, batch)
+            batch = rollout_fn(state.params, stream(state.gen),
+                               n_envs=n_envs)
+        params, w, stats = trpo_update(cfg, state.params, state.w, batch,
+                                       axis_name=group)
         if "dones_ff" in batch:
             # episodes ended before the buffer's end, counted on the device
-            stats["early_dones"] = torch.sum(batch["dones_ff"][:-1])
+            stats["early_dones"] = psum(torch.sum(batch["dones_ff"][:-1]),
+                                        group)
         return TrainState(params=params, w=w, gen=state.gen,
                           iteration=state.iteration + 1), stats
 
@@ -84,24 +99,24 @@ def make_train_many(cfg, n_steps: int, mesh=None):
     state's tensors have the captured shapes and its generator is the
     registered one (the state is then copied into the graph's static
     tensors); any other state is captured anew. A capture that fails
-    raises: there is no eager fallback. ``mesh`` (data parallelism) raises
-    NotImplementedError: ROADMAP A5."""
+    raises: there is no eager fallback.
+
+    Over ``mesh`` (``parallel/mesh.py``) ``fn`` runs the sharded train step
+    (``make_train_step(cfg, mesh)``) n times eagerly on either device, as JAX
+    scans its sharded step: no capture is made or tried, since gloo stages
+    its all-reduces through the host and cannot be captured (capturing
+    NCCL's is a later item, ROADMAP A5's leftovers). Uneven envs raise
+    ValueError here."""
     if mesh is not None:
-        raise NotImplementedError(
-            "make_train_many over a mesh (data parallelism) is not ported "
-            "yet: ROADMAP A5")
+        sharded = make_train_step(cfg, mesh)
+        return lambda state: _eager_steps(sharded, state, n_steps)
     step = make_train_step(cfg)
     graphed = [None]
 
     def fn(state: TrainState):
         resolve(state.gen.device)
         if state.gen.device.type != "cuda":
-            rows = []
-            for _ in range(n_steps):
-                state, stats = step(state)
-                rows.append(stats)
-            return state, {k: torch.stack([r[k] for r in rows])
-                           for k in rows[0]}
+            return _eager_steps(step, state, n_steps)
         if graphed[0] is None or not graphed[0].fits(state):
             graphed[0] = None          # frees the old graph's pool first
             graphed[0] = GraphedStep(step, state)
@@ -109,6 +124,15 @@ def make_train_many(cfg, n_steps: int, mesh=None):
 
     fn.graphed = lambda: graphed[0]
     return fn
+
+
+def _eager_steps(step, state: TrainState, n_steps: int):
+    """``n_steps`` calls of ``step`` with the stats stacked on the device."""
+    rows = []
+    for _ in range(n_steps):
+        state, stats = step(state)
+        rows.append(stats)
+    return state, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
 
 def _leaves(w) -> dict:
@@ -221,7 +245,15 @@ def train(cfg, n_iters: Optional[int] = None, seed: Optional[int] = None,
         state = init_state(cfg, seed, device)
     else:
         resolve(state.gen.device)
-    step = make_train_step(cfg)
+    return run_steps(cfg, make_train_step(cfg), state, n_iters, log_fn,
+                     checkpoint_every, checkpoint_dir)
+
+
+def run_steps(cfg, step, state: TrainState, n_iters: int, log_fn=None,
+              checkpoint_every: int = 0, checkpoint_dir: Optional[str] = None):
+    """``n_iters`` calls of ``step``, each one's stats read to the host and
+    passed to ``log_fn``, a checkpoint after every ``checkpoint_every``-th;
+    returns (state, history) (``train``, ``parallel/mesh.train_sharded``)."""
     history = []
     for it in range(n_iters):
         t0 = time.perf_counter()

@@ -26,6 +26,15 @@ fp32 copy the JAX rollouts hand this branch). A batch with obs_ff but no
 actions_ff takes the feature-first baseline pipeline and then this
 branch's policy math, with the (T, N) advantages transposed.
 
+Under data parallelism (``axis_name``, the mesh's 'data' process group,
+``parallel/mesh.py``) each rank holds its own envs and the update inserts
+an all-reduce wherever a batch reduction already exists, as the JAX
+package inserts ``pmean``/``psum``: the whitening moments, the baseline's
+normal equations (summed before the ridge), the MLP refit's gradients, g
+and surr_old, Fv in every CG call, the line-search estimates and the mean
+return (``parallel/collectives.py``); the kernel gates read the global
+batch. Without a group none of this runs.
+
 Every step stays on the device; the only host synchronisation is the
 caller's read of the stats. On the card none is left inside the update
 (the ridge solve is the ``fit_normal`` kernel, not eigh), so a CUDA graph
@@ -45,12 +54,7 @@ from ..ops.cuda.moments_kernel import baseline_moments
 from ..ops.fvp import make_gn_fvp, make_kl_fvp
 from ..ops.gae import gae
 from ..ops.linesearch import line_search
-
-
-def _check_supported(axis_name):
-    if axis_name is not None:
-        raise NotImplementedError(
-            "data parallelism (axis_name) is not ported yet: ROADMAP A5")
+from ..parallel.collectives import group_size, pmean
 
 
 # The kernels' gates, on the global batch (the JAX package's measured
@@ -94,7 +98,7 @@ def packed_ok(params) -> bool:
 
 
 def kernel_routes(tr, params, T, N, sub_T, sub_N, fvp_form: str = "gn",
-                  ff: bool = True):
+                  ff: bool = True, n_data: int = 1):
     """The update's routes for a (T, ., N) batch and its (sub_T, ., sub_N)
     Fisher subsample, decided as the JAX package's resolver decides them
     (its trpo/update.py), with the port's gates: ``surrgrad`` "pallas" (K5)
@@ -103,18 +107,21 @@ def kernel_routes(tr, params, T, N, sub_T, sub_N, fvp_form: str = "gn",
     "kl" (``make_kl_fvp`` on the same relayout, for ``fvp_form="kl"`` or
     ``fvp_impl="kl"``). ``ff=False``, the batch-major branch: ``surrgrad``
     "autograd" and ``fvp`` "bm" (K3) or "kl", on the n-major subsample;
-    K5 and K6 never run there, as in JAX."""
+    K5 and K6 never run there, as in JAX. ``n_data``: the ranks of the
+    'data' axis, each holding such a shard; the gates read the global
+    batch, ``n_data`` times the local one, so a config takes the same
+    routes sharded and unsharded."""
     impl = tr.fvp_impl if fvp_form == "gn" else "kl"
     if not ff:
         return dict(surrgrad="autograd", fvp="kl" if impl == "kl" else "bm")
     sg = tr.surrgrad_impl
     if sg == "auto":
-        sg = "pallas" if T * N >= SURRGRAD_MIN_B else "xla"
+        sg = "pallas" if T * N * n_data >= SURRGRAD_MIN_B else "xla"
     if sg == "pallas" and not packed_ok(params):
         sg = "xla"
     on_ff = (tr.fvp_subsample > 1 and impl not in ("xla", "pallas_bm", "kl")
              and packed_ok(params)
-             and (impl == "pallas" or sub_T * sub_N >= FVP_FF_MIN_B))
+             and (impl == "pallas" or sub_T * sub_N * n_data >= FVP_FF_MIN_B))
     return dict(surrgrad=sg,
                 fvp="kl" if impl == "kl" else "ff" if on_ff else "bm")
 
@@ -163,10 +170,12 @@ def _check_env_stride(name, N, k):
                          f"k={k}")
 
 
-def _whiten(adv_raw):
-    """(adv_raw - mean) / (std + 1e-8) and std, over the whole batch."""
+def _whiten(adv_raw, axis_name):
+    """(adv_raw - mean) / (std + 1e-8) and std, over the whole (global)
+    batch."""
     m1 = torch.mean(adv_raw)
     m2 = torch.mean(adv_raw ** 2)
+    m1, m2 = pmean((m1, m2), axis_name)
     std = torch.sqrt(torch.clamp(m2 - m1 ** 2, min=0.0))
     return (adv_raw - m1) / (std + 1e-8), std
 
@@ -178,7 +187,7 @@ def _fp32(x):
                 memory_format=torch.contiguous_format).contiguous()
 
 
-def _baseline_ff(cfg, w, obs_ff, rewards_tn, dones_tn):
+def _baseline_ff(cfg, w, obs_ff, rewards_tn, dones_tn, axis_name):
     """Step 1 in the kernel layout: values from the old linear baseline,
     GAE on (T, N), whitening, and the ridge refit from K2's moments.
     Returns (adv (T, N), std, w_new)."""
@@ -187,16 +196,16 @@ def _baseline_ff(cfg, w, obs_ff, rewards_tn, dones_tn):
         values = baseline.values_ff(w, obs_ff, cfg.horizon)         # (T, N)
         adv_raw = gae(rewards_tn, values, tr.gamma, tr.lam,
                       dones=dones_tn, time_axis=0)
-        adv, std = _whiten(adv_raw)
+        adv, std = _whiten(adv_raw, axis_name)
         targets = adv_raw + values
     with record_function("trpo/baseline_fit"):
-        A, b_vec = baseline_moments(obs_ff, targets, cfg.horizon)
-        A = A + tr.baseline_reg * torch.eye(A.shape[0], device=A.device)
-        w_new = baseline.fit_normal(A, b_vec)
+        w_new = baseline.fit_moments(
+            *baseline_moments(obs_ff, targets, cfg.horizon),
+            tr.baseline_reg, axis_name)
     return adv, std, w_new
 
 
-def _baseline_bm(cfg, w, obs, rewards, dones):
+def _baseline_bm(cfg, w, obs, rewards, dones, axis_name):
     """Step 1 batch-major: phi (N, T, F), values from the old baseline
     (linear or MLP), GAE on (N, T), whitening, and the refit on
     phi (B, F): the MLP's Adam steps or the ridge normal equations.
@@ -209,18 +218,18 @@ def _baseline_bm(cfg, w, obs, rewards, dones):
             else baseline.predict(w, phi)
         adv_raw = gae(rewards, values, tr.gamma, tr.lam, dones=dones,
                       time_axis=1)
-        adv, std = _whiten(adv_raw)
+        adv, std = _whiten(adv_raw, axis_name)
         targets = adv_raw + values
     with record_function("trpo/baseline_fit"):
         phi_f = phi.reshape(-1, phi.shape[-1])
         y = targets.reshape(-1)
         w_new = baseline.fit_mlp(w, phi_f, y, tr.baseline_lr,
-                                 tr.baseline_epochs) if mlp \
-            else baseline.fit(phi_f, y, tr.baseline_reg)
+                                 tr.baseline_epochs, axis_name=axis_name) \
+            if mlp else baseline.fit(phi_f, y, tr.baseline_reg, axis_name)
     return adv, std, w_new
 
 
-def _policy_ff(cfg, params, obs_ff, act_ff, adv, obs, fvp_form):
+def _policy_ff(cfg, params, obs_ff, act_ff, adv, obs, fvp_form, axis_name):
     """Steps 2-5 in the kernel layout on adv (T, N). Returns the update's
     results (``_line_search_step``)."""
     tr = cfg.trpo
@@ -230,7 +239,7 @@ def _policy_ff(cfg, params, obs_ff, act_ff, adv, obs, fvp_form):
     # ---- 2) closed-form surrogate gradient at theta_old
     k, e = tr.fvp_subsample, tr.fvp_env_subsample
     routes = kernel_routes(tr, params, T, N, -(-T // k), -(-N // e),
-                           fvp_form)
+                           fvp_form, n_data=group_size(axis_name))
     with record_function("trpo/surrogate_grad"):
         if routes["surrgrad"] == "pallas":
             g_tree, mu_old_ff, logp_old_ff = pg_kernel.surrogate_grad(
@@ -240,6 +249,7 @@ def _policy_ff(cfg, params, obs_ff, act_ff, adv, obs, fvp_form):
                 params, obs_ff, act_ff, adv, store_dtype=store)
         g = policy.flatten(g_tree)
         surr_old = torch.mean(adv)                             # ratio == 1
+        g, surr_old = pmean((g, surr_old), axis_name)
 
     # ---- 3) CG on the damped GN-FVP over the Fisher subsample. The time
     # stride over (T, do, N) selects the same samples as obs_f[::k] when
@@ -254,12 +264,14 @@ def _policy_ff(cfg, params, obs_ff, act_ff, adv, obs, fvp_form):
     sub = obs_ff[::k, :, ::e]
     with record_function("trpo/cg_fvp"):
         if routes["fvp"] == "ff":
-            fvp = fvp_ff_kernel.make_gn_fvp_ff(params, sub, tr.cg_damping)
+            fvp = fvp_ff_kernel.make_gn_fvp_ff(params, sub, tr.cg_damping,
+                                               axis_name=axis_name)
         else:
             obs_fvp = (sub.permute(0, 2, 1) if k > 1
                        else obs[::e]).reshape(-1, do).float()
             make_fvp = make_kl_fvp if routes["fvp"] == "kl" else make_gn_fvp
-            fvp = make_fvp(params, obs_fvp, tr.cg_damping)
+            fvp = make_fvp(params, obs_fvp, tr.cg_damping,
+                           axis_name=axis_name)
         out = _cg_step(tr, fvp, g)
 
     # ---- 5) KL line search on the full batch, or on every k-th env
@@ -270,20 +282,20 @@ def _policy_ff(cfg, params, obs_ff, act_ff, adv, obs, fvp_form):
     if k_ls > 1:
         ls = (obs_ff[..., ::k_ls], act_ff[..., ::k_ls], adv[:, ::k_ls],
               mu_old_ff[..., ::k_ls], logp_old_ff[:, ::k_ls])
-        surr_old_ls = torch.mean(ls[2])
+        surr_old_ls = pmean(torch.mean(ls[2]), axis_name)
     else:
         ls = (obs_ff, act_ff, adv, mu_old_ff, logp_old_ff)
         surr_old_ls = surr_old
 
     def eval_fn(thetas):
-        return _eval_candidates(params, thetas, *ls, params["logstd"],
-                                store_dtype=store)
+        return pmean(_eval_candidates(params, thetas, *ls, params["logstd"],
+                                      store_dtype=store), axis_name)
 
     return _line_search_step(tr, params, eval_fn, g, surr_old, surr_old_ls,
                              out)
 
 
-def _policy_bm(cfg, params, obs, actions, adv, fvp_form):
+def _policy_bm(cfg, params, obs, actions, adv, fvp_form, axis_name):
     """Steps 2-5 batch-major on obs (N, T, do), actions (N, T, da) fp32
     and adv (N, T). Returns the update's results."""
     tr = cfg.trpo
@@ -307,6 +319,7 @@ def _policy_bm(cfg, params, obs, actions, adv, fvp_form):
             g = torch.cat([x.reshape(-1) for x in
                            torch.autograd.grad(surr, leaves)])
         surr_old = torch.mean(adv_f)                           # ratio == 1
+        g, surr_old = pmean((g, surr_old), axis_name)
 
     # ---- 3) CG over the n-major Fisher subsample: every e-th env, then
     # every k-th sample of the flattened (env, time) order, as JAX takes
@@ -318,7 +331,7 @@ def _policy_bm(cfg, params, obs, actions, adv, fvp_form):
     with record_function("trpo/cg_fvp"):
         obs_fvp = sub.clone(memory_format=torch.contiguous_format)
         make_fvp = make_kl_fvp if routes["fvp"] == "kl" else make_gn_fvp
-        fvp = make_fvp(params, obs_fvp, tr.cg_damping)
+        fvp = make_fvp(params, obs_fvp, tr.cg_damping, axis_name=axis_name)
         out = _cg_step(tr, fvp, g)
 
     # ---- 5) the line search on every k_ls-th env (n-major: envs sliced
@@ -330,7 +343,7 @@ def _policy_bm(cfg, params, obs, actions, adv, fvp_form):
               adv[::k_ls].reshape(-1),
               mu_old.reshape(N, T, da)[::k_ls].reshape(-1, da),
               logp_old.reshape(N, T)[::k_ls].reshape(-1))
-        surr_old_ls = torch.mean(ls[2])
+        surr_old_ls = pmean(torch.mean(ls[2]), axis_name)
     else:
         ls = (obs_f, act_f, adv_f, mu_old, logp_old)
         surr_old_ls = surr_old
@@ -340,7 +353,8 @@ def _policy_bm(cfg, params, obs, actions, adv, fvp_form):
           ls[4][None])
 
     def eval_fn(thetas):
-        return _eval_candidates(params, thetas, *ls, params["logstd"])
+        return pmean(_eval_candidates(params, thetas, *ls, params["logstd"]),
+                     axis_name)
 
     return _line_search_step(tr, params, eval_fn, g, surr_old, surr_old_ls,
                              out)
@@ -379,8 +393,9 @@ def trpo_update(cfg, params, w, batch, axis_name=None,
     otherwise (the module's docstring). ``w``: the linear baseline's
     weights, or the MLP's dict. ``fvp_form``: "gn" (the GN-FVP that
     ``fvp_impl`` selects) or "kl" (the KL-Hessian form), as in the JAX
-    package. Returns (new_params, new_w, stats)."""
-    _check_supported(axis_name)
+    package. ``axis_name``: the mesh's 'data' process group, with
+    ``batch`` this rank's shard (``parallel/mesh.py``); None outside a mesh.
+    Returns (new_params, new_w, stats)."""
     if fvp_form not in ("gn", "kl"):
         raise ValueError(f"fvp_form is 'gn' or 'kl', not {fvp_form!r}")
     tr = cfg.trpo
@@ -398,20 +413,23 @@ def trpo_update(cfg, params, w, batch, axis_name=None,
         dones_tn = batch.get("dones_ff")
         if dones_tn is None and "dones" in batch:
             dones_tn = batch["dones"].T
-        adv, std, w_new = _baseline_ff(cfg, w, obs_ff, rewards_tn, dones_tn)
+        adv, std, w_new = _baseline_ff(cfg, w, obs_ff, rewards_tn, dones_tn,
+                                       axis_name)
         mean_return = torch.mean(torch.sum(rewards_tn, dim=0))
     else:
         adv, std, w_new = _baseline_bm(cfg, w, obs, batch["rewards"],
-                                       batch.get("dones"))
+                                       batch.get("dones"), axis_name)
         mean_return = torch.mean(torch.sum(batch["rewards"], dim=1))
+    mean_return = pmean(mean_return, axis_name)
 
     # ---- 2-5) surrogate gradient, CG, step size, line search
     if ff:
         out = _policy_ff(cfg, params, obs_ff, batch["actions_ff"], adv,
-                         batch.get("obs"), fvp_form)
+                         batch.get("obs"), fvp_form, axis_name)
     else:
         out = _policy_bm(cfg, params, obs, _fp32(batch["actions"]),
-                         adv.T if obs_ff is not None else adv, fvp_form)
+                         adv.T if obs_ff is not None else adv, fvp_form,
+                         axis_name)
     new_params = policy.unflatten(out["theta_new"], params)
 
     g, x = out["g"], out["x"]

@@ -11,6 +11,10 @@ state, which the JAX loader reads. A JAX checkpoint has no generator
 state: loaded here, its generator is seeded from the two words of ``key``,
 so the random stream from there on differs from the one JAX would draw,
 as the port's stream differs from JAX's everywhere.
+
+Under data parallelism (``parallel/mesh.py``) every rank holds the same
+state, so rank 0 writes it and every rank loads it; the sharded step
+derives the ranks' rollout streams from the loaded generator.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve
 
@@ -35,9 +40,14 @@ def _key_words(state_bytes: bytes) -> np.ndarray:
 
 
 def save_checkpoint(ckpt_dir: str, cfg, state) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Writes ``state`` to ``ckpt_dir/ckpt_<iteration>.npz`` and returns the
+    path; in a process group only rank 0 writes (the others return the
+    path)."""
     it = int(state.iteration)
     path = os.path.join(ckpt_dir, f"ckpt_{it:06d}.npz")
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return path
+    os.makedirs(ckpt_dir, exist_ok=True)
     arrays = {f"params.{k}": v.detach().cpu().numpy()
               for k, v in state.params.items()}
     if isinstance(state.w, dict):        # MLP baseline: a dict of weights
