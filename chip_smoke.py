@@ -185,7 +185,17 @@ Drives the port (``trpo_robot_control_tpu_torch``) only:
    ``train_sharded`` for SHARD_TRAIN_ITERS iterations at c2, the ranks bit
    for bit; (c) ``python -m torch.distributed.run --standalone
    --nproc_per_node 1 -m trpo_robot_control_tpu_torch.cli.train --config
-   c2_reacher3 --sharded --iters 2`` exits 0.
+   c2_reacher3 --sharded --iters 2`` exits 0;
+14. tensor parallelism, ``parallel/tensor.py`` (``tp_phases``): TP_RANKS
+   gloo ranks spawned on the card on a (1, TP_RANKS) mesh, the policy's
+   first two layers sharded over the 'model' axis; (a) the TP update on one
+   c2 and one c3 batch at full width against the unsharded batch-major
+   update: ranks bit-identical, one fit_normal launch and no other kernel
+   or plain version, direction cosine >= 0.999, beta (1e-3), accepted
+   exponent and theta (rtol 2e-3, atol 2e-4); (b) ``train_sharded`` on the
+   mesh for TP_TRAIN_ITERS iterations at c2 (K1 and fit_normal once an
+   iteration on each rank), the ranks bit for bit; (c) all-reduces and
+   bytes on each group and ms a rank per update.
 
 Before the phases it prints the ``-Xptxas -v`` lines of the linear
 baseline's two kernels (``fit_normal_kernel``, K2's
@@ -211,8 +221,9 @@ the ``fvp`` entry's ``at_c3_mlp``), and the terminating
 instantiations as ``rollout_term``
 (c2) and ``rollout3d_term`` (c5, c5-planar3 under ``at_c5_planar3``),
 ``fit_normal`` at c2, the other linear paths under ``at_<tag>``; phase
-12's per-config figures on the ``train_many`` line and phase 13's on the
-``sharded`` line before them),
+12's per-config figures on the ``train_many`` line, phase 13's on the
+``sharded`` line and phase 14's on the ``tensor_parallel`` line before
+them),
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -3877,6 +3888,231 @@ def sharded_phases(dev):
     return rec
 
 
+# Phase 14: tensor parallelism (parallel/tensor.py): TP_RANKS gloo ranks
+# sharing the card on a (1, TP_RANKS) mesh, the policy's first two layers
+# sharded over the 'model' axis, (a) the TP update at full width on one
+# batch each of c2 and c3 against the unsharded batch-major update,
+# (b) the TP train step at c2, (c) all-reduces, bytes and ms per update
+TP_RANKS = 2
+TP_TRAIN_ITERS = 3
+TP_BATCHES = (("c2", "C2_REACHER3", 53), ("c3", "C3_FRANKA7", 54))
+# host ms of the TP update over this many calls after one (c3's forwards
+# all-reduce hundreds of MB through the host)
+TP_REPS = {"c2": SHARD_REPS, "c3": 1}
+BM_KEYS = ("obs", "actions", "rewards")
+
+
+def _tp_rank(rank, port, tmp, dev):
+    """14, one rank of TP_RANKS over gloo on the card (a spawned process),
+    model index ``rank`` on one data index: the TP update on each saved
+    batch (launches, all-reduces by group, ms an update, peak memory), then
+    ``train_sharded`` for TP_TRAIN_ITERS iterations at c2; writes
+    ``tp<r>.pt`` to ``tmp``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(TP_RANKS),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    from trpo_robot_control_tpu_torch.ops import cuda as kernels
+    from trpo_robot_control_tpu_torch.parallel import collectives
+    from trpo_robot_control_tpu_torch.parallel import mesh as pm
+    pm.init_distributed(timeout_s=120)
+    mesh = pm.make_mesh(n_data=1, n_model=TP_RANKS, device=dev,
+                        backend="gloo")
+    out = {}
+    for tag, _, _ in TP_BATCHES:
+        saved = torch.load(os.path.join(tmp, f"{tag}.pt"), weights_only=False)
+        cfg = saved["cfg"]
+        params = {k: v.to(dev) for k, v in saved["params"].items()}
+        w = saved["w"].to(dev)
+        batch = pm.shard_batch(mesh, saved["batch"])
+        update = pm.make_sharded_update_tp(cfg, mesh)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        collectives.reset_counts()
+        new, w_new, st = update(params, w, batch, return_directions=True)
+        torch.cuda.synchronize()
+        rec = dict(launches=kernels.launch_counts(),
+                   plain=kernels.plain_calls(),
+                   model=collectives.group_counts(mesh.model_group),
+                   data=collectives.group_counts(mesh.group),
+                   theta=torch.cat([new[k].reshape(-1) for k in sorted(new)]
+                                   ).cpu(),
+                   w=w_new.cpu(), stats={k: v.cpu() for k, v in st.items()})
+        rec["ms"] = host_ms(lambda: update(params, w, batch), TP_REPS[tag])
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[tag] = rec
+        del params, w, batch, saved, new, w_new, st
+    cfg = torch.load(os.path.join(tmp, "c2.pt"), weights_only=False)["cfg"]
+    kernels.reset_counts()
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    state, hist = pm.train_sharded(cfg, mesh, n_iters=TP_TRAIN_ITERS,
+                                   seed=55)
+    torch.cuda.synchronize()
+    out["train"] = dict(
+        seconds=time.perf_counter() - t0, history=hist,
+        launches=kernels.launch_counts(), plain=kernels.plain_calls(),
+        model=collectives.group_counts(mesh.model_group),
+        leaves=[x.cpu() for x in port_test_helpers().state_leaves(state)])
+    torch.save(out, os.path.join(tmp, f"tp{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def tp_phases(dev):
+    """Phase 14: one batch each of c2 (1024 x 100, K1) and c3 (4096 x 200,
+    K4, bf16 storage) collected by the unsharded rollout and updated here
+    by the unsharded batch-major ``trpo_update`` (the batch's obs, actions
+    and rewards: K3 x 10, fit_normal), then by TP_RANKS spawned gloo ranks
+    sharing the card on a (1, TP_RANKS) mesh (``make_sharded_update_tp``:
+    plain PyTorch, one fit_normal launch, no other kernel, no plain
+    version): (a) the ranks' full parameters, baseline and stats bit for
+    bit the same; against the unsharded update the direction cosine >=
+    0.999, |beta| rel <= 1e-3, the same accepted exponent (else both KLs
+    against delta printed, and a failure) and theta within rtol 2e-3 atol
+    2e-4 (tests/test_tensor_parallel.py:66-67); (b) ``train_sharded`` on
+    the mesh for TP_TRAIN_ITERS iterations at c2: K1 and fit_normal once an
+    iteration on each rank, no plain version, KL <= delta, finite stats,
+    the ranks bit for bit; (c) per update, the all-reduces and their bytes
+    on the model and the data group (none: one data index) and ms a rank
+    beside the unsharded update's. Returns its record."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from trpo_robot_control_tpu_torch import configs
+    from trpo_robot_control_tpu_torch.configs import C2_REACHER3
+    from trpo_robot_control_tpu_torch.envs import arm
+    from trpo_robot_control_tpu_torch.models import policy
+    from trpo_robot_control_tpu_torch.ops import cuda as kernels
+    from trpo_robot_control_tpu_torch.trpo.train import init_state
+    from trpo_robot_control_tpu_torch.trpo.update import trpo_update
+    t_start = time.perf_counter()
+    cosine = port_test_helpers().cosine
+    refs, out = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, name, seed in TP_BATCHES:
+            cfg = getattr(configs, name)
+            st = init_state(cfg, seed=seed, device=dev)
+            batch = {k: v for k, v in arm.make_rollout_fn(cfg)(
+                st.params, st.gen).items() if k in BM_KEYS}
+            kernels.reset_counts()
+            new, w_new, stats = trpo_update(cfg, st.params, st.w, batch,
+                                            return_directions=True)
+            refs[tag] = dict(launches=kernels.launch_counts(),
+                             theta=policy.flatten(new).cpu(),
+                             stats={k: v.cpu() for k, v in stats.items()},
+                             delta=cfg.trpo.delta)
+            refs[tag]["ms"] = host_ms(
+                lambda: trpo_update(cfg, st.params, st.w, batch),
+                TP_REPS[tag])
+            torch.save(dict(cfg=cfg, params={k: v.cpu() for k, v in
+                                             st.params.items()},
+                            w=st.w.cpu(), batch={k: v.cpu() for k, v in
+                                                 batch.items()}),
+                       os.path.join(tmp, f"{tag}.pt"))
+            del st, batch, new, w_new, stats
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        ctx = mp.spawn(_tp_rank, args=(port, tmp, dev), nprocs=TP_RANKS,
+                       join=False)
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > SHARD_TIMEOUT_S:
+                for p in ctx.processes:
+                    p.kill()
+                raise RuntimeError(f"phase 14: the ranks did not finish in "
+                                   f"{SHARD_TIMEOUT_S} s")
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"tp{r}.pt"),
+                            weights_only=False) for r in range(TP_RANKS)]
+    print(f"phase 14: {TP_RANKS} gloo ranks on one card, a (1, {TP_RANKS}) "
+          f"mesh, {spawn_s:.1f} s from spawn to exit")
+    checks = []                 # required once every batch is printed
+    for tag, ref in refs.items():
+        r0 = ranks[0][tag]
+        same = all(torch.equal(r0["theta"], r[tag]["theta"])
+                   and torch.equal(r0["w"], r[tag]["w"])
+                   and all(torch.equal(r0["stats"][k], r[tag]["stats"][k])
+                           for k in r0["stats"]) for r in ranks[1:])
+        st, st_ref = r0["stats"], ref["stats"]
+        cos = cosine(st["x"].numpy(), st_ref["x"].numpy())
+        beta_rel = abs(float(st["beta"]) - float(st_ref["beta"])) \
+            / float(st_ref["beta"])
+        acc, acc_ref = int(st["accepted"]), int(st_ref["accepted"])
+        th_err = (r0["theta"] - ref["theta"]).abs()
+        th_over = int((th_err > 2e-4 + 2e-3 * ref["theta"].abs()).sum())
+        want = {k: int(k == "fit_normal") for k in r0["launches"]}
+        routes = all(r[tag]["launches"] == want
+                     and all(c == 0 for c in r[tag]["plain"].values())
+                     for r in ranks)
+        print(f"{tag} TP update on {TP_RANKS} gloo ranks against the "
+              f"unsharded batch-major update: ranks bit-identical {same}; "
+              f"direction cosine {cos:.9f}, |beta| rel {beta_rel:.3e}, "
+              f"accepted {acc} / {acc_ref}, max |theta error| "
+              f"{float(th_err.max()):.3e} ({th_over} over rtol 2e-3 atol "
+              f"2e-4); launches a rank {[r[tag]['launches'] for r in ranks]}"
+              f" (unsharded {ref['launches']}); all-reduces an update, "
+              f"model group {r0['model'][0]} ({r0['model'][1]} bytes), data "
+              f"group {r0['data'][0]} ({r0['data'][1]} bytes); ms an update "
+              f"{[round(r[tag]['ms'], 3) for r in ranks]} (unsharded "
+              f"{ref['ms']:.3f}); peak GiB a rank "
+              f"{[round(r[tag]['peak_gib'], 3) for r in ranks]}")
+        if acc != acc_ref:
+            print(f"{tag}: accepted exponents differ; KL TP "
+                  f"{float(st['kl']):.6e}, unsharded {float(st_ref['kl']):.6e}"
+                  f", delta {ref['delta']}")
+        checks.append((same, f"{tag}: the TP ranks' updates differ"))
+        checks.append((routes, f"{tag}: the TP update's launches"))
+        checks.append((cos >= 0.999 and beta_rel <= 1e-3 and acc == acc_ref
+                       and th_over == 0,
+                       f"{tag}: the TP update against the unsharded one"))
+        out[tag] = dict(ranks_bit_identical=same, direction_cosine=cos,
+                        beta_rel=beta_rel, accepted=acc,
+                        theta_max_abs_err=float(th_err.max()),
+                        launches=r0["launches"],
+                        model_all_reduces=list(r0["model"]),
+                        data_all_reduces=list(r0["data"]),
+                        ms=[r[tag]["ms"] for r in ranks],
+                        unsharded_ms=ref["ms"],
+                        peak_gib=[r[tag]["peak_gib"] for r in ranks])
+    trains = [r["train"] for r in ranks]
+    hist = trains[0]["history"]
+    same = all(all(torch.equal(a, b) for a, b in zip(trains[0]["leaves"],
+                                                     t["leaves"]))
+               and [{k: v for k, v in h.items() if k != "wall_s"}
+                    for h in t["history"]]
+               == [{k: v for k, v in h.items() if k != "wall_s"}
+                   for h in hist] for t in trains[1:])
+    ok = all(all(math.isfinite(v) for v in h.values())
+             and (h["accepted"] < 0 or h["kl"] <= C2_REACHER3.trpo.delta)
+             for h in hist)
+    want = {k: TP_TRAIN_ITERS if k in ("rollout", "fit_normal") else 0
+            for k in trains[0]["launches"]}
+    launched = all(t["launches"] == want
+                   and all(c == 0 for c in t["plain"].values())
+                   for t in trains)
+    print(f"c2 TP train_sharded on {TP_RANKS} gloo ranks, {TP_TRAIN_ITERS} "
+          f"iterations: ranks bit-identical {same}; returns "
+          f"{[round(h['mean_return'], 4) for h in hist]}, kl "
+          f"{[round(h['kl'], 6) for h in hist]}, accepted "
+          f"{[h['accepted'] for h in hist]}; ms an iteration "
+          f"{[round(1e3 * h['wall_s'], 3) for h in hist]}; launches a rank "
+          f"{[t['launches'] for t in trains]}; model-group all-reduces "
+          f"{trains[0]['model'][0]} ({trains[0]['model'][1]} bytes)")
+    checks.append((same and ok and len(hist) == TP_TRAIN_ITERS,
+                   "the TP train step on two ranks"))
+    checks.append((launched, "the TP train step's launches: K1 and "
+                   "fit_normal once an iteration"))
+    for good, what in checks:
+        require(good, what)
+    out["train_c2"] = dict(ranks_bit_identical=same,
+                           ms=[1e3 * h["wall_s"] for h in hist],
+                           launches=trains[0]["launches"])
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"tensor-parallel phase took {out['seconds']:.1f} s")
+    print("tensor_parallel " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3964,6 +4200,9 @@ def main() -> int:
     print(f"train_many phases done at {time.perf_counter() - t_start:.1f} s")
     sharded_phases(dev)
     print(f"sharded phases done at {time.perf_counter() - t_start:.1f} s")
+    tp_phases(dev)
+    print(f"tensor-parallel phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
     out = []
     for name in ("rollout", "moments", "fvp", "rollout3d", "pg", "fvp_ff",
                  "rollout_term", "rollout3d_term", "fit_normal"):

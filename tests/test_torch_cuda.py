@@ -1135,3 +1135,72 @@ def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
     assert abs(float(r0["stats"]["beta"]) - float(ref["beta"])) \
         <= 1e-3 * float(ref["beta"])
     assert int(r0["stats"]["accepted"]) == int(ref["accepted"])
+
+
+def _tp_rank_on_card(rank, port, path):
+    """One of two gloo ranks sharing the card on a (1, 2) mesh (spawned):
+    the tensor-parallel update of the saved batch, written beside
+    ``path``."""
+    import os
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    from trpo_robot_control_tpu_torch.ops import cuda as kernels
+    from trpo_robot_control_tpu_torch.parallel import mesh as pm
+    pm.init_distributed(timeout_s=60)
+    mesh = pm.make_mesh(n_data=1, n_model=2, backend="gloo")
+    saved = torch.load(path, weights_only=False)
+    params = {k: v.cuda() for k, v in saved["params"].items()}
+    kernels.reset_counts()
+    new, w, st = pm.make_sharded_update_tp(saved["cfg"], mesh)(
+        params, saved["w"].cuda(), pm.shard_batch(mesh, saved["batch"]),
+        return_directions=True)
+    torch.save(dict(theta=policy.flatten(new).cpu(), w=w.cpu(),
+                    stats={k: v.cpu() for k, v in st.items()},
+                    launches=kernels.launch_counts()), f"{path}.{rank}")
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_tp_update_on_two_gloo_ranks_sharing_the_card(cuda, tmp_path):
+    """The tensor-parallel update (``parallel/tensor.py``) on two spawned
+    gloo ranks sharing the card, a (1, 2) mesh, on one c2 batch: the two
+    ranks' full parameters, baseline and stats bit-identical, one
+    fit_normal launch and no other kernel on each, and against the
+    unsharded batch-major update the direction (cosine >= 0.999), beta
+    (1e-3), the accepted exponent and theta (rtol 2e-3, atol 2e-4)."""
+    import socket
+
+    import torch.multiprocessing as mp
+    from trpo_robot_control_tpu_torch.envs.arm import make_rollout_fn
+    from trpo_robot_control_tpu_torch.trpo.train import init_state
+    from trpo_robot_control_tpu_torch.trpo.update import trpo_update
+    from test_torch_helpers import cosine
+    cfg = pconfigs.CONFIGS["c2_reacher3"].replace(n_envs=256, horizon=20)
+    st = init_state(cfg, seed=8)
+    batch = {k: v for k, v in make_rollout_fn(cfg)(st.params, st.gen).items()
+             if k in ("obs", "actions", "rewards")}
+    new, _, ref = trpo_update(cfg, st.params, st.w, batch,
+                              return_directions=True)
+    path = str(tmp_path / "c2.pt")
+    torch.save(dict(cfg=cfg, params={k: v.cpu() for k, v in st.params.items()},
+                    w=st.w.cpu(), batch={k: v.cpu() for k, v in batch.items()}),
+               path)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mp.spawn(_tp_rank_on_card, args=(port, path), nprocs=2)
+    r0, r1 = (torch.load(f"{path}.{r}", weights_only=False) for r in (0, 1))
+    assert torch.equal(r0["theta"], r1["theta"])
+    assert torch.equal(r0["w"], r1["w"])
+    assert all(torch.equal(r0["stats"][k], r1["stats"][k])
+               for k in r0["stats"])
+    for r in (r0, r1):
+        assert r["launches"] == {k: int(k == "fit_normal")
+                                 for k in r["launches"]}
+    assert cosine(r0["stats"]["x"].numpy(), ref["x"].cpu().numpy()) >= 0.999
+    assert abs(float(r0["stats"]["beta"]) - float(ref["beta"])) \
+        <= 1e-3 * float(ref["beta"])
+    assert int(r0["stats"]["accepted"]) == int(ref["accepted"])
+    theta = policy.flatten(new).cpu()
+    assert torch.all((r0["theta"] - theta).abs()
+                     <= 2e-4 + 2e-3 * theta.abs())

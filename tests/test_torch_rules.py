@@ -108,13 +108,18 @@ def test_cli_trains_on_cpu(capsys):
 
 
 def test_cli_has_no_unported_flags():
-    """Tensor parallelism (ROADMAP A6) is not ported: the CLI refuses
-    ``--n-model``, naming it. ``--sharded`` (data parallelism, A5) is
+    """Every flag of the JAX CLI is ported: ``--n-model`` (tensor
+    parallelism, A6; ``tests/test_torch_tensor_parallel.py`` runs it over
+    four ranks) takes the mesh path, and in a world of one a 'model' axis
+    of 2 does not match the world's size: ValueError before any process
+    group is made. ``--sharded`` (data parallelism, A5) is
     (``tests/test_torch_sharding.py``), and so are the checkpoint, metrics
     and baseline flags (``tests/test_torch_checkpoint.py``)."""
+    import torch.distributed as dist
     from trpo_robot_control_tpu_torch.cli.train import main
-    with pytest.raises(SystemExit, match="ROADMAP A6"):
-        main(["--iters", "1", "--device", "cpu", "--n-model", "1"])
+    with pytest.raises(ValueError, match="does not match the world size 1"):
+        main(["--iters", "1", "--device", "cpu", "--n-model", "2"])
+    assert not dist.is_initialized()
 
 
 def test_unported_paths_raise():
@@ -151,10 +156,17 @@ def test_unported_paths_raise():
     _, w_new, stats = trpo_update(small, st.params, st.w, batch)
     assert w_new.shape == st.w.shape
     assert all(bool(torch.isfinite(v)) for v in stats.values())
-    # data parallelism (A5) is ported; tensor parallelism (A6) is not
-    from trpo_robot_control_tpu_torch.parallel.mesh import make_mesh
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        make_mesh(n_model=2, device="cpu")
+    # data (A5) and tensor parallelism (A6) are ported; the TP layout
+    # refuses a one-hidden-layer policy and a first hidden width that does
+    # not split over the 'model' axis, as JAX's asserts do
+    from trpo_robot_control_tpu_torch.parallel.tensor import \
+        shard_policy_params
+    one = init_state(small.replace(trpo=dataclasses.replace(
+        small.trpo, hidden=(64,))), device="cpu").params
+    with pytest.raises(ValueError, match="hidden layers"):
+        shard_policy_params(one, 2, 0)
+    with pytest.raises(ValueError, match="does not split"):
+        shard_policy_params(st.params, 3, 0)
 
 
 @pytest.mark.parametrize("path", ["c5-planar3", "c2-bf16", "planar5"])

@@ -377,10 +377,12 @@ def test_resume_on_two_ranks_replays_the_uninterrupted_run(world):
 def test_uneven_envs_and_n_model_rejected(world):
     """test_sharding.py:125-133: uneven envs over the data axis raise
     ValueError (the ranks' make_train_many, and shard_batch); a 'model'
-    axis raises NotImplementedError naming ROADMAP A6."""
+    axis that does not fit the world (2 in a world of one) raises
+    ValueError before any process group is made."""
     assert all(bool(r["train/uneven_raised"]) for r in world["ranks"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    with pytest.raises(ValueError, match="does not match the world size 1"):
         pm.make_mesh(n_model=2, device="cpu")
+    assert not torch.distributed.is_initialized()
     two = pm.Mesh(group=None, shape={"data": 2, "model": 1}, rank=1,
                   device=torch.device("cpu"))
     with pytest.raises(ValueError, match="evenly"):

@@ -5,15 +5,18 @@
       --done-dist 0.05
   python -m trpo_robot_control_tpu_torch.cli.profile --config c3_franka7 \
       --baseline mlp
+  python -m trpo_robot_control_tpu_torch.cli.profile --config c2_reacher3 \
+      --trace c2.json
 
 Runs two warm-up iterations, then times ``--iters`` iterations on the host
 clock (each ends in the stats' device-to-host copy), then profiles another
-``--iters`` with ``torch.profiler`` and prints, per iteration: the host
+``--iters`` (``utils/profiling.trace``; ``--trace PATH`` writes their
+Chrome trace there) and prints, per iteration: the host
 time of each ``trpo/...`` layer range and the device time of the kernels
 it launched, the device time of the busiest kernels, and the device's
 busy and idle shares of the profiled wall time, and the peak device memory
 allocated over the timed iterations. Needs a CUDA card. ``profile(cfg,
-iters)`` does the same for a config that is not in ``CONFIGS`` (such as
+iters, trace_path)`` does the same for a config that is not in ``CONFIGS`` (such as
 ``C5_MULTITASK.replace(arm=planar_arm(3), ...)``), from a script.
 """
 from __future__ import annotations
@@ -33,6 +36,8 @@ def main(argv=None):
                          "the config's, 0 = fixed horizon)")
     ap.add_argument("--baseline", choices=("linear", "mlp"), default=None,
                     help="value baseline (default: the config's)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write the profiled iterations' Chrome trace here")
     args = ap.parse_args(argv)
 
     import dataclasses
@@ -44,19 +49,19 @@ def main(argv=None):
     if args.baseline is not None:
         cfg = cfg.replace(trpo=dataclasses.replace(cfg.trpo,
                                                    baseline=args.baseline))
-    profile(cfg, args.iters)
+    profile(cfg, args.iters, args.trace)
 
 
-def profile(cfg, iters: int = 5):
+def profile(cfg, iters: int = 5, trace_path=None):
     """Profile ``iters`` training iterations of ``cfg`` on the card, as the
-    module's docstring sets out."""
+    module's docstring sets out; with ``trace_path``, write their Chrome
+    trace there."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
 
     from ..device import resolve
     from ..trpo.train import init_state, make_train_step, stats_to_host
+    from ..utils.profiling import trace
 
     dev = resolve(None)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -89,9 +94,7 @@ def profile(cfg, iters: int = 5):
     if early[-1] is not None:
         print(f"early dones per iteration: {[int(x) for x in early]}")
 
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA],
-                       acc_events=True) as prof:
+    with trace(trace_path) as prof:
         t0 = time.perf_counter()
         run(iters)
         torch.cuda.synchronize()

@@ -14,6 +14,9 @@ of stats per iteration, with JSONL metrics and checkpoints.
   torchrun --standalone --nproc_per_node 2 \
       -m trpo_robot_control_tpu_torch.cli.train --device cpu --sharded \
       --n-envs 32 --horizon 20 --iters 2
+  torchrun --standalone --nproc_per_node 4 \
+      -m trpo_robot_control_tpu_torch.cli.train --device cpu --n-model 2 \
+      --n-envs 32 --horizon 20 --iters 2
 
 Runs on the CUDA device unless ``--device cpu`` is given. ``--trpo
 KEY=VALUE`` sets any TRPOSpec field, cast to the field's type (a tuple
@@ -23,8 +26,11 @@ Data parallelism (``parallel/mesh.py``): under torchrun (its RANK,
 WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) every rank joins the
 process group, takes card LOCAL_RANK % the card count, and trains on its
 share of the envs; ``--sharded`` takes the mesh path in one process too.
-Rank 0 prints, logs and writes the checkpoints. ``--n-model`` (tensor
-parallelism) is not ported: ROADMAP A6.
+``--n-model M`` (tensor parallelism, ``parallel/tensor.py``) over 1 takes
+the mesh path with a 'model' axis of M ranks: the world's size / M data
+indices, each of M ranks sharing its envs and holding 1/M of the policy's
+first hidden layer; the world's size must be a multiple of M. Rank 0
+prints, logs and writes the checkpoints.
 """
 from __future__ import annotations
 
@@ -94,18 +100,16 @@ def main(argv=None):
                     help="take the data-parallel mesh path even in one "
                          "process (it is taken whenever the world has more "
                          "than one rank)")
-    ap.add_argument("--n-model", type=int, default=None,
-                    help="tensor-parallel 'model' axis size: not ported "
-                         "(ROADMAP A6)")
+    ap.add_argument("--n-model", type=int, default=1,
+                    help="tensor-parallel 'model' axis size (the policy's "
+                         "first hidden layer sharded over it; "
+                         "parallel/tensor.py); over 1 takes the mesh path")
     ap.add_argument("--trpo", action="append", default=[],
                     metavar="KEY=VALUE",
                     help="set a TRPOSpec field, e.g. --trpo cg_iters=20 "
                          "--trpo hidden=32,32 --trpo delta=0.005 "
                          "(repeatable; cast to the field's type)")
     args = ap.parse_args(argv)
-    if args.n_model is not None:
-        sys.exit("--n-model: tensor parallelism is not ported yet: "
-                 "ROADMAP A6")
 
     import torch
     import torch.distributed as dist
@@ -133,7 +137,7 @@ def main(argv=None):
 
     init_distributed()
     world = dist.get_world_size() if dist.is_initialized() else 1
-    sharded = args.sharded or world > 1
+    sharded = args.sharded or world > 1 or args.n_model > 1
     lead = not dist.is_initialized() or dist.get_rank() == 0
     device = args.device
     if sharded and (device is None or device == "cuda") \
@@ -162,7 +166,7 @@ def main(argv=None):
     run = dict(n_iters=args.iters, seed=args.seed, log_fn=log, state=state,
                checkpoint_every=args.ckpt_every, checkpoint_dir=args.ckpt_dir)
     if sharded:
-        mesh = make_mesh(device=device)
+        mesh = make_mesh(n_model=args.n_model, device=device)
         if lead:
             kind = torch.cuda.get_device_name(mesh.device) \
                 if mesh.device.type == "cuda" else "cpu"

@@ -1,5 +1,5 @@
-"""Data parallelism over ``torch.distributed`` (port of
-``trpo_robot_control_tpu/parallel/``): ``mesh`` builds the mesh, shards the
-batch and runs the sharded update and train loop; ``collectives`` holds the
-update's cross-rank reductions. Tensor parallelism (JAX ``tensor.py``) is
-not ported: ROADMAP A6."""
+"""Data and tensor parallelism over ``torch.distributed`` (port of
+``trpo_robot_control_tpu/parallel/``): ``mesh`` builds the ('data', 'model')
+mesh, shards the batch and runs the sharded updates and train loop;
+``tensor`` shards the policy's first two layers over the 'model' axis;
+``collectives`` holds the cross-rank reductions."""

@@ -1,4 +1,5 @@
-"""Data parallelism over ``torch.distributed`` (port of
+"""The ('data', 'model') mesh over ``torch.distributed``: data parallelism,
+and the tensor-parallel update's mesh (port of
 ``trpo_robot_control_tpu/parallel/mesh.py``).
 
 Design: SPMD data parallelism, one process per rank in the place of JAX's
@@ -25,8 +26,15 @@ for a fixed seed and world size; a checkpoint (rank 0's state, which every
 rank holds) resumes them exactly. Reading a generator's state and seeding
 one are host operations: no device synchronisation.
 
-A 'model' axis is reserved in the mesh's shape, as in JAX; ``n_model > 1``
-(tensor parallelism) raises: ROADMAP A6.
+Tensor parallelism (``parallel/tensor.py``) over the mesh's 'model' axis:
+rank r is (d, m) = (r // n_model, r % n_model), as JAX's
+``devices.reshape(n_data, n_model)``. The ranks with the same m form a data
+group, those with the same d a model group; every rank makes every group,
+in the same order. The model ranks of one data index hold the same envs
+(the rank stream folds the data index) and the same full parameters; the
+update shards the policy's first two layers over them
+(``make_sharded_update_tp``) and hands back the full parameters. An axis
+of size one has no group (None): no collective runs over it.
 """
 from __future__ import annotations
 
@@ -55,13 +63,17 @@ FF_KEYS = ("obs_ff", "actions_ff", "rewards_ff", "dones_ff")
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The mesh over the world: ``group``, the 'data' axis's process group;
-    ``shape``, {"data": n_data, "model": n_model}; ``rank``, this process's
-    index on 'data'; ``device``, its device."""
+    """The mesh over the world: ``group``, the 'data' axis's process group
+    (None over one data index, where n_model > 1); ``shape``, {"data":
+    n_data, "model": n_model}; ``rank``, this process's index on 'data';
+    ``device``, its device; ``model_group`` and ``model_rank``, the 'model'
+    axis's group (None where n_model = 1) and this process's index on it."""
     group: object
     shape: dict
     rank: int
     device: torch.device
+    model_group: object = None
+    model_rank: int = 0
 
 
 def init_distributed(timeout_s: Optional[int] = None):
@@ -123,31 +135,48 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, device=None,
               backend: Optional[str] = None) -> Mesh:
     """The mesh ('data', 'model') over the world. With no process group
     initialised it makes a world of one itself (a HashStore), so one
-    process takes the mesh path. ``backend``: the data group's backend,
-    default the world's (NCCL for CUDA tensors, gloo for CPU ones); where
-    the world's group has another, a group of this backend over all ranks
-    is made (two ranks sharing one card need gloo, which takes CUDA
-    tensors through the host). ``n_data * n_model`` must be the world
-    size; ``n_model > 1`` raises NotImplementedError: ROADMAP A6."""
-    if n_model > 1:
-        raise NotImplementedError(
-            f"n_model={n_model}: tensor parallelism (the 'model' axis) is "
-            "not ported yet: ROADMAP A6")
+    process takes the mesh path. ``backend``: the groups' backend, default
+    the world's (NCCL for CUDA tensors, gloo for CPU ones); where the
+    world's group has another, groups of this backend are made (two ranks
+    sharing one card need gloo, which takes CUDA tensors through the host).
+    ``n_data * n_model`` must be the world size, else ValueError (before
+    any group is made). With ``n_model = 1`` the data group spans the
+    world (the world's group itself where the backend is its own); with
+    ``n_model > 1`` every rank makes each data and each model group of more
+    than one rank (the module's docstring)."""
     dev = resolve(device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n_data = world // n_model if n_data is None else n_data
+    if n_model < 1 or n_data < 1 or n_data * n_model != world:
+        raise ValueError(f"mesh {n_data} x {n_model} does not match the "
+                         f"world size {world}")
     if not dist.is_initialized():
         dist.init_process_group(
             backend or ("nccl" if dev.type == "cuda" else "gloo"),
             store=dist.HashStore(), rank=0, world_size=1)
-    world = dist.get_world_size()
-    n_data = world // n_model if n_data is None else n_data
-    if n_data * n_model != world:
-        raise ValueError(f"mesh {n_data} x {n_model} does not match the "
-                         f"world size {world}")
-    group = dist.group.WORLD
-    if backend is not None and backend != dist.get_backend():
-        group = dist.new_group(backend=backend)
-    return Mesh(group=group, shape={DATA_AXIS: n_data, MODEL_AXIS: n_model},
-                rank=dist.get_rank(group), device=dev)
+    shape = {DATA_AXIS: n_data, MODEL_AXIS: n_model}
+    if n_model == 1:
+        group = dist.group.WORLD
+        if backend is not None and backend != dist.get_backend():
+            group = dist.new_group(backend=backend)
+        return Mesh(group=group, shape=shape, rank=dist.get_rank(group),
+                    device=dev)
+    rank = dist.get_rank()
+    d, m = divmod(rank, n_model)
+    groups = {}
+    for axis, n_groups, members in (
+            (DATA_AXIS, n_model,
+             lambda i: [k * n_model + i for k in range(n_data)]),
+            (MODEL_AXIS, n_data,
+             lambda i: [i * n_model + k for k in range(n_model)])):
+        for i in range(n_groups):
+            ranks = members(i)
+            if len(ranks) > 1:
+                g = dist.new_group(ranks, backend=backend)
+                if rank in ranks:
+                    groups[axis] = g
+    return Mesh(group=groups.get(DATA_AXIS), shape=shape, rank=d, device=dev,
+                model_group=groups.get(MODEL_AXIS), model_rank=m)
 
 
 def _env_block(mesh: Mesh, n: int) -> tuple:
@@ -183,6 +212,29 @@ def make_sharded_update(cfg, mesh: Mesh):
     return update
 
 
+def make_sharded_update_tp(cfg, mesh: Mesh):
+    """``update(params, w, batch, **kw)``: the tensor-parallel update
+    (``parallel/tensor.py``, JAX ``mesh.py:228-254``) on this rank's
+    ``shard_batch`` of a pre-collected batch: the full ``params`` sharded
+    to this model rank's shard, ``trpo_update_tp`` over the mesh's data and
+    model groups, the new shard gathered back to the full parameters, the
+    same bits on every rank. ``kw``: ``return_directions``. A policy with
+    fewer than two hidden layers, or a first hidden width that does not
+    split over the model axis, raises ValueError."""
+    from .tensor import (shard_policy_params, trpo_update_tp,
+                         unshard_policy_params)
+    n_model, idx = mesh.shape[MODEL_AXIS], mesh.model_rank
+
+    def update(params, w, batch, **kw):
+        local = shard_policy_params(params, n_model, idx)
+        new, w_new, stats = trpo_update_tp(cfg, local, w, batch, mesh.group,
+                                           mesh.model_group, n_model, idx,
+                                           **kw)
+        return (unshard_policy_params(new, n_model, idx, mesh.model_group),
+                w_new, stats)
+    return update
+
+
 def _fold(state: bytes, tag: bytes) -> int:
     """A 63-bit seed from SHA-256 of a generator state and a tag."""
     return int.from_bytes(hashlib.sha256(state + tag).digest()[:8],
@@ -211,9 +263,11 @@ def local_envs(mesh: Mesh, n_envs: int) -> int:
 
 def make_sharded_train_step(cfg, mesh: Mesh):
     """``train_step(state) -> (state, stats)`` on the mesh (JAX's
-    data-parallel branch, ``:166-183`` there): ``make_train_step`` over
-    ``mesh``, each rank rolling out ``cfg.n_envs / n_data`` envs from its
-    rank stream. Uneven envs raise ValueError."""
+    ``make_sharded_train_step``): ``make_train_step`` over ``mesh``, each
+    rank rolling out ``cfg.n_envs / n_data`` envs from its rank stream with
+    the full parameters, then the data-parallel update, or with
+    ``n_model > 1`` the tensor-parallel one. Uneven envs raise
+    ValueError."""
     return make_train_step(cfg, mesh)
 
 

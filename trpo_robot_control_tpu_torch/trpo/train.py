@@ -2,8 +2,8 @@
 rollout and one update per iteration, all on the device; the host reads
 the scalar stats once per iteration (``train``), or once per K iterations
 (``make_train_many``, which on the card replays one captured CUDA graph of
-the train step K times). Over a mesh (data parallelism) the steps are
-``parallel/mesh.py``'s sharded ones.
+the train step K times). Over a mesh (data and tensor parallelism) the
+steps are ``parallel/mesh.py``'s sharded ones.
 """
 from __future__ import annotations
 
@@ -54,23 +54,29 @@ def make_train_step(cfg, mesh=None):
     """Returns ``train_step(state) -> (state, stats)``; stats are device
     tensors. A terminating config adds ``early_dones``, the number of
     env-steps before the last that ended an episode. Over ``mesh``
-    (``parallel/mesh.py``, data parallelism) each rank rolls out its
-    ``cfg.n_envs / n_data`` envs from its rank stream and the update
-    all-reduces over the mesh's 'data' group (``early_dones`` summed over
-    the ranks); uneven envs raise ValueError."""
+    (``parallel/mesh.py``) each rank rolls out its ``cfg.n_envs / n_data``
+    envs from its rank stream with the full parameters, through the same
+    kernels, and the update all-reduces over the mesh's 'data' group
+    (``early_dones`` summed over the ranks); with ``n_model > 1`` it is the
+    tensor-parallel update (``make_sharded_update_tp``), which hands back
+    the full parameters. Uneven envs raise ValueError."""
     rollout_fn = arm.make_rollout_fn(cfg)
     group, n_envs, stream = None, None, lambda gen: gen
+    update = functools.partial(trpo_update, cfg)
     if mesh is not None:
-        from ..parallel.mesh import local_envs, rank_stream
+        from ..parallel.mesh import (MODEL_AXIS, local_envs,
+                                     make_sharded_update,
+                                     make_sharded_update_tp, rank_stream)
         group, n_envs = mesh.group, local_envs(mesh, cfg.n_envs)
         stream = functools.partial(rank_stream, mesh)
+        update = (make_sharded_update_tp if mesh.shape[MODEL_AXIS] > 1
+                  else make_sharded_update)(cfg, mesh)
 
     def train_step(state: TrainState):
         with record_function("trpo/rollout"):
             batch = rollout_fn(state.params, stream(state.gen),
                                n_envs=n_envs)
-        params, w, stats = trpo_update(cfg, state.params, state.w, batch,
-                                       axis_name=group)
+        params, w, stats = update(state.params, state.w, batch)
         if "dones_ff" in batch:
             # episodes ended before the buffer's end, counted on the device
             stats["early_dones"] = psum(torch.sum(batch["dones_ff"][:-1]),

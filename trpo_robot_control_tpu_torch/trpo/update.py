@@ -54,7 +54,7 @@ from ..ops.cuda.moments_kernel import baseline_moments
 from ..ops.fvp import make_gn_fvp, make_kl_fvp
 from ..ops.gae import gae
 from ..ops.linesearch import line_search
-from ..parallel.collectives import group_size, pmean
+from ..parallel.collectives import group_size, pmean, psum
 
 
 # The kernels' gates, on the global batch (the JAX package's measured
@@ -127,19 +127,24 @@ def kernel_routes(tr, params, T, N, sub_T, sub_N, fvp_form: str = "gn",
 
 
 def _eval_candidates(params, thetas, obs_ff, act_ff, adv, mu_old, logp_old,
-                     logstd_old, store_dtype=None):
+                     logstd_old, store_dtype=None, model_group=None):
     """Surrogate and mean KL of K candidate parameter vectors (K, P) in
     one batched forward pass over the (T, d, N) batch (the batch-major
     branch passes (1, d, B) views) -> ((K,), (K,)). Hidden activations
-    round to ``store_dtype`` as ``hidden_ff`` does."""
+    round to ``store_dtype`` as ``hidden_ff`` does. ``model_group``: the
+    candidates are tensor-parallel shards (``parallel/tensor.py``), and
+    layer 1's products are summed over the group, one all-reduce for all
+    K."""
     p = policy.unflatten(thetas, params)
     L = policy.n_layers(params)
     h = obs_ff.float()
     for i in range(L - 1):
         eq = "kio,tin->kton" if i == 0 else "kio,ktin->kton"
+        z = torch.einsum(eq, p[f"W{i}"], h)
+        if i == 1:
+            z = psum(z, model_group)
         h = policy.store_round(
-            torch.tanh(torch.einsum(eq, p[f"W{i}"], h)
-                       + p[f"b{i}"][:, None, :, None]), store_dtype)
+            torch.tanh(z + p[f"b{i}"][:, None, :, None]), store_dtype)
     act_ff = act_ff.float()
     mu = torch.einsum("kio,ktin->kton", p[f"W{L - 1}"], h) \
         + p[f"b{L - 1}"][:, None, :, None]                  # (K, T, da, N)
